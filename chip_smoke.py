@@ -2,17 +2,26 @@
 """Chip smoke test of the PyTorch/CUDA port (``policy_server_tpu_torch``) on
 one NVIDIA card: ``python3 chip_smoke.py`` from the repository root.
 
-Phases, each reported on its own line(s):
+Phases, each reported on its own line(s), every line of numbers with the
+card's name and power limit:
 
 1. card and build — the card's name and power limit, the torch and CUDA
-   versions, an nvcc build of the kernel library from ``csrc/`` (timed),
-   and the ``probe`` kernel against ``x + 1`` (exact);
+   versions, an nvcc build of the kernel library from ``csrc/`` (timed,
+   with ptxas' registers and spills for both instances of the
+   policy-matrix kernel: arenas in shared memory and spilled), and the
+   ``probe`` kernel against ``x + 1`` (exact), timed beside ``torch.add``
+   (where it is slower, with the host's cost per call of each);
 2. ``policy_matrix`` against its plain PyTorch version on the card — the
-   32-policy flagship set, firehose batches at B = 128 and 1024 for both
-   schema buckets in the narrow and transport forms; allowed and rule
-   matrices must be exactly equal (tolerance 0: verdicts are booleans and
-   int32 rule indices, f32 values are only compared); median kernel and
-   plain times per call, from CUDA events around back-to-back calls;
+   32-policy flagship set, firehose batches at B = 51, 128 and 1024 for
+   both schema buckets in the narrow and transport forms, the
+   every-opcode tape (``tests/torch_tape_coverage.py``, divisors as shifts
+   and as divisions) at B = 51, 129 and 1029 on sparse random bytes, and
+   an allow-list at the shared-memory limit (arenas spilled) at B = 51 and
+   129; allowed and rule matrices must be exactly equal (tolerance 0:
+   verdicts are booleans and int32 rule indices, f32 values are only
+   compared); median kernel and plain times per call, from CUDA events
+   around back-to-back calls, beside PR 1's kernel times; and the
+   environment's device step at B = 128 split into its phases;
 3. the main path over HTTP — the port's server on 127.0.0.1 with the
    flagship set on the card, at least 512 distinct firehose
    AdmissionReviews POSTed to /validate across all 32 policy ids from
@@ -48,7 +57,18 @@ PEAK_OPS_PER_S = 67e12
 
 N_REQUESTS = 1024
 CLIENT_THREADS = 128
-PHASE2_BATCHES = (128, 1024)
+PHASE2_BATCHES = (51, 128, 1024)
+COVER_BATCHES = (51, 129, 1029)
+SPILL_BATCHES = (51, 129)
+
+# policy_matrix's time per call in PR 1 (one block per row and policy
+# tile; H100 80GB HBM3, 700 W), by (bucket, form, B)
+PR1_MS = {
+    (0, "narrow", 128): 0.1386, (0, "transport", 128): 0.1421,
+    (0, "narrow", 1024): 0.2228, (0, "transport", 1024): 0.2248,
+    (1, "narrow", 128): 0.3288, (1, "transport", 128): 0.3306,
+    (1, "narrow", 1024): 0.4938, (1, "transport", 1024): 0.7078,
+}
 
 
 def fail(msg: str) -> None:
@@ -86,6 +106,70 @@ def time_cuda(fn, iters: int, reps: int = 5, warmup: int = 3) -> float:
     return statistics.median(per_call)
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Milliseconds per call of ``fn()`` with the host's launch cost taken
+    out: ``iters`` calls captured in one CUDA graph, the graph's replay
+    timed as ``time_cuda`` times a call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_cuda(graph.replay, 5) / iters
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Microseconds of host time per call of ``fn()`` over ``n`` calls
+    issued back to back (the device drained before; ``n`` well under the
+    launch queue's depth, so the host never waits on the device)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
+
+
+def step_phases(env, buf, program):
+    """``env.evaluate_packed(buf)`` step by step with a CUDA event between
+    phases → (its output, [h2d, policy_matrix, combine, d2h ms on the
+    stream, host wall ms of the whole step])."""
+    import numpy as np
+    import torch
+
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events[0].record()
+    dev = torch.from_numpy(np.ascontiguousarray(buf)).to(env.device)
+    events[1].record()
+    a_mat, r_mat = ck.policy_matrix(dev, program)
+    events[2].record()
+    out = env._combine_outputs(a_mat, r_mat, program.column_of)
+    events[3].record()
+    host = out.cpu().numpy()
+    events[4].record()
+    events[4].synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return host, [
+        events[i].elapsed_time(events[i + 1]) for i in range(4)
+    ] + [wall]
+
+
 def widen(doc: dict, n_containers: int = 12) -> dict:
     """A firehose review whose container array overflows the small schema
     bucket (8), so it encodes into the large bucket."""
@@ -108,6 +192,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "policy_server_tpu_torch")):
         fail("the policy_server_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import numpy as np
+
     from policy_server_tpu_torch.api.service import RequestOrigin, evaluate
     from policy_server_tpu_torch.evaluation.environment import (
         EvaluationEnvironmentBuilder,
@@ -124,6 +211,8 @@ def main() -> int:
     )
     from policy_server_tpu_torch.server import PolicyServer
 
+    import torch_tape_coverage as tape_coverage
+
     device = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -133,16 +222,20 @@ def main() -> int:
     print(
         f"phase1 python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} "
-        f"count {torch.cuda.device_count()}"
+        f"count {torch.cuda.device_count()} [{card}]"
     )
     lib = ck.build_library(force=True)
     ptxas = [
         line.strip() for line in lib.build_log.splitlines()
         if "registers" in line or "spill" in line or "smem" in line
+        or "Compiling entry" in line
     ]
-    print(f"phase1 nvcc build {lib.build_seconds:.3f} s -> {lib.path.name}")
+    print(
+        f"phase1 nvcc build {lib.build_seconds:.3f} s -> {lib.path.name} "
+        f"[{card}]"
+    )
     for line in ptxas:
-        print(f"phase1 ptxas: {line}")
+        print(f"phase1 ptxas: {line} [{card}]")
     x = torch.arange(8 * 128, dtype=torch.float32, device=device).reshape(8, 128)
     y = ck.probe(x)
     torch.cuda.synchronize()
@@ -154,12 +247,21 @@ def main() -> int:
     probe_lib_ms = time_cuda(lambda: torch.add(x, 1.0), 100)
     print(
         f"phase1 probe ok: max_abs_err {probe_err} kernel {probe_ms:.6f} ms "
-        f"plain {probe_plain_ms:.6f} ms torch.add {probe_lib_ms:.6f} ms"
+        f"plain {probe_plain_ms:.6f} ms torch.add {probe_lib_ms:.6f} ms "
+        f"[{card}]"
     )
+    if probe_ms > probe_lib_ms:
+        # both are host-bound: where the probe is slower, its host cost
+        print(
+            f"phase1 probe slower than torch.add; host us per call: probe "
+            f"{host_us(lambda: ck.probe(x)):.3f} torch.add "
+            f"{host_us(lambda: torch.add(x, 1.0)):.3f} [{card}]"
+        )
 
     # -- phase 2: policy_matrix against its plain version -----------------
     env = EvaluationEnvironmentBuilder(device="cuda").build(flagship_policies())
     docs = synthetic_firehose(max(PHASE2_BATCHES), seed=7)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     k1_rows = []
     k1_err = 0
     for idx, schema in enumerate(env.schemas):
@@ -171,6 +273,8 @@ def main() -> int:
             if got_idx != idx:
                 fail(f"firehose doc encoded into bucket {got_idx}, not {idx}")
             encs.append(enc)
+        if idx == 0:
+            small_encs = encs
         for batch in PHASE2_BATCHES:
             wide = schema.pack(schema.stack(encs[:batch], batch_size=batch))
             for narrow in (True, False):
@@ -195,31 +299,117 @@ def main() -> int:
                 if not bool((~want_a[:, list(program.column_of.values())]).any()):
                     fail("phase 2 batch is vacuous: no policy rejects any row")
                 ms = time_cuda(lambda: ck.policy_matrix(dev, program), 20)
+                device_ms = graph_ms(lambda: ck.policy_matrix(dev, program))
                 plain_ms = time_cuda(
                     lambda: ck.policy_matrix_plain(dev, program), 2, warmup=1
                 )
+                form = "narrow" if narrow else "transport"
                 nbytes = buf.nbytes + batch * program.out_cols * 5
                 ops = batch * program.element_ops_per_row()
                 bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
                 bound_ops_ms = ops / PEAK_OPS_PER_S * 1e3
+                shape = program.launch_shape(batch, n_sm)
                 row = {
-                    "bucket": idx, "batch": batch,
-                    "form": "narrow" if narrow else "transport",
-                    "width": int(buf.shape[1]), "ms": ms, "plain_ms": plain_ms,
+                    "bucket": idx, "batch": batch, "form": form,
+                    "width": int(buf.shape[1]), "ms": ms,
+                    "pr1_ms": PR1_MS.get((idx, form, batch)),
+                    "device_ms": device_ms,
+                    "plain_ms": plain_ms,
                     "bytes": nbytes, "ops": ops,
                     "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                     "bound_by": (
                         "bytes" if bound_bytes_ms >= bound_ops_ms
                         else "operations"
                     ),
-                    "instructions": int(len(program.tape)),
+                    "layout": ck.LAYOUT_NAMES[shape.layout],
+                    "part_instructions": program.part_lengths,
+                    "rows_per_block": shape.rows_per_block,
                     "arena_bytes": program.arena_bytes,
-                    "smem_bytes": program.smem_bytes(),
+                    "smem_bytes": shape.smem_bytes,
                     "max_abs_err": err,
+                    "card": card,
                 }
                 k1_rows.append(row)
                 print(f"phase2 policy_matrix exact: {json.dumps(row)}")
-    print(f"phase2 policy_matrix launches so far: {ck.policy_matrix.launches}")
+
+    # the every-opcode tape on sparse random bytes, shifts and divisions
+    cover_env = EvaluationEnvironmentBuilder(device="cuda").build(
+        flagship_policies()
+    )
+    gen = torch.Generator().manual_seed(5)
+    n_cover = 0
+    for idx in range(len(cover_env.schemas)):
+        for transport, narrow in ((True, True), (True, False), (False, False)):
+            cover = tape_coverage.every_opcode_program(
+                cover_env, idx, transport, narrow
+            )
+            for batch in COVER_BATCHES:
+                shape = (batch, cover.buf_width)
+                keep = torch.rand(shape, generator=gen) < 0.15
+                noise = torch.randint(
+                    0, 256, shape, generator=gen, dtype=torch.uint8
+                )
+                dev = torch.where(keep, noise, torch.zeros_like(noise)).to(device)
+                want_a, want_r = ck.policy_matrix_plain(dev, cover)
+                for prog in (cover, tape_coverage.with_division_divisors(cover)):
+                    got_a, got_r = ck.policy_matrix(dev, prog)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got_a, want_a)
+                            and torch.equal(got_r, want_r)):
+                        bad = int((got_a != want_a).sum()
+                                  + (got_r != want_r).sum())
+                        fail(
+                            f"every-opcode tape disagrees with its plain "
+                            f"version: bucket {idx} transport={transport} "
+                            f"narrow={narrow} B={batch}: {bad} cells"
+                        )
+                    n_cover += 1
+    print(
+        f"phase2 every-opcode tape exact: {n_cover} cases, opcodes "
+        f"{sorted(tape_coverage.opcodes_of(cover))}, B in {COVER_BATCHES}, "
+        f"0 differing cells [{card}]"
+    )
+    # an allow-list part at the shared-memory limit: arenas spilled
+    n_list = tape_coverage.allow_list_at_limit(cover_env)
+    spill, offset = tape_coverage.allow_list_program(cover_env, [n_list])
+    if spill.arena_layout != ck.LAYOUT_WARPS_SPILL:
+        fail("the allow-list at the limit does not spill its arenas")
+    for batch in SPILL_BATCHES:
+        dev = torch.from_numpy(
+            tape_coverage.allow_list_rows(spill, offset, batch, seed=batch)
+        ).to(device)
+        want_a, want_r = ck.policy_matrix_plain(dev, spill)
+        got_a, got_r = ck.policy_matrix(dev, spill)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
+            fail(f"spilled-arena allow-list disagrees at B={batch}")
+    print(
+        f"phase2 spilled arenas exact: one part of {n_list} InSet "
+        f"constants, {spill.smem_plan(spill.arena_layout, 1)[-1]} B of "
+        f"shared memory, B in {SPILL_BATCHES}, 0 differing cells [{card}]"
+    )
+    print(
+        f"phase2 policy_matrix launches so far: "
+        f"{ck.policy_matrix.launches} [{card}]"
+    )
+
+    # the environment's device step at the headline shape, phase by phase
+    # (stream time between CUDA events, so the host's enqueue is in it)
+    schema = env.schemas[0]
+    batch = 128
+    wide = schema.pack(schema.stack(small_encs[:batch], batch_size=batch))
+    buf = schema.to_transport(wide, vocab_size=len(env.table))["__packed__"]
+    program = env.program_for(0, True, True)
+    if not np.array_equal(env.evaluate_packed(buf), step_phases(env, buf, program)[0]):
+        fail("the split device step disagrees with evaluate_packed")
+    split = [step_phases(env, buf, program)[1] for _ in range(50)]
+    names = ("h2d", "policy_matrix", "combine", "d2h", "host_wall")
+    med = {n: statistics.median(s[i] for s in split) for i, n in enumerate(names)}
+    print(
+        "phase2 device step split, bucket 0 narrow B=128, median of 50, ms: "
+        + " ".join(f"{n} {v:.5f}" for n, v in med.items())
+        + f" [{card}]"
+    )
 
     # -- phase 3: the main path over HTTP ---------------------------------
     rng = random.Random(11)

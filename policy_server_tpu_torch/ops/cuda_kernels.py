@@ -6,8 +6,12 @@ evaluates every policy of the set over a batch of packed feature rows and
 returns the ``(B, n_tiles * width)`` allowed / first-violated-rule matrices
 (``csrc/policy_matrix.cu`` explains the kernel). Because the predicates
 differ for every policy set, the kernel is an interpreter: this module
-compiles each policy tile's optimizer-folded rule conditions into a flat
-``int32`` instruction tape (``compile_tape``) that the kernel walks per row.
+splits the policies into tape parts of about equal length
+(``plan_tape_parts``), compiles each part's optimizer-folded rule
+conditions into a flat ``int32`` instruction tape (``compile_tape``), each
+part with its own InSet constant pool. The kernel runs a warp per row; its
+arenas live in shared memory where one warp's fits beside the largest
+part's code, else in a device scratch buffer (``PolicyMatrixProgram``).
 
 ``probe`` is an ``(8, 128)`` float32 ``x + 1`` kernel the environment
 launches once when it is built on the card.
@@ -49,8 +53,16 @@ from policy_server_tpu_torch.utils.interning import InternTable
 # policies per policy tile (grid dim 1 of the kernel)
 POLICY_TILE = 32
 
-# threads per block of the policy-matrix kernel
-THREADS = 256
+# tape parts the policy set is split into (grid dim 1 of the kernel):
+# with 16 the flagship set's parts hold 24-39 instructions (1 part: 284)
+TAPE_PARTS = 16
+
+# where the policy-matrix kernel keeps its arenas (a warp per row); keep
+# in sync with csrc/policy_matrix.cu
+LAYOUT_WARPS = 0  # in shared memory
+LAYOUT_WARPS_SPILL = 1  # in a device scratch buffer
+LAYOUT_NAMES = {LAYOUT_WARPS: "warps", LAYOUT_WARPS_SPILL: "warps-spill"}
+MAX_WARPS = 16  # rows (warps) per block, at most
 
 # dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -84,6 +96,14 @@ class KernelLibrary:
 _library: KernelLibrary | None = None
 _library_lock = threading.Lock()
 
+# The launch path's hot state, set once by the first successful
+# build_library(): the bound entry points and torch's raw current-stream
+# getter. A launch reads these module globals and takes no lock.
+_pm_policy_matrix: Callable[..., int] | None = None
+_pm_probe: Callable[..., int] | None = None
+_pm_error_string: Callable[[int], bytes] | None = None
+_raw_stream: Callable[[int], int] | None = None
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -108,9 +128,10 @@ def _sources() -> list[FsPath]:
 
 def build_library(force: bool = False) -> KernelLibrary:
     """Compile ``csrc/*.cu`` into ``build/torch_kernels/`` when the library
-    is missing or older than a source, then load it. Raises with nvcc's
-    output when the build fails."""
-    global _library
+    is missing or older than a source, then load it and bind the launch
+    path. Raises with nvcc's output when the build fails."""
+    global _library, _pm_policy_matrix, _pm_probe, _pm_error_string
+    global _raw_stream
     with _library_lock:
         if _library is not None and not force:
             return _library
@@ -135,33 +156,46 @@ def build_library(force: bool = False) -> KernelLibrary:
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
                 )
             os.replace(tmp, out)
+        # Triton's launcher reads the stream the same way: no
+        # torch.cuda.Stream object is built per launch
+        raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw_stream is None:
+            raise RuntimeError("this torch build has no CUDA stream binding")
         lib = ctypes.CDLL(str(out))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pm_policy_matrix.argtypes = [
-            vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp,
-        ]
+        lib.pm_policy_matrix.argtypes = [vp, vp, ci, vp, vp, vp, vp]
         lib.pm_policy_matrix.restype = ci
         lib.pm_probe.argtypes = [vp, vp, ci, vp]
         lib.pm_probe.restype = ci
         lib.pm_error_string.argtypes = [ci]
         lib.pm_error_string.restype = ctypes.c_char_p
         _library = KernelLibrary(lib, out, seconds, log)
+        _pm_policy_matrix = lib.pm_policy_matrix
+        _pm_probe = lib.pm_probe
+        _pm_error_string = lib.pm_error_string
+        _raw_stream = raw_stream
         return _library
 
 
-def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.pm_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
+def _launch_failed(rc: int, what: str) -> RuntimeError:
+    msg = _pm_error_string(rc).decode(errors="replace")
+    return RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
 
 
-def _stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _not_cuda(t: torch.Tensor, what: str) -> ValueError:
+    return ValueError(f"{what}: expected a CPU or CUDA tensor, got {t.device}")
 
 
-def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {t.device}")
+_sm_counts: dict[int, int] = {}
+
+
+def _sm_count(index: int) -> int:
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(
+            index
+        ).multi_processor_count
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -178,15 +212,18 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     tensor, the plain version on a CPU tensor."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("probe takes a contiguous float32 tensor")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return probe_plain(x)
-    _require_cuda(x, "probe")
-    lib = build_library().lib
+    if not x.is_cuda:
+        raise _not_cuda(x, "probe")
+    if _pm_probe is None:
+        build_library()
     y = torch.empty_like(x)
-    rc = lib.pm_probe(
-        x.data_ptr(), y.data_ptr(), x.numel(), _stream_handle(x.device)
+    rc = _pm_probe(
+        x.data_ptr(), y.data_ptr(), x.numel(), _raw_stream(x.get_device())
     )
-    _check(lib, rc, "probe")
+    if rc:
+        raise _launch_failed(rc, "probe")
     probe.launches += 1
     return y
 
@@ -322,6 +359,29 @@ class _TapeCompiler:
         self.cse: dict[tuple, Any] = {}
         self.loads: dict[str, _Val] = {}
         self.consts: dict[tuple[int, int], _Val] = {}
+
+    # -- trial emission (plan_tape_parts) -----------------------------------
+
+    def checkpoint(self) -> tuple[int, ...]:
+        return (
+            len(self.tape.instrs), len(self.tape.slot_sizes), len(self.pool),
+            len(self.cse), len(self.loads), len(self.consts),
+        )
+
+    def rollback(self, cp: tuple[int, ...]) -> None:
+        """Forget everything emitted since ``cp`` (the memo dicts keep
+        insertion order, so their newest entries are the ones to drop)."""
+        n_instrs, n_slots, n_pool, *n_memo = cp
+        del self.tape.instrs[n_instrs:]
+        del self.tape.slot_sizes[n_slots:]
+        del self.pool[n_pool:]
+        for memo, n in zip((self.cse, self.loads, self.consts), n_memo):
+            while len(memo) > n:
+                memo.popitem()
+
+    def policy(self, column: int, src: PolicyOptimization) -> None:
+        for r, cond in enumerate(src.conditions):
+            self.rule(column, r, cond)
 
     # -- emission ----------------------------------------------------------
 
@@ -486,8 +546,9 @@ def compile_tape(
     pool: list[int],
     use_cse: bool,
 ) -> tuple[Tape, list[tuple[int, int]]]:
-    """One policy tile → its tape and per-column ``(allowed, rule)``
-    initial values. A policy with a constant verdict emits no instructions:
+    """One tape part's policies → its tape and per-local-column
+    ``(allowed, rule)`` initial values (local column k is ``bucket[k]``).
+    A policy with a constant verdict emits no instructions:
     its column starts at the constant. Every other column starts allowed
     (rule -1) and its rules, in index order, clear it at the first
     violation — the first-violated-rule argmax of ``compile_program``."""
@@ -500,9 +561,70 @@ def compile_tape(
             init.append((int(bool(allowed)), int(rule_idx)))
             continue
         init.append((1, -1))
-        for r, cond in enumerate(src.conditions):
-            comp.rule(k, r, cond)
+        comp.policy(k, src)
     return comp.tape, init
+
+
+def plan_tape_parts(
+    order: Sequence[str],
+    sources: Mapping[str, PolicyOptimization],
+    lanes: Mapping[str, _Lane],
+    table: InternTable,
+    use_cse: bool,
+    n_parts: int,
+) -> list[list[str]]:
+    """Split the policies that have rules into at most ``n_parts`` parts of
+    about equal instruction count: longest policy first, each to the part
+    whose tape it leaves shortest (its marginal cost counts what CSE shares
+    with the policies already there). → each part's policies, in
+    ``order``."""
+    dynamic = [pid for pid in order if sources[pid].constant is None]
+    n_parts = max(1, min(n_parts, len(dynamic)))
+    alone = {}
+    for pid in dynamic:
+        comp = _TapeCompiler(lanes, table, [], use_cse)
+        comp.policy(0, sources[pid])
+        alone[pid] = len(comp.tape.instrs)
+    comps = [_TapeCompiler(lanes, table, [], use_cse) for _ in range(n_parts)]
+    parts: list[list[str]] = [[] for _ in range(n_parts)]
+    for pid in sorted(dynamic, key=lambda p: -alone[p]):
+        best = (0, -1)
+        for j, comp in enumerate(comps):
+            cp = comp.checkpoint()
+            comp.policy(0, sources[pid])
+            size = len(comp.tape.instrs)
+            comp.rollback(cp)
+            if best[1] < 0 or size < best[0]:
+                best = (size, j)
+        comps[best[1]].policy(0, sources[pid])
+        parts[best[1]].append(pid)
+    rank = {pid: i for i, pid in enumerate(order)}
+    return [sorted(part, key=rank.__getitem__) for part in parts]
+
+
+def encode_divisor(d: int) -> int:
+    """A broadcast divisor as the kernel reads it: log2 for a power of two
+    (a shift), else the negated divisor (a division)."""
+    if d <= 0:
+        raise ValueError(f"broadcast divisor must be positive, got {d}")
+    return d.bit_length() - 1 if d & (d - 1) == 0 else -d
+
+
+def decode_divide(x: Any, w: int) -> Any:
+    """``x`` divided by an encoded divisor (``encode_divisor``)."""
+    return x >> w if w >= 0 else x // -w
+
+
+def encode_divisors(instrs: np.ndarray) -> None:
+    """Encode the broadcast divisors of an allocated tape in place: p0 and
+    p1 of binary instructions, p1 of reductions."""
+    for ins in instrs:
+        op = int(ins[0])
+        if op in (OP_CMP, OP_AND, OP_OR):
+            ins[5] = encode_divisor(int(ins[5]))
+            ins[6] = encode_divisor(int(ins[6]))
+        elif op in (OP_ANY, OP_ALL, OP_COUNT):
+            ins[6] = encode_divisor(int(ins[6]))
 
 
 def allocate_arena(tape: Tape) -> tuple[np.ndarray, int]:
@@ -587,10 +709,48 @@ def plan_policy_tiles(
     return buckets, width, column_of
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class _LaunchArgs(ctypes.Structure):
+    """What a launch needs that does not change from call to call for one
+    program, batch size and device (``LaunchArgs`` in
+    csrc/policy_matrix.cu), built once so a launch passes seven
+    arguments through ctypes."""
+
+    _fields_ = [
+        ("code", ctypes.c_void_p), ("meta", ctypes.c_void_p),
+        *((name, ctypes.c_int) for name in (
+            "row_width", "n_parts", "out_cols", "arena_bytes", "layout",
+            "rows_per_block", "max_cols", "off_cols", "off_arena",
+            "smem_bytes",
+        )),
+    ]
+
+
+@dataclass(frozen=True)
+class LaunchShape:
+    """One launch's layout, rows (warps) per block and shared-memory plan
+    (byte offsets of the column state and the arena after the part's
+    code)."""
+
+    layout: int
+    rows_per_block: int
+    off_cols: int
+    off_arena: int
+    smem_bytes: int
+
+
 @dataclass
 class PolicyMatrixProgram:
     """Everything one buffer form of one schema bucket needs: the plain
-    version's compiled functions and the kernel's tape."""
+    version's compiled functions and the kernel's tape parts. Part q runs
+    instructions ``part_start[q]:part_start[q+1]``, whose InSet constants
+    are ``pool[pool_start[q]:pool_start[q+1]]`` (their p0 counts from the
+    part's first), and owns local columns ``col_start[q]:col_start[q+1]``,
+    written to output columns ``part_cols[...]``; every output column
+    belongs to exactly one part."""
 
     layout: PackedLayout
     transport: bool
@@ -600,39 +760,108 @@ class PolicyMatrixProgram:
     column_of: dict[str, int]
     compiled: Mapping[str, Callable]
     use_cse: bool
-    tape: np.ndarray  # (n_instr, INSTR_WORDS) int32, all tiles
-    tile_start: np.ndarray  # (n_tiles + 1,) int32
-    pool: np.ndarray  # int32 (f32 constants as bits)
-    col_init: np.ndarray  # (n_tiles, width, 2) int32
+    tape: np.ndarray  # (n_instr, INSTR_WORDS) int32, every part in turn
+    part_start: np.ndarray  # (n_parts + 1,) int32
+    part_cols: np.ndarray  # (n_local,) int32 output column of each
+    col_start: np.ndarray  # (n_parts + 1,) int32
+    col_init: np.ndarray  # (n_local, 2) int32 (allowed, rule)
+    pool: np.ndarray  # int32 (f32 constants as bits), every part in turn
+    pool_start: np.ndarray  # (n_parts + 1,) int32
     arena_bytes: int
-    _device_arrays: dict = field(default_factory=dict, repr=False)
+    arena_layout: int = field(init=False)  # LAYOUT_WARPS unless it must spill
+    max_warps: int = field(init=False)  # rows per block, at most
+    buf_width: int = field(init=False)
+    out_cols: int = field(init=False)
+    # caches, fresh in every copy (dataclasses.replace)
+    _device_code: dict = field(default_factory=dict, init=False, repr=False)
+    _shapes: dict = field(default_factory=dict, init=False, repr=False)
+    _launches: dict = field(default_factory=dict, init=False, repr=False)
 
-    @property
-    def buf_width(self) -> int:
+    def __post_init__(self) -> None:
         lo = self.layout
         if self.narrow:
-            return lo.transport16_width
-        return lo.transport_width if self.transport else lo.width
+            self.buf_width = lo.transport16_width
+        else:
+            self.buf_width = lo.transport_width if self.transport else lo.width
+        self.out_cols = len(self.buckets) * self.width
+        for layout in (LAYOUT_WARPS, LAYOUT_WARPS_SPILL):
+            if self.smem_plan(layout, 1)[-1] <= MAX_SMEM_BYTES:
+                break
+        else:
+            q = int(np.argmax(self.part_int4s))
+            raise ValueError(
+                f"tape part {q} needs {self.smem_plan(layout, 1)[-1]:,} B of "
+                f"shared memory with its arena spilled ("
+                f"{self.part_lengths[q]} instructions, "
+                f"{int(np.diff(self.col_start)[q])} columns, "
+                f"{int(np.diff(self.pool_start)[q])} InSet constants); a "
+                f"block has {MAX_SMEM_BYTES:,} B: split the set into more "
+                f"parts or shorten its allow-lists"
+            )
+        self.arena_layout = layout
+        warps = 1
+        while (
+            2 * warps <= MAX_WARPS
+            and self.smem_plan(layout, 2 * warps)[-1] <= MAX_SMEM_BYTES
+        ):
+            warps *= 2
+        self.max_warps = warps
 
     @property
-    def n_tiles(self) -> int:
-        return len(self.buckets)
+    def n_parts(self) -> int:
+        return len(self.part_start) - 1
 
     @property
-    def out_cols(self) -> int:
-        return self.n_tiles * self.width
-
-    def row_smem_bytes(self) -> int:
-        return ((self.buf_width + 15) & ~15) + ((8 * self.width + 15) & ~15)
+    def part_lengths(self) -> list[int]:
+        return np.diff(self.part_start).tolist()
 
     @property
-    def arena_in_smem(self) -> bool:
-        return self.row_smem_bytes() + self.arena_bytes <= MAX_SMEM_BYTES
+    def max_part_instrs(self) -> int:
+        return max(self.part_lengths, default=0)
 
-    def smem_bytes(self) -> int:
-        return self.row_smem_bytes() + (
-            self.arena_bytes if self.arena_in_smem else 0
-        )
+    @property
+    def max_part_cols(self) -> int:
+        return max(np.diff(self.col_start).tolist(), default=0)
+
+    @property
+    def part_pool_int4s(self) -> list[int]:
+        """16-byte words of each part's InSet pool."""
+        return [-(-n // 4) for n in np.diff(self.pool_start).tolist()]
+
+    @property
+    def part_int4s(self) -> list[int]:
+        """16-byte words of each part's staged code: two per instruction,
+        one per column record, then its pool."""
+        return [
+            2 * n + c + k for n, c, k in zip(
+                self.part_lengths, np.diff(self.col_start).tolist(),
+                self.part_pool_int4s,
+            )
+        ]
+
+    def smem_plan(self, layout: int, rows: int) -> tuple[int, int, int]:
+        """→ (column-state and arena byte offsets, total bytes) of a block
+        of ``rows`` rows in ``layout``: the largest part's code, each
+        row's column state and the rows' arenas (none when spilled)."""
+        off_cols = 16 * max(self.part_int4s, default=0)
+        off_arena = off_cols + _align16(8 * rows * self.max_part_cols)
+        arena = 0 if layout == LAYOUT_WARPS_SPILL else rows * self.arena_bytes
+        return off_cols, off_arena, off_arena + arena
+
+    def launch_shape(self, batch: int, n_sm: int) -> LaunchShape:
+        """Up to ``max_warps`` rows per block, halving while the grid would
+        give the card's ``n_sm`` SMs fewer blocks than one each."""
+        key = (batch, n_sm)
+        hit = self._shapes.get(key)
+        if hit is None:
+            rows = self.max_warps
+            while rows > 1 and -(-batch // rows) * self.n_parts < n_sm:
+                rows //= 2
+            hit = self._shapes[key] = LaunchShape(
+                self.arena_layout, rows,
+                *self.smem_plan(self.arena_layout, rows),
+            )
+        return hit
 
     def element_ops_per_row(self) -> int:
         """Element operations one row's tape performs (each instruction's
@@ -648,19 +877,60 @@ class PolicyMatrixProgram:
                 total += n
         return total
 
-    def device_arrays(self, device: torch.device) -> tuple[torch.Tensor, ...]:
-        hit = self._device_arrays.get(device)
+    def device_code(self) -> tuple[np.ndarray, np.ndarray]:
+        """The tape as the kernel stages it: ``code`` (int32, 4 per
+        16-byte word) holds, for each part, its instructions (two words
+        each), one ``(output column, allowed, rule, 0)`` record per local
+        column and its pool, zero-padded to whole words; ``meta``
+        (n_parts, 4) holds each part's ``(word offset, instructions,
+        columns, pool words)``."""
+        chunks = [np.zeros((0, 4), np.int32)]
+        meta = np.zeros((self.n_parts, 4), np.int32)
+        offset = 0
+        for q in range(self.n_parts):
+            i0, i1 = self.part_start[q], self.part_start[q + 1]
+            c0, c1 = self.col_start[q], self.col_start[q + 1]
+            records = np.zeros((c1 - c0, 4), np.int32)
+            records[:, 0] = self.part_cols[c0:c1]
+            records[:, 1:3] = self.col_init[c0:c1]
+            n_pool = self.part_pool_int4s[q]
+            pool = np.zeros(4 * n_pool, np.int32)
+            part_pool = self.pool[self.pool_start[q] : self.pool_start[q + 1]]
+            pool[: len(part_pool)] = part_pool
+            chunks += [
+                self.tape[i0:i1].reshape(-1, 4), records, pool.reshape(-1, 4)
+            ]
+            meta[q] = (offset, i1 - i0, c1 - c0, n_pool)
+            offset += self.part_int4s[q]
+        return np.concatenate(chunks).reshape(-1), meta
+
+    def launch_args(self, index: int, batch: int) -> tuple[int, int]:
+        """→ (address of the ``_LaunchArgs`` for a batch of ``batch`` rows
+        on card ``index``, scratch bytes the launch needs). Built on first
+        use; the program keeps the struct and the device code alive."""
+        key = (index, batch)
+        hit = self._launches.get(key)
         if hit is None:
-            hit = self._device_arrays[device] = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in (
-                    self.tape,
-                    self.tile_start,
-                    self.pool if self.pool.size else np.zeros(1, np.int32),
-                    self.col_init,
+            code = self._device_code.get(index)
+            if code is None:
+                code = self._device_code[index] = tuple(
+                    torch.from_numpy(a).to(torch.device("cuda", index))
+                    for a in self.device_code()
                 )
+            shape = self.launch_shape(batch, _sm_count(index))
+            args = _LaunchArgs(
+                code[0].data_ptr(), code[1].data_ptr(), self.buf_width,
+                self.n_parts, self.out_cols, self.arena_bytes, shape.layout,
+                shape.rows_per_block, self.max_part_cols, shape.off_cols,
+                shape.off_arena, shape.smem_bytes,
             )
-        return hit
+            scratch = (
+                batch * self.n_parts * self.arena_bytes
+                if shape.layout == LAYOUT_WARPS_SPILL else 0
+            )
+            self._launches[key] = (args, ctypes.addressof(args), scratch)
+            hit = self._launches[key]
+        return hit[1], hit[2]
 
 
 def build_policy_matrix(
@@ -671,26 +941,58 @@ def build_policy_matrix(
     sources: Mapping[str, PolicyOptimization],
     table: InternTable,
     use_cse: bool = True,
+    n_parts: int = TAPE_PARTS,
 ) -> PolicyMatrixProgram:
     """Compile the policy set (``compiled``'s order) for one buffer form
     of one schema bucket. ``sources`` holds each policy's rule conditions
     or constant verdict; intern ids of string constants come from
-    ``table``."""
-    buckets, width, column_of = plan_policy_tiles(list(compiled))
+    ``table``. The output columns follow ``plan_policy_tiles``; the tape
+    follows ``plan_tape_parts`` into ``n_parts`` parts (the tests vary
+    it), and constant-verdict and padding columns go to the parts with the
+    fewest columns. Each part gets its own InSet pool."""
+    order = list(compiled)
+    buckets, width, column_of = plan_policy_tiles(order)
     lanes = lane_map(layout, transport, narrow)
+    for key, lane in lanes.items():
+        if lane.op == OP_LOAD_W32 and lane.offset % 4:
+            raise ValueError(f"32-bit lane {key} is not word aligned")
+    parts = plan_tape_parts(order, sources, lanes, table, use_cse, n_parts)
+    spare = [pid for pid in order if sources[pid].constant is not None]
+    spare_cols: list[list[str]] = [[] for _ in parts]
+    for pid in spare:
+        q = min(range(len(parts)), key=lambda j: len(parts[j]) + len(spare_cols[j]))
+        spare_cols[q].append(pid)
+    pads = sorted(set(range(len(buckets) * width)) - set(column_of.values()))
+    pad_cols: list[list[int]] = [[] for _ in parts]
+    for c in pads:
+        q = min(
+            range(len(parts)),
+            key=lambda j: len(parts[j]) + len(spare_cols[j]) + len(pad_cols[j]),
+        )
+        pad_cols[q].append(c)
+    rank = {pid: i for i, pid in enumerate(order)}
     pool: list[int] = []
     tapes: list[np.ndarray] = []
-    starts = [0]
-    col_init = np.zeros((len(buckets), width, 2), np.int32)
+    starts, col_starts, pool_starts = [0], [0], [0]
+    cols: list[int] = []
+    init_rows: list[tuple[int, int]] = []
     arena = 0
-    for t, bucket in enumerate(buckets):
-        tape, init = compile_tape(bucket, sources, lanes, table, pool, use_cse)
-        instrs, arena_t = allocate_arena(tape)
+    for q, part in enumerate(parts):
+        pids = sorted(part + spare_cols[q], key=rank.__getitem__)
+        part_pool: list[int] = []
+        tape, init = compile_tape(
+            pids, sources, lanes, table, part_pool, use_cse
+        )
+        pool.extend(part_pool)
+        pool_starts.append(len(pool))
+        instrs, arena_q = allocate_arena(tape)
+        encode_divisors(instrs)
         tapes.append(instrs)
         starts.append(starts[-1] + len(instrs))
-        arena = max(arena, arena_t)
-        for k, (a, r) in enumerate(init):
-            col_init[t, k] = (a, r)
+        cols.extend([column_of[p] for p in pids] + pad_cols[q])
+        init_rows.extend(init + [(0, 0)] * len(pad_cols[q]))
+        col_starts.append(len(cols))
+        arena = max(arena, arena_q)
     return PolicyMatrixProgram(
         layout=layout,
         transport=transport,
@@ -705,9 +1007,12 @@ def build_policy_matrix(
             if any(len(x) for x in tapes)
             else np.zeros((0, INSTR_WORDS), np.int32)
         ),
-        tile_start=np.asarray(starts, np.int32),
+        part_start=np.asarray(starts, np.int32),
+        part_cols=np.asarray(cols, np.int32),
+        col_start=np.asarray(col_starts, np.int32),
+        col_init=np.asarray(init_rows, np.int32).reshape(-1, 2),
         pool=np.asarray(pool, np.int32),
-        col_init=col_init,
+        pool_start=np.asarray(pool_starts, np.int32),
         arena_bytes=max(arena, 16),
     )
 
@@ -746,43 +1051,42 @@ def policy_matrix(
     tensor, the plain version on a CPU tensor."""
     if buf.dtype != torch.uint8 or buf.dim() != 2:
         raise ValueError("policy_matrix takes a 2-D uint8 buffer")
-    if buf.shape[1] != program.buf_width:
+    batch, row_width = buf.shape
+    if row_width != program.buf_width:
         raise ValueError(
-            f"buffer width {buf.shape[1]} does not match the program's "
+            f"buffer width {row_width} does not match the program's "
             f"{program.buf_width}"
         )
     if not buf.is_contiguous():
         raise ValueError("policy_matrix takes a contiguous buffer")
-    if buf.device.type == "cpu":
+    if buf.is_cpu:
         return policy_matrix_plain(buf, program)
-    _require_cuda(buf, "policy_matrix")
-    batch, row_width = buf.shape
-    if row_width % 4 or buf.data_ptr() % 16:
-        raise ValueError("packed rows must be 4-byte wide and 16-byte aligned")
-    lib = build_library().lib
-    tape, tile_start, pool, col_init = program.device_arrays(buf.device)
-    allowed = torch.empty(
-        (batch, program.out_cols), dtype=torch.bool, device=buf.device
-    )
-    rule = torch.empty(
-        (batch, program.out_cols), dtype=torch.int32, device=buf.device
-    )
-    scratch = None
-    if not program.arena_in_smem:
-        scratch = torch.empty(
-            batch * program.n_tiles * program.arena_bytes,
-            dtype=torch.uint8, device=buf.device,
+    if not buf.is_cuda:
+        raise _not_cuda(buf, "policy_matrix")
+    if row_width % 4 or buf.data_ptr() % 4:
+        raise ValueError("packed rows must be 4-byte wide and 4-byte aligned")
+    cols = program.out_cols
+    if batch == 0:  # an empty grid is not a launch
+        return (
+            torch.empty((0, cols), dtype=torch.bool, device=buf.device),
+            torch.empty((0, cols), dtype=torch.int32, device=buf.device),
         )
-    rc = lib.pm_policy_matrix(
-        buf.data_ptr(), batch, row_width,
-        tape.data_ptr(), tile_start.data_ptr(), pool.data_ptr(),
-        col_init.data_ptr(), program.n_tiles, program.width,
-        program.arena_bytes, int(program.arena_in_smem),
+    if _pm_policy_matrix is None:
+        build_library()
+    index = buf.get_device()
+    args, scratch_bytes = program.launch_args(index, batch)
+    # two allocations: on the card's host, one buffer cut into two typed
+    # views (four view calls) cost more than a second allocation
+    allowed = buf.new_empty((batch, cols), dtype=torch.bool)
+    rule = buf.new_empty((batch, cols), dtype=torch.int32)
+    scratch = buf.new_empty(scratch_bytes) if scratch_bytes else None
+    rc = _pm_policy_matrix(
+        args, buf.data_ptr(), batch,
         None if scratch is None else scratch.data_ptr(),
-        allowed.data_ptr(), rule.data_ptr(),
-        THREADS, program.smem_bytes(), _stream_handle(buf.device),
+        allowed.data_ptr(), rule.data_ptr(), _raw_stream(index),
     )
-    _check(lib, rc, "policy_matrix")
+    if rc:
+        raise _launch_failed(rc, "policy_matrix")
     policy_matrix.launches += 1
     return allowed, rule
 

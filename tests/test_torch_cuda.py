@@ -23,6 +23,8 @@ from policy_server_tpu_torch.policies.flagship import (
     synthetic_firehose,
 )
 
+import torch_tape_coverage as tape_coverage
+
 
 @pytest.fixture(scope="module")
 def card_env():
@@ -67,6 +69,51 @@ def test_policy_matrix_matches_plain(card_env, idx, narrow):
     assert torch.equal(got_r, want_r)
 
 
+@pytest.fixture(scope="module")
+def cover_env(card_env):
+    """A second flagship environment for the every-opcode tapes, which
+    intern their own string constants."""
+    return EvaluationEnvironmentBuilder(device="cuda").build(flagship_policies())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 51, 129, 1029])
+@pytest.mark.parametrize("idx", [0, 1])
+@pytest.mark.parametrize("narrow", [True, False])
+def test_policy_matrix_ragged_batches(card_env, idx, narrow, batch):
+    """Batches that fill no row block (1-16 rows) exactly against the
+    plain version."""
+    buf = torch.from_numpy(_batch(card_env, idx, batch, narrow)).cuda()
+    program = card_env.program_for(idx, True, narrow)
+    assert program.arena_layout == ck.LAYOUT_WARPS
+    want_a, want_r = ck.policy_matrix_plain(buf, program)
+    got_a, got_r = ck.policy_matrix(buf, program)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a)
+    assert torch.equal(got_r, want_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 51, 129, 1029])
+@pytest.mark.parametrize("idx", [0, 1])
+@pytest.mark.parametrize("form", [(True, True), (True, False), (False, False)])
+def test_every_opcode_tape_matches_plain(cover_env, idx, form, batch):
+    """The every-opcode tape (and its division-encoded twin) on sparse
+    random bytes against the plain version."""
+    program = tape_coverage.every_opcode_program(cover_env, idx, *form)
+    gen = torch.Generator().manual_seed(batch * 10 + idx)
+    shape = (batch, program.buf_width)
+    keep = torch.rand(shape, generator=gen) < 0.15
+    noise = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    buf = torch.where(keep, noise, torch.zeros_like(noise)).cuda()
+    want_a, want_r = ck.policy_matrix_plain(buf, program)
+    for prog in (program, tape_coverage.with_division_divisors(program)):
+        got_a, got_r = ck.policy_matrix(buf, prog)
+        torch.cuda.synchronize()
+        assert torch.equal(got_a, want_a)
+        assert torch.equal(got_r, want_r)
+
+
 @pytest.mark.cuda
 def test_probe_matches_plain(card_env):
     x = torch.randn(8, 128, device="cuda")
@@ -87,3 +134,23 @@ def test_run_batch_matches_plain_env(card_env):
     )
     for buf in bufs:
         assert (card_env.evaluate_packed(buf) == cpu_env.evaluate_packed(buf)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 51, 129])
+def test_spilled_arena_matches_plain(cover_env, batch):
+    """An allow-list whose part takes nearly all of shared memory runs with
+    its arenas in the device scratch buffer, and agrees with the plain
+    version."""
+    program, offset = tape_coverage.allow_list_program(
+        cover_env, [tape_coverage.allow_list_at_limit(cover_env)]
+    )
+    assert program.arena_layout == ck.LAYOUT_WARPS_SPILL
+    buf = torch.from_numpy(
+        tape_coverage.allow_list_rows(program, offset, batch, seed=batch)
+    ).cuda()
+    want_a, want_r = ck.policy_matrix_plain(buf, program)
+    got_a, got_r = ck.policy_matrix(buf, program)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a)
+    assert torch.equal(got_r, want_r)
