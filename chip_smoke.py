@@ -8,7 +8,8 @@ card's name and power limit:
 1. card and build — the card's name and power limit, the torch and CUDA
    versions, an nvcc build of the kernel library from ``csrc/`` (timed,
    with ptxas' registers and spills for both instances of the
-   policy-matrix kernel: arenas in shared memory and spilled), and the
+   policy-matrix kernel: arenas in shared memory and spilled) beside a g++
+   build of the native encoder from ``csrc/fastenc.cpp``, and the
    ``probe`` kernel against ``x + 1`` (exact), timed beside ``torch.add``
    (where it is slower, with the host's cost per call of each);
 2. ``policy_matrix`` against its plain PyTorch version on the card — the
@@ -21,14 +22,33 @@ card's name and power limit:
    verdicts are booleans and int32 rule indices, f32 values are only
    compared); median kernel and plain times per call, from CUDA events
    around back-to-back calls, beside PR 1's kernel times; and the
-   environment's device step at B = 128 split into its phases;
+   environment's device step at B = 128 split into its phases, beside the
+   serving path's page-locked enqueue and fetch;
 3. the main path over HTTP — the port's server on 127.0.0.1 with the
-   flagship set on the card, at least 512 distinct firehose
-   AdmissionReviews POSTed to /validate across all 32 policy ids from
-   several client threads; every body must equal what the port's host
-   oracle gives for the same request; every kernel's launch count, zeroed
-   just before the server is built, must have advanced; requests/s and
-   p50/p99 latency.
+   flagship set on the card, 1,024 distinct firehose AdmissionReviews
+   POSTed to /validate across all 32 policy ids from 128 client threads,
+   at the default flags and with no host routing and no verdict cache
+   (``--host-fastpath-threshold 0 --verdict-cache-size 0
+   --latency-budget-ms 0``, the kernel-only run), each with the batcher's
+   four pipeline workers and again with one; every body must equal what
+   the port's host oracle gives for the same request; launch counts are
+   zeroed just before each server is built and read after its warmup and
+   after the run: ``probe`` must have run at the build, and in the
+   kernel-only run every micro-batch must launch ``policy_matrix`` after
+   the warmup (at the default flags, batches of at most 64 rows are
+   answered on the host, so this traffic may launch it only in the
+   warmup: the serving launches are printed, not required); no kernel or
+   CUDA error, no breaker trip; requests/s, p50/p99 latency, host-routed
+   and device batches, serving launches, dedup hits, the slowest
+   answer's time from submission against the 2 s ``policy_timeout``, and
+   the garbage collections during the run (full ones, the longest);
+4. the native pipeline — the encoder's build, its packed rows byte-equal
+   to the Python trie's on phase 3's reviews in both buckets; the 1,024
+   reviews, their exact replay (no launch: the blob tier answers) and a
+   replay with new uids (no launch: the row tier answers), every body
+   equal to the oracle's, with ``dedup_stats``; and the breaker tripped by
+   five ``device.fetch`` faults, answering from the oracle while open, and
+   recovered by a half-open probe that launches the kernel again.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -38,6 +58,7 @@ before the last line is printed. Needs one card; imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import gc
 import http.client
 import json
 import os
@@ -182,6 +203,368 @@ def widen(doc: dict, n_containers: int = 12) -> dict:
     return doc
 
 
+def oracle_body(oracle, pid: str, body: bytes) -> bytes:
+    """The /validate response body the port's host oracle gives."""
+    from policy_server_tpu_torch.api.service import RequestOrigin, evaluate
+    from policy_server_tpu_torch.models import (
+        AdmissionReviewRequest,
+        AdmissionReviewResponse,
+        ValidateRequest,
+    )
+
+    req = ValidateRequest.from_admission(
+        AdmissionReviewRequest.from_dict(json.loads(body)).request
+    )
+    return json.dumps(
+        AdmissionReviewResponse(
+            evaluate(oracle, pid, req, RequestOrigin.VALIDATE)
+        ).to_dict()
+    ).encode()
+
+
+def response_body(result) -> bytes:
+    """A batcher result as /validate writes it (a fragment verdict as the
+    response its template gives)."""
+    from policy_server_tpu_torch.models import AdmissionReviewResponse
+    from policy_server_tpu_torch.models.admission import FragVerdict
+
+    if type(result) is FragVerdict:
+        result = result.to_response()
+    return json.dumps(AdmissionReviewResponse(result).to_dict()).encode()
+
+
+def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
+    """The port's server on 127.0.0.1 with the flagship set on the card,
+    ``work`` POSTed to /validate from CLIENT_THREADS clients; every body
+    must equal the oracle's and the breaker must not trip. Launch counts
+    are zeroed just before the server is built and read after the run
+    (and after the build, to split warmup from serving)."""
+    import torch
+
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+    from policy_server_tpu_torch.runtime.batcher import DEFAULT_POLICY_TIMEOUT
+    from policy_server_tpu_torch.server import PolicyServer
+
+    ck.reset_launch_counts()
+    server = PolicyServer(
+        flagship_policies(), host="127.0.0.1", port=0, device="cuda", **flags
+    )
+    torch.cuda.synchronize()
+    warm = ck.launch_counts()
+    # garbage collections during the run: how many were full, and the
+    # longest (a collection runs on whichever thread triggered it)
+    collections: list = []
+    gc_start = [0.0]
+
+    def on_gc(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            collections.append(
+                (info["generation"], time.perf_counter() - gc_start[0])
+            )
+
+    gc.callbacks.append(on_gc)
+    server.start()
+    results: list = [None] * len(work)
+    latencies: list = [0.0] * len(work)
+    starts: list = [0.0] * len(work)
+    errors: list = []
+
+    def client(tid: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+        try:
+            for i in range(tid, len(work), CLIENT_THREADS):
+                pid, body = work[i]
+                t0 = time.perf_counter()
+                starts[i] = t0
+                conn.request(
+                    "POST", f"/validate/{pid}", body=body,
+                    headers={"Content-Type": "application/json"},
+                )
+                resp = conn.getresponse()
+                data = resp.read()
+                latencies[i] = time.perf_counter() - t0
+                results[i] = (resp.status, data)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"client {tid}: {type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    threads = [
+        threading.Thread(target=client, args=(t,)) for t in range(CLIENT_THREADS)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    gc.callbacks.remove(on_gc)
+    alive = any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    b = server.batcher
+    env = server.env
+    run = {
+        "launches": counts,
+        "warmup_launches": warm,
+        "serving_launches": counts["policy_matrix"] - warm["policy_matrix"],
+        "batches": b.batches,
+        "rows": b.batch_rows,
+        "host_batches": b.host_fastpath_batches,
+        "budget_routed": b.budget_routed_batches,
+        "device_batches": b.batches - b.host_fastpath_batches,
+        "dispatched_chunks": env.host_profile["dispatched_chunks"],
+        "dispatched_rows": env.host_profile["dispatched_rows"],
+        "dedup": env.dedup_stats,
+        "breaker": env.breaker_stats,
+        "device_errors": env.device_errors,
+        "abandoned": b.deadline_abandoned_batches,
+        "deadline_rejections": b.deadline_rejections,
+        "max_answer_ms": b.max_answer_seconds * 1e3,
+        "full_collections": sum(1 for g, _ in collections if g == 2),
+        "longest_collection_ms": max((d for _, d in collections), default=0.0) * 1e3,
+    }
+    server.stop()
+    if alive:
+        fail(f"HTTP clients did not finish ({label})")
+    if errors:
+        fail("; ".join(errors[:3]))
+    mismatches = [
+        (i, status, data[:400], want[:400])
+        for i, ((status, data), want) in enumerate(zip(results, oracle_bodies))
+        if status != 200 or data != want
+    ]
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    p50 = lat_ms[len(lat_ms) // 2]
+    p99 = lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))]
+    d = run["dedup"]
+    run.update(req_s=len(work) / wall, p50=p50, p99=p99)
+    print(
+        f"phase3 http /validate ({label}): {len(work)} requests, "
+        f"{len({p for p, _ in work})} policy ids, {CLIENT_THREADS} clients, "
+        f"{len(mismatches)} bodies differ from the oracle; "
+        f"{run['req_s']:.1f} req/s p50 {p50:.3f} ms p99 {p99:.3f} ms; "
+        f"{run['batches']} micro-batches, mean "
+        f"{run['rows'] / max(1, run['batches']):.1f} rows: host-routed "
+        f"{run['host_batches']} (by budget {run['budget_routed']}), device "
+        f"{run['device_batches']} ({run['dispatched_chunks']} dispatches of "
+        f"{run['dispatched_rows']} rows); policy_matrix serving launches "
+        f"{run['serving_launches']} (warmup {warm['policy_matrix']}), probe "
+        f"{counts['probe']}; dedup: blob hits "
+        f"{d['blob_cache_hits']} row hits {d['cache_hits']} in-batch "
+        f"{d['batch_dup_hits']} fragments {d['fragment_hits']}; breaker "
+        f"{run['breaker']}; device errors {run['device_errors']}; "
+        f"deadline-abandoned batches {run['abandoned']}, deadline "
+        f"rejections {run['deadline_rejections']}, slowest answer "
+        f"{run['max_answer_ms']:.3f} ms after submission (deadline "
+        f"{DEFAULT_POLICY_TIMEOUT * 1e3:.0f} ms); garbage collections: "
+        f"{run['full_collections']} full, longest "
+        f"{run['longest_collection_ms']:.1f} ms [{card}]"
+    )
+    if mismatches:
+        slowest = sorted(range(len(work)), key=lambda i: -latencies[i])[:8]
+        print(
+            f"phase3 slowest ({label}): "
+            + ", ".join(
+                f"#{i} start +{(starts[i] - t0) * 1e3:.0f} ms took "
+                f"{latencies[i] * 1e3:.0f} ms"
+                for i in slowest
+            )
+        )
+        for i, status, got, want in mismatches[:3]:
+            print(
+                f"phase3 mismatch ({label}) request {i} {work[i][0]} after "
+                f"{latencies[i] * 1e3:.1f} ms: status {status} body {got!r} "
+                f"oracle {want!r}"
+            )
+        fail(
+            f"{len(mismatches)} of {len(work)} HTTP bodies differ from the "
+            f"oracle ({label})"
+        )
+    if counts["probe"] <= 0:
+        fail(f"probe was not launched at the environment's build ({label})")
+    if run["device_errors"]:
+        fail(f"{run['device_errors']} kernel or CUDA errors ({label})")
+    if run["breaker"]["trips"]:
+        fail(f"the device breaker tripped in the HTTP run ({label}): {run['breaker']}")
+    return run
+
+
+def native_phase(reviews, policy_ids, oracle, enc_build, card: str) -> None:
+    """The native pipeline on the card: the encoder against its plain
+    version (the Python trie), the verdict cache over a first pass, an
+    exact replay and a uid-changed replay, and the breaker tripped through
+    the ``device.fetch`` failpoint and recovered by a probe."""
+    import torch
+
+    from policy_server_tpu_torch import failpoints
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models import (
+        AdmissionReviewRequest,
+        ValidateRequest,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+    from policy_server_tpu_torch.runtime.batcher import MicroBatcher
+
+    print(
+        f"phase4 g++ build {enc_build.build_seconds:.3f} s -> "
+        f"{enc_build.path.name} [{card}]"
+    )
+    env = EvaluationEnvironmentBuilder(device="cuda").build(flagship_policies())
+
+    # the native encoder against the Python trie, both buckets, the trie
+    # first so both see the same intern ids
+    per_bucket: dict[int, list] = {0: [], 1: []}
+    for doc in reviews:
+        payload = AdmissionReviewRequest.from_dict(doc).request.to_dict()
+        idx, enc = env.encode_bucketed(payload)
+        per_bucket[idx].append(
+            (enc, json.dumps(payload, separators=(",", ":")).encode())
+        )
+    for idx, rows in per_bucket.items():
+        schema = env.schemas[idx]
+        want = schema.pack(schema.stack([e for e, _ in rows], batch_size=len(rows)))
+        got, status = schema.native.encode_batch(
+            [b for _, b in rows], len(rows), env.table
+        )
+        if not (status == 0).all():
+            fail(f"the native encoder refused rows the trie took (bucket {idx})")
+        if got["__packed__"].tobytes() != want["__packed__"].tobytes():
+            bad = int((got["__packed__"] != want["__packed__"]).any(axis=1).sum())
+            fail(f"native encoder and trie differ in {bad} rows of bucket {idx}")
+        print(
+            f"phase4 fastenc == trie: bucket {idx}, {len(rows)} rows of "
+            f"{want['__packed__'].shape[1]} B, byte-equal [{card}]"
+        )
+
+    # the verdict cache: a first pass, its exact replay, a uid-changed
+    # replay, through a batcher with no host routing
+    def items_of(docs):
+        return [
+            (
+                policy_ids[i % len(policy_ids)],
+                ValidateRequest.from_admission(
+                    AdmissionReviewRequest.from_dict(d).request
+                ),
+            )
+            for i, d in enumerate(docs)
+        ]
+
+    replay_uid = []
+    for d in reviews:
+        d = copy.deepcopy(d)
+        d["request"]["uid"] = d["request"]["uid"] + "-replay"
+        replay_uid.append(d)
+    batcher = MicroBatcher(
+        env, host_fastpath_threshold=0, latency_budget_ms=0,
+        batch_timeout_ms=5.0,
+    )
+    try:
+        passes = []
+        for name, docs in (
+            ("first", reviews), ("exact replay", reviews),
+            ("uid replay", replay_uid),
+        ):
+            items = items_of(docs)
+            want = [
+                oracle_body(oracle, pid, json.dumps(d).encode())
+                for (pid, _r), d in zip(items, docs)
+            ]
+            before = env.dedup_stats
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            futures = batcher.submit_many(items)
+            got = [response_body(f.result(timeout=120)) for f in futures]
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = ck.launch_counts()["policy_matrix"]
+            after = env.dedup_stats
+            bad = sum(1 for g, w in zip(got, want) if g != w)
+            if bad:
+                fail(f"{bad} bodies of the {name} pass differ from the oracle")
+            delta = {
+                k: after[k] - before[k] for k in after if "capacity" not in k
+            }
+            passes.append((name, launches, delta))
+            print(
+                f"phase4 {name}: {len(items)} reviews in {wall * 1e3:.1f} ms, "
+                f"all bodies equal to the oracle; policy_matrix launches "
+                f"{launches}; dedup delta {delta} [{card}]"
+            )
+        if passes[0][1] <= 0:
+            fail("the first pass launched no policy_matrix")
+        if passes[1][1] != 0:
+            fail(f"the exact replay launched policy_matrix {passes[1][1]} times")
+        if passes[2][1] != 0:
+            fail(f"the uid replay launched policy_matrix {passes[2][1]} times")
+        hp = env.host_profile
+        print(
+            f"phase4 dedup_stats {env.dedup_stats}; host_profile {hp}; "
+            f"native encode {hp['encode_ns'] / max(1, hp['encode_rows']) / 1e3:.2f} "
+            f"us/row [{card}]"
+        )
+        if env.breaker_stats["trips"]:
+            fail(f"the breaker tripped in the cache passes: {env.breaker_stats}")
+    finally:
+        batcher.close()
+
+    # the breaker: five injected fetch faults trip it, tripped batches
+    # answer from the host oracle, a probe after the cooldown recovers it
+    cooldown = 0.5
+    benv = EvaluationEnvironmentBuilder(
+        device="cuda", verdict_cache_size=0,
+        breaker_config={"cooldown_seconds": cooldown},
+    ).build(flagship_policies())
+    items = items_of(reviews[:64])
+    # the environment's own answers (no service-layer constraints): the
+    # oracle backend's validate_batch on the same items
+    want = [response_body(r) for r in oracle.validate_batch(items)]
+    failpoints.configure("device.fetch=raise:injected-fetch-fault*5")
+    try:
+        for k in range(5):
+            try:
+                benv.validate_batch(items[k : k + 1])
+            except failpoints.FailpointError:
+                continue
+            fail("an injected fetch fault did not raise")
+    finally:
+        failpoints.reset()
+    tripped = benv.breaker_stats
+    if tripped["trips"] != 1 or not tripped["open_shards"]:
+        fail(f"five fetch faults did not trip the breaker: {tripped}")
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    got = [response_body(r) for r in benv.validate_batch(items)]
+    open_launches = ck.launch_counts()["policy_matrix"]
+    if got != want:
+        fail("bodies answered while the breaker was open differ from the oracle")
+    if open_launches:
+        fail("the device was used while the breaker was open")
+    time.sleep(cooldown + 0.1)
+    ck.reset_launch_counts()
+    got = [response_body(r) for r in benv.validate_batch(items)]
+    torch.cuda.synchronize()
+    probe_launches = ck.launch_counts()["policy_matrix"]
+    recovered = benv.breaker_stats
+    if got != want:
+        fail("bodies after the breaker's recovery differ from the oracle")
+    if probe_launches <= 0 or recovered["recoveries"] != 1 or recovered["open_shards"]:
+        fail(f"the half-open probe did not recover the breaker: {recovered}")
+    print(
+        f"phase4 breaker: 5 device.fetch faults -> {tripped}; open: "
+        f"{len(items)} bodies equal to the oracle, policy_matrix launches "
+        f"{open_launches}; after {cooldown} s: probe launches "
+        f"{probe_launches}, {recovered} [{card}]"
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -195,21 +578,16 @@ def main() -> int:
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import numpy as np
 
-    from policy_server_tpu_torch.api.service import RequestOrigin, evaluate
     from policy_server_tpu_torch.evaluation.environment import (
         EvaluationEnvironmentBuilder,
     )
-    from policy_server_tpu_torch.models import (
-        AdmissionReviewRequest,
-        AdmissionReviewResponse,
-        ValidateRequest,
-    )
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
     from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.ops import fastenc
     from policy_server_tpu_torch.policies.flagship import (
         flagship_policies,
         synthetic_firehose,
     )
-    from policy_server_tpu_torch.server import PolicyServer
 
     import torch_tape_coverage as tape_coverage
 
@@ -224,7 +602,24 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()} [{card}]"
     )
+    # the two builds run side by side: g++ of the encoder on a thread
+    # while nvcc compiles the kernel library
+    t_phase = time.perf_counter()
+    enc_box: dict = {}
+
+    def build_encoder() -> None:
+        try:
+            enc_box["lib"] = fastenc.build_library(force=True)
+        except Exception as e:  # noqa: BLE001 — reported below
+            enc_box["error"] = e
+
+    enc_thread = threading.Thread(target=build_encoder)
+    enc_thread.start()
     lib = ck.build_library(force=True)
+    enc_thread.join()
+    if "error" in enc_box:
+        fail(f"the native encoder did not build: {enc_box['error']}")
+    enc_build = enc_box["lib"]
     ptxas = [
         line.strip() for line in lib.build_log.splitlines()
         if "registers" in line or "spill" in line or "smem" in line
@@ -258,7 +653,10 @@ def main() -> int:
             f"{host_us(lambda: torch.add(x, 1.0)):.3f} [{card}]"
         )
 
+    print(f"phase1 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- phase 2: policy_matrix against its plain version -----------------
+    t_phase = time.perf_counter()
     env = EvaluationEnvironmentBuilder(device="cuda").build(flagship_policies())
     docs = synthetic_firehose(max(PHASE2_BATCHES), seed=7)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -402,16 +800,24 @@ def main() -> int:
     program = env.program_for(0, True, True)
     if not np.array_equal(env.evaluate_packed(buf), step_phases(env, buf, program)[0]):
         fail("the split device step disagrees with evaluate_packed")
-    split = [step_phases(env, buf, program)[1] for _ in range(50)]
+    split = [step_phases(env, buf, program)[1] for _ in range(20)]
     names = ("h2d", "policy_matrix", "combine", "d2h", "host_wall")
     med = {n: statistics.median(s[i] for s in split) for i, n in enumerate(names)}
+    # the serving path's split step: page-locked copies, enqueue then fetch
+    walls = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.evaluate_packed(buf)
+        walls.append((time.perf_counter() - t0) * 1e3)
     print(
-        "phase2 device step split, bucket 0 narrow B=128, median of 50, ms: "
+        "phase2 device step split, bucket 0 narrow B=128, median of 20, ms: "
         + " ".join(f"{n} {v:.5f}" for n, v in med.items())
-        + f" [{card}]"
+        + f"; enqueue+fetch host wall {statistics.median(walls):.5f} [{card}]"
     )
+    print(f"phase2 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
-    # -- phase 3: the main path over HTTP ---------------------------------
+    # -- phase 3: the main path over HTTP, twice -------------------------
     rng = random.Random(11)
     reviews = synthetic_firehose(N_REQUESTS, seed=2024)
     reviews = [widen(d) if i % 8 == 0 else d for i, d in enumerate(reviews)]
@@ -421,84 +827,69 @@ def main() -> int:
         for i, d in enumerate(reviews)
     ]
     rng.shuffle(work)
-    ck.reset_launch_counts()
-    server = PolicyServer(
-        flagship_policies(), host="127.0.0.1", port=0, device="cuda"
-    )
-    server.start()
-    results: list = [None] * len(work)
-    latencies: list = [0.0] * len(work)
-    errors: list = []
-
-    def client(tid: int) -> None:
-        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
-        try:
-            for i in range(tid, len(work), CLIENT_THREADS):
-                pid, body = work[i]
-                t0 = time.perf_counter()
-                conn.request(
-                    "POST", f"/validate/{pid}", body=body,
-                    headers={"Content-Type": "application/json"},
-                )
-                resp = conn.getresponse()
-                data = resp.read()
-                latencies[i] = time.perf_counter() - t0
-                results[i] = (resp.status, data)
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(f"client {tid}: {type(e).__name__}: {e}")
-        finally:
-            conn.close()
-
-    t0 = time.perf_counter()
-    threads = [
-        threading.Thread(target=client, args=(t,)) for t in range(CLIENT_THREADS)
-    ]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    wall = time.perf_counter() - t0
-    alive = any(t.is_alive() for t in threads)
-    torch.cuda.synchronize()
-    counts = ck.launch_counts()
-    batches, batch_rows = server.batcher.batches, server.batcher.batch_rows
-    server.stop()
-    if alive:
-        fail("HTTP clients did not finish")
-    if errors:
-        fail("; ".join(errors[:3]))
-
     oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
         flagship_policies()
     )
-    mismatches = 0
-    for (pid, body), (status, data) in zip(work, results):
-        req = ValidateRequest.from_admission(
-            AdmissionReviewRequest.from_dict(json.loads(body)).request
-        )
-        want = json.dumps(
-            AdmissionReviewResponse(
-                evaluate(oracle, pid, req, RequestOrigin.VALIDATE)
-            ).to_dict()
-        ).encode()
-        if status != 200 or data != want:
-            mismatches += 1
-    if mismatches:
-        fail(f"{mismatches} of {len(work)} HTTP bodies differ from the oracle")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    lat_ms = sorted(x * 1e3 for x in latencies)
-    p50 = lat_ms[len(lat_ms) // 2]
-    p99 = lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))]
-    print(
-        f"phase3 http /validate: {len(work)} requests, {len(policy_ids)} "
-        f"policy ids, {CLIENT_THREADS} clients, all bodies equal to the "
-        f"oracle; {len(work) / wall:.1f} req/s p50 {p50:.3f} ms p99 "
-        f"{p99:.3f} ms; {batches} micro-batches, mean "
-        f"{batch_rows / max(1, batches):.1f} rows; launches {counts} "
-        f"[{card}]"
+    oracle_bodies = [oracle_body(oracle, pid, body) for pid, body in work]
+    t_phase = time.perf_counter()
+    # the kernel-only run: no host routing (the latency budget off too, so
+    # no batch is routed by it) and no cache, so every micro-batch
+    # launches policy_matrix
+    kernel_only = dict(
+        host_fastpath_threshold=0, verdict_cache_size=0, latency_budget_ms=0
     )
+    kernel_label = (
+        "--host-fastpath-threshold 0 --verdict-cache-size 0 "
+        "--latency-budget-ms 0"
+    )
+    # the pipeline's width is the batcher's constant (four, as the JAX
+    # package's); a run with one worker shows what the width does to
+    # batch size, rate and tail latency
+    from policy_server_tpu_torch.runtime import batcher as batcher_mod
+
+    if batcher_mod.PIPELINE_WORKERS != 4:
+        fail(f"the batcher has {batcher_mod.PIPELINE_WORKERS} pipeline workers, not 4")
+    runs = {}
+    for workers in (4, 1):
+        batcher_mod.PIPELINE_WORKERS = workers
+        for name, label, flags in (
+            ("default", "default flags", {}),
+            ("kernel", kernel_label, kernel_only),
+        ):
+            runs[name, workers] = http_run(
+                f"{label}, {workers} pipeline worker{'s' if workers > 1 else ''}",
+                work, oracle_bodies, card, **flags,
+            )
+    batcher_mod.PIPELINE_WORKERS = 4
+    for workers in (4, 1):
+        run = runs["kernel", workers]
+        if run["host_batches"]:
+            fail("the kernel-only run routed batches to the host")
+        if run["serving_launches"] < run["batches"]:
+            fail(
+                f"the kernel-only run ({workers} pipeline workers) launched "
+                f"policy_matrix {run['serving_launches']} times for "
+                f"{run['batches']} micro-batches"
+            )
+    cells = []
+    for name in ("default", "kernel"):
+        for w in (4, 1):
+            run = runs[name, w]
+            cells.append(
+                f"{name} x{w}: {run['rows'] / max(1, run['batches']):.1f} rows "
+                f"{run['req_s']:.1f} req/s p99 {run['p99']:.3f} ms"
+            )
+    print(
+        "phase3 pipeline workers 4 against 1 (mean rows per micro-batch): "
+        + "; ".join(cells) + f" [{card}]"
+    )
+    kernel_run = runs["kernel", 4]
+    print(f"phase3 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    # -- phase 4: the native pipeline on the card -------------------------
+    t_phase = time.perf_counter()
+    native_phase(reviews, policy_ids, oracle, enc_build, card)
+    print(f"phase4 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- the kernels line -------------------------------------------------
     main_row = next(
@@ -514,7 +905,13 @@ def main() -> int:
             "route": "cuda",
             "source": "policy_server_tpu_torch/csrc/policy_matrix.cu",
             "replaces": "policy_server_tpu/ops/pallas_kernels.py:164",
-            "launches": counts["policy_matrix"],
+            # the run that serves through it: at the default flags this
+            # traffic's batches are answered on the host
+            "launches": kernel_run["serving_launches"],
+            "launches_from": (
+                f"phase 3 HTTP run {kernel_label}, 4 pipeline workers: "
+                f"launches after the server's warmup"
+            ),
             "max_abs_err": k1_err,
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -527,7 +924,11 @@ def main() -> int:
             "route": "cuda",
             "source": "policy_server_tpu_torch/csrc/policy_matrix.cu",
             "replaces": "policy_server_tpu/ops/pallas_kernels.py:83",
-            "launches": counts["probe"],
+            "launches": kernel_run["launches"]["probe"],
+            "launches_from": (
+                f"phase 3 HTTP run {kernel_label}, 4 pipeline workers: the "
+                f"environment's build"
+            ),
             "max_abs_err": probe_err,
             "ms": probe_ms,
             "plain_ms": probe_plain_ms,

@@ -2,12 +2,16 @@
 
 * POST ``/validate/{policy_id}``     → the AdmissionReview response
 * POST ``/validate_raw/{policy_id}`` → the raw review response
-* GET  ``/readiness``                → ``ok``
+* GET  ``/readiness``                → ``ok`` (with the device breaker's
+  counters once it has tripped or a device error was seen; 503 while it
+  is open under ``--degraded-mode reject``)
 
 Error mapping: a malformed JSON body → 422 ``{"message", "status"}``;
 PolicyNotFound → 404; any other evaluation error → 500 "Something went
 wrong". Bodies are ``json.dumps`` of the response dict with the default
-separators, byte for byte what the JAX package's aiohttp frontend writes.
+separators, byte for byte what the JAX package's aiohttp frontend writes;
+a ``FragVerdict`` (a cache hit answered from a pre-built template) writes
+the bytes of ``FragTemplate.to_response(uid)``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from policy_server_tpu_torch.models import (
     RawReviewResponse,
     ValidateRequest,
 )
+from policy_server_tpu_torch.models.admission import FragVerdict
 
 logger = logging.getLogger("kubewarden-policy-server")
 
@@ -91,12 +96,39 @@ def evaluate_body(
     except Exception as e:  # noqa: BLE001 — keep the JSON error contract
         logger.error("Evaluation error: %s", e)
         return 500, api_error_body(500, "Something went wrong")
+    if type(result) is FragVerdict:
+        result = result.to_response()
     envelope = (
         AdmissionReviewResponse(result)
         if kind == "validate"
         else RawReviewResponse(result)
     )
     return 200, json.dumps(envelope.to_dict()).encode()
+
+
+def readiness(batcher: Any) -> tuple[int, str]:
+    """The /readiness verdict. 503 while the device breaker is open under
+    ``--degraded-mode reject``, as the JAX package's (every review would be
+    answered with an in-band 503); otherwise 200. Once the breaker has
+    tripped, or a kernel or CUDA error has failed requests, the body shows
+    the counts, so host answers in place of the device's are never
+    silent."""
+    env = batcher.env
+    if batcher.degraded_mode == "reject" and env.breaker_all_open:
+        return 503, (
+            "the device breaker is open and --degraded-mode reject refuses "
+            "traffic"
+        )
+    stats = env.breaker_stats
+    errors = env.device_errors
+    if not stats.get("trips") and not errors:
+        return 200, "ok"
+    return 200, (
+        f"ok; device breaker {'open' if stats['open_shards'] else 'closed'}: "
+        f"trips {stats['trips']}, recoveries {stats['recoveries']}, requests "
+        f"answered by the host oracle while open "
+        f"{stats['short_circuited_requests']}; device errors {errors}"
+    )
 
 
 class ApiHandler(BaseHTTPRequestHandler):
@@ -120,7 +152,8 @@ class ApiHandler(BaseHTTPRequestHandler):
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's hook name
         if self.path == "/readiness":
-            self._send(200, b"ok", "text/plain; charset=utf-8")
+            status, text = readiness(self.server.batcher)
+            self._send(status, text.encode(), "text/plain; charset=utf-8")
         else:
             self._send_json(404, api_error_body(404, "Not Found"))
 

@@ -7,7 +7,9 @@ verdict.
 * ``post_evaluate``: mode and mutation constraints apply for the Validate
   origin but not for Audit — protect mode strips the patch of a policy not
   allowed to mutate and rejects; monitor mode always accepts, dropping
-  patch and status.
+  patch and status. A ``FragVerdict`` (a verdict-cache hit answered from a
+  pre-built template) passes unchanged: its eligibility — protect mode, no
+  mutator, static messages — makes the constraints the identity on it.
 
 ``evaluate`` is the synchronous single-request path; the micro-batcher
 (runtime/batcher.py) runs the same halves around one batched dispatch.
@@ -27,6 +29,7 @@ from policy_server_tpu_torch.models import (
     ValidateRequest,
     ValidationStatus,
 )
+from policy_server_tpu_torch.models.admission import FragVerdict
 from policy_server_tpu_torch.models.policy import PolicyMode
 
 logger = logging.getLogger("kubewarden-policy-server")
@@ -108,9 +111,9 @@ def post_evaluate(
     env: EvaluationEnvironment,
     policy_id: str,
     origin: RequestOrigin,
-    vanilla: AdmissionResponse,
-) -> AdmissionResponse:
-    if origin is RequestOrigin.VALIDATE:
+    vanilla: AdmissionResponse | FragVerdict,
+) -> AdmissionResponse | FragVerdict:
+    if origin is RequestOrigin.VALIDATE and type(vanilla) is not FragVerdict:
         return validation_response_with_constraints(
             policy_id,
             env.get_policy_mode(policy_id),

@@ -7,17 +7,36 @@ expressions type-checked at boot, ``policy_initialization_errors`` under
 ``continue_on_errors``. ``validate(policy_id, request)`` dispatches single
 vs group targets.
 
-The batched path: every request of a micro-batch is encoded on the host
-into one packed ``uint8`` row per request (``ops/codec.py``), the batch is
-narrowed to its transport form, copied to the card once, and one launch of
-the ``policy_matrix`` kernel (``ops/cuda_kernels.py``) computes every
-policy's verdict for every row. The group combine and the output packing
-run as plain PyTorch on the card, and one copy brings the packed verdicts
-back. Requests that overflow the feature schema fall back to the host
-oracle (``evaluation/oracle.py``) and are counted.
+The serving path (``validate_batch`` → ``_validate_batch_native``):
+
+* a pre-encode BLOB-tier verdict-cache lookup answers exact payload
+  replays (``evaluation/verdict_cache.py``);
+* the native C++ encoder (``ops/fastenc.py``) writes every remaining
+  request's packed ``uint8`` row in one call per schema bucket; rows that
+  overflow a bucket cascade to the next, and rows beyond the widest fall
+  back to the host oracle (``evaluation/oracle.py``, counted);
+* one ``np.unique`` over the packed rows gives the ROW-tier lookup and the
+  in-batch dedup, so only unique, uncached rows are dispatched;
+* the device step is split: the enqueue copies the batch (narrowed to its
+  transport form) to the card from page-locked memory, launches the
+  ``policy_matrix`` kernel (``ops/cuda_kernels.py``), runs the group
+  combine and the output packing as plain PyTorch, starts the copy back
+  into a page-locked buffer and records a CUDA event; the fetch waits on
+  that event. ``validate_batch_begin`` / ``validate_batch_finish`` expose
+  the split, so the batcher encodes batch N+1 while batch N runs.
+
+A per-environment circuit breaker (``resilience.py``) guards every device
+call and fetch; while it is open, batches are answered by the bit-exact
+host oracle and counted. It counts raises at dispatch and fetch (failpoint
+injections among them) and the batcher's watchdog abandonments, never an
+error the CUDA runtime reported: a kernel or CUDA error is logged and
+fails its batch's requests. ``validate_batch(prefer_host=True)`` is the
+batcher's latency fast path: the targeted host oracle, sharing the
+verdict cache.
 
 Backends: ``torch`` (the device path; ``device="cpu"`` runs the kernels'
-plain PyTorch versions) and ``oracle`` (the host interpreter).
+plain PyTorch versions, and the fetch is immediate) and ``oracle`` (the
+host interpreter).
 """
 
 from __future__ import annotations
@@ -25,13 +44,16 @@ from __future__ import annotations
 import base64
 import dataclasses
 import json
+import logging
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.evaluation import groups as groups_mod
 from policy_server_tpu_torch.evaluation import oracle as oracle_mod
 from policy_server_tpu_torch.evaluation.errors import (
@@ -46,6 +68,10 @@ from policy_server_tpu_torch.evaluation.precompiled import (
     ProgramCache,
 )
 from policy_server_tpu_torch.evaluation.settings import PolicyEvaluationSettings
+from policy_server_tpu_torch.evaluation.verdict_cache import (
+    VerdictCache,
+    extract_row,
+)
 from policy_server_tpu_torch.models import (
     AdmissionResponse,
     StatusCause,
@@ -53,14 +79,18 @@ from policy_server_tpu_torch.models import (
     ValidateRequest,
     ValidationStatus,
 )
-from policy_server_tpu_torch.models.admission import JSON_PATCH
+from policy_server_tpu_torch.models.admission import (
+    JSON_PATCH,
+    FragTemplate,
+    FragVerdict,
+)
 from policy_server_tpu_torch.models.policy import (
     Policy,
     PolicyGroup,
     PolicyMode,
     PolicyOrPolicyGroup,
 )
-from policy_server_tpu_torch.ops import cuda_kernels
+from policy_server_tpu_torch.ops import cuda_kernels, fastenc
 from policy_server_tpu_torch.ops.codec import (
     DEFAULT_AXIS_CAP,
     DEFAULT_NESTED_AXIS_CAP,
@@ -75,7 +105,10 @@ from policy_server_tpu_torch.ops.optimizer import (
     optimize_policy_set,
 )
 from policy_server_tpu_torch.policies import resolve_builtin
+from policy_server_tpu_torch.resilience import CircuitBreaker
 from policy_server_tpu_torch.utils.interning import InternTable
+
+logger = logging.getLogger("kubewarden-policy-server")
 
 GROUP_MUTATION_MESSAGE = "mutation is not allowed inside of policy group"
 
@@ -86,6 +119,40 @@ CONTEXT_KEY = "__context__"
 # codec's defaults, 64 and 32); the JAX package's defaults
 SMALL_AXIS_CAP = 8
 SMALL_NESTED_AXIS_CAP = 4
+
+# Verdict-cache budget in BYTES, split evenly between the blob tier
+# (pre-encode exact-replay dedup) and the row tier (post-encode
+# uid-insensitive dedup); 0 disables caching AND in-batch row dedup.
+DEFAULT_VERDICT_CACHE_SIZE = 256 * 1024 * 1024
+
+# Cached-row key under which a row dict carries its per-target
+# FragTemplate map ({cache key of target: FragTemplate | False}); the
+# materializers never read it and extract_row copies it along.
+FRAG_KEY = "__frag__"
+
+# Thread-local arming flag: FragVerdicts go only to callers that handle
+# them (the batcher's pipeline, which runs begin and finish on one thread);
+# direct validate_batch callers keep getting AdmissionResponse rows.
+_frag_scope = threading.local()
+
+
+class fragment_responses:
+    """Context manager arming the cache-hit fragment lane on this thread
+    (see FRAG_KEY). Entered by the batcher around its pipeline call."""
+
+    __slots__ = ("_prev",)
+
+    def __enter__(self) -> "fragment_responses":
+        self._prev = getattr(_frag_scope, "on", False)
+        _frag_scope.on = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _frag_scope.on = self._prev
+
+
+def _fragments_enabled() -> bool:
+    return getattr(_frag_scope, "on", False)
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -124,6 +191,62 @@ class _RowView:
     def get(self, key: str, default: Any = None) -> Any:
         arr = self._outputs.get(key)
         return default if arr is None else arr[self._row]
+
+
+class PinnedBuffers:
+    """Page-locked host buffers of one environment (one card), kept per
+    (shape, dtype) — the batch bucket fixes the shape — and lent to ONE
+    device step at a time: a buffer returns to the pool only after the
+    fetch that owns it has read it, so a pipeline worker never writes a
+    buffer another is still reading."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._free: dict[tuple, list[torch.Tensor]] = {}  # guarded-by: _lock
+
+    def take(self, shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        with self._lock:
+            free = self._free.get((shape, dtype))
+            if free:
+                return free.pop()
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def give(self, *buffers: torch.Tensor) -> None:
+        with self._lock:
+            for b in buffers:
+                self._free.setdefault((tuple(b.shape), b.dtype), []).append(b)
+
+
+class InflightStep:
+    """One enqueued device step: the CUDA event recorded after its copy
+    back, and the page-locked input and output buffers it holds until
+    :meth:`wait` has read the output. On the CPU the output is ready at
+    enqueue and ``wait`` returns it at once."""
+
+    __slots__ = ("event", "host_in", "host_out", "pool", "ready")
+
+    def __init__(
+        self,
+        event: Any = None,
+        host_in: torch.Tensor | None = None,
+        host_out: torch.Tensor | None = None,
+        pool: PinnedBuffers | None = None,
+        ready: np.ndarray | None = None,
+    ) -> None:
+        self.event = event
+        self.host_in = host_in
+        self.host_out = host_out
+        self.pool = pool
+        self.ready = ready
+
+    def wait(self) -> np.ndarray:
+        if self.ready is not None:
+            return self.ready
+        self.event.synchronize()
+        out = self.host_out.numpy().copy()
+        self.pool.give(self.host_in, self.host_out)
+        self.ready = out
+        return out
 
 
 def pre_eval_hooks_of(target: "BoundPolicy | BoundGroup") -> list:
@@ -192,6 +315,8 @@ class EvaluationEnvironmentBuilder:
         continue_on_errors: bool = False,
         always_accept_admission_reviews_on_namespace: str | None = None,
         predicate_opt: bool = True,
+        verdict_cache_size: int = DEFAULT_VERDICT_CACHE_SIZE,
+        breaker_config: Mapping[str, Any] | None = None,
     ) -> None:
         if backend not in ("torch", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -200,6 +325,8 @@ class EvaluationEnvironmentBuilder:
         self.continue_on_errors = continue_on_errors
         self.always_accept_namespace = always_accept_admission_reviews_on_namespace
         self.predicate_opt = predicate_opt
+        self.verdict_cache_size = verdict_cache_size
+        self.breaker_config = breaker_config
 
     def build(
         self, policies: Mapping[str, PolicyOrPolicyGroup]
@@ -296,16 +423,29 @@ class EvaluationEnvironmentBuilder:
             init_errors=init_errors,
             always_accept_namespace=self.always_accept_namespace,
             predicate_opt=self.predicate_opt,
+            verdict_cache_size=self.verdict_cache_size,
+            breaker_config=self.breaker_config,
         )
 
 
-class EvaluationEnvironment:
-    """Immutable post-boot registry + the batched evaluator. All state is
-    read-only after construction, apart from the fallback counter and the
-    lazily built kernel programs (guarded by ``_lock``)."""
+_NO_CACHE_STATS = {
+    "cache_hits": 0,
+    "cache_misses": 0,
+    "cache_entries": 0,
+    "cache_bytes": 0,
+    "cache_capacity": 0,
+}
 
-    # largest batch one dispatch takes; bigger batches are chunked
+
+class EvaluationEnvironment:
+    """The post-boot registry and the batched evaluator. The registry is
+    read-only after construction; the counters, caches and lazily built
+    kernel programs are guarded by their own locks."""
+
+    # largest single device dispatch; bigger lists are chunked
     max_dispatch_batch = 1024
+    # dispatches a chunked list keeps in flight before it fetches the oldest
+    max_inflight_dispatches = 32
 
     def __init__(
         self,
@@ -316,6 +456,8 @@ class EvaluationEnvironment:
         init_errors: dict[str, str],
         always_accept_namespace: str | None = None,
         predicate_opt: bool = True,
+        verdict_cache_size: int = DEFAULT_VERDICT_CACHE_SIZE,
+        breaker_config: Mapping[str, Any] | None = None,
     ) -> None:
         self.backend = backend
         self.device = device
@@ -323,8 +465,7 @@ class EvaluationEnvironment:
         self._bound = bound
         self._groups = groups
         self._init_errors = init_errors
-        self._lock = threading.Lock()
-        self._oracle_fallbacks = 0  # guarded-by: _lock
+        self._lock = threading.Lock()  # kernel programs and the table swap
         self.table = InternTable()
         exprs = [
             rule.condition
@@ -359,8 +500,14 @@ class EvaluationEnvironment:
         ]
         self.schema = self.schemas[-1]
         # the device selects a layout by row width, so widths must be
-        # unique across schemas and buffer forms
+        # unique across schemas and buffer forms; fixed before the native
+        # encoder captures the row stride
         ensure_unique_packed_widths(self.schemas)
+        if backend == "torch":
+            # the native encoder is the serving path's only encoder: a
+            # failed g++ build raises here, with g++'s output
+            for schema in self.schemas:
+                fastenc.attach_native(schema)
         self._policy_order = list(bound)
         self._policy_index = {pid: j for j, pid in enumerate(self._policy_order)}
         # uint8 outputs when every rule index fits a byte
@@ -389,6 +536,55 @@ class EvaluationEnvironment:
             ]
             risky = [e for e in members if e[5] is not None]
             self._group_mat[name] = (f"g:{name}:allowed", members, risky)
+        # the device path's breaker: dispatch and fetch faults, and the
+        # batcher's watchdog abandonments (record_dispatch_failure), trip
+        # it; while open, batches short-circuit to the host oracle
+        self.breaker = (
+            CircuitBreaker(**dict(breaker_config or {}))
+            if backend == "torch"
+            else None
+        )
+        # the two-tier verdict cache (verdict_cache.py): the byte budget
+        # splits between the blob and the row tier; the oracle backend is
+        # the independent reference and always recomputes
+        caching = verdict_cache_size > 0 and backend == "torch"
+        self._verdict_cache = (
+            VerdictCache(max(1, verdict_cache_size // 2)) if caching else None
+        )
+        self._blob_cache = (
+            VerdictCache(max(1, verdict_cache_size - verdict_cache_size // 2))
+            if caching
+            else None
+        )
+        self._stats_lock = threading.Lock()
+        self._oracle_fallbacks = 0  # guarded-by: _stats_lock
+        # requests answered host-side because the breaker was open
+        self._breaker_short_circuited = 0  # guarded-by: _stats_lock
+        # kernel and CUDA errors at dispatch or fetch (kept from the breaker)
+        self._device_errors = 0  # guarded-by: _stats_lock
+        # rows answered by validate_batch(prefer_host=True)
+        self._host_fastpath_requests = 0  # guarded-by: _stats_lock
+        # rows answered by another identical row of the SAME batch
+        self._batch_dedup_hits = 0  # guarded-by: _stats_lock
+        # rows answered as pre-built fragments
+        self._frag_hits = 0  # guarded-by: _stats_lock
+        # where the native path's host time goes: ns totals and row counts
+        self._host_profile: dict[str, int] = {  # guarded-by: _stats_lock
+            "encode_ns": 0,  # the native encode calls
+            "encode_rows": 0,  # rows that went through the encoder
+            "bookkeeping_ns": 0,  # both dedup tiers and slot bookkeeping
+            "bookkeeping_rows": 0,
+            "dispatch_wait_ns": 0,  # blocked in the fetch
+            "dispatched_rows": 0,  # unique rows sent to the device
+            "dispatched_chunks": 0,
+        }
+        # hot-loop memos over the immutable registry (dict get/set is
+        # atomic under the GIL; racing builders store identical values)
+        self._target_memo: dict[str, Any] = {}
+        self._hooks_memo: dict[int, list] = {}
+        self._blob_plain_memo: dict[int, bool] = {}
+        self._frag_eligible_memo: dict[int, bool] = {}
+        self._pinned = PinnedBuffers()
         self._compile()
         if backend == "torch" and device is not None and device.type == "cuda":
             self._probe_device()
@@ -475,8 +671,9 @@ class EvaluationEnvironment:
         in id order from id 1 (id 0 is the reserved MISSING id), and
         ``layouts`` each schema's ``PackedLayout`` fields
         (``dataclasses.asdict``). Afterwards a packed buffer encoded by
-        that environment evaluates unchanged here. Raises ValueError when
-        a layout differs."""
+        that environment evaluates unchanged here. The verdict cache is
+        emptied: its row keys are packed bytes of the old ids. Raises
+        ValueError when a layout differs."""
         if len(layouts) != len(self.schemas):
             raise ValueError(
                 f"{len(layouts)} layouts given for {len(self.schemas)} schemas"
@@ -492,6 +689,7 @@ class EvaluationEnvironment:
         with self._lock:
             self.table = table
         self._compile()
+        self.reset_verdict_cache()
 
     # -- registry accessors ------------------------------------------------
 
@@ -535,11 +733,6 @@ class EvaluationEnvironment:
             and namespace == self.always_accept_namespace
         )
 
-    @property
-    def oracle_fallbacks(self) -> int:
-        with self._lock:
-            return self._oracle_fallbacks
-
     @staticmethod
     def _providers_of(target: "BoundPolicy | BoundGroup") -> list:
         bps = (
@@ -568,6 +761,247 @@ class EvaluationEnvironment:
             ctx.update(provider(payload))
         payload[CONTEXT_KEY] = ctx
         return payload
+
+    # -- hot-loop memos and cache keys -------------------------------------
+
+    def _fast_target(self, policy_id: str) -> "BoundPolicy | BoundGroup":
+        """Memoized top-level lookup for the batch loops. Failing ids
+        (unknown, init-error) raise through the uncached path every time."""
+        target = self._target_memo.get(policy_id)
+        if target is None:
+            target = self._lookup_top_level(PolicyID.parse(policy_id))
+            self._target_memo[policy_id] = target
+        return target
+
+    def _hooks_of(self, target: "BoundPolicy | BoundGroup") -> list:
+        hooks = self._hooks_memo.get(id(target))
+        if hooks is None:
+            hooks = pre_eval_hooks_of(target)
+            self._hooks_memo[id(target)] = hooks
+        return hooks
+
+    def _target_plain(self, target: "BoundPolicy | BoundGroup") -> bool:
+        """Memoized: True when the target's evaluation payload is the raw
+        request document (no context providers), so the canonical blob is
+        ``request.payload_json()``. The one source of truth for
+        ``_payload_blob`` and ``_blob_of``: desynchronizing them would key
+        the blob tier on other bytes than the payload evaluated."""
+        plain = self._blob_plain_memo.get(id(target))
+        if plain is None:
+            plain = not self._providers_of(target)
+            self._blob_plain_memo[id(target)] = plain
+        return plain
+
+    def _payload_blob(
+        self, target: "BoundPolicy | BoundGroup", request: ValidateRequest
+    ) -> bytes:
+        if self._target_plain(target):
+            return request.payload_json()
+        return json.dumps(
+            self.payload_for(target, request), separators=(",", ":")
+        ).encode()
+
+    def _blob_of(
+        self, target: "BoundPolicy | BoundGroup", request: ValidateRequest,
+        payload: Any,
+    ) -> bytes:
+        """Canonical payload blob for ONE request given its already-built
+        ``payload`` — the same object the verdict is computed from."""
+        if self._target_plain(target):
+            return request.payload_json()
+        return json.dumps(payload, separators=(",", ":")).encode()
+
+    @staticmethod
+    def _cache_key_of(target: "BoundPolicy | BoundGroup") -> tuple[str, str]:
+        """Stable identity of an evaluation target in the verdict cache
+        (the prefix keeps policy and group names disjoint)."""
+        if isinstance(target, BoundGroup):
+            return ("g", target.name)
+        return ("p", target.policy_id)
+
+    def _cacheable(self, target: "BoundPolicy | BoundGroup") -> bool:
+        """Whether a target's verdict is a pure function of its payload
+        blob: every target this package serves (host-executed policies,
+        whose verdicts depend on a wall-clock budget, are refused at
+        build)."""
+        return True
+
+    def _frag_eligible(self, target: "BoundPolicy | BoundGroup") -> bool:
+        """True when a cached output row's RESPONSE is a pure function of
+        (target, row) plus the request uid, and the service layer's
+        constraints are provably the identity on it: protect mode, no
+        mutator in the target, every reachable rule message static.
+        Memoized per target."""
+        hit = self._frag_eligible_memo.get(id(target))
+        if hit is not None:
+            return hit
+        ok = self._cacheable(target)
+        if ok:
+            if isinstance(target, BoundGroup):
+                _ak, members, risky = self._group_mat[target.name]
+                ok = (
+                    target.policy_mode is PolicyMode.PROTECT
+                    and not risky
+                    and isinstance(target.message, str)
+                    and all(
+                        isinstance(r.message, str)
+                        for e in members
+                        for r in e[1].precompiled.program.rules
+                    )
+                )
+            else:
+                prog = target.precompiled.program
+                ok = (
+                    target.eval_settings.policy_mode is PolicyMode.PROTECT
+                    and prog.mutator is None
+                    and all(isinstance(r.message, str) for r in prog.rules)
+                )
+        self._frag_eligible_memo[id(target)] = ok
+        return ok
+
+    def _frag_of(
+        self, target: "BoundPolicy | BoundGroup", row: Mapping[str, Any]
+    ) -> "FragTemplate | None":
+        """The cached row's FragTemplate for ``target``, built on its first
+        hit and attached to the row dict under FRAG_KEY (dict stores are
+        GIL-atomic; racing builders produce identical templates). None for
+        ineligible targets: the caller materializes normally."""
+        frags = row.get(FRAG_KEY)
+        if frags is None:
+            frags = {}
+            row[FRAG_KEY] = frags  # type: ignore[index]
+        ckey = self._cache_key_of(target)
+        tmpl = frags.get(ckey)
+        if tmpl is None:
+            if not self._frag_eligible(target):
+                frags[ckey] = False
+                return None
+            resp = self._materialize_from_row(target, "", row)
+            st = resp.status
+            try:
+                tmpl = FragTemplate(
+                    allowed=resp.allowed,
+                    code=None if st is None else st.code,
+                    message=None if st is None else st.message,
+                    causes=(
+                        tuple((c.field, c.message) for c in st.details.causes)
+                        if st is not None and st.details is not None
+                        else None
+                    ),
+                )
+            except UnicodeEncodeError:
+                # a static message json can carry but utf-8 cannot encode
+                # (a lone surrogate): rendered per row instead
+                frags[ckey] = False
+                return None
+            frags[ckey] = tmpl
+        return tmpl or None  # the False sentinel → None
+
+    def _materialize_from_row(
+        self, target: "BoundPolicy | BoundGroup", uid: str, row: Mapping[str, Any]
+    ) -> AdmissionResponse:
+        """_materialize for a bare output row with no request in hand:
+        eligible targets never touch the payload, and a raising stand-in
+        keeps that claim checked."""
+
+        def _no_payload() -> Any:
+            raise RuntimeError(
+                "fragment-eligible target touched the request payload"
+            )
+
+        if isinstance(target, BoundGroup):
+            return self._materialize_group(target, uid, _no_payload, row)
+        return self._materialize_single(target, uid, _no_payload, row)
+
+    def _row_cache_key(self, target, blob: bytes) -> tuple | None:
+        """(target, packed row bytes) row-tier key for ONE request — the
+        host fast path's entry into the key space the device path dedups
+        on. None when no schema holds the request (the caller evaluates
+        normally). Costs a single-row native encode, so the host path
+        consults the blob tier first."""
+        try:
+            for schema in self.schemas:
+                features, status = schema.native.encode_batch(
+                    [blob], 1, self.table
+                )
+                if status[0] == 0:
+                    return (
+                        self._cache_key_of(target),
+                        features[PACKED_KEY][0].tobytes(),
+                    )
+        except ValueError:
+            return None
+        return None
+
+    def reset_verdict_cache(self) -> None:
+        """Drop every cached verdict row in both tiers (a no-op when caching
+        is off). Counters are kept: they are cumulative."""
+        for tier in (self._verdict_cache, self._blob_cache):
+            if tier is not None:
+                tier.clear()
+
+    # -- counters ----------------------------------------------------------
+
+    def _profile_add(self, **deltas: int) -> None:
+        with self._stats_lock:
+            hp = self._host_profile
+            for k, v in deltas.items():
+                hp[k] += v
+
+    @property
+    def oracle_fallbacks(self) -> int:
+        """Rows no schema bucket holds, answered by the host oracle."""
+        with self._stats_lock:
+            return self._oracle_fallbacks
+
+    @property
+    def host_fastpath_requests(self) -> int:
+        with self._stats_lock:
+            return self._host_fastpath_requests
+
+    @property
+    def batch_dedup_hits(self) -> int:
+        with self._stats_lock:
+            return self._batch_dedup_hits
+
+    @property
+    def breaker_short_circuited_requests(self) -> int:
+        with self._stats_lock:
+            return self._breaker_short_circuited
+
+    @property
+    def host_profile(self) -> dict[str, int]:
+        """Where the native path's host time goes (ns totals and row
+        counts: encode, dedup bookkeeping, fetch wait)."""
+        with self._stats_lock:
+            return dict(self._host_profile)
+
+    @property
+    def warmup_dispatches(self) -> int:
+        """Device dispatches ONE ``warmup((b,))`` call issues (one per
+        schema bucket); the batcher divides its RTT seed by this."""
+        return len(self.schemas)
+
+    @property
+    def dedup_stats(self) -> dict[str, int]:
+        """Verdict-cache and in-batch dedup counters: ``cache_*`` keys are
+        the row tier, ``blob_*`` keys the blob tier."""
+        stats = (
+            self._verdict_cache.stats()
+            if self._verdict_cache is not None
+            else dict(_NO_CACHE_STATS)
+        )
+        blob = (
+            self._blob_cache.stats()
+            if self._blob_cache is not None
+            else dict(_NO_CACHE_STATS)
+        )
+        for k, v in blob.items():
+            stats["blob_" + k] = v
+        with self._stats_lock:
+            stats["batch_dup_hits"] = self._batch_dedup_hits
+            stats["fragment_hits"] = self._frag_hits
+        return stats
 
     # -- the device step ---------------------------------------------------
 
@@ -683,24 +1117,123 @@ class EvaluationEnvironment:
                 out[f"g:{name}:eval:{mname}"] = g_eval[..., gi, mi]
         return out
 
-    def evaluate_packed(self, buf: np.ndarray) -> np.ndarray:
-        """One packed ``uint8`` batch (any of the three forms) → the packed
-        output array: one host-to-device copy, one ``policy_matrix``
-        launch, the combine, one copy back."""
+    def enqueue_packed(self, buf: np.ndarray) -> InflightStep:
+        """Start the device step of one packed ``uint8`` batch (any of the
+        three forms): the copy to the card from a page-locked buffer, one
+        ``policy_matrix`` launch, the combine, and the copy back into a
+        page-locked buffer, all queued on the card's current stream, then
+        a CUDA event. Returns without waiting; ``InflightStep.wait`` is the
+        fetch. On the CPU the step runs at once."""
         idx, _layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
         program = self.program_for(idx, transport, narrow)
-        dev_buf = torch.from_numpy(np.ascontiguousarray(buf)).to(self.device)
-        a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
-        out = self._combine_outputs(a_mat, r_mat, program.column_of)
-        return out.cpu().numpy()
+        if self.device.type != "cuda":
+            dev_buf = torch.from_numpy(np.ascontiguousarray(buf))
+            a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
+            out = self._combine_outputs(a_mat, r_mat, program.column_of)
+            return InflightStep(ready=out.numpy())
+        pool = self._pinned
+        host_in = pool.take(tuple(buf.shape), torch.uint8)
+        host_in.numpy()[...] = buf
+        with torch.cuda.device(self.device):
+            dev_buf = host_in.to(self.device, non_blocking=True)
+            a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
+            out = self._combine_outputs(a_mat, r_mat, program.column_of)
+            host_out = pool.take(tuple(out.shape), out.dtype)
+            host_out.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return InflightStep(event, host_in, host_out, pool)
+
+    def evaluate_packed(self, buf: np.ndarray) -> np.ndarray:
+        """One packed ``uint8`` batch → the packed output array: the
+        enqueue followed by its fetch."""
+        return self.enqueue_packed(buf).wait()
+
+    def _enqueue_features(self, features: Mapping[str, Any]) -> InflightStep:
+        """An encoded (wide packed) batch, narrowed to its transport form
+        and enqueued."""
+        return self.enqueue_packed(np.asarray(self._transport(features)[PACKED_KEY]))
+
+    def _device_call(self, fn: Callable, *args: Any) -> Any:
+        """Run the enqueue half of a device step; a raise is reported
+        (``_device_raised``) and re-raised."""
+        try:
+            return fn(*args)
+        except Exception as e:
+            self._device_raised(e)
+            raise
+
+    def _device_fetch(self, step: InflightStep) -> np.ndarray:
+        """The choke point every device result fetch goes through: fires
+        the ``device.fetch`` failpoint and reports the outcome — a fetch
+        that raises is a fault (``_device_raised``), one that returns is
+        the success that closes a half-open breaker. A fetch that HANGS is
+        invisible here; the batcher's watchdog reports it through
+        record_dispatch_failure."""
+        try:
+            failpoints.fire("device.fetch")
+            out = step.wait()
+        except Exception as e:
+            self._device_raised(e)
+            raise
+        if self.breaker is not None:
+            self.breaker.record_success()
+        return out
+
+    def _device_raised(self, e: Exception) -> None:
+        """A raise at dispatch or fetch. An error the CUDA runtime reported
+        is logged and counted, and stays out of the breaker, so it fails
+        the batch's requests rather than turning into host answers (a
+        sticky one would otherwise trip the breaker for good); any other
+        raise, an injected fault among them, is a breaker failure."""
+        if cuda_kernels.is_cuda_error(e):
+            with self._stats_lock:
+                self._device_errors += 1
+            logger.error("device error, the batch's requests fail: %s", e)
+        elif self.breaker is not None:
+            self.breaker.record_failure()
+
+    def record_dispatch_failure(self, policy_ids: Any = None) -> None:
+        """Report a device-path failure the environment cannot observe
+        itself: the batcher's watchdog abandoning a hung batch."""
+        if self.breaker is not None:
+            self.breaker.record_failure()
+
+    @property
+    def breaker_all_open(self) -> bool:
+        """True while the device path is tripped AND still blocking (the
+        --degraded-mode gate). ``blocking_device``, not ``is_open``: once
+        the cooldown makes a probe due this flips False, so the batch goes
+        to the dispatch path whose allow_device() runs the probe."""
+        return self.breaker is not None and self.breaker.blocking_device
+
+    @property
+    def breaker_stats(self) -> dict[str, int]:
+        """Breaker counters, in the JAX package's schema."""
+        if self.breaker is None:
+            return {}
+        stats = self.breaker.stats()
+        stats.pop("state_code", None)
+        stats["open_shards"] = stats.pop("open")
+        stats["total_shards"] = 1
+        with self._stats_lock:
+            stats["short_circuited_requests"] = self._breaker_short_circuited
+        return stats
+
+    @property
+    def device_errors(self) -> int:
+        """Kernel and CUDA errors at dispatch or fetch (each failed its
+        batch's requests; none fed the breaker)."""
+        with self._stats_lock:
+            return self._device_errors
 
     def run_batch(self, features: Mapping[str, Any]) -> dict[str, np.ndarray]:
-        """Dispatch one encoded (wide packed) batch: narrow it to the
-        transport form, evaluate it on the device, unpack the verdicts."""
+        """Dispatch one encoded (wide packed) batch and fetch its verdicts,
+        through the breaker and the ``device.fetch`` failpoint."""
         if self.backend != "torch":
             raise RuntimeError("run_batch needs the torch backend")
-        buf = np.asarray(self._transport(features)[PACKED_KEY])
-        return self._unpack(self.evaluate_packed(buf))
+        step = self._device_call(self._enqueue_features, features)
+        return self._unpack(self._device_fetch(step))
 
     def warmup(self, batch_sizes: tuple[int, ...] = (1,)) -> None:
         """Run an all-missing batch of each size through every schema
@@ -710,9 +1243,9 @@ class EvaluationEnvironment:
                 self.run_batch(schema.empty_batch_packed(b))
 
     def encode_bucketed(self, payload: Any) -> tuple[int, dict[str, np.ndarray]]:
-        """Encode into the smallest shape bucket that fits; raises
-        SchemaOverflow when even the widest schema cannot hold the
-        request (→ oracle fallback)."""
+        """Encode with the Python trie (the native encoder's plain version)
+        into the smallest shape bucket that fits; raises SchemaOverflow
+        when even the widest schema cannot hold the request."""
         last_error: SchemaOverflow | None = None
         for i, schema in enumerate(self.schemas):
             try:
@@ -757,68 +1290,553 @@ class EvaluationEnvironment:
                 out[f"g:{name}:eval:{m}"] = evaluated.get(m, False)
         return out
 
+    def _oracle_outputs_for(
+        self, target: BoundPolicy | BoundGroup, payload: Any
+    ) -> dict[str, Any]:
+        """Targeted host-oracle evaluation: only the programs the target's
+        materializer reads (one policy, or a group's members and its
+        expression) — the host fast path's cost is the addressed policy's,
+        not the whole set's."""
+        out: dict[str, Any] = {}
+        if isinstance(target, BoundGroup):
+            member_allowed: dict[str, bool] = {}
+            for m, bp in target.members.items():
+                allowed, rule_idx = oracle_mod.evaluate_program(
+                    bp.precompiled.program, payload
+                )
+                out[f"p:{bp.policy_id}:allowed"] = allowed
+                out[f"p:{bp.policy_id}:rule"] = rule_idx
+                member_allowed[m] = bool(allowed)
+            verdict, evaluated = groups_mod.evaluate_group_host(
+                target.ast, member_allowed
+            )
+            out[f"g:{target.name}:allowed"] = verdict
+            for m in target.members:
+                out[f"g:{target.name}:eval:{m}"] = evaluated.get(m, False)
+            return out
+        allowed, rule_idx = oracle_mod.evaluate_program(
+            target.precompiled.program, payload
+        )
+        out[f"p:{target.policy_id}:allowed"] = allowed
+        out[f"p:{target.policy_id}:rule"] = rule_idx
+        return out
+
+    @property
+    def supports_host_fastpath(self) -> bool:
+        """True when validate_batch(prefer_host=True) answers on the host:
+        the batcher may route small or late batches there. The oracle
+        backend is host-side already."""
+        return self.backend == "torch"
+
     def validate_batch(
         self,
         items: list[tuple[str, ValidateRequest]],
         run_hooks: bool = True,
+        prefer_host: bool = False,
     ) -> list[AdmissionResponse | Exception]:
         """Evaluate many (policy_id, request) pairs; on the torch backend
-        each schema bucket of the batch is one device dispatch.
+        through the native pipeline, one device dispatch per schema bucket
+        and chunk of unique, uncached rows.
 
         Per-item failures (unknown id, initialization error) come back as
-        Exception entries; SchemaOverflow rows fall back to the host
-        oracle."""
-        if len(items) > self.max_dispatch_batch:
-            out: list[AdmissionResponse | Exception] = []
-            for c in range(0, len(items), self.max_dispatch_batch):
-                out.extend(
-                    self.validate_batch(
-                        items[c : c + self.max_dispatch_batch],
-                        run_hooks=run_hooks,
-                    )
-                )
-            return out
-        results: list[AdmissionResponse | Exception | None] = [None] * len(items)
-        targets: list[Any] = [None] * len(items)
-        encodable: dict[int, list[int]] = {}
-        encoded: dict[int, list[dict[str, np.ndarray]]] = {}
-        for i, (policy_id, request) in enumerate(items):
+        Exception entries; rows no schema holds fall back to the host
+        oracle. ``prefer_host=True`` (the batcher's latency fast path)
+        answers with the targeted host oracle instead of the device; while
+        the breaker is open, every batch does."""
+        if self.backend == "oracle":
+            return self._validate_batch_oracle(items, run_hooks)
+        if prefer_host:
+            return self._validate_batch_hostpath(items, run_hooks)
+        if not self.breaker.allow_device():
+            # tripped: the bit-exact host oracle serves until a half-open
+            # probe (admitted by allow_device after the cooldown) closes it
+            with self._stats_lock:
+                self._breaker_short_circuited += len(items)
+            return self._validate_batch_hostpath(items, run_hooks)
+        return self._validate_batch_native(items, run_hooks)
+
+    def _validate_batch_oracle(
+        self, items: list[tuple[str, ValidateRequest]], run_hooks: bool
+    ) -> list[AdmissionResponse | Exception]:
+        """The oracle backend: every row through the host interpreter."""
+        results: list[AdmissionResponse | Exception] = []
+        for policy_id, request in items:
             try:
                 target = self._lookup_top_level(PolicyID.parse(policy_id))
-                targets[i] = target
                 payload = self.payload_for(target, request)
                 if run_hooks and pre_eval_hooks_of(target):
                     self._run_pre_eval_hooks(target, payload)
                     # rebuild: providers must observe hook results
                     payload = self.payload_for(target, request)
-                if self.backend == "oracle":
-                    results[i] = self._materialize(
-                        target, request, self._oracle_outputs(payload)
-                    )
-                    continue
-                bucket_idx, enc = self.encode_bucketed(payload)
-                encodable.setdefault(bucket_idx, []).append(i)
-                encoded.setdefault(bucket_idx, []).append(enc)
-            except SchemaOverflow:
-                with self._lock:
-                    self._oracle_fallbacks += 1
-                results[i] = self._materialize(
-                    target, request, self._oracle_outputs(payload)
+                results.append(
+                    self._materialize(target, request, self._oracle_outputs(payload))
                 )
             except Exception as e:  # noqa: BLE001 — per-item error channel
+                results.append(e)
+        return results
+
+    def _validate_batch_hostpath(
+        self,
+        items: list[tuple[str, ValidateRequest]],
+        run_hooks: bool,
+    ) -> list[AdmissionResponse | Exception]:
+        """The latency fast path: per-item semantics of the device path
+        (lookup, hooks, payload), but verdicts from the targeted host
+        oracle — no transfer, no device round trip. The verdict cache
+        serves here too: blob tier first (its key is in hand), the row
+        tier (a single-row encode for its key) only on a blob miss."""
+        results: list[AdmissionResponse | Exception | None] = [None] * len(items)
+        n_host = 0
+        for i, (policy_id, request) in enumerate(items):
+            try:
+                target = self._fast_target(policy_id)
+                payload = self.payload_for(target, request)
+                if run_hooks and self._hooks_of(target):
+                    self._run_pre_eval_hooks(target, payload)
+                    payload = self.payload_for(target, request)
+                key = bkey = None
+                if self._verdict_cache is not None and self._cacheable(target):
+                    blob = self._blob_of(target, request, payload)
+                    bkey = (self._cache_key_of(target), blob)
+                    row = self._blob_cache.get(bkey)
+                    if row is not None:
+                        results[i] = self._materialize(target, request, row)
+                        n_host += 1
+                        continue
+                    key = self._row_cache_key(target, blob)
+                    if key is not None:
+                        row = self._verdict_cache.get(key)
+                        if row is not None:
+                            # no blob-tier backfill: on uid-varying traffic
+                            # each hit's blob never recurs, and inserting
+                            # it would churn the blob tier's real replays
+                            results[i] = self._materialize(target, request, row)
+                            n_host += 1
+                            continue
+                outputs = self._oracle_outputs_for(target, payload)
+                if key is not None:
+                    self._verdict_cache.put(key, outputs)
+                if bkey is not None:
+                    self._blob_cache.put(bkey, outputs)
+                results[i] = self._materialize(target, request, outputs)
+                n_host += 1
+            except Exception as e:  # noqa: BLE001 — per-item error channel
                 results[i] = e
-        for bucket_idx, indices in encodable.items():
-            bucket = bucket_size(len(indices))
-            schema = self.schemas[bucket_idx]
-            batch = schema.pack(
-                schema.stack(encoded[bucket_idx], batch_size=bucket)
-            )
-            outputs = self.run_batch(batch)
-            for row, i in enumerate(indices):
-                results[i] = self._materialize(
-                    targets[i], items[i][1], _RowView(outputs, row)
-                )
+        if n_host:
+            with self._stats_lock:
+                self._host_fastpath_requests += n_host
         return results  # type: ignore[return-value]
+
+    def _validate_batch_native(
+        self,
+        items: list[tuple[str, ValidateRequest]],
+        run_hooks: bool,
+        defer_sink: list | None = None,
+    ) -> list[AdmissionResponse | Exception]:
+        """The native path: each item's payload blob is built once, ONE
+        locked blob-tier lookup answers exact replays before any encode,
+        and the rest go through one native encode per schema bucket
+        (``_native_schema_pass``); rows that overflow a bucket cascade to
+        the next, rows beyond the widest to the host oracle.
+        ``defer_sink``: see validate_batch_begin."""
+        results: list[AdmissionResponse | Exception | None] = [None] * len(items)
+        targets: list[Any] = [None] * len(items)
+        blobs: list[bytes | None] = [None] * len(items)
+        pending: list[int] = []
+        uniform_tid: int | None = None
+        uniform_target = True
+        for i, (policy_id, request) in enumerate(items):
+            try:
+                target = self._fast_target(policy_id)
+                targets[i] = target
+                if run_hooks and self._hooks_of(target):
+                    self._run_pre_eval_hooks(
+                        target, self.payload_for(target, request)
+                    )
+                blobs[i] = self._payload_blob(target, request)
+                if uniform_tid is None:
+                    uniform_tid = id(target)
+                elif id(target) != uniform_tid:
+                    uniform_target = False
+                pending.append(i)
+            except Exception as e:  # noqa: BLE001 — per-item error channel
+                results[i] = e
+
+        # tier 1, the blob tier: exact payload replays never reach the
+        # encoder (one locked batch lookup)
+        bcache = self._blob_cache
+        if bcache is not None and pending:
+            t0 = time.perf_counter_ns()
+            keys = [
+                (self._cache_key_of(targets[i]), blobs[i])
+                if self._cacheable(targets[i])
+                else None
+                for i in pending
+            ]
+            rows = bcache.get_many(keys)
+            still: list[int] = []
+            # under the batcher's fragment scope a hit answers as uid plus
+            # a pre-built template, built once per cached row and target
+            frag_on = _fragments_enabled()
+            n_frag = 0
+            for i, row in zip(pending, rows):
+                if row is None:
+                    still.append(i)
+                    continue
+                tmpl = self._frag_of(targets[i], row) if frag_on else None
+                if tmpl is not None:
+                    results[i] = FragVerdict(items[i][1].uid(), tmpl)
+                    n_frag += 1
+                else:
+                    results[i] = self._materialize(targets[i], items[i][1], row)
+            self._profile_add(
+                bookkeeping_ns=time.perf_counter_ns() - t0,
+                bookkeeping_rows=len(pending),
+            )
+            if n_frag:
+                with self._stats_lock:
+                    self._frag_hits += n_frag
+            pending = still
+
+        for schema in self.schemas:
+            if not pending:
+                break
+            pending = self._native_schema_pass(
+                schema, items, targets, results, pending,
+                blobs=blobs, uniform_target=uniform_target,
+                defer_sink=defer_sink,
+            )
+
+        for i in pending:  # beyond the widest schema → the oracle
+            with self._stats_lock:
+                self._oracle_fallbacks += 1
+            request = items[i][1]
+            results[i] = self._materialize(
+                targets[i], request,
+                self._oracle_outputs(self.payload_for(targets[i], request)),
+            )
+        return results  # type: ignore[return-value]
+
+    # -- split host/device halves (the batcher's pipeline) -----------------
+
+    def validate_batch_begin(
+        self,
+        items: list[tuple[str, ValidateRequest]],
+        run_hooks: bool = True,
+    ) -> tuple | None:
+        """Host half of the native pipeline: lookup, hooks, blob dedup,
+        native encode, row dedup and the device enqueue — everything but
+        waiting for device results. Returns a handle for
+        validate_batch_finish, or None when the pipeline is unavailable
+        (the oracle backend, or a tripped breaker); the caller then uses
+        validate_batch."""
+        if self.backend != "torch" or not self.breaker.allow_device():
+            return None
+        deferred: list = []
+        results = self._validate_batch_native(items, run_hooks, defer_sink=deferred)
+        return (results, deferred)
+
+    def validate_batch_finish(
+        self, handle: tuple
+    ) -> list[AdmissionResponse | Exception]:
+        """Device half: wait for each chunk's fetch and materialize the
+        responses. All blocking happens here (watchdog-safe)."""
+        results, deferred = handle
+        for materialize_fn, entry in deferred:
+            materialize_fn(entry)
+        return results  # type: ignore[return-value]
+
+    def _native_schema_pass(
+        self,
+        schema: FeatureSchema,
+        items: list[tuple[str, ValidateRequest]],
+        targets: list[Any],
+        results: list[AdmissionResponse | Exception | None],
+        pending: list[int],
+        blobs: list[bytes | None],
+        uniform_target: bool = False,
+        defer_sink: list | None = None,
+    ) -> list[int]:
+        """Encode and dispatch all ``pending`` rows against one schema, in
+        chunks of at most ``max_dispatch_batch``; returns the rows that
+        overflowed it.
+
+        The ROW tier sits between encode and dispatch: the device step is
+        a pure function of the encoded row, so rows with identical packed
+        bytes have identical outputs. One ``np.unique`` over a void view of
+        the packed rows gives row identity; cross-batch repeats are
+        answered from the cache, in-chunk duplicates collapse onto one
+        dispatched slot, and only unique rows are copied to the card. Each
+        tier pays one locked batch call per chunk. With ``defer_sink`` set
+        the materialize closures are appended instead of run, so
+        validate_batch_finish can wait for the device on another call than
+        the one that encodes."""
+        chunk_size = min(bucket_size(len(pending)), self.max_dispatch_batch)
+        chunks = [
+            pending[c : c + chunk_size]
+            for c in range(0, len(pending), chunk_size)
+        ]
+        overflowed: list[int] = []
+        # (in-flight step, slot rows, row-tier insertions, blob-tier
+        # insertions) per chunk
+        drains: list[tuple] = []
+        cache = self._verdict_cache
+        bcache = self._blob_cache
+        # mixed-target batches: a small int id per distinct target
+        tid_of: dict[int, int] = {}
+        ckey_of_tid: list[tuple] = []
+
+        def encode(chunk: list[int]):
+            failpoints.fire("encode.batch")
+            t0 = time.perf_counter_ns()
+            bl = [blobs[i] for i in chunk]
+            out = schema.native.encode_batch(bl, bucket_size(len(bl)), self.table)
+            self._profile_add(
+                encode_ns=time.perf_counter_ns() - t0, encode_rows=len(chunk)
+            )
+            return bl, out
+
+        def materialize(entry) -> None:
+            step, slot_rows, lru_inserts, blob_inserts = entry
+            t0 = time.perf_counter_ns()
+            raw = self._device_fetch(step)
+            self._profile_add(dispatch_wait_ns=time.perf_counter_ns() - t0)
+            outputs = self._unpack(raw)
+            if lru_inserts or blob_inserts:
+                row_of_slot: dict[int, dict] = {}
+
+                def row_for(slot: int) -> dict:
+                    row_out = row_of_slot.get(slot)
+                    if row_out is None:
+                        row_out = row_of_slot[slot] = extract_row(outputs, slot)
+                    return row_out
+
+                if lru_inserts:
+                    cache.put_many(
+                        (key, row_for(slot))
+                        for slot, keys in lru_inserts.items()
+                        for key in keys
+                    )
+                if blob_inserts:
+                    bcache.put_many(
+                        (key, row_for(slot))
+                        for slot, keys in blob_inserts.items()
+                        for key in keys
+                    )
+            for slot, i in slot_rows:
+                results[i] = self._materialize(
+                    targets[i], items[i][1], _RowView(outputs, slot)
+                )
+
+        window = self.max_inflight_dispatches
+        drained = 0
+        for chunk in chunks:
+            try:
+                chunk_blobs, (features, status) = encode(chunk)
+            except ValueError:
+                # arena or records overflow on a pathological chunk: keep
+                # per-item isolation — the whole chunk goes to the next
+                # schema or the oracle
+                overflowed.extend(chunk)
+                continue
+            n_chunk = len(chunk)
+            status = np.asarray(status)[:n_chunk]
+            ok_mask = status == 0
+            all_ok = bool(ok_mask.all())
+            if not all_ok:
+                overflowed.extend(chunk[int(p)] for p in np.flatnonzero(~ok_mask))
+            lru_inserts: dict[int, set] = {}
+            blob_inserts: dict[int, list] = {}
+            if cache is None:
+                slot_rows = [
+                    (pos, i) for pos, i in enumerate(chunk) if ok_mask[pos]
+                ]
+                if not slot_rows:
+                    continue
+                n_dispatched = len(slot_rows)
+            else:
+                t_book = time.perf_counter_ns()
+                packed = features[PACKED_KEY]
+                item_arr = np.asarray(chunk, dtype=np.intp)
+                dedup_pos = np.flatnonzero(ok_mask)
+                slot_rows = []
+                n_d = int(dedup_pos.size)
+                keep_uncompacted = False
+                keep_rows = np.empty(0, dtype=np.intp)
+                rows_arr = None
+                if n_d:
+                    # ROW IDENTITY in one vectorized pass: a void view makes
+                    # each packed row one comparable scalar
+                    rows_arr = np.ascontiguousarray(packed[dedup_pos])
+                    void = rows_arr.view(
+                        np.dtype((np.void, rows_arr.shape[1] * rows_arr.itemsize))
+                    ).ravel()
+                    uniq, first, inverse = np.unique(
+                        void, return_index=True, return_inverse=True
+                    )
+                    inverse = np.asarray(inverse).ravel()
+                    m = int(uniq.size)
+                    if uniform_target:
+                        # one target: the combo space IS the row space
+                        ckey = self._cache_key_of(
+                            targets[int(item_arr[dedup_pos[0]])]
+                        )
+                        combo_first = first
+                        combo_inverse = inverse
+                        keys = [(ckey, rows_arr[int(ri)].tobytes()) for ri in first]
+                    else:
+                        # distinct (target, row) combos: the same row bytes
+                        # under different targets share a dispatch slot but
+                        # carry separate cache keys
+                        def tid(t) -> int:
+                            k = tid_of.get(id(t))
+                            if k is None:
+                                k = len(ckey_of_tid)
+                                tid_of[id(t)] = k
+                                ckey_of_tid.append(self._cache_key_of(t))
+                            return k
+
+                        tids = np.fromiter(
+                            (tid(targets[int(p)]) for p in item_arr[dedup_pos]),
+                            dtype=np.int64,
+                            count=n_d,
+                        )
+                        combos = tids * m + inverse
+                        uc, combo_first, combo_inverse = np.unique(
+                            combos, return_index=True, return_inverse=True
+                        )
+                        combo_inverse = np.asarray(combo_inverse).ravel()
+                        keys = [
+                            (
+                                ckey_of_tid[int(uc[k] // m)],
+                                rows_arr[int(combo_first[k])].tobytes(),
+                            )
+                            for k in range(len(uc))
+                        ]
+                    # ONE locked lookup per chunk for the whole row tier
+                    cached = cache.get_many(keys)
+                    hit_flags = np.fromiter(
+                        (c is not None for c in cached),
+                        dtype=bool,
+                        count=len(cached),
+                    )
+                    row_hit = hit_flags[combo_inverse]
+                    hit_rows = np.flatnonzero(row_hit)
+                    # get_many counted one hit or miss per combo KEY; rescale
+                    # to rows (rows served from / missed by the row tier)
+                    n_hit_keys = int(hit_flags.sum())
+                    cache.adjust_counts(
+                        hits=int(hit_rows.size) - n_hit_keys,
+                        misses=(n_d - int(hit_rows.size))
+                        - (len(cached) - n_hit_keys),
+                    )
+                    if hit_rows.size:
+                        hit_items = item_arr[dedup_pos[hit_rows]].tolist()
+                        hit_combos = combo_inverse[hit_rows].tolist()
+                        frag_on = _fragments_enabled()
+                        n_frag = 0
+                        for i, k in zip(hit_items, hit_combos):
+                            tmpl = (
+                                self._frag_of(targets[i], cached[k])
+                                if frag_on else None
+                            )
+                            if tmpl is not None:
+                                results[i] = FragVerdict(items[i][1].uid(), tmpl)
+                                n_frag += 1
+                            else:
+                                results[i] = self._materialize(
+                                    targets[i], items[i][1], cached[k]
+                                )
+                        if n_frag:
+                            with self._stats_lock:
+                                self._frag_hits += n_frag
+                        if bcache is not None:
+                            # backfill the blob tier so the NEXT identical
+                            # payload skips the encode: ONE representative
+                            # per hit combo per chunk, or uid-varying
+                            # traffic (every blob new) would churn the blob
+                            # tier's real replays out
+                            seen_combos: set[int] = set()
+                            bput = []
+                            for pos, k in zip(
+                                dedup_pos[hit_rows].tolist(), hit_combos
+                            ):
+                                if k in seen_combos:
+                                    continue
+                                seen_combos.add(k)
+                                bput.append(
+                                    ((keys[k][0], chunk_blobs[pos]), cached[k])
+                                )
+                            bcache.put_many(bput)
+                    miss_rows = np.flatnonzero(~row_hit)
+                    if miss_rows.size:
+                        miss_inv = inverse[miss_rows]
+                        uniq_miss, miss_first, slot_inv = np.unique(
+                            miss_inv, return_index=True, return_inverse=True
+                        )
+                        slot_inv = np.asarray(slot_inv).ravel()
+                        dup_hits = int(miss_rows.size - uniq_miss.size)
+                        if dup_hits:
+                            with self._stats_lock:
+                                self._batch_dedup_hits += dup_hits
+                        keep_rows = miss_rows[miss_first]
+                        keep_uncompacted = (
+                            all_ok and hit_rows.size == 0 and dup_hits == 0
+                        )
+                        if keep_uncompacted:
+                            # nothing collapsed: ship the encoded buffer as
+                            # is — slots are the encode positions
+                            slots = dedup_pos[miss_rows]
+                        else:
+                            slots = slot_inv
+                        miss_items = item_arr[dedup_pos[miss_rows]]
+                        slot_rows = list(zip(slots.tolist(), miss_items.tolist()))
+                        # per-combo cache keys onto their dispatch slot
+                        miss_combos = np.flatnonzero(~hit_flags).tolist()
+                        combo_rowuniq = np.arange(m) if uniform_target else uc % m
+                        for k in miss_combos:
+                            u = int(combo_rowuniq[k])
+                            if keep_uncompacted:
+                                slot = int(dedup_pos[int(combo_first[k])])
+                            else:
+                                slot = int(np.searchsorted(uniq_miss, u))
+                            lru_inserts.setdefault(slot, set()).add(keys[k])
+                        if bcache is not None:
+                            # blob-to-row learning: ONE representative blob
+                            # per dispatched slot (collapsed duplicates'
+                            # blobs vary by uid and never recur)
+                            for j, pos in enumerate(dedup_pos[keep_rows].tolist()):
+                                slot = pos if keep_uncompacted else j
+                                i = chunk[pos]
+                                blob_inserts.setdefault(slot, []).append(
+                                    (self._cache_key_of(targets[i]), chunk_blobs[pos])
+                                )
+                # ns only: the blob-tier pre-pass already counted these rows
+                self._profile_add(bookkeeping_ns=time.perf_counter_ns() - t_book)
+                if not slot_rows:
+                    continue  # the whole chunk came from the caches
+                n_keep = int(keep_rows.size)
+                if not keep_uncompacted:
+                    # compact: only unique rows go to the card
+                    compact = np.zeros(
+                        (bucket_size(n_keep), packed.shape[1]), packed.dtype
+                    )
+                    compact[:n_keep] = rows_arr[keep_rows]
+                    features = {PACKED_KEY: compact}
+                n_dispatched = n_keep
+            step = self._device_call(self._enqueue_features, features)
+            self._profile_add(dispatched_rows=n_dispatched, dispatched_chunks=1)
+            entry = (step, slot_rows, lru_inserts, blob_inserts)
+            if defer_sink is not None:
+                defer_sink.append((materialize, entry))
+                continue
+            drains.append(entry)
+            if len(drains) - drained >= window:
+                materialize(drains[drained])
+                drained += 1
+        for entry in drains[drained:]:
+            materialize(entry)
+        return overflowed
 
     # -- response materialization (host side) ------------------------------
 

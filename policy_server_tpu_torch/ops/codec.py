@@ -130,6 +130,10 @@ class SchemaOverflow(Exception):
 class FeatureSchema:
     """The static feature layout for a fixed policy set."""
 
+    # the native encoder (ops/fastenc.NativeEncoder), attached by the
+    # evaluation environment at build (fastenc.attach_native)
+    native: Any = None
+
     def __init__(self, specs: dict[str, FeatureSpec]):
         self.specs = specs
 
@@ -280,6 +284,12 @@ class FeatureSchema:
         if layout is None:
             layout = self._packed_layout_cache = PackedLayout.build(self)
         return layout
+
+    @property
+    def row_stride(self) -> int:
+        """Bytes from one row of the wide packed buffer to the next: the
+        stride the native encoder writes every feature array with."""
+        return self.packed_layout().width
 
     def install_packed_layout(self, layout: "PackedLayout") -> None:
         """Pin a (widened) layout for this schema — see

@@ -95,6 +95,8 @@ class KernelLibrary:
 
 _library: KernelLibrary | None = None
 _library_lock = threading.Lock()
+# the wrappers' launch counts are bumped from several pipeline threads
+_count_lock = threading.Lock()
 
 # The launch path's hot state, set once by the first successful
 # build_library(): the bound entry points and torch's raw current-stream
@@ -182,6 +184,16 @@ def _launch_failed(rc: int, what: str) -> RuntimeError:
     return RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
 
 
+def is_cuda_error(e: BaseException) -> bool:
+    """True for an error the CUDA runtime reported: a wrapper's failed
+    launch, or a torch operation's CUDA error (a sticky one, an illegal
+    address say, poisons the context for the life of the process)."""
+    accelerator_error = getattr(torch, "AcceleratorError", None)
+    if accelerator_error is not None and isinstance(e, accelerator_error):
+        return True
+    return isinstance(e, RuntimeError) and "CUDA error" in str(e)
+
+
 def _not_cuda(t: torch.Tensor, what: str) -> ValueError:
     return ValueError(f"{what}: expected a CPU or CUDA tensor, got {t.device}")
 
@@ -224,7 +236,8 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     )
     if rc:
         raise _launch_failed(rc, "probe")
-    probe.launches += 1
+    with _count_lock:
+        probe.launches += 1
     return y
 
 
@@ -776,6 +789,12 @@ class PolicyMatrixProgram:
     _device_code: dict = field(default_factory=dict, init=False, repr=False)
     _shapes: dict = field(default_factory=dict, init=False, repr=False)
     _launches: dict = field(default_factory=dict, init=False, repr=False)
+    # guards building _device_code and _launches: two pipeline threads
+    # building one card's device code at once would each keep a struct
+    # pointing at their own copy, and one copy is freed while in use
+    _launch_lock: Any = field(
+        default_factory=threading.Lock, init=False, repr=False, compare=False
+    )
 
     def __post_init__(self) -> None:
         lo = self.layout
@@ -910,26 +929,29 @@ class PolicyMatrixProgram:
         use; the program keeps the struct and the device code alive."""
         key = (index, batch)
         hit = self._launches.get(key)
-        if hit is None:
-            code = self._device_code.get(index)
-            if code is None:
-                code = self._device_code[index] = tuple(
-                    torch.from_numpy(a).to(torch.device("cuda", index))
-                    for a in self.device_code()
+        if hit is not None:
+            return hit[1], hit[2]
+        with self._launch_lock:
+            hit = self._launches.get(key)
+            if hit is None:
+                code = self._device_code.get(index)
+                if code is None:
+                    code = self._device_code[index] = tuple(
+                        torch.from_numpy(a).to(torch.device("cuda", index))
+                        for a in self.device_code()
+                    )
+                shape = self.launch_shape(batch, _sm_count(index))
+                args = _LaunchArgs(
+                    code[0].data_ptr(), code[1].data_ptr(), self.buf_width,
+                    self.n_parts, self.out_cols, self.arena_bytes, shape.layout,
+                    shape.rows_per_block, self.max_part_cols, shape.off_cols,
+                    shape.off_arena, shape.smem_bytes,
                 )
-            shape = self.launch_shape(batch, _sm_count(index))
-            args = _LaunchArgs(
-                code[0].data_ptr(), code[1].data_ptr(), self.buf_width,
-                self.n_parts, self.out_cols, self.arena_bytes, shape.layout,
-                shape.rows_per_block, self.max_part_cols, shape.off_cols,
-                shape.off_arena, shape.smem_bytes,
-            )
-            scratch = (
-                batch * self.n_parts * self.arena_bytes
-                if shape.layout == LAYOUT_WARPS_SPILL else 0
-            )
-            self._launches[key] = (args, ctypes.addressof(args), scratch)
-            hit = self._launches[key]
+                scratch = (
+                    batch * self.n_parts * self.arena_bytes
+                    if shape.layout == LAYOUT_WARPS_SPILL else 0
+                )
+                hit = self._launches[key] = (args, ctypes.addressof(args), scratch)
         return hit[1], hit[2]
 
 
@@ -1087,7 +1109,8 @@ def policy_matrix(
     )
     if rc:
         raise _launch_failed(rc, "policy_matrix")
-    policy_matrix.launches += 1
+    with _count_lock:
+        policy_matrix.launches += 1
     return allowed, rule
 
 

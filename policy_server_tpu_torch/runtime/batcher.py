@@ -1,25 +1,45 @@
-"""MicroBatcher — gathers concurrent requests into one batched evaluation.
+"""MicroBatcher — gathers concurrent requests into batched evaluations and
+decides where each batch is answered.
 
-Requests from any number of threads queue up; one worker thread takes the
-first waiting request, waits at most ``batch_timeout_ms`` for more (or
-until ``max_batch_size`` are waiting), and runs ONE
-``EvaluationEnvironment.validate_batch`` over the micro-batch — requests
-addressed to different policies share the batch, since every launch
-computes every policy's verdict. The service halves (api/service.py) wrap
-the batch: the namespace short-circuit before, the mode and mutation
-constraints after.
+Requests from any number of threads queue up; one loop thread takes the
+first waiting request, drains whatever else is queued, waits at most
+``batch_timeout_ms`` for more (or until ``max_batch_size`` are waiting),
+and hands the formed batch to a pipeline pool of four workers, so that
+consecutive batches overlap (batch N+1 encodes while
+batch N's device step runs). Requests addressed to different policies share a batch, since every
+launch computes every policy's verdict.
 
-Flag semantics follow the server's ``--max-batch-size`` (default 128) and
-``--batch-timeout-ms`` (default 1.0).
+Per batch:
+
+1. the service layer's pre-evaluation (id parse, the always-accept
+   namespace) and the targets' pre-eval hooks, under the request deadline;
+2. routing: a batch of at most ``host_fastpath_threshold`` rows, or one
+   whose measured device round trip (a per-bucket EWMA) would blow the
+   oldest request's ``latency_budget_ms`` while the host would not, is
+   answered by the environment's host oracle
+   (``validate_batch(prefer_host=True)``); every other batch runs the
+   native pipeline (``validate_batch_begin`` then ``validate_batch_finish``
+   on one worker, with cache hits as pre-built fragments);
+3. the ``policy_timeout`` watchdog: requests still unanswered at their
+   deadline resolve in-band with "execution deadline exceeded"; a batch
+   whose every request expired is abandoned (its late verdicts are thrown
+   away) and, when the device wait was long, reported to the breaker;
+4. the service layer's mode and mutation constraints (skipped for
+   fragment verdicts, whose eligibility proved them the identity).
+
+While the environment's breaker is fully open, ``degraded_mode`` other
+than ``oracle`` answers accept-all (``monitor``) or in-band 503s
+(``reject``) instead of evaluating.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
 import threading
 import time
-from collections import deque
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Any
 
 from policy_server_tpu_torch.api.service import (
@@ -28,38 +48,149 @@ from policy_server_tpu_torch.api.service import (
     post_evaluate,
     pre_evaluate,
 )
+from policy_server_tpu_torch.evaluation.environment import (
+    bucket_size,
+    fragment_responses,
+)
 from policy_server_tpu_torch.evaluation.errors import PolicyInitializationError
-from policy_server_tpu_torch.models import ValidateRequest
+from policy_server_tpu_torch.evaluation.policy_id import PolicyID
+from policy_server_tpu_torch.models import AdmissionResponse, ValidateRequest
+from policy_server_tpu_torch.models.admission import FragVerdict
+from policy_server_tpu_torch.runtime.workers import DaemonExecutor
 
 logger = logging.getLogger("kubewarden-policy-server")
 
 DEFAULT_MAX_BATCH_SIZE = 128
 DEFAULT_BATCH_TIMEOUT_MS = 1.0
+DEFAULT_POLICY_TIMEOUT = 2.0
+DEFAULT_HOST_FASTPATH_THRESHOLD = 64
+DEFAULT_LATENCY_BUDGET_MS = 50.0
+DEGRADED_MODES = ("oracle", "monitor", "reject")
+
+DEADLINE_MESSAGE = "execution deadline exceeded"
+DEGRADED_MESSAGE = "policy server degraded: device backend unavailable"
+
+# pipeline workers: consecutive batches overlap across them
+PIPELINE_WORKERS = 4
+
+
+class _Pending:
+    __slots__ = ("policy_id", "request", "origin", "future", "enqueued_at")
+
+    def __init__(
+        self,
+        policy_id: str,
+        request: ValidateRequest,
+        origin: RequestOrigin,
+        future: Future,
+    ) -> None:
+        self.policy_id = policy_id
+        self.request = request
+        self.origin = origin
+        self.future = future
+        self.enqueued_at = time.perf_counter()
 
 
 class MicroBatcher:
-    """Owns one worker thread; ``close()`` stops it."""
+    """Thread-safe evaluation front: ``submit()`` returns a Future resolved
+    with the final response (service-layer constraints applied; an
+    ``AdmissionResponse``, or a ``FragVerdict`` for a cache hit, which
+    serializes to the same bytes) or the EvaluationError of an invalid or
+    unknown policy id. Starts its loop thread at construction; ``close()``
+    stops it."""
 
     def __init__(
         self,
         env: Any,
         max_batch_size: int = DEFAULT_MAX_BATCH_SIZE,
         batch_timeout_ms: float = DEFAULT_BATCH_TIMEOUT_MS,
+        policy_timeout: float | None = DEFAULT_POLICY_TIMEOUT,
+        host_fastpath_threshold: int = DEFAULT_HOST_FASTPATH_THRESHOLD,
+        latency_budget_ms: float = DEFAULT_LATENCY_BUDGET_MS,
+        degraded_mode: str = "oracle",
     ) -> None:
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be at least 1")
+        if degraded_mode not in DEGRADED_MODES:
+            raise ValueError(f"unknown degraded mode {degraded_mode!r}")
         self.env = env
         self.max_batch_size = max_batch_size
         self.batch_timeout = max(0.0, batch_timeout_ms) / 1e3
-        self._cond = threading.Condition()
-        self._queue: deque = deque()  # guarded-by: _cond
-        self._closed = False  # guarded-by: _cond
-        self.batches = 0  # dispatched micro-batches (worker thread only)
-        self.batch_rows = 0  # rows in them
-        self._worker = threading.Thread(
-            target=self._run, name="micro-batcher", daemon=True
+        self.policy_timeout = policy_timeout
+        self.host_fastpath_threshold = max(0, int(host_fastpath_threshold))
+        # a soft per-request latency target for routing (distinct from
+        # policy_timeout, the hard in-band deadline); None disables it
+        self.latency_budget = (
+            None if latency_budget_ms <= 0 else latency_budget_ms / 1e3
         )
-        self._worker.start()
+        self.degraded_mode = degraded_mode
+        self._env_fastpath = env.supports_host_fastpath
+        # EWMA device round trip per batch bucket, seconds (seeded by
+        # warmup, learned from real dispatches, decayed on each budget
+        # bypass so a stale slow reading re-probes the device); benign
+        # races between workers: the last EWMA step wins
+        self._dev_rtt: dict[int, float] = {}
+        # EWMA host fast-path cost per row, seconds
+        self._host_cost_per_row = 1e-4
+        # policy ids known to resolve, and whether their target has hooks
+        self._hookless: dict[str, bool] = {}
+        self._queue: queue.Queue[_Pending] = queue.Queue()
+        self._closed = False
+        # batch workers run a batch's phases and its watchdog wait; device
+        # workers run the evaluation itself, so a hung device call wedges a
+        # device worker, never a batch worker (daemon threads: a wedged
+        # call is abandoned at exit, never joined)
+        self._batch_pool = DaemonExecutor(PIPELINE_WORKERS, "batch")
+        self._device_pool = DaemonExecutor(PIPELINE_WORKERS, "device-dispatch")
+        self._inflight = threading.BoundedSemaphore(PIPELINE_WORKERS)
+        self._stats_lock = threading.Lock()
+        self.batches = 0  # guarded-by: _stats_lock; formed micro-batches
+        self.batch_rows = 0  # guarded-by: _stats_lock; rows in them
+        self.host_fastpath_batches = 0  # guarded-by: _stats_lock
+        # host-routed by the latency budget (a subset of the above)
+        self.budget_routed_batches = 0  # guarded-by: _stats_lock
+        self.deadline_abandoned_batches = 0  # guarded-by: _stats_lock
+        # requests answered in-band with DEADLINE_MESSAGE, and the longest
+        # time from submission to an answer (how near policy_timeout the
+        # answers come)
+        self.deadline_rejections = 0  # guarded-by: _stats_lock
+        self.max_answer_seconds = 0.0  # guarded-by: _stats_lock
+        self.degraded_responses = 0  # guarded-by: _stats_lock
+        self._thread = threading.Thread(
+            target=self._loop, name="micro-batcher", daemon=True
+        )
+        self._thread.start()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def warmup(self) -> None:
+        """Warm every batch bucket up to ``max_batch_size`` and seed the
+        device-RTT estimator: each bucket warms twice, and the second run
+        is the routing baseline."""
+        sizes = []
+        b = 1
+        while b < self.max_batch_size:
+            sizes.append(b)
+            b <<= 1
+        sizes.append(bucket_size(self.max_batch_size))
+        self.env.warmup(tuple(sizes))
+        if self.latency_budget is None:
+            return
+        # one warmup((b,)) dispatches once per schema bucket; a serving
+        # batch dispatches once
+        per_warmup = self.env.warmup_dispatches
+        for b in sizes:
+            t0 = time.perf_counter()
+            self.env.warmup((b,))
+            self._dev_rtt[bucket_size(b)] = (time.perf_counter() - t0) / per_warmup
+
+    def close(self, timeout: float = 5.0) -> None:
+        self._closed = True
+        self._thread.join(timeout)
+        self._batch_pool.shutdown(wait=True)
+        self._device_pool.shutdown(wait=False)
+
+    # -- submission --------------------------------------------------------
 
     def submit(
         self,
@@ -67,8 +198,7 @@ class MicroBatcher:
         request: ValidateRequest,
         origin: RequestOrigin = RequestOrigin.VALIDATE,
     ) -> Future:
-        """Queue one request → a Future of its AdmissionResponse (or the
-        EvaluationError raised for an invalid or unknown policy id)."""
+        """Queue one request → a Future of its response."""
         return self.submit_many([(policy_id, request)], origin)[0]
 
     def submit_many(
@@ -76,73 +206,361 @@ class MicroBatcher:
         items: list[tuple[str, ValidateRequest]],
         origin: RequestOrigin = RequestOrigin.VALIDATE,
     ) -> list[Future]:
+        if self._closed:
+            raise RuntimeError("batcher closed")
         futures = [Future() for _ in items]
-        with self._cond:
-            if self._closed:
-                raise RuntimeError("batcher closed")
-            for (pid, req), fut in zip(items, futures):
-                self._queue.append((pid, req, origin, fut))
-            self._cond.notify()
+        for (pid, req), fut in zip(items, futures):
+            self._queue.put(_Pending(pid, req, origin, fut))
         return futures
 
-    def close(self, timeout: float = 5.0) -> None:
-        with self._cond:
-            self._closed = True
-            self._cond.notify_all()
-        self._worker.join(timeout)
+    def evaluate(
+        self,
+        policy_id: str,
+        request: ValidateRequest,
+        origin: RequestOrigin = RequestOrigin.VALIDATE,
+    ) -> Any:
+        """Submit and wait (the synchronous convenience)."""
+        return self.submit(policy_id, request, origin).result()
 
-    # -- worker ------------------------------------------------------------
+    # -- the loop ----------------------------------------------------------
 
-    def _take_batch(self) -> list | None:
-        with self._cond:
-            while not self._queue and not self._closed:
-                self._cond.wait()
-            if not self._queue:
-                return None  # closed and drained
-            deadline = time.monotonic() + self.batch_timeout
-            while len(self._queue) < self.max_batch_size and not self._closed:
-                left = deadline - time.monotonic()
-                if left <= 0:
+    def _loop(self) -> None:
+        while not (self._closed and self._queue.empty()):
+            try:
+                first = self._queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            batch = [first]
+            # a backlog drains at once: the timeout window only bounds the
+            # latency ADDED under light load
+            deadline = first.enqueued_at + self.batch_timeout
+            while len(batch) < self.max_batch_size:
+                try:
+                    batch.append(self._queue.get_nowait())
+                    continue
+                except queue.Empty:
+                    pass
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
                     break
-                self._cond.wait(left)
-            n = min(len(self._queue), self.max_batch_size)
-            return [self._queue.popleft() for _ in range(n)]
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            self._inflight.acquire()
+            self._batch_pool.submit(self._process_batch, batch)
 
-    def _run(self) -> None:
-        while True:
-            batch = self._take_batch()
-            if batch is None:
+    def _process_batch(self, batch: list[_Pending]) -> None:
+        try:
+            self._dispatch(batch)
+        except Exception as e:  # noqa: BLE001 — the worker must survive
+            logger.exception("micro-batch dispatch failed")
+            for p in batch:
+                self._fail(p, e)
+        finally:
+            self._inflight.release()
+
+    # -- completion --------------------------------------------------------
+
+    def _resolve(self, p: _Pending, response: Any) -> None:
+        if not p.future.done():
+            try:
+                p.future.set_result(response)
+            except Exception:  # noqa: BLE001 — a racing completion won
                 return
-            try:
-                self._dispatch(batch)
-            except Exception as e:  # noqa: BLE001 — the worker must survive
-                logger.exception("micro-batch dispatch failed")
-                for *_rest, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(e)
+            waited = time.perf_counter() - p.enqueued_at
+            with self._stats_lock:
+                self.max_answer_seconds = max(self.max_answer_seconds, waited)
 
-    def _dispatch(self, batch: list) -> None:
-        env = self.env
-        pending: list[tuple[str, ValidateRequest, RequestOrigin, Future]] = []
-        for pid, req, origin, fut in batch:
+    @staticmethod
+    def _fail(p: _Pending, exc: BaseException) -> None:
+        if not p.future.done():
             try:
-                short = pre_evaluate(env, pid, req)
+                p.future.set_exception(exc)
+            except Exception:  # noqa: BLE001 — a racing completion won
+                pass
+
+    def _reject_deadline(self, p: _Pending) -> None:
+        with self._stats_lock:
+            self.deadline_rejections += 1
+        self._resolve(
+            p, AdmissionResponse.reject(p.request.uid(), DEADLINE_MESSAGE, 500)
+        )
+
+    # -- one batch ---------------------------------------------------------
+
+    def _dispatch(self, batch: list[_Pending]) -> None:
+        with self._stats_lock:
+            self.batches += 1
+            self.batch_rows += len(batch)
+        # phase 1 (host): pre-evaluation and bounded pre-eval hooks; rows
+        # that short-circuit or fail resolve here
+        runnable: list[_Pending] = []
+        now = time.perf_counter()
+        for p in batch:
+            try:
+                short = pre_evaluate(self.env, p.policy_id, p.request)
             except Exception as e:  # noqa: BLE001 — per-item error channel
-                fut.set_exception(e)
+                self._fail(p, e)
                 continue
             if short is not None:
-                fut.set_result(short)
-            else:
-                pending.append((pid, req, origin, fut))
-        if not pending:
+                self._resolve(p, short)
+                continue
+            if not self._target_hookless(p.policy_id):
+                try:
+                    if not self._run_hooks_with_deadline(p):
+                        continue  # deadline rejection already delivered
+                except Exception as e:  # noqa: BLE001 — per-item isolation
+                    self._fail(p, e)
+                    continue
+                now = time.perf_counter()  # hooks block: refresh the clock
+            if (
+                self.policy_timeout is not None
+                and now - p.enqueued_at >= self.policy_timeout
+            ):
+                self._reject_deadline(p)
+                continue
+            runnable.append(p)
+        if runnable:
+            self._evaluate_runnable(runnable)
+
+    def _route_host(self, runnable: list[_Pending]) -> bool:
+        """The latency fast path, two tiers: occupancy (a batch of at most
+        ``host_fastpath_threshold`` rows formed from a shallow queue, so
+        its requests are latency-critical) and the budget (the measured
+        device round trip would blow the oldest request's remaining
+        budget and the host estimate would not)."""
+        if not self._env_fastpath:
+            return False
+        n = len(runnable)
+        if n <= self.host_fastpath_threshold:
+            return True
+        if self.latency_budget is None:
+            return False
+        bucket = bucket_size(n)
+        est = self._dev_rtt.get(bucket)
+        if est is None:
+            return False
+        oldest = min(p.enqueued_at for p in runnable)
+        remaining = self.latency_budget - (time.perf_counter() - oldest)
+        # only when the host can MEET the budget the device would blow: a
+        # batch whose budget is already gone stays on the device
+        if self._host_cost_per_row * n <= remaining < est:
+            self._dev_rtt[bucket] = est * 0.98
+            with self._stats_lock:
+                self.budget_routed_batches += 1
+            return True
+        return False
+
+    def _evaluate_runnable(self, runnable: list[_Pending]) -> None:
+        """Phases 2 and 3: the degraded-mode gate, host or device
+        evaluation under the watchdog, the service-layer constraints."""
+        if self.degraded_mode != "oracle" and self.env.breaker_all_open:
+            self._serve_degraded(runnable)
             return
-        self.batches += 1
-        self.batch_rows += len(pending)
-        results = env.validate_batch([(pid, req) for pid, req, _o, _f in pending])
-        for (pid, req, origin, fut), res in zip(pending, results):
-            if isinstance(res, PolicyInitializationError):
-                fut.set_result(handle_initialization_error(req, res))
-            elif isinstance(res, Exception):
-                fut.set_exception(res)
+        pairs = [(p.policy_id, p.request) for p in runnable]
+        n = len(runnable)
+        use_host = self._route_host(runnable)
+        if use_host:
+            with self._stats_lock:
+                self.host_fastpath_batches += 1
+            fn, args = self._host_validate, (pairs,)
+        else:
+            fn, args = self._fused_validate, (pairs,)
+        start = time.perf_counter()
+        live = runnable
+        if self.policy_timeout is None:
+            try:
+                results = fn(*args)
+            except Exception as e:  # noqa: BLE001
+                for p in runnable:
+                    self._fail(p, e)
+                return
+        else:
+            dev_future = self._device_pool.submit(fn, *args)
+            try:
+                results, live = self._watchdog_wait(dev_future, runnable)
+            except Exception as e:  # noqa: BLE001 — the evaluation raised
+                for p in runnable:
+                    self._fail(p, e)
+                return
+            if results is None:
+                waited = time.perf_counter() - start
+                if not use_host:
+                    self._record_device_failure(runnable, waited)
+                self._observe_dispatch(use_host, n, waited, lower_bound=True)
+                return  # every item deadline-rejected; the work is abandoned
+        self._observe_dispatch(use_host, n, time.perf_counter() - start)
+        # phase 3 (host): constraints; rows the watchdog already answered
+        # are skipped
+        live_ids = {id(p) for p in live}
+        for p, result in zip(runnable, results):
+            if id(p) not in live_ids:
+                continue
+            try:
+                if type(result) is FragVerdict:
+                    # fragment eligibility proved the constraints identity
+                    self._resolve(p, result)
+                elif isinstance(result, PolicyInitializationError):
+                    self._resolve(p, handle_initialization_error(p.request, result))
+                elif isinstance(result, Exception):
+                    self._fail(p, result)
+                else:
+                    self._resolve(
+                        p, post_evaluate(self.env, p.policy_id, p.origin, result)
+                    )
+            except Exception as e:  # noqa: BLE001 — never kill the worker
+                self._fail(p, e)
+
+    def _host_validate(self, pairs: list) -> list:
+        return self.env.validate_batch(pairs, run_hooks=False, prefer_host=True)
+
+    def _fused_validate(self, pairs: list) -> list:
+        """The encode → device → fetch chain as ONE unit of pool work: the
+        environment's host half and device half back to back on the same
+        worker, with the cache-hit fragment lane armed. Environments
+        without the split (the oracle backend, a tripped breaker) take
+        plain validate_batch."""
+        with fragment_responses():
+            handle = self.env.validate_batch_begin(pairs, run_hooks=False)
+            if handle is not None:
+                return self.env.validate_batch_finish(handle)
+            return self.env.validate_batch(pairs, run_hooks=False)
+
+    def _observe_dispatch(
+        self, use_host: bool, n: int, dur: float, lower_bound: bool = False
+    ) -> None:
+        """Feed the routing estimators with a measured evaluation."""
+        if self.latency_budget is None or n <= 0:
+            return
+        if use_host:
+            if not lower_bound:  # a truncated host batch measures nothing
+                self._host_cost_per_row = (
+                    0.7 * self._host_cost_per_row + 0.3 * dur / n
+                )
+            return
+        bucket = bucket_size(n)
+        est = self._dev_rtt.get(bucket)
+        if lower_bound:
+            # an abandoned dispatch only bounds the round trip from below
+            self._dev_rtt[bucket] = max(est or 0.0, dur)
+        else:
+            self._dev_rtt[bucket] = dur if est is None else 0.7 * est + 0.3 * dur
+
+    def _watchdog_wait(
+        self, dev_future: Future, runnable: list[_Pending]
+    ) -> tuple[list | None, list[_Pending]]:
+        """Wait for the evaluation, but never past any item's deadline:
+        items whose deadline passes first resolve in-band with "execution
+        deadline exceeded" (500). Returns ``(results, live items)``, or
+        ``(None, [])`` when every item expired — the work then finishes
+        in the background and its verdicts are thrown away."""
+        live = list(runnable)
+        while True:
+            next_deadline = min(p.enqueued_at + self.policy_timeout for p in live)
+            wait = max(0.0, next_deadline - time.perf_counter())
+            try:
+                return dev_future.result(timeout=wait), live
+            except FutureTimeout:
+                now = time.perf_counter()
+                expired = [
+                    p for p in live if now >= p.enqueued_at + self.policy_timeout
+                ]
+                for p in expired:
+                    self._reject_deadline(p)
+                live = [p for p in live if p not in expired]
+                if not live:
+                    with self._stats_lock:
+                        self.deadline_abandoned_batches += 1
+                    dev_future.add_done_callback(self._discard_late_batch)
+                    return None, []
+
+    @staticmethod
+    def _discard_late_batch(dev_future: Future) -> None:
+        """Completion of an abandoned batch: log, never deliver."""
+        exc = dev_future.exception()
+        if exc is not None:
+            logger.warning("abandoned device batch failed late: %s", exc)
+        else:
+            logger.info(
+                "abandoned device batch completed after deadline; "
+                "verdicts discarded"
+            )
+
+    def _record_device_failure(self, batch: list[_Pending], waited: float) -> None:
+        """Report a watchdog abandonment to the environment's breaker —
+        the failure exceptions cannot see (the device call HUNG). A batch
+        that expired soon after dispatch because its items aged in the
+        queue is a queueing failure, not a device one: only a wait of at
+        least half the deadline counts."""
+        if self.policy_timeout is not None and waited < 0.5 * self.policy_timeout:
+            return
+        self.env.record_dispatch_failure([p.policy_id for p in batch])
+
+    def _serve_degraded(self, runnable: list[_Pending]) -> None:
+        """The fully-tripped answer per ``degraded_mode``: 'monitor'
+        accepts (fail-open, logged), 'reject' answers in-band 503s
+        (fail-closed)."""
+        with self._stats_lock:
+            self.degraded_responses += len(runnable)
+        logger.warning(
+            "device breaker fully open: serving %d request(s) in degraded "
+            "mode %r", len(runnable), self.degraded_mode,
+        )
+        for p in runnable:
+            uid = p.request.uid()
+            if self.degraded_mode == "reject":
+                self._resolve(p, AdmissionResponse.reject(uid, DEGRADED_MESSAGE, 503))
             else:
-                fut.set_result(post_evaluate(env, pid, origin, res))
+                self._resolve(p, AdmissionResponse(uid=uid, allowed=True))
+
+    # -- pre-eval hooks ----------------------------------------------------
+
+    def _target_hookless(self, policy_id: str) -> bool:
+        """True when the id's target has no pre-eval hooks (memoized for
+        registry-known ids only; an unknown id fails later, in
+        validate_batch, with its full semantics)."""
+        known = self._hookless.get(policy_id)
+        if known is not None:
+            return known
+        try:
+            target = self.env._lookup_top_level(PolicyID.parse(policy_id))
+        except Exception:  # noqa: BLE001 — resolved later with semantics
+            return True
+        hookless = not self.env._hooks_of(target)
+        self._hookless[policy_id] = hookless
+        return hookless
+
+    def _run_hooks_with_deadline(self, p: _Pending) -> bool:
+        """Run the target's pre-eval hooks on a thread of their own,
+        waiting at most the request's remaining deadline. False when the
+        request was rejected for its deadline."""
+        target = self.env._lookup_top_level(PolicyID.parse(p.policy_id))
+        hooks = self.env._hooks_of(target)
+        payload = self.env.payload_for(target, p.request)
+        remaining = (
+            None
+            if self.policy_timeout is None
+            else self.policy_timeout - (time.perf_counter() - p.enqueued_at)
+        )
+        done = threading.Event()
+        box: dict[str, BaseException] = {}
+
+        def runner() -> None:
+            try:
+                for h in hooks:
+                    h(payload)
+            except BaseException as e:  # noqa: BLE001 — carried to the caller
+                box["error"] = e
+            finally:
+                done.set()
+
+        # one daemon thread per hook run: a timed-out hook leaks only its
+        # own thread until it finishes
+        threading.Thread(target=runner, name="pre-eval-hook", daemon=True).start()
+        if not done.wait(timeout=remaining):
+            self._reject_deadline(p)
+            return False
+        if "error" in box:
+            raise box["error"]
+        return True

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -154,3 +155,84 @@ def test_spilled_arena_matches_plain(cover_env, batch):
     torch.cuda.synchronize()
     assert torch.equal(got_a, want_a)
     assert torch.equal(got_r, want_r)
+
+
+def _sync_step(env, buf):
+    """The device step without the split: a pageable copy in, the kernel,
+    the combine, a synchronous copy out."""
+    idx, _lo, transport, narrow = env._layout_for_buffer(buf.shape[1])
+    program = env.program_for(idx, transport, narrow)
+    a_mat, r_mat = ck.policy_matrix(torch.from_numpy(buf).cuda(), program)
+    return env._combine_outputs(a_mat, r_mat, program.column_of).cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", [0, 1])
+@pytest.mark.parametrize("batch", [1, 51, 128])
+def test_enqueue_fetch_matches_the_synchronous_step(card_env, idx, batch):
+    """The page-locked enqueue and its fetch return what the synchronous
+    step returns, and evaluate_packed is the two back to back."""
+    buf = _batch(card_env, idx, batch, True)
+    want = _sync_step(card_env, buf)
+    step = card_env.enqueue_packed(buf)
+    assert step.host_in.is_pinned() and step.host_out.is_pinned()
+    assert (step.wait() == want).all()
+    assert (card_env.evaluate_packed(buf) == want).all()
+
+
+@pytest.mark.cuda
+def test_inflight_steps_never_share_buffers(card_env):
+    """Steps in flight together hold distinct page-locked buffers, and two
+    pipeline threads enqueuing and fetching the same shape over and over
+    each read their own verdicts."""
+    base = _batch(card_env, 0, 64, True)
+    bufs = [base, base[::-1].copy()]
+    wants = [_sync_step(card_env, b) for b in bufs]
+    assert not (wants[0] == wants[1]).all()
+    steps = [card_env.enqueue_packed(b) for b in bufs]
+    assert steps[0].host_out.data_ptr() != steps[1].host_out.data_ptr()
+    assert steps[0].host_in.data_ptr() != steps[1].host_in.data_ptr()
+    for step, want in zip(steps, wants):
+        assert (step.wait() == want).all()
+    bad: list = []
+
+    def worker(k: int) -> None:
+        for _ in range(100):
+            if not (card_env.evaluate_packed(bufs[k]) == wants[k]).all():
+                bad.append(k)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+
+
+@pytest.mark.cuda
+def test_concurrent_first_launches_share_one_device_code(card_env):
+    """Pipeline threads launching a program for the first time at once
+    build ONE copy of its device code and one launch struct per batch
+    size; every launch then agrees with the plain version."""
+    fresh = dataclasses.replace(card_env.program_for(0, True, True))
+    buf = torch.from_numpy(_batch(card_env, 0, 51, True)).cuda()
+    want_a, want_r = ck.policy_matrix_plain(buf, fresh)
+    gate = threading.Barrier(8)
+    got: list = []
+
+    def worker() -> None:
+        gate.wait()
+        got.append((fresh.launch_args(0, 51), ck.policy_matrix(buf, fresh)))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert len(got) == 8 and len({args for args, _out in got}) == 1
+    assert list(fresh._device_code) == [0]
+    for _args, (a_mat, r_mat) in got:
+        assert torch.equal(a_mat, want_a) and torch.equal(r_mat, want_r)

@@ -158,6 +158,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         )
         print(len(list(pkgutil.walk_packages(pkg.__path__))), bad)
         assert not bad, bad
+        serving = [
+            "policy_server_tpu_torch.ops.fastenc",
+            "policy_server_tpu_torch.evaluation.verdict_cache",
+            "policy_server_tpu_torch.resilience",
+            "policy_server_tpu_torch.failpoints",
+            "policy_server_tpu_torch.runtime.workers",
+        ]
+        assert all(n in sys.modules for n in serving), serving
+        print(bad)
         """
     )
     proc = subprocess.run(

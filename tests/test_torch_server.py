@@ -1,11 +1,13 @@
 """The port's HTTP server (standard library) on the CPU against the JAX
 package's python frontend (``--host-fastpath-threshold 0``): /validate and
-/validate_raw bodies byte-equal, the same 404 and 422 error bodies, and
-the micro-batcher's batching and concurrency."""
+/validate_raw bodies byte-equal, the same 404 and 422 error bodies, the
+micro-batcher's batching and concurrency, and the garbage collection a
+server runs before it serves."""
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import http.client
 import json
 import sys
@@ -184,6 +186,37 @@ def test_readiness(servers):
         assert (resp.status, resp.read()) == (200, b"ok")
     finally:
         conn.close()
+
+
+def test_server_collects_the_garbage_left_before_it_serves():
+    """Garbage in reference cycles when a server starts is freed before
+    it serves, not by a later collection on a serving thread (whose
+    finalizers, freeing device memory, stalled requests past their
+    deadline)."""
+    freed = threading.Event()
+
+    class Cycle:
+        def __init__(self) -> None:
+            self.me = self
+
+        def __del__(self) -> None:
+            freed.set()
+
+    gc.disable()  # no automatic collection: only the server's own
+    try:
+        Cycle()
+        server = PolicyServer(
+            {"pod-privileged": t_parse_policy_entry(
+                "pod-privileged", SPECS["pod-privileged"]
+            )},
+            port=0, device="cpu", max_batch_size=2,
+        )
+        collected = freed.is_set()
+    finally:
+        gc.enable()
+    server.start()
+    server.stop()
+    assert collected
 
 
 def test_submit_many_batches_and_matches_evaluate():
