@@ -41,14 +41,33 @@ card's name and power limit:
    CUDA error, no breaker trip; requests/s, p50/p99 latency, host-routed
    and device batches, serving launches, dedup hits, the slowest
    answer's time from submission against the 2 s ``policy_timeout``, and
-   the garbage collections during the run (full ones, the longest);
+   the garbage collections during the run (full ones, the longest). Each
+   server runs with ``--enable-metrics`` and its readiness port on any
+   free port: /readiness there must answer 200, /metrics must count one
+   ``kubewarden_policy_evaluations_total`` per request and, with
+   ``accepted="false"``, the oracle's rejections (the verdict before the
+   mode's constraints), and /debug/timeline must parse with the run's
+   phases; the flight recorder's attribution of each run is printed (µs
+   per row of each phase, the residual's share of batch wall time, the
+   cache-hit/miss batch split). One more kernel-only run with one
+   pipeline worker and ``--flight-recorder off`` gives its rate beside
+   the recorder-on run's, with the recorder's modeled overhead (events
+   written × the measured cost of one event ÷ wall);
 4. the native pipeline — the encoder's build, its packed rows byte-equal
    to the Python trie's on phase 3's reviews in both buckets; the 1,024
    reviews, their exact replay (no launch: the blob tier answers) and a
    replay with new uids (no launch: the row tier answers), every body
    equal to the oracle's, with ``dedup_stats``; and the breaker tripped by
    five ``device.fetch`` faults, answering from the oracle while open, and
-   recovered by a half-open probe that launches the kernel again.
+   recovered by a half-open probe that launches the kernel again;
+5. the host fast path against the device path per batch size (B = 1, 8,
+   16, 32, 64, 128; median wall over distinct flagship batches, the
+   verdict cache off, both answers equal) and the crossover; routing and
+   defaults do not change;
+6. a short kernel-only HTTP run (256 requests) under
+   ``profiling.start_device_trace``: the card's busy share (the union of
+   its kernel, copy and memset intervals in the ``torch.profiler`` trace)
+   and idle share over the traced window; a trace without a kernel fails.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -79,6 +98,9 @@ PEAK_OPS_PER_S = 67e12
 N_REQUESTS = 1024
 CLIENT_THREADS = 128
 PHASE2_BATCHES = (51, 128, 1024)
+SWEEP_BATCHES = (1, 8, 16, 32, 64, 128)
+SWEEP_REPS = 7
+TRACED_REQUESTS = 256
 COVER_BATCHES = (51, 129, 1029)
 SPILL_BATCHES = (51, 129)
 
@@ -203,23 +225,163 @@ def widen(doc: dict, n_containers: int = 12) -> dict:
     return doc
 
 
-def oracle_body(oracle, pid: str, body: bytes) -> bytes:
-    """The /validate response body the port's host oracle gives."""
-    from policy_server_tpu_torch.api.service import RequestOrigin, evaluate
+def request_of(body: bytes):
+    """A /validate body as the request the service evaluates."""
     from policy_server_tpu_torch.models import (
         AdmissionReviewRequest,
-        AdmissionReviewResponse,
         ValidateRequest,
     )
 
-    req = ValidateRequest.from_admission(
+    return ValidateRequest.from_admission(
         AdmissionReviewRequest.from_dict(json.loads(body)).request
     )
+
+
+def oracle_body(oracle, pid: str, body: bytes) -> bytes:
+    """The /validate response body the port's host oracle gives."""
+    from policy_server_tpu_torch.api.service import RequestOrigin, evaluate
+    from policy_server_tpu_torch.models import AdmissionReviewResponse
+
     return json.dumps(
         AdmissionReviewResponse(
-            evaluate(oracle, pid, req, RequestOrigin.VALIDATE)
+            evaluate(oracle, pid, request_of(body), RequestOrigin.VALIDATE)
         ).to_dict()
     ).encode()
+
+
+def recorder_event_seconds(n: int = 2000) -> float:
+    """Seconds one flight-recorder phase event costs here: ``n``
+    ``record_phase`` calls on a recorder feeding a registry's phase
+    histogram, as the server's does (a registry of its own, so the
+    process's histograms are untouched)."""
+    from policy_server_tpu_torch.telemetry import flightrec
+    from policy_server_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    probe = flightrec.FlightRecorder(capacity=4096, registry=MetricsRegistry())
+    t0 = time.perf_counter()
+    for i in range(n):
+        probe.record_phase(flightrec.PH_DISPATCH, i, i + 100, rows=16, batch=i)
+    return (time.perf_counter() - t0) / n
+
+
+def host_device_sweep(reviews, policy_ids, card: str) -> list:
+    """The host fast path against the device path per batch size, with
+    the verdict cache off: the median wall of the two calls the batcher's
+    dispatch makes, ``validate_batch(pairs, run_hooks=False,
+    prefer_host=True)`` and ``validate_batch(pairs, run_hooks=False)``
+    (encode, the enqueue of the copies, K1 and the combine, the fetch, the
+    materialize), over distinct flagship batches of each size in
+    SWEEP_BATCHES; both answers must agree. A flight recorder splits the
+    device path's time into its stamped phases; the rest is mostly the
+    unstamped enqueue."""
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+    from policy_server_tpu_torch.models import ValidateRequest
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+    from policy_server_tpu_torch.telemetry import flightrec
+    from policy_server_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    env = EvaluationEnvironmentBuilder(
+        device="cuda", verdict_cache_size=0
+    ).build(flagship_policies())
+    env.warmup(SWEEP_BATCHES)
+    items = [
+        (
+            policy_ids[i % len(policy_ids)],
+            ValidateRequest.from_admission(
+                AdmissionReviewRequest.from_dict(d).request
+            ),
+        )
+        for i, d in enumerate(reviews)
+    ]
+    stamped = ("prepare", "encode", "fetch", "device_execute", "materialize")
+    rec = flightrec.install(flightrec.FlightRecorder(registry=MetricsRegistry()))
+    rows = []
+    try:
+        for batch in SWEEP_BATCHES:
+            times = {"host": [], "device": []}
+            device_bids = set()
+            for r in range(SWEEP_REPS + 1):
+                lo = (r * batch) % (len(items) - batch + 1)
+                pairs = items[lo : lo + batch]
+                got = {}
+                for way, prefer_host in (("host", True), ("device", False)):
+                    bid = rec.next_batch()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with flightrec.batch_scope(bid):
+                        got[way] = env.validate_batch(
+                            pairs, run_hooks=False, prefer_host=prefer_host
+                        )
+                    elapsed = time.perf_counter() - t0
+                    if r:  # the first repetition warms this size
+                        times[way].append(elapsed * 1e3)
+                        if way == "device":
+                            device_bids.add(bid)
+                if [x.to_dict() for x in got["host"]] != [
+                    x.to_dict() for x in got["device"]
+                ]:
+                    fail(f"host and device answers differ at B={batch}")
+            phase_ns = dict.fromkeys(stamped, 0)
+            for ev in rec.snapshot():
+                if ev["batch"] in device_bids and ev["phase"] in phase_ns:
+                    phase_ns[ev["phase"]] += ev["end_ns"] - ev["start_ns"]
+            host_ms = statistics.median(times["host"])
+            device_ms = statistics.median(times["device"])
+            n_rows = batch * SWEEP_REPS
+            split = {k: round(v / 1e3 / n_rows, 2) for k, v in phase_ns.items()}
+            nested = sum(v for k, v in phase_ns.items() if k != "device_execute")
+            split["rest"] = round(
+                (sum(times["device"]) * 1e6 - nested) / 1e3 / n_rows, 2
+            )
+            rows.append((batch, host_ms, device_ms))
+            print(
+                f"phase5 host vs device, B={batch}: host {host_ms:.4f} ms "
+                f"({host_ms / batch * 1e3:.2f} us/row), device "
+                f"{device_ms:.4f} ms ({device_ms / batch * 1e3:.2f} us/row; "
+                f"us/row by phase {json.dumps(split)}), median of "
+                f"{SWEEP_REPS} distinct batches, verdict cache off [{card}]"
+            )
+    finally:
+        flightrec.install(None)
+    if env.breaker_stats["trips"] or env.device_errors:
+        fail(f"the sweep tripped the breaker or saw device errors: {env.breaker_stats}")
+    return rows
+
+
+def device_busy(trace_path: str, window_s: float) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the card's kernel, copy and
+    memset intervals, summed and as their union, over the traced window's
+    wall time. Fails when the trace holds no kernel."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = []
+    kinds: dict = {}
+    for ev in events:
+        cat = ev.get("cat", "")
+        if ev.get("ph") == "X" and cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+            kinds[cat] = kinds.get(cat, 0) + 1
+    if not kinds.get("kernel"):
+        fail(f"the device trace holds no CUDA kernel: {kinds}")
+    summed = sum(e - s for s, e in spans)
+    union = 0.0
+    end = -1.0
+    for s, e in sorted(spans):
+        if e <= end:
+            continue
+        union += e - max(s, end)
+        end = e
+    window_us = window_s * 1e6
+    return {
+        "events": kinds, "window_ms": window_us / 1e3,
+        "summed_ms": summed / 1e3, "union_ms": union / 1e3,
+        "busy_share": union / window_us, "idle_share": 1.0 - union / window_us,
+    }
 
 
 def response_body(result) -> bytes:
@@ -233,25 +395,83 @@ def response_body(result) -> bytes:
     return json.dumps(AdmissionReviewResponse(result).to_dict()).encode()
 
 
-def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
+def http_get(port: int, path: str) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def evaluation_counts(port: int) -> tuple[float, float]:
+    """``kubewarden_policy_evaluations_total`` on the readiness port's
+    /metrics, summed over its label sets: (all, ``accepted="false"``)."""
+    status, text = http_get(port, "/metrics")
+    if status != 200:
+        fail(f"/metrics answered {status}")
+    total = rejected = 0.0
+    for line in text.decode().splitlines():
+        if line.startswith("kubewarden_policy_evaluations_total"):
+            head, _, value = line.rpartition(" ")
+            total += float(value)
+            if 'accepted="false"' in head:
+                rejected += float(value)
+    return total, rejected
+
+
+def print_attribution(label: str, att: dict, card: str) -> None:
+    """The flight recorder's attribution of one run: µs per row of each
+    stamped phase, the residual's share of batch wall time, and the same
+    for the batches whose rows were all cache hits, none, or some."""
+    def brief(a: dict) -> dict:
+        return {
+            "batches": a["batches_complete"], "rows": a["rows"],
+            "wall_us_per_row": a["wall_us_per_row"],
+            "phase_us_per_row": a["phase_us_per_row"],
+            "residual_us_per_row": a["residual_us_per_row"],
+            "residual_fraction_of_wall": a["residual_fraction_of_wall"],
+        }
+
+    doc = brief(att)
+    doc["mix"] = {k: brief(v) for k, v in att["mix_groups"].items()}
+    print(f"phase3 attribution ({label}): {json.dumps(doc)} [{card}]")
+
+
+def http_run(
+    label: str, work: list, oracle_bodies: list, oracle_rejected: int,
+    card: str, trace_dir: str | None = None, **flags,
+):
     """The port's server on 127.0.0.1 with the flagship set on the card,
     ``work`` POSTed to /validate from CLIENT_THREADS clients; every body
     must equal the oracle's and the breaker must not trip. Launch counts
     are zeroed just before the server is built and read after the run
-    (and after the build, to split warmup from serving)."""
+    (and after the build, to split warmup from serving). The server runs
+    with ``--enable-metrics`` and its readiness port on any free port:
+    /readiness there must answer 200, the run must add one evaluation to
+    /metrics per request and ``oracle_rejected`` of them with
+    ``accepted="false"``, and, with the recorder on, /debug/timeline must
+    parse with the run's phases (404 with it off). ``trace_dir``: the run
+    under ``profiling.start_device_trace``, for the card's busy share."""
     import torch
 
+    from policy_server_tpu_torch.api import profiling
     from policy_server_tpu_torch.ops import cuda_kernels as ck
     from policy_server_tpu_torch.policies.flagship import flagship_policies
     from policy_server_tpu_torch.runtime.batcher import DEFAULT_POLICY_TIMEOUT
     from policy_server_tpu_torch.server import PolicyServer
+    from policy_server_tpu_torch.telemetry import flightrec
 
     ck.reset_launch_counts()
     server = PolicyServer(
-        flagship_policies(), host="127.0.0.1", port=0, device="cuda", **flags
+        flagship_policies(), host="127.0.0.1", port=0, readiness_probe_port=0,
+        device="cuda", enable_metrics=True, **flags
     )
     torch.cuda.synchronize()
     warm = ck.launch_counts()
+    rec = flightrec.recorder()  # the server's own, installed at its build
+    rec_cursor = rec.events_recorded() if rec is not None else 0
     # garbage collections during the run: how many were full, and the
     # longest (a collection runs on whichever thread triggered it)
     collections: list = []
@@ -267,6 +487,10 @@ def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
 
     gc.callbacks.append(on_gc)
     server.start()
+    status, text = http_get(server.readiness_port, "/readiness")
+    if status != 200:
+        fail(f"/readiness on the readiness port answered {status} {text!r} ({label})")
+    evals_before = evaluation_counts(server.readiness_port)
     results: list = [None] * len(work)
     latencies: list = [0.0] * len(work)
     starts: list = [0.0] * len(work)
@@ -292,6 +516,8 @@ def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
         finally:
             conn.close()
 
+    if trace_dir is not None:
+        profiling.start_device_trace(trace_dir)
     t0 = time.perf_counter()
     threads = [
         threading.Thread(target=client, args=(t,)) for t in range(CLIENT_THREADS)
@@ -301,10 +527,14 @@ def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
     for t in threads:
         t.join(600)
     wall = time.perf_counter() - t0
+    trace_path = profiling.stop_device_trace() if trace_dir is not None else None
+    traced_wall = time.perf_counter() - t0
     gc.callbacks.remove(on_gc)
     alive = any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
     counts = ck.launch_counts()
+    evals_after = evaluation_counts(server.readiness_port)
+    timeline_status, timeline = http_get(server.readiness_port, "/debug/timeline")
     b = server.batcher
     env = server.env
     run = {
@@ -326,6 +556,13 @@ def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
         "max_answer_ms": b.max_answer_seconds * 1e3,
         "full_collections": sum(1 for g, _ in collections if g == 2),
         "longest_collection_ms": max((d for _, d in collections), default=0.0) * 1e3,
+        "evaluations": evals_after[0] - evals_before[0],
+        "evaluations_rejected": evals_after[1] - evals_before[1],
+        "events": rec.events_recorded() - rec_cursor if rec is not None else 0,
+        "attribution": rec.attribution(since=rec_cursor) if rec is not None else None,
+        "wall": wall,
+        "trace_path": trace_path,
+        "traced_wall": traced_wall,
     }
     server.stop()
     if alive:
@@ -390,6 +627,40 @@ def http_run(label: str, work: list, oracle_bodies: list, card: str, **flags):
         fail(f"{run['device_errors']} kernel or CUDA errors ({label})")
     if run["breaker"]["trips"]:
         fail(f"the device breaker tripped in the HTTP run ({label}): {run['breaker']}")
+    if run["evaluations"] != len(work) or run["evaluations_rejected"] != oracle_rejected:
+        fail(
+            f"/metrics counted {run['evaluations']} evaluations, "
+            f"{run['evaluations_rejected']} rejected, for {len(work)} requests "
+            f"of which the oracle rejects {oracle_rejected} ({label})"
+        )
+    print(
+        f"phase3 /metrics ({label}): kubewarden_policy_evaluations_total +"
+        f"{run['evaluations']:.0f} (accepted=\"false\" +"
+        f"{run['evaluations_rejected']:.0f}, the oracle rejects "
+        f"{oracle_rejected}); /readiness 200 on the readiness port [{card}]"
+    )
+    if rec is None:
+        if timeline_status != 404:
+            fail(f"/debug/timeline answered {timeline_status} with the recorder off")
+        return run
+    if timeline_status != 200:
+        fail(f"/debug/timeline answered {timeline_status} ({label})")
+    doc = json.loads(timeline)
+    stamped: dict = {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] == "X":
+            stamped[ev["name"]] = stamped.get(ev["name"], 0) + 1
+    need = {"queue_wait", "form", "dispatch", "handoff", "deliver"}
+    if run["device_batches"]:
+        need |= {"prepare", "encode", "fetch", "materialize", "device_execute"}
+    if not need <= set(stamped):
+        fail(f"/debug/timeline lacks phases {sorted(need - set(stamped))} ({label})")
+    print(
+        f"phase3 /debug/timeline ({label}): {len(doc['traceEvents'])} trace "
+        f"events, slices by phase {json.dumps(stamped, sort_keys=True)}, "
+        f"{run['events']} recorder events in the run [{card}]"
+    )
+    print_attribution(label, run["attribution"], card)
     return run
 
 
@@ -587,6 +858,9 @@ def main() -> int:
     from policy_server_tpu_torch.policies.flagship import (
         flagship_policies,
         synthetic_firehose,
+    )
+    from policy_server_tpu_torch.runtime.batcher import (
+        DEFAULT_HOST_FASTPATH_THRESHOLD,
     )
 
     import torch_tape_coverage as tape_coverage
@@ -831,6 +1105,12 @@ def main() -> int:
         flagship_policies()
     )
     oracle_bodies = [oracle_body(oracle, pid, body) for pid, body in work]
+    # the metric counts the verdict before the mode's constraints (a
+    # monitor-mode rejection is answered allowed): the environment's own
+    rejected = [
+        not oracle.validate(pid, request_of(body)).allowed for pid, body in work
+    ]
+    oracle_rejected = sum(rejected)
     t_phase = time.perf_counter()
     # the kernel-only run: no host routing (the latency budget off too, so
     # no batch is routed by it) and no cache, so every micro-batch
@@ -858,9 +1138,26 @@ def main() -> int:
         ):
             runs[name, workers] = http_run(
                 f"{label}, {workers} pipeline worker{'s' if workers > 1 else ''}",
-                work, oracle_bodies, card, **flags,
+                work, oracle_bodies, oracle_rejected, card, **flags,
             )
+    # the kernel-only run with one worker once more with the recorder
+    # off: its rate beside the recorder-on run's (one pair: a direction),
+    # and the overhead the recorder's own writes model
+    runs["kernel-off", 1] = http_run(
+        f"{kernel_label} --flight-recorder off, 1 pipeline worker",
+        work, oracle_bodies, oracle_rejected, card, flight_recorder=False,
+        **kernel_only,
+    )
     batcher_mod.PIPELINE_WORKERS = 4
+    on, off = runs["kernel", 1], runs["kernel-off", 1]
+    per_event_s = recorder_event_seconds()
+    print(
+        f"phase3 flight recorder, kernel-only, 1 pipeline worker: on "
+        f"{on['req_s']:.1f} req/s, off {off['req_s']:.1f} req/s (one pair, a "
+        f"direction); modeled overhead: {on['events']} events x "
+        f"{per_event_s * 1e6:.3f} us / {on['wall']:.3f} s wall = "
+        f"{on['events'] * per_event_s / on['wall'] * 100:.3f}% [{card}]"
+    )
     for workers in (4, 1):
         run = runs["kernel", workers]
         if run["host_batches"]:
@@ -890,6 +1187,36 @@ def main() -> int:
     t_phase = time.perf_counter()
     native_phase(reviews, policy_ids, oracle, enc_build, card)
     print(f"phase4 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    # -- phase 5: the host fast path against K1 per batch size ------------
+    t_phase = time.perf_counter()
+    sweep = host_device_sweep(reviews, policy_ids, card)
+    faster = [b for b, host_ms, device_ms in sweep if device_ms < host_ms]
+    print(
+        f"phase5 crossover: the device path is faster than the host fast "
+        f"path from B={faster[0] if faster else 'none of ' + str(SWEEP_BATCHES)}"
+        f"; batches where it is faster: {faster} (routing unchanged: the "
+        f"host threshold stays {DEFAULT_HOST_FASTPATH_THRESHOLD}) [{card}]"
+    )
+    print(f"phase5 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    # -- phase 6: the card's busy share under a short kernel-only run ------
+    t_phase = time.perf_counter()
+    traced = http_run(
+        f"{kernel_label}, 4 pipeline workers, {TRACED_REQUESTS} requests under "
+        f"profiling.start_device_trace",
+        work[:TRACED_REQUESTS], oracle_bodies[:TRACED_REQUESTS],
+        sum(rejected[:TRACED_REQUESTS]), card,
+        trace_dir=os.path.join(REPO, "build", "chip_smoke_trace"),
+        **kernel_only,
+    )
+    busy = device_busy(traced["trace_path"], traced["traced_wall"])
+    print(
+        f"phase6 device busy share over the traced window: "
+        f"{json.dumps(busy)}; {traced['serving_launches']} policy_matrix "
+        f"launches, {traced['req_s']:.1f} req/s under the trace [{card}]"
+    )
+    print(f"phase6 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- the kernels line -------------------------------------------------
     main_row = next(

@@ -1,16 +1,19 @@
-"""``python -m policy_server_tpu_torch --policies FILE --port N``.
+"""``python -m policy_server_tpu_torch --policies FILE``.
 
 Reads the policies file with PyYAML where it is installed (a JSON file
-needs nothing) and serves /validate until interrupted. The serving flags
-and their defaults are the JAX package's (``config/cli.py``).
+needs nothing) and serves /validate on ``--port`` (3000) and /readiness,
+/metrics and /debug/timeline on ``--readiness-probe-port`` (8081) until
+interrupted. The flags, their defaults, choices and ``KUBEWARDEN_*``
+environment variables are the JAX package's (``config/cli.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
+import os
 import sys
+from typing import Any
 
 from policy_server_tpu_torch.models.policy import parse_policies
 from policy_server_tpu_torch.runtime.batcher import (
@@ -21,7 +24,12 @@ from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_POLICY_TIMEOUT,
     DEGRADED_MODES,
 )
-from policy_server_tpu_torch.server import PolicyServer
+from policy_server_tpu_torch.server import (
+    DEFAULT_READINESS_PROBE_PORT,
+    PolicyServer,
+)
+from policy_server_tpu_torch.telemetry import flightrec
+from policy_server_tpu_torch.telemetry.tracing import setup_tracing
 
 _SIZE_SUFFIXES = {
     "k": 1024, "ki": 1024, "kb": 1000,
@@ -51,73 +59,146 @@ def _read_policies(path: str) -> dict:
     return parse_policies(yaml.safe_load(text))
 
 
-def main(argv: list[str] | None = None) -> int:
-    p = argparse.ArgumentParser(prog="policy_server_tpu_torch")
-    p.add_argument("--policies", required=True, help="policies YAML/JSON file")
-    p.add_argument("--addr", default="0.0.0.0")
-    p.add_argument("--port", type=int, default=3000)
-    p.add_argument(
-        "--device", default=None,
-        help="torch device (default: the CUDA card; 'cpu' runs the plain "
-        "PyTorch versions of the kernels)",
-    )
-    p.add_argument("--max-batch-size", type=int, default=DEFAULT_MAX_BATCH_SIZE)
-    p.add_argument(
-        "--batch-timeout-ms", type=float, default=DEFAULT_BATCH_TIMEOUT_MS
-    )
-    p.add_argument("--continue-on-errors", action="store_true")
-    p.add_argument("--always-accept-admission-reviews-on-namespace")
-    p.add_argument(
-        "--policy-timeout", type=float, default=DEFAULT_POLICY_TIMEOUT,
-        metavar="MAXIMUM_EXECUTION_TIME_SECONDS",
-        help="Interrupt policy evaluation after the given time",
-    )
-    p.add_argument(
-        "--host-fastpath-threshold", type=int,
-        default=DEFAULT_HOST_FASTPATH_THRESHOLD, metavar="N",
-        help="Micro-batches with at most N requests are answered by the "
-        "bit-exact host oracle instead of a device dispatch (0 disables)",
-    )
-    p.add_argument(
-        "--latency-budget-ms", type=float, default=DEFAULT_LATENCY_BUDGET_MS,
-        metavar="MS",
-        help="Soft per-request latency target: a batch whose measured "
-        "device round trip would exceed the oldest request's remaining "
-        "budget is answered by the host oracle (0 disables)",
-    )
-    p.add_argument(
-        "--verdict-cache-size", type=parse_size, default="256Mi",
-        metavar="BYTES",
-        help="Byte budget of the two-tier verdict cache (K/M/G[i] "
-        "suffixes), split between the pre-encode blob tier and the "
-        "post-encode row tier; 0 disables caching and in-batch row dedup",
-    )
-    p.add_argument(
-        "--breaker-failure-threshold", type=int, default=5, metavar="N",
-        help="Device faults or watchdog trips within the window that trip "
-        "the device circuit breaker open",
-    )
-    p.add_argument(
-        "--breaker-window-seconds", type=float, default=30.0,
-        metavar="SECONDS",
-        help="Sliding window over which breaker failures accumulate",
-    )
-    p.add_argument(
-        "--breaker-cooldown-seconds", type=float, default=5.0,
-        metavar="SECONDS",
-        help="Time a tripped breaker stays open before a half-open probe",
-    )
-    p.add_argument(
-        "--degraded-mode", default="oracle", choices=DEGRADED_MODES,
-        help="What to serve while the breaker is open: 'oracle' (bit-exact "
-        "host verdicts), 'monitor' (accept-all) or 'reject' (in-band 503s)",
-    )
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    server = PolicyServer(
+def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
+    """(flag, environment variable, argparse keywords): the JAX package's
+    names, defaults, choices and ``KUBEWARDEN_*`` variables
+    (``config/cli.py``) for the flags this package has."""
+    return [
+        ("--addr", "KUBEWARDEN_BIND_ADDRESS",
+         dict(default="0.0.0.0", metavar="BIND_ADDRESS",
+              help="Bind against ADDRESS")),
+        ("--port", "KUBEWARDEN_PORT",
+         dict(type=int, default=3000, metavar="PORT",
+              help="Listen on PORT")),
+        ("--readiness-probe-port", "KUBEWARDEN_READINESS_PROBE_PORT",
+         dict(type=int, default=DEFAULT_READINESS_PROBE_PORT,
+              metavar="READINESS_PROBE_PORT",
+              help="Expose the readiness endpoint (and /metrics and "
+                   "/debug/timeline) on this (plaintext) port")),
+        ("--policies", "KUBEWARDEN_POLICIES",
+         dict(default="policies.yml", metavar="POLICIES_FILE",
+              help="YAML (or JSON) file holding the policies to be loaded "
+                   "and their settings")),
+        ("--policy-timeout", "KUBEWARDEN_POLICY_TIMEOUT",
+         dict(type=float, default=DEFAULT_POLICY_TIMEOUT,
+              metavar="MAXIMUM_EXECUTION_TIME_SECONDS",
+              help="Interrupt policy evaluation after the given time")),
+        ("--always-accept-admission-reviews-on-namespace",
+         "KUBEWARDEN_ALWAYS_ACCEPT_ADMISSION_REVIEWS_ON_NAMESPACE",
+         dict(default=None, metavar="NAMESPACE",
+              help="Always accept AdmissionReviews that target the given "
+                   "namespace")),
+        ("--continue-on-errors", "KUBEWARDEN_CONTINUE_ON_ERRORS",
+         dict(action="store_true", help=argparse.SUPPRESS)),
+        ("--enable-metrics", "KUBEWARDEN_ENABLE_METRICS",
+         dict(action="store_true",
+              help="Enable metrics (Prometheus text on the readiness "
+                   "port's /metrics)")),
+        ("--enable-pprof", "KUBEWARDEN_ENABLE_PPROF",
+         dict(action="store_true", help="Enable profiling endpoints")),
+        ("--log-level", "KUBEWARDEN_LOG_LEVEL",
+         dict(default="info", metavar="LOG_LEVEL",
+              choices=["trace", "debug", "info", "warn", "error"],
+              help="Log level (trace, debug, info, warn, error)")),
+        ("--log-fmt", "KUBEWARDEN_LOG_FMT",
+         dict(default="text", metavar="LOG_FMT",
+              choices=["text", "json", "otlp"],
+              help="Log output format (text, json, otlp; otlp logs JSON "
+                   "lines and exports no span)")),
+        ("--log-no-color", "KUBEWARDEN_LOG_NO_COLOR",
+         dict(action="store_true", help="Disable colored output for logs")),
+        ("--max-batch-size", "KUBEWARDEN_MAX_BATCH_SIZE",
+         dict(type=int, default=DEFAULT_MAX_BATCH_SIZE, metavar="N",
+              help="Maximum micro-batch size dispatched to the device")),
+        ("--batch-timeout-ms", "KUBEWARDEN_BATCH_TIMEOUT_MS",
+         dict(type=float, default=DEFAULT_BATCH_TIMEOUT_MS, metavar="MS",
+              help="Maximum time a request waits for its micro-batch to "
+                   "fill")),
+        ("--host-fastpath-threshold", "KUBEWARDEN_HOST_FASTPATH_THRESHOLD",
+         dict(type=int, default=DEFAULT_HOST_FASTPATH_THRESHOLD, metavar="N",
+              help="Micro-batches with at most N requests are answered by "
+                   "the bit-exact host oracle instead of a device dispatch "
+                   "(0 disables)")),
+        ("--latency-budget-ms", "KUBEWARDEN_LATENCY_BUDGET_MS",
+         dict(type=float, default=DEFAULT_LATENCY_BUDGET_MS, metavar="MS",
+              help="Soft per-request latency target: a batch whose "
+                   "measured device round trip would exceed the oldest "
+                   "request's remaining budget is answered by the host "
+                   "oracle (0 disables)")),
+        ("--breaker-failure-threshold", "KUBEWARDEN_BREAKER_FAILURE_THRESHOLD",
+         dict(type=int, default=5, metavar="N",
+              help="Device faults or watchdog trips within the window that "
+                   "trip the device circuit breaker open")),
+        ("--breaker-window-seconds", "KUBEWARDEN_BREAKER_WINDOW_SECONDS",
+         dict(type=float, default=30.0, metavar="SECONDS",
+              help="Sliding window over which breaker failures "
+                   "accumulate")),
+        ("--breaker-cooldown-seconds", "KUBEWARDEN_BREAKER_COOLDOWN_SECONDS",
+         dict(type=float, default=5.0, metavar="SECONDS",
+              help="Time a tripped breaker stays open before a half-open "
+                   "probe")),
+        ("--degraded-mode", "KUBEWARDEN_DEGRADED_MODE",
+         dict(default="oracle", metavar="MODE", choices=DEGRADED_MODES,
+              help="What to serve while the breaker is open: 'oracle' "
+                   "(bit-exact host verdicts), 'monitor' (accept-all) or "
+                   "'reject' (in-band 503s)")),
+        ("--verdict-cache-size", "KUBEWARDEN_VERDICT_CACHE_SIZE",
+         dict(type=parse_size, default="256Mi", metavar="BYTES",
+              help="Byte budget of the two-tier verdict cache (K/M/G[i] "
+                   "suffixes), split between the pre-encode blob tier and "
+                   "the post-encode row tier; 0 disables caching and "
+                   "in-batch row dedup")),
+        ("--flight-recorder", "KUBEWARDEN_FLIGHT_RECORDER",
+         dict(default="on", metavar="MODE", choices=["on", "off"],
+              help="Always-on flight recorder: a lock-free ring of "
+                   "nanosecond-stamped phase events per batch, read as "
+                   "Chrome trace JSON on GET /debug/timeline and as "
+                   "per-phase histograms and tail exemplars on /metrics; "
+                   "'off' disables the recorder and the timeline "
+                   "endpoint")),
+        ("--recorder-ring-events", "KUBEWARDEN_RECORDER_RING_EVENTS",
+         dict(type=int, default=flightrec.DEFAULT_RING_EVENTS, metavar="N",
+              help="Flight-recorder ring capacity in events (rounded up "
+                   "to a power of two; older events are overwritten)")),
+        ("--recorder-row-sample-rate", "KUBEWARDEN_RECORDER_ROW_SAMPLE_RATE",
+         dict(type=float, default=flightrec.DEFAULT_ROW_SAMPLE_RATE,
+              metavar="FRACTION",
+              help="Fraction of delivered rows that record per-row "
+                   "timeline segments (a deterministic 1-in-round"
+                   "(1/FRACTION) stride; 0 disables row sampling)")),
+        ("--device", None,
+         dict(default=None,
+              help="torch device (default: the CUDA card; 'cpu' runs the "
+                   "plain PyTorch versions of the kernels)")),
+    ]
+
+
+def build_cli() -> argparse.ArgumentParser:
+    """The parser; a flag's environment variable, when set, replaces its
+    default."""
+    parser = argparse.ArgumentParser(prog="policy_server_tpu_torch")
+    for flag, env, kwargs in _flag_specs():
+        kwargs = dict(kwargs)
+        if env is not None:
+            value = os.environ.get(env)
+            if kwargs.get("action") == "store_true":
+                kwargs["default"] = (value or "").lower() in (
+                    "1", "true", "yes", "on"
+                )
+            elif value is not None:
+                kwargs["default"] = kwargs.get("type", str)(value)
+            if kwargs.get("help") is not argparse.SUPPRESS:
+                kwargs["help"] += f" [env: {env}]"
+        parser.add_argument(flag, **kwargs)
+    return parser
+
+
+def server_from_args(args: argparse.Namespace) -> PolicyServer:
+    return PolicyServer(
         _read_policies(args.policies),
         host=args.addr,
         port=args.port,
+        readiness_probe_port=args.readiness_probe_port,
         device=args.device,
         max_batch_size=args.max_batch_size,
         batch_timeout_ms=args.batch_timeout_ms,
@@ -133,9 +214,21 @@ def main(argv: list[str] | None = None) -> int:
         breaker_window_seconds=args.breaker_window_seconds,
         breaker_cooldown_seconds=args.breaker_cooldown_seconds,
         degraded_mode=args.degraded_mode,
+        enable_metrics=args.enable_metrics,
+        enable_pprof=args.enable_pprof,
+        flight_recorder=args.flight_recorder == "on",
+        recorder_ring_events=args.recorder_ring_events,
+        recorder_row_sample_rate=args.recorder_row_sample_rate,
     )
-    logging.getLogger("kubewarden-policy-server").info(
-        "serving on %s:%d (%s)", args.addr, server.port, server.env.device
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_cli().parse_args(argv)
+    log = setup_tracing(args.log_level, args.log_fmt, args.log_no_color)
+    server = server_from_args(args)
+    log.info(
+        "serving on %s:%d, readiness on %d (%s)",
+        args.addr, server.port, server.readiness_port, server.env.device,
     )
     try:
         server.serve_forever()

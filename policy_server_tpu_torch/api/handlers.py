@@ -1,27 +1,47 @@
-"""HTTP handlers on the standard library's ``http.server``.
+"""HTTP handlers on the standard library's ``http.server``, for the API
+port and the readiness port (the JAX package's ``build_router`` and
+``build_readiness_router``).
+
+API port (``ApiHandler``):
 
 * POST ``/validate/{policy_id}``     → the AdmissionReview response
 * POST ``/validate_raw/{policy_id}`` → the raw review response
-* GET  ``/readiness``                → ``ok`` (with the device breaker's
-  counters once it has tripped or a device error was seen; 503 while it
-  is open under ``--degraded-mode reject``)
+* GET  ``/debug/timeline``           → the flight recorder's Chrome trace
+  JSON (404 when the recorder is off)
+* GET  ``/debug/pprof/cpu?interval=&frequency=`` and ``/debug/pprof/heap``
+  under ``--enable-pprof`` (a second CPU profile while one runs: 409)
+
+Readiness port (``ReadinessHandler``):
+
+* GET ``/readiness`` → ``ok`` (with the device breaker's counters once it
+  has tripped or a device error was seen; 503 while it is open under
+  ``--degraded-mode reject``, and before the warmup has finished)
+* GET ``/metrics``   → the process registry in Prometheus text format
+* GET ``/debug/timeline``, as on the API port
 
 Error mapping: a malformed JSON body → 422 ``{"message", "status"}``;
 PolicyNotFound → 404; any other evaluation error → 500 "Something went
 wrong". Bodies are ``json.dumps`` of the response dict with the default
 separators, byte for byte what the JAX package's aiohttp frontend writes;
 a ``FragVerdict`` (a cache hit answered from a pre-built template) writes
-the bytes of ``FragTemplate.to_response(uid)``.
+the bytes of ``FragTemplate.to_response(uid)``. Each evaluation runs in a
+request span (``telemetry.tracing.span``) with the JAX package's fields.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 from http.server import BaseHTTPRequestHandler
 from typing import Any
+from urllib.parse import parse_qs
 
+from policy_server_tpu_torch.api import profiling
+from policy_server_tpu_torch.api.api_error import (
+    api_error_body,
+    something_went_wrong,
+)
 from policy_server_tpu_torch.api.service import RequestOrigin
+from policy_server_tpu_torch.api.state import ApiServerState, readiness
 from policy_server_tpu_torch.evaluation.errors import (
     EvaluationError,
     PolicyNotFoundError,
@@ -34,8 +54,15 @@ from policy_server_tpu_torch.models import (
     ValidateRequest,
 )
 from policy_server_tpu_torch.models.admission import FragVerdict
+from policy_server_tpu_torch.telemetry import default_registry, flightrec
+from policy_server_tpu_torch.telemetry.tracing import logger, span
 
-logger = logging.getLogger("kubewarden-policy-server")
+__all__ = [
+    "ApiHandler",
+    "ReadinessHandler",
+    "evaluate_body",
+    "readiness",
+]
 
 MAX_BODY_BYTES = 8 * 1024**2
 
@@ -46,10 +73,6 @@ class BodyError(Exception):
     def __init__(self, message: str):
         super().__init__(message)
         self.message = message
-
-
-def api_error_body(status: int, message: str) -> bytes:
-    return json.dumps({"message": message, "status": status}).encode()
 
 
 def parse_admission_review_bytes(body: bytes) -> AdmissionReviewRequest:
@@ -70,8 +93,43 @@ def parse_raw_review_bytes(body: bytes) -> RawReviewRequest:
         raise BodyError(f"Failed to deserialize the JSON body: {e}") from e
 
 
+def _span_fields_from_admission(review: AdmissionReviewRequest) -> dict:
+    """The request's identifying fields for its span."""
+    req = review.request
+    fields = {
+        "request_uid": req.uid,
+        "name": req.name,
+        "namespace": req.namespace,
+        "operation": req.operation,
+        "subresource": req.sub_resource,
+    }
+    if req.kind:
+        fields.update(
+            kind_group=req.kind.group, kind_version=req.kind.version,
+            kind=req.kind.kind,
+        )
+    if req.resource:
+        fields.update(
+            resource_group=req.resource.group,
+            resource_version=req.resource.version,
+            resource=req.resource.resource,
+        )
+    return {k: v for k, v in fields.items() if v not in (None, "")}
+
+
+def _record_response(fields: dict, response: Any) -> None:
+    """The verdict's fields on the request span."""
+    fields["allowed"] = response.allowed
+    fields["mutated"] = response.patch is not None
+    if response.status:
+        if response.status.code is not None:
+            fields["response_code"] = response.status.code
+        if response.status.message:
+            fields["response_message"] = response.status.message
+
+
 def evaluate_body(
-    batcher: Any, kind: str, policy_id: str, body: bytes
+    batcher: Any, kind: str, policy_id: str, body: bytes, hostname: str = ""
 ) -> tuple[int, bytes]:
     """One POST body → (status, response body). ``kind`` is ``validate``
     or ``validate_raw``."""
@@ -79,25 +137,32 @@ def evaluate_body(
         if kind == "validate":
             review = parse_admission_review_bytes(body)
             request = ValidateRequest.from_admission(review.request)
+            fields = _span_fields_from_admission(review)
         else:
             raw = parse_raw_review_bytes(body)
             request = ValidateRequest.from_raw(raw.request)
+            fields = {}
     except BodyError as e:
         return 422, api_error_body(422, e.message)
-    try:
-        result = batcher.submit(
-            policy_id, request, RequestOrigin.VALIDATE
-        ).result()
-    except PolicyNotFoundError as e:
-        return 404, api_error_body(404, str(e))
-    except EvaluationError as e:
-        logger.error("Evaluation error: %s", e)
-        return 500, api_error_body(500, "Something went wrong")
-    except Exception as e:  # noqa: BLE001 — keep the JSON error contract
-        logger.error("Evaluation error: %s", e)
-        return 500, api_error_body(500, "Something went wrong")
-    if type(result) is FragVerdict:
-        result = result.to_response()
+    with span(
+        "validation" if kind == "validate" else "validation_raw",
+        host=hostname, policy_id=policy_id, **fields,
+    ) as span_fields:
+        try:
+            result = batcher.submit(
+                policy_id, request, RequestOrigin.VALIDATE
+            ).result()
+        except PolicyNotFoundError as e:
+            return 404, api_error_body(404, str(e))
+        except EvaluationError as e:
+            logger.error("Evaluation error: %s", e)
+            return something_went_wrong()
+        except Exception as e:  # noqa: BLE001 — keep the JSON error contract
+            logger.error("Evaluation error: %s", e)
+            return something_went_wrong()
+        if type(result) is FragVerdict:
+            result = result.to_response()
+        _record_response(span_fields, result)
     envelope = (
         AdmissionReviewResponse(result)
         if kind == "validate"
@@ -106,36 +171,60 @@ def evaluate_body(
     return 200, json.dumps(envelope.to_dict()).encode()
 
 
-def readiness(batcher: Any) -> tuple[int, str]:
-    """The /readiness verdict. 503 while the device breaker is open under
-    ``--degraded-mode reject``, as the JAX package's (every review would be
-    answered with an in-band 503); otherwise 200. Once the breaker has
-    tripped, or a kernel or CUDA error has failed requests, the body shows
-    the counts, so host answers in place of the device's are never
-    silent."""
-    env = batcher.env
-    if batcher.degraded_mode == "reject" and env.breaker_all_open:
-        return 503, (
-            "the device breaker is open and --degraded-mode reject refuses "
-            "traffic"
+def _pprof_cpu(query: str) -> tuple[int, bytes, str]:
+    """GET /debug/pprof/cpu?interval=&frequency= (seconds, Hz)."""
+    params = parse_qs(query)
+    try:
+        interval = float(
+            params.get("interval", [profiling.DEFAULT_PROFILING_INTERVAL])[0]
         )
-    stats = env.breaker_stats
-    errors = env.device_errors
-    if not stats.get("trips") and not errors:
-        return 200, "ok"
-    return 200, (
-        f"ok; device breaker {'open' if stats['open_shards'] else 'closed'}: "
-        f"trips {stats['trips']}, recoveries {stats['recoveries']}, requests "
-        f"answered by the host oracle while open "
-        f"{stats['short_circuited_requests']}; device errors {errors}"
-    )
+        frequency = int(
+            params.get("frequency", [profiling.DEFAULT_PROFILING_FREQUENCY])[0]
+        )
+    except ValueError:
+        return 422, api_error_body(
+            422, "invalid 'interval'/'frequency' query parameter"
+        ), _JSON
+    try:
+        profile = profiling.start_one_cpu_profile(interval, frequency)
+    except profiling.ProfileInProgress as e:
+        return 409, api_error_body(409, str(e)), _JSON
+    except Exception as e:  # noqa: BLE001 — keep the JSON error contract
+        logger.error("pprof error: %s", e)
+        return (*something_went_wrong(), _JSON)
+    return 200, profile.text.encode(), "application/octet-stream"
 
 
-class ApiHandler(BaseHTTPRequestHandler):
-    """Routes requests to the server's batcher (``self.server.batcher``)."""
+def _pprof_heap() -> tuple[int, bytes, str]:
+    """GET /debug/pprof/heap: host allocations and each card's memory."""
+    try:
+        return 200, profiling.heap_profile(), _JSON
+    except Exception as e:  # noqa: BLE001 — keep the JSON error contract
+        logger.error("pprof error: %s", e)
+        return (*something_went_wrong(), _JSON)
+
+
+def _timeline() -> tuple[int, bytes]:
+    """GET /debug/timeline: the recorder's ring as Chrome trace JSON."""
+    rec = flightrec.recorder()
+    if rec is None:
+        return 404, api_error_body(404, "the flight recorder is disabled")
+    return 200, rec.chrome_trace_json()
+
+
+_JSON = "application/json; charset=utf-8"
+_TEXT = "text/plain; charset=utf-8"
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """Shared plumbing; ``self.server.state`` is the ApiServerState."""
 
     protocol_version = "HTTP/1.1"
     server_version = "policy-server-torch"
+
+    @property
+    def state(self) -> ApiServerState:
+        return self.server.state  # type: ignore[attr-defined]
 
     def log_message(self, format: str, *args: Any) -> None:  # noqa: A002
         logger.debug("%s - %s", self.address_string(), format % args)
@@ -148,14 +237,26 @@ class ApiHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def _send_json(self, status: int, body: bytes) -> None:
-        self._send(status, body, "application/json; charset=utf-8")
+        self._send(status, body, _JSON)
+
+    def _not_found(self) -> None:
+        self._send_json(404, api_error_body(404, "Not Found"))
+
+
+class ApiHandler(_Handler):
+    """The API port: evaluation, the timeline and, under
+    ``--enable-pprof``, the profiling endpoints."""
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's hook name
-        if self.path == "/readiness":
-            status, text = readiness(self.server.batcher)
-            self._send(status, text.encode(), "text/plain; charset=utf-8")
+        path, _, query = self.path.partition("?")
+        if path == "/debug/timeline":
+            self._send_json(*_timeline())
+        elif path == "/debug/pprof/cpu" and self.state.enable_pprof:
+            self._send(*_pprof_cpu(query))
+        elif path == "/debug/pprof/heap" and self.state.enable_pprof:
+            self._send(*_pprof_heap())
         else:
-            self._send_json(404, api_error_body(404, "Not Found"))
+            self._not_found()
 
     def do_POST(self) -> None:  # noqa: N802
         parts = self.path.split("?", 1)[0].strip("/").split("/")
@@ -168,9 +269,27 @@ class ApiHandler(BaseHTTPRequestHandler):
             return
         body = self.rfile.read(length)
         if len(parts) != 2 or parts[0] not in ("validate", "validate_raw"):
-            self._send_json(404, api_error_body(404, "Not Found"))
+            self._not_found()
             return
+        state = self.state
         status, payload = evaluate_body(
-            self.server.batcher, parts[0], parts[1], body
+            state.batcher, parts[0], parts[1], body, state.hostname
         )
         self._send_json(status, payload)
+
+
+class ReadinessHandler(_Handler):
+    """The plaintext readiness port: probes, the Prometheus scrape and the
+    timeline."""
+
+    def do_GET(self) -> None:  # noqa: N802 — http.server's hook name
+        path = self.path.partition("?")[0]
+        if path == "/readiness":
+            status, text = self.state.readiness()
+            self._send(status, text.encode(), _TEXT)
+        elif path == "/metrics":
+            self._send(200, default_registry().exposition(), _TEXT)
+        elif path == "/debug/timeline":
+            self._send_json(*_timeline())
+        else:
+            self._not_found()

@@ -34,6 +34,12 @@ fails its batch's requests. ``validate_batch(prefer_host=True)`` is the
 batcher's latency fast path: the targeted host oracle, sharing the
 verdict cache.
 
+With a flight recorder installed (``telemetry/flightrec.py``) the native
+path stamps ``prepare``, ``blob_dedup``, ``encode``, ``bookkeeping``,
+``fetch``, ``materialize`` and, inside the fetch, ``device_execute`` (the
+wait on the step's CUDA event), each under the batcher's batch id; the
+host fast path stamps nothing of its own.
+
 Backends: ``torch`` (the device path; ``device="cpu"`` runs the kernels'
 plain PyTorch versions, and the fetch is immediate) and ``oracle`` (the
 host interpreter).
@@ -106,6 +112,7 @@ from policy_server_tpu_torch.ops.optimizer import (
 )
 from policy_server_tpu_torch.policies import resolve_builtin
 from policy_server_tpu_torch.resilience import CircuitBreaker
+from policy_server_tpu_torch.telemetry import flightrec
 from policy_server_tpu_torch.utils.interning import InternTable
 
 logger = logging.getLogger("kubewarden-policy-server")
@@ -977,6 +984,18 @@ class EvaluationEnvironment:
             return dict(self._host_profile)
 
     @property
+    def kernel_stats(self) -> dict[str, int]:
+        """``policy_matrix`` on the serving path: its dispatches (every
+        device dispatch launches it) and the schema buckets it serves (all
+        of them on the torch backend)."""
+        with self._stats_lock:
+            dispatches = self._host_profile["dispatched_chunks"]
+        return {
+            "dispatches": dispatches,
+            "buckets_armed": len(self.schemas) if self.backend == "torch" else 0,
+        }
+
+    @property
     def warmup_dispatches(self) -> int:
         """Device dispatches ONE ``warmup((b,))`` call issues (one per
         schema bucket); the batcher divides its RTT seed by this."""
@@ -1163,19 +1182,33 @@ class EvaluationEnvironment:
             self._device_raised(e)
             raise
 
-    def _device_fetch(self, step: InflightStep) -> np.ndarray:
+    def _device_fetch(
+        self, step: InflightStep, rec_rows: int = 0, rec_batch: int = -1
+    ) -> np.ndarray:
         """The choke point every device result fetch goes through: fires
         the ``device.fetch`` failpoint and reports the outcome — a fetch
         that raises is a fault (``_device_raised``), one that returns is
         the success that closes a half-open breaker. A fetch that HANGS is
         invisible here; the batcher's watchdog reports it through
-        record_dispatch_failure."""
+        record_dispatch_failure. The wait on the step's CUDA event is the
+        recorder's ``device_execute`` (``rec_rows`` rows of batch
+        ``rec_batch``): it nests inside the caller's ``fetch``, so the
+        attribution never adds it."""
         try:
             failpoints.fire("device.fetch")
+            t0 = time.perf_counter_ns()
             out = step.wait()
+            t1 = time.perf_counter_ns()
         except Exception as e:
             self._device_raised(e)
             raise
+        # outside the try: a recorder fault fails the batch, it is never
+        # a device fault that could trip the breaker onto the host
+        rec = flightrec.recorder()
+        if rec is not None:
+            rec.record_phase(
+                flightrec.PH_DEVICE_EXECUTE, t0, t1, rows=rec_rows, batch=rec_batch
+            )
         if self.breaker is not None:
             self.breaker.record_success()
         return out
@@ -1445,6 +1478,10 @@ class EvaluationEnvironment:
         pending: list[int] = []
         uniform_tid: int | None = None
         uniform_target = True
+        # the target-resolution and payload-blob loop is the recorder's
+        # ``prepare``
+        rec = flightrec.recorder()
+        t_prep = time.perf_counter_ns()
         for i, (policy_id, request) in enumerate(items):
             try:
                 target = self._fast_target(policy_id)
@@ -1461,6 +1498,11 @@ class EvaluationEnvironment:
                 pending.append(i)
             except Exception as e:  # noqa: BLE001 — per-item error channel
                 results[i] = e
+        if rec is not None:
+            rec.record_phase(
+                flightrec.PH_PREPARE, t_prep, time.perf_counter_ns(),
+                rows=len(items), batch=flightrec.current_batch(),
+            )
 
         # tier 1, the blob tier: exact payload replays never reach the
         # encoder (one locked batch lookup)
@@ -1489,10 +1531,15 @@ class EvaluationEnvironment:
                     n_frag += 1
                 else:
                     results[i] = self._materialize(targets[i], items[i][1], row)
+            t1 = time.perf_counter_ns()
             self._profile_add(
-                bookkeeping_ns=time.perf_counter_ns() - t0,
-                bookkeeping_rows=len(pending),
+                bookkeeping_ns=t1 - t0, bookkeeping_rows=len(pending)
             )
+            if rec is not None:
+                rec.record_phase(
+                    flightrec.PH_BLOB_DEDUP, t0, t1,
+                    rows=len(pending), batch=flightrec.current_batch(),
+                )
             if n_frag:
                 with self._stats_lock:
                     self._frag_hits += n_frag
@@ -1576,6 +1623,10 @@ class EvaluationEnvironment:
             pending[c : c + chunk_size]
             for c in range(0, len(pending), chunk_size)
         ]
+        # the recorder's batch id rides this thread's scope; the closures
+        # below capture it for the fetch, which may run later
+        rec = flightrec.recorder()
+        bid = flightrec.current_batch() if rec is not None else -1
         overflowed: list[int] = []
         # (in-flight step, slot rows, row-tier insertions, blob-tier
         # insertions) per chunk
@@ -1591,16 +1642,16 @@ class EvaluationEnvironment:
             t0 = time.perf_counter_ns()
             bl = [blobs[i] for i in chunk]
             out = schema.native.encode_batch(bl, bucket_size(len(bl)), self.table)
-            self._profile_add(
-                encode_ns=time.perf_counter_ns() - t0, encode_rows=len(chunk)
-            )
-            return bl, out
+            t1 = time.perf_counter_ns()
+            self._profile_add(encode_ns=t1 - t0, encode_rows=len(chunk))
+            return bl, out, t0, t1
 
         def materialize(entry) -> None:
             step, slot_rows, lru_inserts, blob_inserts = entry
             t0 = time.perf_counter_ns()
-            raw = self._device_fetch(step)
-            self._profile_add(dispatch_wait_ns=time.perf_counter_ns() - t0)
+            raw = self._device_fetch(step, len(slot_rows), bid)
+            t1 = time.perf_counter_ns()
+            self._profile_add(dispatch_wait_ns=t1 - t0)
             outputs = self._unpack(raw)
             if lru_inserts or blob_inserts:
                 row_of_slot: dict[int, dict] = {}
@@ -1627,18 +1678,30 @@ class EvaluationEnvironment:
                 results[i] = self._materialize(
                     targets[i], items[i][1], _RowView(outputs, slot)
                 )
+            if rec is not None:
+                rec.record_phase(
+                    flightrec.PH_FETCH, t0, t1, rows=len(slot_rows), batch=bid
+                )
+                rec.record_phase(
+                    flightrec.PH_MATERIALIZE, t1, time.perf_counter_ns(),
+                    rows=len(slot_rows), batch=bid,
+                )
 
         window = self.max_inflight_dispatches
         drained = 0
         for chunk in chunks:
             try:
-                chunk_blobs, (features, status) = encode(chunk)
+                chunk_blobs, (features, status), t0, t1 = encode(chunk)
             except ValueError:
                 # arena or records overflow on a pathological chunk: keep
                 # per-item isolation — the whole chunk goes to the next
                 # schema or the oracle
                 overflowed.extend(chunk)
                 continue
+            if rec is not None:
+                rec.record_phase(
+                    flightrec.PH_ENCODE, t0, t1, rows=len(chunk), batch=bid
+                )
             n_chunk = len(chunk)
             status = np.asarray(status)[:n_chunk]
             ok_mask = status == 0
@@ -1812,7 +1875,13 @@ class EvaluationEnvironment:
                                     (self._cache_key_of(targets[i]), chunk_blobs[pos])
                                 )
                 # ns only: the blob-tier pre-pass already counted these rows
-                self._profile_add(bookkeeping_ns=time.perf_counter_ns() - t_book)
+                t_book_end = time.perf_counter_ns()
+                self._profile_add(bookkeeping_ns=t_book_end - t_book)
+                if rec is not None:
+                    rec.record_phase(
+                        flightrec.PH_BOOKKEEPING, t_book, t_book_end,
+                        rows=len(chunk), batch=bid,
+                    )
                 if not slot_rows:
                     continue  # the whole chunk came from the caches
                 n_keep = int(keep_rows.size)

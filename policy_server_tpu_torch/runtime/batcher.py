@@ -25,7 +25,18 @@ Per batch:
    whose every request expired is abandoned (its late verdicts are thrown
    away) and, when the device wait was long, reported to the breaker;
 4. the service layer's mode and mutation constraints (skipped for
-   fragment verdicts, whose eligibility proved them the identity).
+   fragment verdicts, whose eligibility proved them the identity) and
+   one evaluation metric per answered request, flushed once per batch
+   (``record_evaluations_batch``).
+
+With a flight recorder installed (``telemetry/flightrec.py``) each batch
+stamps ``queue_wait`` (oldest enqueue → formed), ``form`` (phase 1),
+``dispatch`` (phase 2's window), ``handoff`` (the pool pickup and the
+wake after the work, inside the dispatch window) and ``deliver`` (phase
+3), each at one site below; the environment's phases run under the
+batch's id (``flightrec.batch_scope``) on the worker. Per-row recorder
+work is batch-granular: one exemplar offer and one stride reservation per
+batch.
 
 While the environment's breaker is fully open, ``degraded_mode`` other
 than ``oracle`` answers accept-all (``monitor``) or in-band 503s
@@ -42,6 +53,7 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Any
 
+from policy_server_tpu_torch.api import service
 from policy_server_tpu_torch.api.service import (
     RequestOrigin,
     handle_initialization_error,
@@ -57,6 +69,7 @@ from policy_server_tpu_torch.evaluation.policy_id import PolicyID
 from policy_server_tpu_torch.models import AdmissionResponse, ValidateRequest
 from policy_server_tpu_torch.models.admission import FragVerdict
 from policy_server_tpu_torch.runtime.workers import DaemonExecutor
+from policy_server_tpu_torch.telemetry import flightrec
 
 logger = logging.getLogger("kubewarden-policy-server")
 
@@ -89,6 +102,30 @@ class _Pending:
         self.origin = origin
         self.future = future
         self.enqueued_at = time.perf_counter()
+
+
+class _BatchRec:
+    """One batch's flight-recorder context: the batch id and the phase
+    boundary stamps the batcher reads anyway (formed, phase-1 end, the
+    dispatch window); a row's exemplar breakdown reuses them."""
+
+    __slots__ = ("rec", "bid", "formed_at", "form_ns", "disp_ns")
+
+    def __init__(self, rec: flightrec.FlightRecorder, formed_at: float) -> None:
+        self.rec = rec
+        self.bid = rec.next_batch()
+        self.formed_at = formed_at
+        self.form_ns = 0  # phase-1 duration, set when PH_FORM records
+        self.disp_ns = 0  # dispatch duration, set when PH_DISPATCH records
+
+    def row_breakdown(self, enqueued_at: float) -> dict:
+        return {
+            flightrec.PH_QUEUE_WAIT: int(
+                max(0.0, self.formed_at - enqueued_at) * 1e9
+            ),
+            flightrec.PH_FORM: self.form_ns,
+            flightrec.PH_DISPATCH: self.disp_ns,
+        }
 
 
 class MicroBatcher:
@@ -156,6 +193,8 @@ class MicroBatcher:
         self.deadline_rejections = 0  # guarded-by: _stats_lock
         self.max_answer_seconds = 0.0  # guarded-by: _stats_lock
         self.degraded_responses = 0  # guarded-by: _stats_lock
+        # summed time from submission to batch formation
+        self.queue_wait_ns = 0  # guarded-by: _stats_lock
         self._thread = threading.Thread(
             target=self._loop, name="micro-batcher", daemon=True
         )
@@ -212,6 +251,24 @@ class MicroBatcher:
         for (pid, req), fut in zip(items, futures):
             self._queue.put(_Pending(pid, req, origin, fut))
         return futures
+
+    def queue_depth(self) -> int:
+        """Requests waiting for batch formation."""
+        return self._queue.qsize()
+
+    def stats_snapshot(self) -> dict[str, int]:
+        """The /metrics scrape's counters under one acquisition of the
+        stats lock, with the JAX package's key names."""
+        with self._stats_lock:
+            return {
+                "batches_dispatched": self.batches,
+                "requests_dispatched": self.batch_rows,
+                "deadline_abandoned_batches": self.deadline_abandoned_batches,
+                "host_fastpath_batches": self.host_fastpath_batches,
+                "budget_routed_batches": self.budget_routed_batches,
+                "degraded_responses": self.degraded_responses,
+                "queue_wait_ns": self.queue_wait_ns,
+            }
 
     def evaluate(
         self,
@@ -290,16 +347,32 @@ class MicroBatcher:
     # -- one batch ---------------------------------------------------------
 
     def _dispatch(self, batch: list[_Pending]) -> None:
+        formed_at = time.perf_counter()
         with self._stats_lock:
             self.batches += 1
             self.batch_rows += len(batch)
+            self.queue_wait_ns += int(
+                sum(formed_at - p.enqueued_at for p in batch) * 1e9
+            )
+        rec = flightrec.recorder()
+        brec = None
+        if rec is not None:
+            brec = _BatchRec(rec, formed_at)
+            rec.record_phase(
+                flightrec.PH_QUEUE_WAIT,
+                int(min(p.enqueued_at for p in batch) * 1e9),
+                int(formed_at * 1e9),
+                rows=len(batch), batch=brec.bid,
+            )
         # phase 1 (host): pre-evaluation and bounded pre-eval hooks; rows
         # that short-circuit or fail resolve here
         runnable: list[_Pending] = []
-        now = time.perf_counter()
+        now = formed_at
         for p in batch:
             try:
-                short = pre_evaluate(self.env, p.policy_id, p.request)
+                short = pre_evaluate(
+                    self.env, p.policy_id, p.request, p.origin, p.enqueued_at
+                )
             except Exception as e:  # noqa: BLE001 — per-item error channel
                 self._fail(p, e)
                 continue
@@ -321,8 +394,15 @@ class MicroBatcher:
                 self._reject_deadline(p)
                 continue
             runnable.append(p)
+        if brec is not None:
+            phase1_end = time.perf_counter()
+            brec.form_ns = int((phase1_end - formed_at) * 1e9)
+            rec.record_phase(
+                flightrec.PH_FORM, int(formed_at * 1e9), int(phase1_end * 1e9),
+                rows=len(batch), batch=brec.bid,
+            )
         if runnable:
-            self._evaluate_runnable(runnable)
+            self._evaluate_runnable(runnable, brec)
 
     def _route_host(self, runnable: list[_Pending]) -> bool:
         """The latency fast path, two tiers: occupancy (a batch of at most
@@ -352,9 +432,12 @@ class MicroBatcher:
             return True
         return False
 
-    def _evaluate_runnable(self, runnable: list[_Pending]) -> None:
+    def _evaluate_runnable(
+        self, runnable: list[_Pending], brec: _BatchRec | None = None
+    ) -> None:
         """Phases 2 and 3: the degraded-mode gate, host or device
-        evaluation under the watchdog, the service-layer constraints."""
+        evaluation under the watchdog, the service-layer constraints and
+        the batch's metrics."""
         if self.degraded_mode != "oracle" and self.env.breaker_all_open:
             self._serve_degraded(runnable)
             return
@@ -367,50 +450,122 @@ class MicroBatcher:
             fn, args = self._host_validate, (pairs,)
         else:
             fn, args = self._fused_validate, (pairs,)
+        bid = brec.bid if brec is not None else -1
         start = time.perf_counter()
         live = runnable
+        # the pool hand-off gaps (submit → worker pickup, work end → wake)
+        handoffs: list[tuple[int, int]] = []
         if self.policy_timeout is None:
             try:
-                results = fn(*args)
+                with flightrec.batch_scope(bid):
+                    results = fn(*args)
             except Exception as e:  # noqa: BLE001
                 for p in runnable:
                     self._fail(p, e)
                 return
         else:
-            dev_future = self._device_pool.submit(fn, *args)
+            t_submit = time.perf_counter_ns()
+            dev_future = self._device_pool.submit(
+                self._scoped_timed, bid, fn, *args
+            )
             try:
-                results, live = self._watchdog_wait(dev_future, runnable)
+                wrapped, live = self._watchdog_wait(dev_future, runnable)
             except Exception as e:  # noqa: BLE001 — the evaluation raised
                 for p in runnable:
                     self._fail(p, e)
                 return
-            if results is None:
+            if wrapped is None:
                 waited = time.perf_counter() - start
                 if not use_host:
                     self._record_device_failure(runnable, waited)
                 self._observe_dispatch(use_host, n, waited, lower_bound=True)
                 return  # every item deadline-rejected; the work is abandoned
-        self._observe_dispatch(use_host, n, time.perf_counter() - start)
-        # phase 3 (host): constraints; rows the watchdog already answered
-        # are skipped
+            results, t_start, t_end = wrapped
+            handoffs = [(t_submit, t_start), (t_end, time.perf_counter_ns())]
+        done_at = time.perf_counter()
+        self._observe_dispatch(use_host, n, done_at - start)
+        if brec is not None:
+            brec.disp_ns = int((done_at - start) * 1e9)
+            brec.rec.record_phase(
+                flightrec.PH_DISPATCH, int(start * 1e9), int(done_at * 1e9),
+                rows=n, batch=bid,
+            )
+            for h0, h1 in handoffs:
+                if h1 > h0:
+                    brec.rec.record_phase(
+                        flightrec.PH_HANDOFF, h0, h1, rows=n, batch=bid
+                    )
+        # phase 3 (host): constraints and metrics; rows the watchdog
+        # already answered are skipped
         live_ids = {id(p) for p in live}
+        metrics_sink: list = []
+        hit_rows = 0  # cache-hit (fragment) rows, for the batch's mix
         for p, result in zip(runnable, results):
             if id(p) not in live_ids:
                 continue
             try:
-                if type(result) is FragVerdict:
-                    # fragment eligibility proved the constraints identity
-                    self._resolve(p, result)
-                elif isinstance(result, PolicyInitializationError):
+                if isinstance(result, PolicyInitializationError):
                     self._resolve(p, handle_initialization_error(p.request, result))
                 elif isinstance(result, Exception):
                     self._fail(p, result)
                 else:
+                    # a fragment verdict passes post_evaluate unchanged:
+                    # its eligibility proved the constraints the identity
+                    hit_rows += type(result) is FragVerdict
                     self._resolve(
-                        p, post_evaluate(self.env, p.policy_id, p.origin, result)
+                        p,
+                        post_evaluate(
+                            self.env, p.policy_id, p.request, p.origin,
+                            result, p.enqueued_at, metrics_sink=metrics_sink,
+                            now=done_at,
+                        ),
                     )
             except Exception as e:  # noqa: BLE001 — never kill the worker
                 self._fail(p, e)
+        if metrics_sink:
+            service._registry().record_evaluations_batch(metrics_sink)
+        if brec is not None:
+            self._record_delivery(brec, done_at, live, hit_rows)
+
+    @staticmethod
+    def _record_delivery(
+        brec: _BatchRec, done_at: float, live: list[_Pending], hit_rows: int
+    ) -> None:
+        """Phase 3's recorder work: the deliver interval, the batch's
+        cache-hit mix, one exemplar offer (the oldest row is the batch's
+        slowest: every row shares ``done_at``) and the sampled rows."""
+        rec, bid = brec.rec, brec.bid
+        rec.record_phase(
+            flightrec.PH_DELIVER, int(done_at * 1e9), time.perf_counter_ns(),
+            rows=len(live), batch=bid,
+        )
+        rec.record_batch_mix(bid, hit_rows, len(live))
+        if not live:
+            return
+        done_ns = int(done_at * 1e9)
+        oldest = min(live, key=lambda q: q.enqueued_at)
+        rec.offer_exemplar(
+            oldest.request.uid(), oldest.policy_id,
+            int(oldest.enqueued_at * 1e9), done_ns,
+            brec.row_breakdown(oldest.enqueued_at),
+        )
+        for i in rec.sample_indices(len(live)):
+            p = live[i]
+            rec.record_row(
+                p.request.uid(), p.policy_id, int(p.enqueued_at * 1e9),
+                done_ns, bid, brec.row_breakdown(p.enqueued_at),
+                flightrec.FlightRecorder.ROW_SAMPLED,
+            )
+
+    @staticmethod
+    def _scoped_timed(bid: int, fn: Any, *args: Any) -> tuple[Any, int, int]:
+        """``fn(*args)`` on a pool worker under the batch's recorder scope
+        → (result, start ns, end ns): the worker-side stamps give the
+        hand-off gaps around the pool crossing."""
+        with flightrec.batch_scope(bid):
+            t0 = time.perf_counter_ns()
+            out = fn(*args)
+            return out, t0, time.perf_counter_ns()
 
     def _host_validate(self, pairs: list) -> list:
         return self.env.validate_batch(pairs, run_hooks=False, prefer_host=True)
@@ -449,10 +604,11 @@ class MicroBatcher:
 
     def _watchdog_wait(
         self, dev_future: Future, runnable: list[_Pending]
-    ) -> tuple[list | None, list[_Pending]]:
+    ) -> tuple[Any, list[_Pending]]:
         """Wait for the evaluation, but never past any item's deadline:
         items whose deadline passes first resolve in-band with "execution
-        deadline exceeded" (500). Returns ``(results, live items)``, or
+        deadline exceeded" (500). Returns ``(the future's result, live
+        items)``, or
         ``(None, [])`` when every item expired — the work then finishes
         in the background and its verdicts are thrown away."""
         live = list(runnable)

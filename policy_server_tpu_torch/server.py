@@ -1,22 +1,30 @@
-"""PolicyServer — the environment, the micro-batcher and the HTTP frontend.
+"""PolicyServer — the environment, the micro-batcher and the two HTTP
+ports.
 
-``PolicyServer(policies, device=...)`` builds the evaluation environment
-(on the card unless the caller asks for the CPU) with its verdict cache and
-device circuit breaker, starts the batcher (warming every batch bucket and
-seeding its device round-trip estimate) and serves the API on
-``host:port`` from a ``ThreadingHTTPServer``: each connection's thread
-parses its request and waits on the batcher's future, so concurrent
-requests form micro-batches.
+``PolicyServer(policies, device=...)`` installs the flight recorder (so the
+warmup records), builds the evaluation environment (on the card unless the
+caller asks for the CPU) with its verdict cache and device circuit
+breaker, starts the batcher (warming every batch bucket and seeding its
+device round-trip estimate), attaches the runtime-stats provider to the
+process metrics registry, and binds the API on ``host:port`` and then the
+readiness port (``/readiness``, ``/metrics``, ``/debug/timeline``) on
+``host:readiness_probe_port`` (0 binds any free port; ``readiness_port``
+says which). Each port is a ``ThreadingHTTPServer``: each connection's
+thread parses its request and waits on the batcher's future, so
+concurrent requests form micro-batches.
 """
 
 from __future__ import annotations
 
 import gc
+import socket
 import threading
 from http.server import ThreadingHTTPServer
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
-from policy_server_tpu_torch.api.handlers import ApiHandler
+from policy_server_tpu_torch.api import profiling
+from policy_server_tpu_torch.api.handlers import ApiHandler, ReadinessHandler
+from policy_server_tpu_torch.api.state import ApiServerState
 from policy_server_tpu_torch.evaluation.environment import (
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
@@ -29,6 +37,14 @@ from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_POLICY_TIMEOUT,
     MicroBatcher,
 )
+from policy_server_tpu_torch.telemetry import (
+    default_registry,
+    flightrec,
+    metrics as names,
+    setup_metrics,
+)
+
+DEFAULT_READINESS_PROBE_PORT = 8081
 
 
 class _HttpServer(ThreadingHTTPServer):
@@ -38,9 +54,133 @@ class _HttpServer(ThreadingHTTPServer):
     # connections; the default listen backlog of 5 would drop SYNs
     request_queue_size = 1024
 
-    def __init__(self, addr: tuple[str, int], batcher: MicroBatcher) -> None:
-        self.batcher = batcher
-        super().__init__(addr, ApiHandler)
+    def __init__(
+        self, addr: tuple[str, int], handler: type, state: ApiServerState
+    ) -> None:
+        self.state = state
+        super().__init__(addr, handler)
+
+
+def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
+    """The serving runtime's families for one /metrics scrape, under the
+    JAX package's names: the batcher's counters, the environment's
+    ``dedup_stats``, ``host_profile``, ``breaker_stats``,
+    ``device_errors`` and kernel stats, and the flight recorder's.
+    Families whose subsystem the port has not got (tenants, audit, reload,
+    shards, shedding) are not emitted."""
+    batcher = state.batcher
+    env = state.evaluation_environment
+    b = batcher.stats_snapshot()
+    yield (names.BATCHES_DISPATCHED, "counter",
+           "Micro-batches dispatched", b["batches_dispatched"])
+    yield (names.REQUESTS_DISPATCHED, "counter",
+           "Requests dispatched through the micro-batcher",
+           b["requests_dispatched"])
+    yield (names.DEADLINE_ABANDONED_BATCHES, "counter",
+           "Device batches abandoned by the dispatch watchdog",
+           b["deadline_abandoned_batches"])
+    yield (names.QUEUE_DEPTH, "gauge",
+           "Requests waiting for batch formation", batcher.queue_depth())
+    yield (names.QUEUE_WAIT_SECONDS, "counter",
+           "Cumulative time requests spent queued between batcher "
+           "submission and batch formation", b["queue_wait_ns"] / 1e9)
+    yield (names.ORACLE_FALLBACKS, "counter",
+           "Requests routed to the host oracle (schema overflow)",
+           env.oracle_fallbacks)
+    yield (names.HOST_FASTPATH_BATCHES, "counter",
+           "Micro-batches answered by the host latency fast-path",
+           b["host_fastpath_batches"])
+    yield (names.HOST_FASTPATH_REQUESTS, "counter",
+           "Requests answered by the host latency fast-path",
+           env.host_fastpath_requests)
+    yield (names.BUDGET_ROUTED_BATCHES, "counter",
+           "Batches routed host-side by the latency-budget check",
+           b["budget_routed_batches"])
+    yield (names.DEGRADED_RESPONSES, "counter",
+           "Requests answered by the --degraded-mode policy while the "
+           "device breaker was fully tripped", b["degraded_responses"])
+    dedup = env.dedup_stats
+    yield (names.DEDUP_BLOB_HITS, "counter",
+           "Pre-encode blob-tier dedup hits (exact payload replays that "
+           "skipped encoding)", dedup["blob_cache_hits"])
+    yield (names.DEDUP_BLOB_MISSES, "counter",
+           "Pre-encode blob-tier dedup misses", dedup["blob_cache_misses"])
+    yield (names.VERDICT_CACHE_HITS, "counter",
+           "Row-tier verdict cache hits (post-encode, uid-insensitive)",
+           dedup["cache_hits"])
+    yield (names.VERDICT_CACHE_MISSES, "counter",
+           "Row-tier verdict cache misses", dedup["cache_misses"])
+    yield (names.VERDICT_CACHE_BYTES, "gauge",
+           "Resident bytes across both verdict-cache tiers",
+           dedup["cache_bytes"] + dedup["blob_cache_bytes"])
+    yield (names.BATCH_DEDUP_HITS, "counter",
+           "Rows answered by an identical row in the same batch",
+           dedup["batch_dup_hits"])
+    yield (names.FRAGMENT_HITS, "counter",
+           "Cache-hit rows answered as pre-serialized response fragments",
+           dedup["fragment_hits"])
+    profile = env.host_profile
+    yield (names.HOST_ENCODE_SECONDS, "counter",
+           "Host time in the native batch encode",
+           profile["encode_ns"] / 1e9)
+    yield (names.HOST_ENCODE_ROWS, "counter",
+           "Rows through the native encoder (blob-tier hits skip it)",
+           profile["encode_rows"])
+    yield (names.HOST_BOOKKEEPING_SECONDS, "counter",
+           "Host time in dedup tiers + slot/LRU bookkeeping",
+           profile["bookkeeping_ns"] / 1e9)
+    yield (names.DISPATCH_WAIT_SECONDS, "counter",
+           "Host time blocked on device results",
+           profile["dispatch_wait_ns"] / 1e9)
+    yield (names.DISPATCHED_ROWS, "counter",
+           "Unique rows actually shipped to the device",
+           profile["dispatched_rows"])
+    breaker = env.breaker_stats
+    yield (names.BREAKER_OPEN_SHARDS, "gauge",
+           "Device shards whose circuit breaker is currently tripped "
+           "(open or half-open)", breaker.get("open_shards", 0))
+    yield (names.BREAKER_TRIPS, "counter",
+           "Circuit breaker CLOSED/HALF_OPEN -> OPEN transitions",
+           breaker.get("trips", 0))
+    yield (names.BREAKER_RECOVERIES, "counter",
+           "Circuit breaker HALF_OPEN -> CLOSED recoveries",
+           breaker.get("recoveries", 0))
+    yield (names.BREAKER_PROBES, "counter",
+           "Half-open recovery probe dispatches admitted",
+           breaker.get("probes", 0))
+    yield (names.BREAKER_SHORT_CIRCUITED, "counter",
+           "Requests served host-side because a breaker was open",
+           breaker.get("short_circuited_requests", 0))
+    yield (names.DEVICE_ERRORS, "counter",
+           "Kernel and CUDA errors at dispatch or fetch (each failed its "
+           "batch's requests; none tripped the breaker)", env.device_errors)
+    kernel = env.kernel_stats
+    yield (names.PALLAS_DISPATCHES, "counter",
+           "Device dispatches served by the policy_matrix kernel",
+           kernel["dispatches"])
+    yield (names.PALLAS_BUCKETS_ARMED, "gauge",
+           "Schema buckets the policy_matrix kernel serves",
+           kernel["buckets_armed"])
+    rec = flightrec.recorder()
+    yield (names.FLIGHT_RECORDER_EVENTS, "counter",
+           "Phase events written to the flight-recorder ring",
+           rec.events_recorded() if rec is not None else 0)
+    yield (names.FLIGHT_RECORDER_ROWS_SAMPLED, "counter",
+           "Rows that recorded per-row timeline segments "
+           "(--recorder-row-sample-rate stride)",
+           rec.rows_sampled() if rec is not None else 0)
+    yield (
+        names.TAIL_EXEMPLAR_LATENCY_SECONDS, "gauge",
+        "Tail exemplars: the slowest rows of the current flight-recorder "
+        "window, with trace id and slowest phase (full phase breakdown on "
+        "/debug/timeline)",
+        [
+            ((ex["trace_id"], ex["policy_id"], ex["slowest_phase"]),
+             ex["latency_seconds"])
+            for ex in (rec.exemplars() if rec is not None else ())
+        ],
+        ("trace_id", "policy_id", "slowest_phase"),
+    )
 
 
 class PolicyServer:
@@ -62,7 +202,29 @@ class PolicyServer:
         breaker_window_seconds: float = 30.0,
         breaker_cooldown_seconds: float = 5.0,
         degraded_mode: str = "oracle",
+        readiness_probe_port: int = DEFAULT_READINESS_PROBE_PORT,
+        enable_metrics: bool = False,
+        enable_pprof: bool = False,
+        flight_recorder: bool = True,
+        recorder_ring_events: int = flightrec.DEFAULT_RING_EVENTS,
+        recorder_row_sample_rate: float = flightrec.DEFAULT_ROW_SAMPLE_RATE,
     ) -> None:
+        if enable_metrics:
+            setup_metrics()
+        # the recorder goes in before the environment and the batcher are
+        # built, so their warmup records
+        self._recorder = (
+            flightrec.FlightRecorder(
+                capacity=recorder_ring_events,
+                row_sample_rate=recorder_row_sample_rate,
+                registry=default_registry(),
+            )
+            if flight_recorder
+            else None
+        )
+        flightrec.install(self._recorder)
+        if enable_pprof:
+            profiling.activate_memory_profiling()
         self.env = EvaluationEnvironmentBuilder(
             device=device,
             continue_on_errors=continue_on_errors,
@@ -85,6 +247,10 @@ class PolicyServer:
             latency_budget_ms=latency_budget_ms,
             degraded_mode=degraded_mode,
         )
+        self.state = ApiServerState(
+            self.env, self.batcher, hostname=socket.gethostname(),
+            enable_pprof=enable_pprof, ready=False,
+        )
         self.batcher.warmup()
         # collect the build's and the warmup's garbage (and any the caller
         # left) before serving: left to the first full collection under
@@ -92,26 +258,47 @@ class PolicyServer:
         # ran on whichever serving thread triggered it, and stalled it for
         # up to 2 s on an H100 host (``PERF.md``)
         gc.collect()
-        self._httpd = _HttpServer((host, port), self.batcher)
-        self._thread: threading.Thread | None = None
+        default_registry().attach_runtime_stats(
+            lambda: runtime_stats(self.state)
+        )
+        self._httpd = _HttpServer((host, port), ApiHandler, self.state)
+        # the readiness port binds only once the API port is bound
+        self._readiness = _HttpServer(
+            (host, readiness_probe_port), ReadinessHandler, self.state
+        )
+        self.state.ready = True
+        self._threads: list[threading.Thread] = []
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
 
+    @property
+    def readiness_port(self) -> int:
+        return self._readiness.server_address[1]
+
+    def _serve_in_background(self, httpd: _HttpServer, name: str) -> None:
+        t = threading.Thread(target=httpd.serve_forever, name=name, daemon=True)
+        t.start()
+        self._threads.append(t)
+
     def start(self) -> None:
-        """Serve on a background thread."""
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="http", daemon=True
-        )
-        self._thread.start()
+        """Serve both ports on background threads."""
+        self._serve_in_background(self._httpd, "http")
+        self._serve_in_background(self._readiness, "readiness")
 
     def serve_forever(self) -> None:
+        """Serve the readiness port on a background thread and the API on
+        this one until ``stop()``."""
+        self._serve_in_background(self._readiness, "readiness")
         self._httpd.serve_forever()
 
     def stop(self) -> None:
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        if self._thread is not None:
-            self._thread.join(5)
+        for httpd in (self._httpd, self._readiness):
+            httpd.shutdown()
+            httpd.server_close()
+        for t in self._threads:
+            t.join(5)
         self.batcher.close()
+        if self._recorder is not None and flightrec.recorder() is self._recorder:
+            flightrec.install(None)

@@ -9,20 +9,24 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
+import os
 import threading
 
 import pytest
 import torch
 
+from policy_server_tpu_torch.api import profiling
 from policy_server_tpu_torch.evaluation.environment import (
     EvaluationEnvironmentBuilder,
 )
-from policy_server_tpu_torch.models import AdmissionReviewRequest
+from policy_server_tpu_torch.models import AdmissionReviewRequest, ValidateRequest
 from policy_server_tpu_torch.ops import cuda_kernels as ck
 from policy_server_tpu_torch.policies.flagship import (
     flagship_policies,
     synthetic_firehose,
 )
+from policy_server_tpu_torch.telemetry import flightrec
 
 import torch_tape_coverage as tape_coverage
 
@@ -236,3 +240,73 @@ def test_concurrent_first_launches_share_one_device_code(card_env):
     assert list(fresh._device_code) == [0]
     for _args, (a_mat, r_mat) in got:
         assert torch.equal(a_mat, want_a) and torch.equal(r_mat, want_r)
+
+
+@pytest.mark.cuda
+def test_device_execute_stamps_the_cuda_event_wait():
+    """On the card the recorder's device_execute is the fetch's wait on
+    the step's CUDA event: one per dispatched chunk, under the batch's
+    id, its rows the chunk's dispatched rows, nested in the fetch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    env = EvaluationEnvironmentBuilder(
+        device="cuda", verdict_cache_size=0
+    ).build(flagship_policies())
+    ids = sorted(flagship_policies())
+    pairs = [
+        (ids[i % len(ids)], ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(d).request
+        ))
+        for i, d in enumerate(synthetic_firehose(48, seed=41))
+    ]
+    rec = flightrec.install(flightrec.FlightRecorder(capacity=1024))
+    try:
+        with flightrec.batch_scope(7):
+            handle = env.validate_batch_begin(pairs)
+            got = env.validate_batch_finish(handle)
+    finally:
+        flightrec.install(None)
+    assert [r.to_dict() for r in got] == [
+        r.to_dict() for r in env.validate_batch(pairs, prefer_host=True)
+    ]
+    events = [e for e in rec.snapshot() if e["batch"] == 7]
+    execs = [e for e in events if e["phase"] == flightrec.PH_DEVICE_EXECUTE]
+    fetches = [e for e in events if e["phase"] == flightrec.PH_FETCH]
+    assert len(execs) == len(fetches) == env.host_profile["dispatched_chunks"]
+    assert sum(e["rows"] for e in execs) == env.host_profile["dispatched_rows"]
+    for ex, fe in zip(execs, fetches):
+        assert fe["start_ns"] <= ex["start_ns"] <= ex["end_ns"] <= fe["end_ns"]
+    assert {flightrec.PH_PREPARE, flightrec.PH_ENCODE,
+            flightrec.PH_MATERIALIZE} <= {e["phase"] for e in events}
+
+
+@pytest.mark.cuda
+def test_heap_profile_reports_the_card(card_env):
+    """/debug/pprof/heap's document lists the card with its allocator
+    statistics and its free and total memory."""
+    doc = json.loads(profiling.heap_profile())
+    assert set(doc) == {"devices", "host_top_allocations"}
+    dev = doc["devices"][0]
+    assert (dev["id"], dev["platform"]) == (0, "gpu")
+    stats = dev["memory_stats"]
+    assert stats["allocated_bytes.all.current"] > 0
+    assert 0 < stats["free_bytes"] <= stats["total_bytes"]
+
+
+@pytest.mark.cuda
+def test_device_trace_records_the_kernels(card_env, tmp_path):
+    """start_device_trace traces the card: the Chrome trace it writes holds
+    the policy_matrix launches made inside it."""
+    buf = torch.from_numpy(_batch(card_env, 0, 51, True)).cuda()
+    program = card_env.program_for(0, True, True)
+    profiling.start_device_trace(str(tmp_path))
+    for _ in range(3):
+        ck.policy_matrix(buf, program)
+    path = profiling.stop_device_trace()
+    assert os.path.dirname(path) == str(tmp_path)
+    with open(path) as f:
+        names = [
+            e["name"] for e in json.load(f)["traceEvents"]
+            if e.get("cat") == "kernel"
+        ]
+    assert sum("policy_matrix" in n for n in names) >= 3

@@ -7,6 +7,8 @@ fallback). Tolerance: exact equality."""
 
 from __future__ import annotations
 
+import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -35,6 +37,8 @@ from torch_port_support import (
     sync_envs,
     torch_env,
 )
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _pallas_env(specs):
@@ -143,18 +147,27 @@ def test_unknown_policy_is_a_per_item_error():
     assert not isinstance(out[1], Exception)
 
 
+_NOT_ON_THE_CARD = ("jax", "jaxlib", "policy_server_tpu", "prometheus_client",
+                    "aiohttp", "yaml")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module of the port, nor ``chip_smoke.py``, imports JAX, the JAX
+    package, or what the card's machine lacks (prometheus_client,
+    aiohttp, PyYAML): imported in a fresh interpreter, and
+    ``chip_smoke.py``'s import statements read from its source, lazy ones
+    included."""
     code = textwrap.dedent(
-        """
+        f"""
         import importlib, pkgutil, sys
         import policy_server_tpu_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
         import policy_server_tpu_torch.__main__
+        import chip_smoke
         bad = sorted(
             n for n in sys.modules
-            if n == "jax" or n.startswith("jax.") or n == "jaxlib"
-            or n == "policy_server_tpu" or n.startswith("policy_server_tpu.")
+            if n.split(".")[0] in {_NOT_ON_THE_CARD!r}
         )
         print(len(list(pkgutil.walk_packages(pkg.__path__))), bad)
         assert not bad, bad
@@ -164,6 +177,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.resilience",
             "policy_server_tpu_torch.failpoints",
             "policy_server_tpu_torch.runtime.workers",
+            "policy_server_tpu_torch.telemetry.metrics",
+            "policy_server_tpu_torch.telemetry.tracing",
+            "policy_server_tpu_torch.telemetry.flightrec",
+            "policy_server_tpu_torch.api.profiling",
+            "policy_server_tpu_torch.api.state",
+            "policy_server_tpu_torch.api.api_error",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
@@ -171,10 +190,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
-        timeout=120,
+        timeout=120, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("[]")
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    imported = {
+        alias.name for node in ast.walk(tree)
+        if isinstance(node, ast.Import) for alias in node.names
+    } | {
+        node.module for node in ast.walk(tree)
+        if isinstance(node, ast.ImportFrom) and node.module
+    }
+    assert "policy_server_tpu_torch.server" in imported
+    assert not {n for n in imported if n.split(".")[0] in _NOT_ON_THE_CARD}
 
 
 def test_builder_without_a_device_raises_when_no_card(monkeypatch):

@@ -108,7 +108,7 @@ def servers():
     jax_server = JaxServerHandle()
     port_server = PolicyServer(
         {k: t_parse_policy_entry(k, v) for k, v in SPECS.items()},
-        port=0, device="cpu", max_batch_size=8,
+        port=0, readiness_probe_port=0, device="cpu", max_batch_size=8,
     )
     port_server.start()
     yield jax_server, port_server
@@ -178,8 +178,20 @@ def test_error_bodies_are_byte_equal(servers, path, body):
 
 
 def test_readiness(servers):
+    """/readiness is on the readiness port (the API port answers 404, as
+    the JAX package's API router has no such route)."""
     _jax_server, port_server = servers
     conn = http.client.HTTPConnection("127.0.0.1", port_server.port, timeout=30)
+    try:
+        conn.request("GET", "/readiness")
+        resp = conn.getresponse()
+        assert resp.status == 404
+        resp.read()
+    finally:
+        conn.close()
+    conn = http.client.HTTPConnection(
+        "127.0.0.1", port_server.readiness_port, timeout=30
+    )
     try:
         conn.request("GET", "/readiness")
         resp = conn.getresponse()
@@ -209,7 +221,7 @@ def test_server_collects_the_garbage_left_before_it_serves():
             {"pod-privileged": t_parse_policy_entry(
                 "pod-privileged", SPECS["pod-privileged"]
             )},
-            port=0, device="cpu", max_batch_size=2,
+            port=0, readiness_probe_port=0, device="cpu", max_batch_size=2,
         )
         collected = freed.is_set()
     finally:
