@@ -67,11 +67,32 @@ card's name and power limit:
 6. a short kernel-only HTTP run (256 requests) under
    ``profiling.start_device_trace``: the card's busy share (the union of
    its kernel, copy and memset intervals in the ``torch.profiler`` trace)
-   and idle share over the traced window; a trace without a kernel fails.
+   and idle share over the traced window; a trace without a kernel fails;
+7. the native HTTP frontend on the card — the server with the flagship
+   set, ``--frontend native --enable-metrics``, driven by a client in a
+   separate process (this script re-invoked with ``--native-client``: raw
+   sockets, 32 keep-alive connections, 8 requests pipelined on each):
+   phase 3's 1,024 reviews in 4 waves, each wave with fresh uids, at the
+   default flags, kernel-only with four pipeline workers and kernel-only
+   with one; every body must equal the port's host oracle's; in the
+   kernel-only runs every micro-batch must launch ``policy_matrix`` after
+   the warmup; ``policy_server_native_http_requests_total`` and
+   ``kubewarden_policy_evaluations_total`` must rise by exactly the
+   requests sent (the latter's ``accepted="false"`` part by the oracle's
+   rejections), with 0 parse fallbacks, breaker trips, device errors and
+   deadline rejections; requests/s per wave and in all, p50/p99, rows per
+   micro-batch and per admitted burst, host-routed and device batches,
+   serving launches, the flight recorder's attribution with the native
+   phases, phase 3's numbers from this call beside them, and one more
+   kernel-only run (one wave) under ``profiling.start_device_trace`` for
+   the card's busy share.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
+
+``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH`` is
+phase 7's load generator: it needs neither torch nor the package.
 """
 
 from __future__ import annotations
@@ -101,6 +122,9 @@ PHASE2_BATCHES = (51, 128, 1024)
 SWEEP_BATCHES = (1, 8, 16, 32, 64, 128)
 SWEEP_REPS = 7
 TRACED_REQUESTS = 256
+NATIVE_CONNS = 32
+NATIVE_DEPTH = 8
+NATIVE_WAVES = 4
 COVER_BATCHES = (51, 129, 1029)
 SPILL_BATCHES = (51, 129)
 
@@ -421,7 +445,9 @@ def evaluation_counts(port: int) -> tuple[float, float]:
     return total, rejected
 
 
-def print_attribution(label: str, att: dict, card: str) -> None:
+def print_attribution(
+    label: str, att: dict, card: str, phase: str = "phase3"
+) -> None:
     """The flight recorder's attribution of one run: µs per row of each
     stamped phase, the residual's share of batch wall time, and the same
     for the batches whose rows were all cache hits, none, or some."""
@@ -436,7 +462,7 @@ def print_attribution(label: str, att: dict, card: str) -> None:
 
     doc = brief(att)
     doc["mix"] = {k: brief(v) for k, v in att["mix_groups"].items()}
-    print(f"phase3 attribution ({label}): {json.dumps(doc)} [{card}]")
+    print(f"{phase} attribution ({label}): {json.dumps(doc)} [{card}]")
 
 
 def http_run(
@@ -559,6 +585,9 @@ def http_run(
         "evaluations": evals_after[0] - evals_before[0],
         "evaluations_rejected": evals_after[1] - evals_before[1],
         "events": rec.events_recorded() - rec_cursor if rec is not None else 0,
+        "kernel_batches": (
+            kernel_batches(rec, rec_cursor) if rec is not None else None
+        ),
         "attribution": rec.attribution(since=rec_cursor) if rec is not None else None,
         "wall": wall,
         "trace_path": trace_path,
@@ -590,7 +619,8 @@ def http_run(
         f"{run['device_batches']} ({run['dispatched_chunks']} dispatches of "
         f"{run['dispatched_rows']} rows); policy_matrix serving launches "
         f"{run['serving_launches']} (warmup {warm['policy_matrix']}), probe "
-        f"{counts['probe']}; dedup: blob hits "
+        f"{counts['probe']}; per batch {json.dumps(run['kernel_batches'])}; "
+        f"dedup: blob hits "
         f"{d['blob_cache_hits']} row hits {d['cache_hits']} in-batch "
         f"{d['batch_dup_hits']} fragments {d['fragment_hits']}; breaker "
         f"{run['breaker']}; device errors {run['device_errors']}; "
@@ -836,6 +866,372 @@ def native_phase(reviews, policy_ids, oracle, enc_build, card: str) -> None:
     )
 
 
+def native_client_main(argv: list[str]) -> int:
+    """Phase 7's load generator, in a process of its own: ``CONNS``
+    keep-alive connections per wave, each sending its share of the wave's
+    requests ``DEPTH`` at a time pipelined and reading the answers before
+    the next ``DEPTH``; a response's latency runs from its pipelined
+    group's send. CORPUS is the waves' raw HTTP requests (u32 wave, u32
+    length, bytes each); OUT receives one JSON document: each wave's wall
+    time and, per request in corpus order, its status, latency and
+    body."""
+    import socket
+
+    port, corpus_path, out_path = int(argv[0]), argv[1], argv[2]
+    conns, depth = int(argv[3]), int(argv[4])
+    waves: list[list[bytes]] = []
+    with open(corpus_path, "rb") as f:
+        blob = f.read()
+    off = 0
+    while off < len(blob):
+        wave = int.from_bytes(blob[off : off + 4], "little")
+        n = int.from_bytes(blob[off + 4 : off + 8], "little")
+        off += 8
+        while len(waves) <= wave:
+            waves.append([])
+        waves[wave].append(blob[off : off + n])
+        off += n
+    results: list = []
+    walls: list = []
+    errors: list = []
+
+    def one_conn(reqs: list[bytes], idx: list[int], out: list) -> None:
+        try:
+            s = socket.create_connection(("127.0.0.1", port), timeout=120)
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            buf = b""
+            for lo in range(0, len(idx), depth):
+                group = idx[lo : lo + depth]
+                t0 = time.perf_counter()
+                s.sendall(b"".join(reqs[i] for i in group))
+                got = 0
+                while got < len(group):
+                    he = buf.find(b"\r\n\r\n")
+                    if he >= 0:
+                        cl = 0
+                        for ln in buf[:he].split(b"\r\n")[1:]:
+                            if ln[:15].lower() == b"content-length:":
+                                cl = int(ln[15:])
+                                break
+                        total = he + 4 + cl
+                        if len(buf) >= total:
+                            out[group[got]] = (
+                                int(buf[9:12]),
+                                (time.perf_counter() - t0) * 1e3,
+                                buf[he + 4 : total].decode("latin-1"),
+                            )
+                            buf = buf[total:]
+                            got += 1
+                            continue
+                    chunk = s.recv(1 << 18)
+                    if not chunk:
+                        raise ConnectionError("server closed mid-wave")
+                    buf += chunk
+            s.close()
+        except Exception as e:  # noqa: BLE001 — reported in OUT
+            errors.append(f"{type(e).__name__}: {e}")
+
+    for reqs in waves:
+        out: list = [None] * len(reqs)
+        threads = [
+            threading.Thread(
+                target=one_conn,
+                args=(reqs, list(range(c, len(reqs), conns)), out),
+            )
+            for c in range(conns)
+        ]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        walls.append(time.perf_counter() - t0)
+        results.extend(out)
+    with open(out_path, "w") as f:
+        json.dump({"walls": walls, "results": results, "errors": errors}, f)
+    return 1 if errors or any(r is None for r in results) else 0
+
+
+def metric_value(port: int, name: str) -> float:
+    """An unlabelled family's value on the readiness port's /metrics."""
+    status, text = http_get(port, "/metrics")
+    if status != 200:
+        fail(f"/metrics answered {status}")
+    for line in text.decode().splitlines():
+        head, _, value = line.rpartition(" ")
+        if head == name:
+            return float(value)
+    fail(f"/metrics has no {name}")
+    return 0.0
+
+
+NATIVE_PHASES = (
+    "native_accept", "native_parse", "ring_cross", "admit", "native_serialize",
+)
+
+
+def kernel_batches(rec, since: int) -> dict:
+    """Per-batch proof that K1 ran, from the flight recorder's events since
+    the cursor ``since``: the serving batches (one ``dispatch`` event each)
+    and the ``device_execute`` events, one per fetched K1 launch, each
+    stamped with its batch's id. ``without_kernel`` counts the batches with
+    no such event; ``wrapped`` says the ring overwrote events of the run,
+    so the count cannot be trusted."""
+    evs = [ev for ev in rec.snapshot() if ev["seq"] >= since]
+    wrapped = rec.events_recorded() > since and (
+        not evs or evs[0]["seq"] > since
+    )
+    dispatched = {
+        ev["batch"] for ev in evs
+        if ev["phase"] == "dispatch" and ev["kind"] == "batch"
+    }
+    executes = [
+        ev["batch"] for ev in evs
+        if ev["phase"] == "device_execute" and ev["batch"] >= 0
+    ]
+    return {
+        "dispatched": len(dispatched),
+        "device_executes": len(executes),
+        "without_kernel": len(dispatched - set(executes)),
+        "wrapped": wrapped,
+    }
+
+
+def check_kernel_batches(run: dict, what: str) -> None:
+    """Fail unless every serving batch of a kernel-only run launched K1:
+    no batch host-routed, every batch with a fetched launch of its own,
+    and the fetched launches equal to the wrapper's serving count."""
+    kb = run["kernel_batches"]
+    if run["host_batches"]:
+        fail(f"{what} routed {run['host_batches']} batches to the host")
+    if kb is None or kb["wrapped"]:
+        fail(f"{what}: the flight recorder cannot account for every batch ({kb})")
+    if kb["dispatched"] != run["batches"]:
+        fail(
+            f"{what}: {kb['dispatched']} batches stamped, "
+            f"{run['batches']} dispatched"
+        )
+    if kb["without_kernel"]:
+        fail(
+            f"{what}: {kb['without_kernel']} of {run['batches']} "
+            f"micro-batches launched no policy_matrix"
+        )
+    if kb["device_executes"] != run["serving_launches"]:
+        fail(
+            f"{what}: {kb['device_executes']} fetched launches, "
+            f"{run['serving_launches']} policy_matrix launches counted"
+        )
+
+
+def native_phase_split(rec, since: int) -> dict:
+    """µs per row of each native-frontend phase since the event cursor
+    ``since`` (burst-level events: no batch id, so outside the per-batch
+    attribution)."""
+    ns = dict.fromkeys(NATIVE_PHASES, 0)
+    rows = dict.fromkeys(NATIVE_PHASES, 0)
+    for ev in rec.snapshot():
+        if ev["seq"] >= since and ev["phase"] in ns:
+            ns[ev["phase"]] += max(0, ev["end_ns"] - ev["start_ns"])
+            rows[ev["phase"]] += ev["rows"]
+    return {
+        p: round(ns[p] / 1e3 / max(1, rows[p]), 2) for p in NATIVE_PHASES
+    }
+
+
+def native_http_run(
+    label: str, waves: list, oracle_bodies: list, oracle_rejected: int,
+    card: str, trace_dir: str | None = None, **flags,
+) -> dict:
+    """The port's server with ``--frontend native`` on the card, the waves
+    of (policy id, body) sent by the ``--native-client`` process; every
+    body must equal the oracle's; the native and evaluation counters must
+    rise by exactly the requests sent; no parse fallback, trip, device
+    error or deadline rejection. Launch counts are zeroed just before the
+    server is built and read after its warmup and after the run."""
+    import torch
+
+    from policy_server_tpu_torch.api import profiling
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+    from policy_server_tpu_torch.server import PolicyServer
+    from policy_server_tpu_torch.telemetry import flightrec
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_native")
+    os.makedirs(work_dir, exist_ok=True)
+    corpus_path = os.path.join(work_dir, "corpus.bin")
+    out_path = os.path.join(work_dir, "results.json")
+    flat = [item for wave in waves for item in wave]
+    with open(corpus_path, "wb") as f:
+        for w, wave in enumerate(waves):
+            for pid, body in wave:
+                req = (
+                    f"POST /validate/{pid} HTTP/1.1\r\nHost: smoke\r\n"
+                    f"Content-Type: application/json\r\n"
+                    f"Content-Length: {len(body)}\r\n\r\n"
+                ).encode() + body
+                f.write(w.to_bytes(4, "little") + len(req).to_bytes(4, "little"))
+                f.write(req)
+    ck.reset_launch_counts()
+    server = PolicyServer(
+        flagship_policies(), host="127.0.0.1", port=0, readiness_probe_port=0,
+        device="cuda", enable_metrics=True, frontend="native", **flags
+    )
+    try:
+        torch.cuda.synchronize()
+        warm = ck.launch_counts()
+        rec = flightrec.recorder()
+        rec_cursor = rec.events_recorded() if rec is not None else 0
+        server.start()
+        status, text = http_get(server.readiness_port, "/readiness")
+        if status != 200:
+            fail(f"/readiness answered {status} {text!r} ({label})")
+        rp = server.readiness_port
+        evals_before = evaluation_counts(rp)
+        native_before = metric_value(rp, "policy_server_native_http_requests_total")
+        front_before = server.native_frontend.stats()
+        b0 = server.batcher.stats_snapshot()
+        if trace_dir is not None:
+            profiling.start_device_trace(trace_dir)
+        t0 = time.perf_counter()
+        client = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--native-client",
+             str(server.port), corpus_path, out_path, str(NATIVE_CONNS),
+             str(NATIVE_DEPTH)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        try:
+            _out, client_err = client.communicate(timeout=600)
+        finally:
+            if client.poll() is None:
+                client.kill()
+                client.wait(30)
+        wall = time.perf_counter() - t0
+        trace_path = (
+            profiling.stop_device_trace() if trace_dir is not None else None
+        )
+        traced_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # the last batch's metrics are recorded just after its delivery
+        time.sleep(0.2)
+        counts = ck.launch_counts()
+        evals_after = evaluation_counts(rp)
+        native_after = metric_value(rp, "policy_server_native_http_requests_total")
+        front = server.native_frontend.stats()
+        b1 = server.batcher.stats_snapshot()
+        b = server.batcher
+        env = server.env
+        run = {
+            "serving_launches": counts["policy_matrix"] - warm["policy_matrix"],
+            "warmup_launches": warm,
+            "launches": counts,
+            "batches": b1["batches_dispatched"] - b0["batches_dispatched"],
+            "rows": b1["requests_dispatched"] - b0["requests_dispatched"],
+            "host_batches": b1["host_fastpath_batches"] - b0["host_fastpath_batches"],
+            "bursts": b1["bulk_submits"] - b0["bulk_submits"],
+            "burst_rows": b1["bulk_submitted_rows"] - b0["bulk_submitted_rows"],
+            "dedup": env.dedup_stats,
+            "breaker": env.breaker_stats,
+            "device_errors": env.device_errors,
+            "deadline_rejections": b.deadline_rejections,
+            "max_answer_ms": b.max_answer_seconds * 1e3,
+            "evaluations": evals_after[0] - evals_before[0],
+            "evaluations_rejected": evals_after[1] - evals_before[1],
+            "native_requests": native_after - native_before,
+            "front": {k: front[k] - front_before[k] for k in (
+                "http_requests", "requests_parsed_native", "parse_fallbacks",
+                "responses_native_serialized", "responses_python_serialized",
+                "ring_full_rejections", "framing_ns", "connections_accepted",
+            )},
+            "attribution": rec.attribution(since=rec_cursor) if rec else None,
+            "native_phases": native_phase_split(rec, rec_cursor) if rec else None,
+            "kernel_batches": kernel_batches(rec, rec_cursor) if rec else None,
+            "wall": wall,
+            "trace_path": trace_path,
+            "traced_wall": traced_wall,
+        }
+    finally:
+        server.stop()
+    if client.returncode != 0 or not os.path.exists(out_path):
+        fail(f"the native client failed ({label}): {client_err[-2000:]}")
+    with open(out_path) as f:
+        doc = json.load(f)
+    os.unlink(out_path)
+    if doc["errors"]:
+        fail(f"native client errors ({label}): {doc['errors'][:3]}")
+    results = doc["results"]
+    mismatches = [
+        (i, st, body[:300], want[:300])
+        for i, ((st, _lat, body), want) in enumerate(zip(results, oracle_bodies))
+        if st != 200 or body.encode("latin-1") != want
+    ]
+    lat = sorted(r[1] for r in results)
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    n = len(flat)
+    run.update(
+        req_s=n / sum(doc["walls"]), wave_req_s=[len(w) / t for w, t in zip(waves, doc["walls"])],
+        p50=p50, p99=p99,
+    )
+    d = run["dedup"]
+    print(
+        f"phase7 native /validate ({label}): {n} requests in "
+        f"{len(waves)} waves, {NATIVE_CONNS} connections x depth "
+        f"{NATIVE_DEPTH}, {len(mismatches)} bodies differ from the oracle; "
+        f"{run['req_s']:.1f} req/s (waves "
+        f"{', '.join(f'{x:.1f}' for x in run['wave_req_s'])}) p50 {p50:.3f} "
+        f"ms p99 {p99:.3f} ms; {run['batches']} micro-batches, mean "
+        f"{run['rows'] / max(1, run['batches']):.1f} rows: host-routed "
+        f"{run['host_batches']}, device "
+        f"{run['batches'] - run['host_batches']}; {run['bursts']} admitted "
+        f"bursts, mean {run['burst_rows'] / max(1, run['bursts']):.1f} rows; "
+        f"policy_matrix serving launches {run['serving_launches']} (warmup "
+        f"{warm['policy_matrix']}), probe {counts['probe']}; per batch "
+        f"{json.dumps(run['kernel_batches'])}; dedup: blob hits "
+        f"{d['blob_cache_hits']} row hits {d['cache_hits']} fragments "
+        f"{d['fragment_hits']}; frontend {json.dumps(run['front'])}; breaker "
+        f"trips {run['breaker']['trips']}; device errors "
+        f"{run['device_errors']}; deadline rejections "
+        f"{run['deadline_rejections']}, slowest answer "
+        f"{run['max_answer_ms']:.3f} ms [{card}]"
+    )
+    if mismatches:
+        for i, st, got, want in mismatches[:3]:
+            print(f"phase7 mismatch ({label}) request {i}: status {st} body {got!r} oracle {want!r}")
+        fail(f"{len(mismatches)} of {n} native bodies differ from the oracle ({label})")
+    if counts["probe"] <= 0:
+        fail(f"probe was not launched at the environment's build ({label})")
+    if run["device_errors"] or run["breaker"]["trips"]:
+        fail(f"device errors or breaker trips in the native run ({label}): {run['breaker']}")
+    if run["deadline_rejections"]:
+        fail(f"{run['deadline_rejections']} deadline rejections ({label})")
+    if run["front"]["parse_fallbacks"]:
+        fail(f"{run['front']['parse_fallbacks']} parse fallbacks on the firehose ({label})")
+    if run["native_requests"] != n or run["evaluations"] != n:
+        fail(
+            f"/metrics counted {run['native_requests']} native requests and "
+            f"{run['evaluations']} evaluations for {n} requests ({label})"
+        )
+    if run["evaluations_rejected"] != oracle_rejected:
+        fail(
+            f"/metrics counted {run['evaluations_rejected']} rejections, the "
+            f"oracle {oracle_rejected} ({label})"
+        )
+    print(
+        f"phase7 /metrics ({label}): policy_server_native_http_requests_total "
+        f"+{run['native_requests']:.0f}, kubewarden_policy_evaluations_total "
+        f"+{run['evaluations']:.0f} (accepted=\"false\" "
+        f"+{run['evaluations_rejected']:.0f}, the oracle rejects "
+        f"{oracle_rejected}) [{card}]"
+    )
+    if run["attribution"] is not None:
+        print_attribution(label, run["attribution"], card, phase="phase7")
+        print(
+            f"phase7 native phases, us per row ({label}): "
+            f"{json.dumps(run['native_phases'])} [{card}]"
+        )
+    return run
+
+
 def main() -> int:
     try:
         import torch
@@ -855,6 +1251,7 @@ def main() -> int:
     from policy_server_tpu_torch.models import AdmissionReviewRequest
     from policy_server_tpu_torch.ops import cuda_kernels as ck
     from policy_server_tpu_torch.ops import fastenc
+    from policy_server_tpu_torch.runtime import native_frontend
     from policy_server_tpu_torch.policies.flagship import (
         flagship_policies,
         synthetic_firehose,
@@ -876,24 +1273,38 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()} [{card}]"
     )
-    # the two builds run side by side: g++ of the encoder on a thread
-    # while nvcc compiles the kernel library
+    # the three builds run side by side: g++ of the encoder and of the
+    # HTTP frontend on threads while nvcc compiles the kernel library
     t_phase = time.perf_counter()
-    enc_box: dict = {}
+    builds: dict = {}
 
-    def build_encoder() -> None:
+    def build(name: str, fn) -> None:
         try:
-            enc_box["lib"] = fastenc.build_library(force=True)
+            builds[name] = fn(force=True)
         except Exception as e:  # noqa: BLE001 — reported below
-            enc_box["error"] = e
+            builds[name] = e
 
-    enc_thread = threading.Thread(target=build_encoder)
-    enc_thread.start()
+    build_threads = [
+        threading.Thread(target=build, args=(name, fn))
+        for name, fn in (
+            ("encoder", fastenc.build_library),
+            ("frontend", native_frontend.build_library),
+        )
+    ]
+    for t in build_threads:
+        t.start()
     lib = ck.build_library(force=True)
-    enc_thread.join()
-    if "error" in enc_box:
-        fail(f"the native encoder did not build: {enc_box['error']}")
-    enc_build = enc_box["lib"]
+    for t in build_threads:
+        t.join()
+    for name, got in builds.items():
+        if isinstance(got, Exception):
+            fail(f"the native {name} did not build: {got}")
+    enc_build = builds["encoder"]
+    front_build = builds["frontend"]
+    print(
+        f"phase1 g++ build of the HTTP frontend {front_build.build_seconds:.3f} "
+        f"s -> {front_build.path.name} [{card}]"
+    )
     ptxas = [
         line.strip() for line in lib.build_log.splitlines()
         if "registers" in line or "spill" in line or "smem" in line
@@ -1096,11 +1507,11 @@ def main() -> int:
     reviews = synthetic_firehose(N_REQUESTS, seed=2024)
     reviews = [widen(d) if i % 8 == 0 else d for i, d in enumerate(reviews)]
     policy_ids = sorted(flagship_policies())
-    work = [
-        (policy_ids[i % len(policy_ids)], json.dumps(d).encode())
-        for i, d in enumerate(reviews)
+    work_docs = [
+        (policy_ids[i % len(policy_ids)], d) for i, d in enumerate(reviews)
     ]
-    rng.shuffle(work)
+    rng.shuffle(work_docs)
+    work = [(pid, json.dumps(d).encode()) for pid, d in work_docs]
     oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
         flagship_policies()
     )
@@ -1159,15 +1570,10 @@ def main() -> int:
         f"{on['events'] * per_event_s / on['wall'] * 100:.3f}% [{card}]"
     )
     for workers in (4, 1):
-        run = runs["kernel", workers]
-        if run["host_batches"]:
-            fail("the kernel-only run routed batches to the host")
-        if run["serving_launches"] < run["batches"]:
-            fail(
-                f"the kernel-only run ({workers} pipeline workers) launched "
-                f"policy_matrix {run['serving_launches']} times for "
-                f"{run['batches']} micro-batches"
-            )
+        check_kernel_batches(
+            runs["kernel", workers],
+            f"the kernel-only run ({workers} pipeline workers)",
+        )
     cells = []
     for name in ("default", "kernel"):
         for w in (4, 1):
@@ -1180,7 +1586,6 @@ def main() -> int:
         "phase3 pipeline workers 4 against 1 (mean rows per micro-batch): "
         + "; ".join(cells) + f" [{card}]"
     )
-    kernel_run = runs["kernel", 4]
     print(f"phase3 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- phase 4: the native pipeline on the card -------------------------
@@ -1218,6 +1623,76 @@ def main() -> int:
     )
     print(f"phase6 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 7: the native HTTP frontend on the card --------------------
+    t_phase = time.perf_counter()
+    waves = []
+    for w in range(NATIVE_WAVES):
+        wave = []
+        for pid, d in work_docs:
+            d = copy.deepcopy(d)
+            d["request"]["uid"] = f"{d['request']['uid']}-w{w}"
+            wave.append((pid, json.dumps(d).encode()))
+        waves.append(wave)
+    flat = [item for wave in waves for item in wave]
+    native_bodies = [oracle_body(oracle, pid, body) for pid, body in flat]
+    native_rejected = sum(
+        not oracle.validate(pid, request_of(body)).allowed for pid, body in flat
+    )
+    native_runs = {}
+    for workers, name, label, flags in (
+        (4, "default", "default flags", {}),
+        (4, "kernel", kernel_label, kernel_only),
+        (1, "kernel", kernel_label, kernel_only),
+    ):
+        batcher_mod.PIPELINE_WORKERS = workers
+        native_runs[name, workers] = native_http_run(
+            f"--frontend native, {label}, {workers} pipeline "
+            f"worker{'s' if workers > 1 else ''}",
+            waves, native_bodies, native_rejected, card, **flags,
+        )
+    batcher_mod.PIPELINE_WORKERS = 4
+    for workers in (4, 1):
+        check_kernel_batches(
+            native_runs["kernel", workers],
+            f"the native kernel-only run ({workers} pipeline workers)",
+        )
+    cells = []
+    for name, w in (("default", 4), ("kernel", 4), ("kernel", 1)):
+        std, nat = runs[name, w], native_runs[name, w]
+        cells.append(
+            f"{name} x{w}: stdlib {std['req_s']:.1f} req/s p50 "
+            f"{std['p50']:.3f} p99 {std['p99']:.3f} ms "
+            f"{std['rows'] / max(1, std['batches']):.1f} rows/batch; native "
+            f"{nat['req_s']:.1f} req/s p50 {nat['p50']:.3f} p99 "
+            f"{nat['p99']:.3f} ms {nat['rows'] / max(1, nat['batches']):.1f} "
+            f"rows/batch, {nat['batches'] - nat['host_batches']} device "
+            f"batches, {nat['serving_launches']} serving launches"
+        )
+    print(
+        "phase7 native against phase 3's stdlib frontend, this call: "
+        + "; ".join(cells) + f" [{card}]"
+    )
+    batcher_mod.PIPELINE_WORKERS = 4
+    traced_native = native_http_run(
+        f"--frontend native, {kernel_label}, 4 pipeline workers, one wave "
+        f"under profiling.start_device_trace",
+        waves[:1], native_bodies[: len(waves[0])],
+        sum(
+            not oracle.validate(pid, request_of(body)).allowed
+            for pid, body in waves[0]
+        ),
+        card, trace_dir=os.path.join(REPO, "build", "chip_smoke_trace"),
+        **kernel_only,
+    )
+    busy = device_busy(traced_native["trace_path"], traced_native["traced_wall"])
+    print(
+        f"phase7 device busy share over the traced native window: "
+        f"{json.dumps(busy)}; {traced_native['serving_launches']} "
+        f"policy_matrix launches, {traced_native['req_s']:.1f} req/s under "
+        f"the trace [{card}]"
+    )
+    print(f"phase7 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -1232,13 +1707,24 @@ def main() -> int:
             "route": "cuda",
             "source": "policy_server_tpu_torch/csrc/policy_matrix.cu",
             "replaces": "policy_server_tpu/ops/pallas_kernels.py:164",
-            # the run that serves through it: at the default flags this
-            # traffic's batches are answered on the host
-            "launches": kernel_run["serving_launches"],
+            # this slice's path: the native frontend, kernel-only, four
+            # pipeline workers (launches after the server's warmup); at
+            # the default flags small batches are answered on the host
+            "launches": native_runs["kernel", 4]["serving_launches"],
             "launches_from": (
-                f"phase 3 HTTP run {kernel_label}, 4 pipeline workers: "
-                f"launches after the server's warmup"
+                f"phase 7 native HTTP run {kernel_label}, 4 pipeline "
+                f"workers: launches after the server's warmup"
             ),
+            "launches_by_path": {
+                **{
+                    f"phase3 stdlib {name} x{w}": run["serving_launches"]
+                    for (name, w), run in runs.items()
+                },
+                **{
+                    f"phase7 native {name} x{w}": run["serving_launches"]
+                    for (name, w), run in native_runs.items()
+                },
+            },
             "max_abs_err": k1_err,
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -1251,10 +1737,10 @@ def main() -> int:
             "route": "cuda",
             "source": "policy_server_tpu_torch/csrc/policy_matrix.cu",
             "replaces": "policy_server_tpu/ops/pallas_kernels.py:83",
-            "launches": kernel_run["launches"]["probe"],
+            "launches": native_runs["kernel", 4]["launches"]["probe"],
             "launches_from": (
-                f"phase 3 HTTP run {kernel_label}, 4 pipeline workers: the "
-                f"environment's build"
+                f"phase 7 native HTTP run {kernel_label}, 4 pipeline "
+                f"workers: the environment's build"
             ),
             "max_abs_err": probe_err,
             "ms": probe_ms,
@@ -1281,4 +1767,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--native-client"]:
+        sys.exit(native_client_main(sys.argv[2:]))
     sys.exit(main())

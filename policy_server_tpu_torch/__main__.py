@@ -3,7 +3,8 @@
 Reads the policies file with PyYAML where it is installed (a JSON file
 needs nothing) and serves /validate on ``--port`` (3000) and /readiness,
 /metrics and /debug/timeline on ``--readiness-probe-port`` (8081) until
-interrupted. The flags, their defaults, choices and ``KUBEWARDEN_*``
+interrupted; ``--frontend native`` serves the API port's evaluation POSTs
+from the C++ frontend. The flags, their defaults, choices and ``KUBEWARDEN_*``
 environment variables are the JAX package's (``config/cli.py``).
 """
 
@@ -25,7 +26,10 @@ from policy_server_tpu_torch.runtime.batcher import (
     DEGRADED_MODES,
 )
 from policy_server_tpu_torch.server import (
+    DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
+    DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
     DEFAULT_READINESS_PROBE_PORT,
+    FRONTENDS,
     PolicyServer,
 )
 from policy_server_tpu_torch.telemetry import flightrec
@@ -166,6 +170,37 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
               help="Fraction of delivered rows that record per-row "
                    "timeline segments (a deterministic 1-in-round"
                    "(1/FRACTION) stride; 0 disables row sampling)")),
+        ("--frontend", "KUBEWARDEN_FRONTEND",
+         dict(default="python", metavar="IMPL", choices=FRONTENDS,
+              help="HTTP framing implementation for the evaluation POST "
+                   "surface (/validate, /validate_raw, /audit): 'native' "
+                   "serves it from the GIL-free C++ epoll front-end "
+                   "(csrc/httpfront.cpp), which parses AdmissionReviews, "
+                   "admits each burst to the batcher at once and "
+                   "serializes verdicts natively; 'python' keeps the "
+                   "standard-library server. With 'native' the API port "
+                   "serves only the evaluation POSTs (/readiness, /metrics "
+                   "and /debug/timeline stay on the readiness port, and "
+                   "the pprof endpoints need 'python'); a native build, "
+                   "load or bind that fails stops the server")),
+        ("--native-idle-timeout-seconds",
+         "KUBEWARDEN_NATIVE_IDLE_TIMEOUT_SECONDS",
+         dict(type=float, default=DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
+              metavar="SECONDS",
+              help="Native frontend: close keep-alive connections idle "
+                   "longer than this between requests (0 disables)")),
+        ("--native-read-timeout-seconds",
+         "KUBEWARDEN_NATIVE_READ_TIMEOUT_SECONDS",
+         dict(type=float, default=DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
+              metavar="SECONDS",
+              help="Native frontend: a single request (header+body) must "
+                   "arrive in full within this bound or the connection is "
+                   "closed, the slowloris defense (0 disables)")),
+        ("--native-max-connections", "KUBEWARDEN_NATIVE_MAX_CONNECTIONS",
+         dict(type=int, default=0, metavar="N",
+              help="Native frontend: cap on concurrent connections; "
+                   "accepts over it answer an in-band 503 + Retry-After "
+                   "and close (counted; 0 = uncapped)")),
         ("--device", None,
          dict(default=None,
               help="torch device (default: the CUDA card; 'cpu' runs the "
@@ -219,6 +254,10 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         flight_recorder=args.flight_recorder == "on",
         recorder_ring_events=args.recorder_ring_events,
         recorder_row_sample_rate=args.recorder_row_sample_rate,
+        frontend=args.frontend,
+        native_idle_timeout_seconds=args.native_idle_timeout_seconds,
+        native_read_timeout_seconds=args.native_read_timeout_seconds,
+        native_max_connections=args.native_max_connections,
     )
 
 
@@ -227,8 +266,9 @@ def main(argv: list[str] | None = None) -> int:
     log = setup_tracing(args.log_level, args.log_fmt, args.log_no_color)
     server = server_from_args(args)
     log.info(
-        "serving on %s:%d, readiness on %d (%s)",
+        "serving on %s:%d, readiness on %d (%s, %s frontend)",
         args.addr, server.port, server.readiness_port, server.env.device,
+        server.frontend,
     )
     try:
         server.serve_forever()

@@ -6,6 +6,10 @@ API port (``ApiHandler``):
 
 * POST ``/validate/{policy_id}``     → the AdmissionReview response
 * POST ``/validate_raw/{policy_id}`` → the raw review response
+* POST ``/audit/{policy_id}``        → the AdmissionReview response of an
+  audit-origin evaluation (no mode or mutation constraints)
+* POST ``/{validate,validate_raw,audit}/{tenant}/{policy_id}`` → 404
+  ``unknown tenant: {tenant}`` (the port serves no tenants)
 * GET  ``/debug/timeline``           → the flight recorder's Chrome trace
   JSON (404 when the recorder is off)
 * GET  ``/debug/pprof/cpu?interval=&frequency=`` and ``/debug/pprof/heap``
@@ -18,6 +22,9 @@ Readiness port (``ReadinessHandler``):
   ``--degraded-mode reject``, and before the warmup has finished)
 * GET ``/metrics``   → the process registry in Prometheus text format
 * GET ``/debug/timeline``, as on the API port
+
+The native frontend (``runtime/native_frontend.py``) serves the same
+evaluation routes with the same bytes when ``--frontend native``.
 
 Error mapping: a malformed JSON body → 422 ``{"message", "status"}``;
 PolicyNotFound → 404; any other evaluation error → 500 "Something went
@@ -128,30 +135,36 @@ def _record_response(fields: dict, response: Any) -> None:
             fields["response_message"] = response.status.message
 
 
+# evaluation route → (span name, origin)
+_EVALUATION_ROUTES = {
+    "validate": ("validation", RequestOrigin.VALIDATE),
+    "validate_raw": ("validation_raw", RequestOrigin.VALIDATE),
+    "audit": ("audit", RequestOrigin.AUDIT),
+}
+
+
 def evaluate_body(
     batcher: Any, kind: str, policy_id: str, body: bytes, hostname: str = ""
 ) -> tuple[int, bytes]:
-    """One POST body → (status, response body). ``kind`` is ``validate``
-    or ``validate_raw``."""
+    """One POST body → (status, response body). ``kind`` is ``validate``,
+    ``validate_raw`` or ``audit``."""
+    span_name, origin = _EVALUATION_ROUTES[kind]
     try:
-        if kind == "validate":
-            review = parse_admission_review_bytes(body)
-            request = ValidateRequest.from_admission(review.request)
-            fields = _span_fields_from_admission(review)
-        else:
+        if kind == "validate_raw":
             raw = parse_raw_review_bytes(body)
             request = ValidateRequest.from_raw(raw.request)
             fields = {}
+        else:
+            review = parse_admission_review_bytes(body)
+            request = ValidateRequest.from_admission(review.request)
+            fields = _span_fields_from_admission(review)
     except BodyError as e:
         return 422, api_error_body(422, e.message)
     with span(
-        "validation" if kind == "validate" else "validation_raw",
-        host=hostname, policy_id=policy_id, **fields,
+        span_name, host=hostname, policy_id=policy_id, **fields,
     ) as span_fields:
         try:
-            result = batcher.submit(
-                policy_id, request, RequestOrigin.VALIDATE
-            ).result()
+            result = batcher.submit(policy_id, request, origin).result()
         except PolicyNotFoundError as e:
             return 404, api_error_body(404, str(e))
         except EvaluationError as e:
@@ -164,9 +177,9 @@ def evaluate_body(
             result = result.to_response()
         _record_response(span_fields, result)
     envelope = (
-        AdmissionReviewResponse(result)
-        if kind == "validate"
-        else RawReviewResponse(result)
+        RawReviewResponse(result)
+        if kind == "validate_raw"
+        else AdmissionReviewResponse(result)
     )
     return 200, json.dumps(envelope.to_dict()).encode()
 
@@ -268,8 +281,17 @@ class ApiHandler(_Handler):
             )
             return
         body = self.rfile.read(length)
-        if len(parts) != 2 or parts[0] not in ("validate", "validate_raw"):
+        if (
+            parts[0] not in _EVALUATION_ROUTES
+            or len(parts) not in (2, 3)
+            or not all(parts)
+        ):
             self._not_found()
+            return
+        if len(parts) == 3:
+            self._send_json(
+                404, api_error_body(404, f"unknown tenant: {parts[1]}")
+            )
             return
         state = self.state
         status, payload = evaluate_body(

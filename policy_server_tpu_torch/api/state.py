@@ -41,6 +41,8 @@ class ApiServerState:
     enable_pprof: bool = False
     # False until the environment is built and the batcher warmed
     ready: bool = True
+    # the runtime/native_frontend.NativeFrontend under --frontend native
+    native_frontend: Any = None
 
     def readiness(self) -> tuple[int, str]:
         """503 before the first warmup has finished, then ``readiness``."""

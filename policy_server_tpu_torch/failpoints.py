@@ -33,6 +33,9 @@ Sites instrumented (grep for ``failpoints.fire``):
                     ``sleep`` = hung device, ``raise`` = dispatch fault
 ``encode.batch``    host batch encode (the native pipeline's encode of
                     each schema bucket and chunk)
+``frontend.accept`` the native HTTP frontend's intake of one drained
+                    burst (runtime/native_frontend.py) — ``raise``
+                    answers every request of the burst 500 in-band
 ==================  =====================================================
 
 Every fire is counted (``fired_count(site)``) so a test can check that an

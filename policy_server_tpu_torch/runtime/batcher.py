@@ -41,6 +41,13 @@ batch.
 While the environment's breaker is fully open, ``degraded_mode`` other
 than ``oracle`` answers accept-all (``monitor``) or in-band 503s
 (``reject``) instead of evaluating.
+
+Completion is per request through a Future, or batch-granular: rows
+admitted with ``submit_many(items, origin, sink=..., tokens=[...])`` get no
+Future, and ``sink.deliver_many([(token, response, exc), ...])`` is called
+once per phase of a dispatched batch that answers any of them (the native
+HTTP frontend's bulk completion). The pipeline workers call it
+concurrently; a sink that raises is logged and never takes the batch down.
 """
 
 from __future__ import annotations
@@ -88,20 +95,63 @@ PIPELINE_WORKERS = 4
 
 
 class _Pending:
-    __slots__ = ("policy_id", "request", "origin", "future", "enqueued_at")
+    __slots__ = (
+        "policy_id", "request", "origin", "future", "enqueued_at", "sink",
+        "token", "answered",
+    )
 
     def __init__(
         self,
         policy_id: str,
         request: ValidateRequest,
         origin: RequestOrigin,
-        future: Future,
+        future: Future | None,
+        enqueued_at: float | None = None,
+        sink: Any = None,
+        token: Any = None,
     ) -> None:
         self.policy_id = policy_id
         self.request = request
         self.origin = origin
+        # None for a row delivered through ``sink`` (submit_many): its
+        # answer joins its batch's one ``sink.deliver_many`` call
         self.future = future
-        self.enqueued_at = time.perf_counter()
+        self.enqueued_at = (
+            time.perf_counter() if enqueued_at is None else enqueued_at
+        )
+        self.sink = sink
+        self.token = token
+        # a sink row's first answer wins, as a Future's does: the watchdog
+        # and a late result, or a failed batch, may both try, each on the
+        # batch's one worker thread, so no lock is needed
+        self.answered = False
+
+
+class _DeliveryBatch:
+    """Sink completions gathered over one phase of a batch; ``flush()``
+    calls each sink once."""
+
+    __slots__ = ("_by_sink",)
+
+    def __init__(self) -> None:
+        self._by_sink: dict = {}
+
+    def add(self, p: _Pending, response: Any = None, exc: Any = None) -> None:
+        self._by_sink.setdefault(p.sink, []).append((p.token, response, exc))
+
+    def flush(self) -> None:
+        for sink, items in self._by_sink.items():
+            _deliver_sink(sink, items)
+        self._by_sink.clear()
+
+
+def _deliver_sink(sink: Any, items: list) -> None:
+    """One batch-granular completion call; a broken sink never takes the
+    dispatch path down."""
+    try:
+        sink.deliver_many(items)
+    except Exception:  # noqa: BLE001 — delivery is best-effort
+        logger.exception("completion sink failed; batch dropped on floor")
 
 
 class _BatchRec:
@@ -195,6 +245,10 @@ class MicroBatcher:
         self.degraded_responses = 0  # guarded-by: _stats_lock
         # summed time from submission to batch formation
         self.queue_wait_ns = 0  # guarded-by: _stats_lock
+        # submit_many calls and the rows they carried (rows per call is
+        # the burst size the native frontend admits at once)
+        self.bulk_submits = 0  # guarded-by: _stats_lock
+        self.bulk_submitted_rows = 0  # guarded-by: _stats_lock
         self._thread = threading.Thread(
             target=self._loop, name="micro-batcher", daemon=True
         )
@@ -238,19 +292,57 @@ class MicroBatcher:
         origin: RequestOrigin = RequestOrigin.VALIDATE,
     ) -> Future:
         """Queue one request → a Future of its response."""
-        return self.submit_many([(policy_id, request)], origin)[0]
+        if self._closed:
+            raise RuntimeError("batcher closed")
+        future: Future = Future()
+        self._queue.put(_Pending(policy_id, request, origin, future))
+        return future
 
     def submit_many(
         self,
         items: list[tuple[str, ValidateRequest]],
         origin: RequestOrigin = RequestOrigin.VALIDATE,
-    ) -> list[Future]:
+        sink: Any = None,
+        tokens: list | None = None,
+    ) -> list[Future] | None:
+        """Queue a burst under one admission stamp. Without ``sink``: one
+        Future per item. With ``sink`` and a parallel list of ``tokens``:
+        no Futures (returns None); ``sink.deliver_many([(token, response,
+        exc), ...])`` answers the rows batch by batch."""
         if self._closed:
             raise RuntimeError("batcher closed")
-        futures = [Future() for _ in items]
-        for (pid, req), fut in zip(items, futures):
-            self._queue.put(_Pending(pid, req, origin, fut))
+        if sink is not None and (tokens is None or len(tokens) != len(items)):
+            raise ValueError("a sink needs one token per item")
+        now = time.perf_counter()
+        if sink is None:
+            futures: list[Future] | None = [Future() for _ in items]
+            pendings = [
+                _Pending(pid, req, origin, fut, now)
+                for (pid, req), fut in zip(items, futures)
+            ]
+        else:
+            futures = None
+            pendings = [
+                _Pending(pid, req, origin, None, now, sink, token)
+                for (pid, req), token in zip(items, tokens)
+            ]
+        with self._stats_lock:
+            self.bulk_submits += 1
+            self.bulk_submitted_rows += len(pendings)
+        self._put_burst(pendings)
         return futures
+
+    def _put_burst(self, pendings: list[_Pending]) -> None:
+        """Enqueue a whole burst under one acquisition of the queue's
+        mutex (the deque and condition ``queue.Queue.put`` uses, without
+        its lock round-trip per row). The queue is unbounded, so every row
+        fits; its one consumer, the formation loop, drains greedily, so a
+        single notify wakes it."""
+        q = self._queue
+        with q.mutex:
+            q.queue.extend(pendings)
+            q.unfinished_tasks += len(pendings)
+            q.not_empty.notify()
 
     def queue_depth(self) -> int:
         """Requests waiting for batch formation."""
@@ -268,6 +360,8 @@ class MicroBatcher:
                 "budget_routed_batches": self.budget_routed_batches,
                 "degraded_responses": self.degraded_responses,
                 "queue_wait_ns": self.queue_wait_ns,
+                "bulk_submits": self.bulk_submits,
+                "bulk_submitted_rows": self.bulk_submitted_rows,
             }
 
     def evaluate(
@@ -312,36 +406,57 @@ class MicroBatcher:
             self._dispatch(batch)
         except Exception as e:  # noqa: BLE001 — the worker must survive
             logger.exception("micro-batch dispatch failed")
+            delivery = _DeliveryBatch()
             for p in batch:
-                self._fail(p, e)
+                self._fail(p, e, delivery)
+            delivery.flush()
         finally:
             self._inflight.release()
 
     # -- completion --------------------------------------------------------
 
-    def _resolve(self, p: _Pending, response: Any) -> None:
-        if not p.future.done():
+    def _resolve(
+        self, p: _Pending, response: Any, delivery: _DeliveryBatch
+    ) -> None:
+        """Answer one row: its Future, or its sink through ``delivery``,
+        which the caller flushes once for the batch."""
+        if p.sink is not None:
+            if p.answered:
+                return
+            p.answered = True
+            delivery.add(p, response, None)
+        else:
+            if p.future.done():
+                return
             try:
                 p.future.set_result(response)
             except Exception:  # noqa: BLE001 — a racing completion won
                 return
-            waited = time.perf_counter() - p.enqueued_at
-            with self._stats_lock:
-                self.max_answer_seconds = max(self.max_answer_seconds, waited)
+        waited = time.perf_counter() - p.enqueued_at
+        with self._stats_lock:
+            self.max_answer_seconds = max(self.max_answer_seconds, waited)
 
     @staticmethod
-    def _fail(p: _Pending, exc: BaseException) -> None:
+    def _fail(p: _Pending, exc: BaseException, delivery: _DeliveryBatch) -> None:
+        if p.sink is not None:
+            if p.answered:
+                return
+            p.answered = True
+            delivery.add(p, None, exc)
+            return
         if not p.future.done():
             try:
                 p.future.set_exception(exc)
             except Exception:  # noqa: BLE001 — a racing completion won
                 pass
 
-    def _reject_deadline(self, p: _Pending) -> None:
+    def _reject_deadline(self, p: _Pending, delivery: _DeliveryBatch) -> None:
         with self._stats_lock:
             self.deadline_rejections += 1
         self._resolve(
-            p, AdmissionResponse.reject(p.request.uid(), DEADLINE_MESSAGE, 500)
+            p,
+            AdmissionResponse.reject(p.request.uid(), DEADLINE_MESSAGE, 500),
+            delivery,
         )
 
     # -- one batch ---------------------------------------------------------
@@ -365,7 +480,8 @@ class MicroBatcher:
                 rows=len(batch), batch=brec.bid,
             )
         # phase 1 (host): pre-evaluation and bounded pre-eval hooks; rows
-        # that short-circuit or fail resolve here
+        # that short-circuit or fail resolve here, sink rows in one call
+        delivery = _DeliveryBatch()
         runnable: list[_Pending] = []
         now = formed_at
         for p in batch:
@@ -374,26 +490,27 @@ class MicroBatcher:
                     self.env, p.policy_id, p.request, p.origin, p.enqueued_at
                 )
             except Exception as e:  # noqa: BLE001 — per-item error channel
-                self._fail(p, e)
+                self._fail(p, e, delivery)
                 continue
             if short is not None:
-                self._resolve(p, short)
+                self._resolve(p, short, delivery)
                 continue
             if not self._target_hookless(p.policy_id):
                 try:
-                    if not self._run_hooks_with_deadline(p):
+                    if not self._run_hooks_with_deadline(p, delivery):
                         continue  # deadline rejection already delivered
                 except Exception as e:  # noqa: BLE001 — per-item isolation
-                    self._fail(p, e)
+                    self._fail(p, e, delivery)
                     continue
                 now = time.perf_counter()  # hooks block: refresh the clock
             if (
                 self.policy_timeout is not None
                 and now - p.enqueued_at >= self.policy_timeout
             ):
-                self._reject_deadline(p)
+                self._reject_deadline(p, delivery)
                 continue
             runnable.append(p)
+        delivery.flush()
         if brec is not None:
             phase1_end = time.perf_counter()
             brec.form_ns = int((phase1_end - formed_at) * 1e9)
@@ -460,8 +577,7 @@ class MicroBatcher:
                 with flightrec.batch_scope(bid):
                     results = fn(*args)
             except Exception as e:  # noqa: BLE001
-                for p in runnable:
-                    self._fail(p, e)
+                self._fail_all(runnable, e)
                 return
         else:
             t_submit = time.perf_counter_ns()
@@ -471,8 +587,7 @@ class MicroBatcher:
             try:
                 wrapped, live = self._watchdog_wait(dev_future, runnable)
             except Exception as e:  # noqa: BLE001 — the evaluation raised
-                for p in runnable:
-                    self._fail(p, e)
+                self._fail_all(runnable, e)
                 return
             if wrapped is None:
                 waited = time.perf_counter() - start
@@ -496,8 +611,9 @@ class MicroBatcher:
                         flightrec.PH_HANDOFF, h0, h1, rows=n, batch=bid
                     )
         # phase 3 (host): constraints and metrics; rows the watchdog
-        # already answered are skipped
+        # already answered are skipped; one sink call for the batch
         live_ids = {id(p) for p in live}
+        delivery = _DeliveryBatch()
         metrics_sink: list = []
         hit_rows = 0  # cache-hit (fragment) rows, for the batch's mix
         for p, result in zip(runnable, results):
@@ -505,9 +621,12 @@ class MicroBatcher:
                 continue
             try:
                 if isinstance(result, PolicyInitializationError):
-                    self._resolve(p, handle_initialization_error(p.request, result))
+                    self._resolve(
+                        p, handle_initialization_error(p.request, result),
+                        delivery,
+                    )
                 elif isinstance(result, Exception):
-                    self._fail(p, result)
+                    self._fail(p, result, delivery)
                 else:
                     # a fragment verdict passes post_evaluate unchanged:
                     # its eligibility proved the constraints the identity
@@ -519,13 +638,21 @@ class MicroBatcher:
                             result, p.enqueued_at, metrics_sink=metrics_sink,
                             now=done_at,
                         ),
+                        delivery,
                     )
             except Exception as e:  # noqa: BLE001 — never kill the worker
-                self._fail(p, e)
+                self._fail(p, e, delivery)
+        delivery.flush()
         if metrics_sink:
             service._registry().record_evaluations_batch(metrics_sink)
         if brec is not None:
             self._record_delivery(brec, done_at, live, hit_rows)
+
+    def _fail_all(self, batch: list[_Pending], exc: BaseException) -> None:
+        delivery = _DeliveryBatch()
+        for p in batch:
+            self._fail(p, exc, delivery)
+        delivery.flush()
 
     @staticmethod
     def _record_delivery(
@@ -622,8 +749,10 @@ class MicroBatcher:
                 expired = [
                     p for p in live if now >= p.enqueued_at + self.policy_timeout
                 ]
+                delivery = _DeliveryBatch()
                 for p in expired:
-                    self._reject_deadline(p)
+                    self._reject_deadline(p, delivery)
+                delivery.flush()
                 live = [p for p in live if p not in expired]
                 if not live:
                     with self._stats_lock:
@@ -663,12 +792,17 @@ class MicroBatcher:
             "device breaker fully open: serving %d request(s) in degraded "
             "mode %r", len(runnable), self.degraded_mode,
         )
+        delivery = _DeliveryBatch()
         for p in runnable:
             uid = p.request.uid()
             if self.degraded_mode == "reject":
-                self._resolve(p, AdmissionResponse.reject(uid, DEGRADED_MESSAGE, 503))
+                self._resolve(
+                    p, AdmissionResponse.reject(uid, DEGRADED_MESSAGE, 503),
+                    delivery,
+                )
             else:
-                self._resolve(p, AdmissionResponse(uid=uid, allowed=True))
+                self._resolve(p, AdmissionResponse(uid=uid, allowed=True), delivery)
+        delivery.flush()
 
     # -- pre-eval hooks ----------------------------------------------------
 
@@ -687,7 +821,9 @@ class MicroBatcher:
         self._hookless[policy_id] = hookless
         return hookless
 
-    def _run_hooks_with_deadline(self, p: _Pending) -> bool:
+    def _run_hooks_with_deadline(
+        self, p: _Pending, delivery: _DeliveryBatch
+    ) -> bool:
         """Run the target's pre-eval hooks on a thread of their own,
         waiting at most the request's remaining deadline. False when the
         request was rejected for its deadline."""
@@ -715,7 +851,7 @@ class MicroBatcher:
         # own thread until it finishes
         threading.Thread(target=runner, name="pre-eval-hook", daemon=True).start()
         if not done.wait(timeout=remaining):
-            self._reject_deadline(p)
+            self._reject_deadline(p, delivery)
             return False
         if "error" in box:
             raise box["error"]

@@ -12,11 +12,22 @@ readiness port (``/readiness``, ``/metrics``, ``/debug/timeline``) on
 says which). Each port is a ``ThreadingHTTPServer``: each connection's
 thread parses its request and waits on the batcher's future, so
 concurrent requests form micro-batches.
+
+``frontend="native"`` (``--frontend native``) serves the API port's
+evaluation POSTs (``/validate``, ``/validate_raw``, ``/audit``) from the
+C++ epoll frontend instead (``runtime/native_frontend.py``): it frames and
+canonicalizes requests without the GIL, admits each poll burst to the
+batcher in one ``submit_many`` and serializes verdicts natively. Its
+library and listen socket are made before the collection at start; a
+failed build, load or bind raises. ``/readiness``, ``/metrics`` and
+``/debug/timeline`` stay on the readiness port; the pprof endpoints need
+the standard-library frontend.
 """
 
 from __future__ import annotations
 
 import gc
+import logging
 import socket
 import threading
 from http.server import ThreadingHTTPServer
@@ -29,6 +40,7 @@ from policy_server_tpu_torch.evaluation.environment import (
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
 )
+from policy_server_tpu_torch.runtime import native_frontend as nf
 from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_BATCH_TIMEOUT_MS,
     DEFAULT_HOST_FASTPATH_THRESHOLD,
@@ -45,6 +57,11 @@ from policy_server_tpu_torch.telemetry import (
 )
 
 DEFAULT_READINESS_PROBE_PORT = 8081
+FRONTENDS = ("python", "native")
+DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS = nf.NativeFrontend.IDLE_TIMEOUT_MS / 1000
+DEFAULT_NATIVE_READ_TIMEOUT_SECONDS = nf.NativeFrontend.READ_TIMEOUT_MS / 1000
+
+logger = logging.getLogger("kubewarden-policy-server")
 
 
 class _HttpServer(ThreadingHTTPServer):
@@ -67,10 +84,50 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     ``dedup_stats``, ``host_profile``, ``breaker_stats``,
     ``device_errors`` and kernel stats, and the flight recorder's.
     Families whose subsystem the port has not got (tenants, audit, reload,
-    shards, shedding) are not emitted."""
+    shards, shedding) are not emitted; the native frontend's read zero
+    under ``--frontend python``."""
     batcher = state.batcher
     env = state.evaluation_environment
     b = batcher.stats_snapshot()
+    front = state.native_frontend
+    n = front.stats() if front is not None else {}
+    yield (names.NATIVE_HTTP_REQUESTS, "counter",
+           "HTTP requests framed by the native (GIL-free C++) front-end",
+           n.get("http_requests", 0))
+    yield (names.NATIVE_PARSE_FALLBACKS, "counter",
+           "Requests the native AdmissionReview parser declined and "
+           "shipped to the Python parse oracle (floats, duplicate keys, "
+           "malformed bodies)", n.get("parse_fallbacks", 0))
+    yield (names.NATIVE_RING_FULL, "counter",
+           "Requests answered 503 because the native submission ring was "
+           "full (drainer overrun)", n.get("ring_full_rejections", 0))
+    yield (names.NATIVE_VERDICTS_SERIALIZED, "counter",
+           "Responses serialized natively (common verdict shape)",
+           n.get("responses_native_serialized", 0))
+    yield (names.NATIVE_PYTHON_SERIALIZED, "counter",
+           "Responses rendered by Python behind the native frontend "
+           "(errors, mutations, exotic status fields)",
+           n.get("responses_python_serialized", 0))
+    yield (names.NATIVE_FRAMING_SECONDS, "counter",
+           "Native-thread time in HTTP framing, AdmissionReview "
+           "canonicalization, and response serialization",
+           n.get("framing_ns", 0) / 1e9)
+    yield (names.NATIVE_INFLIGHT, "gauge",
+           "Requests accepted by the native frontend still awaiting their "
+           "completion", n.get("inflight", 0))
+    yield (names.NATIVE_IDLE_CLOSES, "counter",
+           "Native-frontend connections reaped by the idle or read "
+           "(slowloris) timeout", n.get("idle_timeout_closes", 0))
+    yield (names.NATIVE_CONN_CAP_REJECTS, "counter",
+           "Connections answered an in-band 503 because the native "
+           "frontend's connection cap was reached",
+           n.get("conn_cap_rejections", 0))
+    yield (names.BULK_SUBMITS, "counter",
+           "submit_many bursts admitted (one queue-lock acquisition each)",
+           b["bulk_submits"])
+    yield (names.BULK_SUBMITTED_ROWS, "counter",
+           "Rows admitted through submit_many bursts",
+           b["bulk_submitted_rows"])
     yield (names.BATCHES_DISPATCHED, "counter",
            "Micro-batches dispatched", b["batches_dispatched"])
     yield (names.REQUESTS_DISPATCHED, "counter",
@@ -208,7 +265,13 @@ class PolicyServer:
         flight_recorder: bool = True,
         recorder_ring_events: int = flightrec.DEFAULT_RING_EVENTS,
         recorder_row_sample_rate: float = flightrec.DEFAULT_ROW_SAMPLE_RATE,
+        frontend: str = "python",
+        native_idle_timeout_seconds: float = DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
+        native_read_timeout_seconds: float = DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
+        native_max_connections: int = 0,
     ) -> None:
+        if frontend not in FRONTENDS:
+            raise ValueError(f"unknown frontend {frontend!r}")
         if enable_metrics:
             setup_metrics()
         # the recorder goes in before the environment and the batcher are
@@ -252,25 +315,88 @@ class PolicyServer:
             enable_pprof=enable_pprof, ready=False,
         )
         self.batcher.warmup()
-        # collect the build's and the warmup's garbage (and any the caller
-        # left) before serving: left to the first full collection under
-        # traffic, the finalizers of freed device and page-locked memory
-        # ran on whichever serving thread triggered it, and stalled it for
-        # up to 2 s on an H100 host (``PERF.md``)
-        gc.collect()
+        self._httpd: _HttpServer | None = None
+        try:
+            # the API port first (its native library and poll buffer too,
+            # before the collection below), the readiness port once it is
+            # bound
+            if frontend == "native":
+                self._bind_native_frontend(
+                    host, port, native_idle_timeout_seconds,
+                    native_read_timeout_seconds, native_max_connections,
+                )
+                if enable_pprof:
+                    logger.warning(
+                        "--enable-pprof with --frontend native: the native "
+                        "frontend serves only the evaluation POSTs; the "
+                        "pprof endpoints need --frontend python"
+                    )
+            else:
+                self._httpd = _HttpServer((host, port), ApiHandler, self.state)
+            # collect the build's and the warmup's garbage (and any the
+            # caller left) before serving: left to the first full
+            # collection under traffic, the finalizers of freed device and
+            # page-locked memory ran on whichever serving thread triggered
+            # it, and stalled it for up to 2 s on an H100 host (``PERF.md``)
+            gc.collect()
+            self._readiness = _HttpServer(
+                (host, readiness_probe_port), ReadinessHandler, self.state
+            )
+        except BaseException:
+            self._close_api()
+            self.batcher.close()
+            if flightrec.recorder() is self._recorder:
+                flightrec.install(None)
+            raise
         default_registry().attach_runtime_stats(
             lambda: runtime_stats(self.state)
-        )
-        self._httpd = _HttpServer((host, port), ApiHandler, self.state)
-        # the readiness port binds only once the API port is bound
-        self._readiness = _HttpServer(
-            (host, readiness_probe_port), ReadinessHandler, self.state
         )
         self.state.ready = True
         self._threads: list[threading.Thread] = []
 
+    def _bind_native_frontend(
+        self, host: str, port: int, idle_s: float, read_s: float,
+        max_connections: int,
+    ) -> None:
+        """The native frontend on the API port, built and bound but not
+        started (``state.native_frontend``). Raises when the library does
+        not build or load or the port does not bind."""
+        sock = nf.make_listen_socket(host, port)
+        try:
+            front = nf.NativeFrontend(
+                sock, nf.BatcherSink(self.state),
+                idle_timeout_ms=int(idle_s * 1000),
+                read_timeout_ms=int(read_s * 1000),
+                max_connections=max_connections,
+            )
+        except BaseException:
+            sock.close()
+            raise
+        self._native_port = sock.getsockname()[1]
+        self.state.native_frontend = front
+
+    def _close_api(self) -> None:
+        """Free the API port's frontend (the native one waits for its
+        in-flight completions, stops its loops and joins its drainer)."""
+        if self.native_frontend is not None:
+            self.native_frontend.shutdown()
+            self.state.native_frontend = None
+        elif self._httpd is not None:
+            self._httpd.server_close()
+
+    @property
+    def native_frontend(self) -> Any:
+        """The NativeFrontend under ``--frontend native``, else None."""
+        return self.state.native_frontend
+
+    @property
+    def frontend(self) -> str:
+        return "python" if self._httpd is not None else "native"
+
     @property
     def port(self) -> int:
+        if self._httpd is None:
+            return self._native_port
         return self._httpd.server_address[1]
 
     @property
@@ -283,22 +409,37 @@ class PolicyServer:
         self._threads.append(t)
 
     def start(self) -> None:
-        """Serve both ports on background threads."""
-        self._serve_in_background(self._httpd, "http")
+        """Serve both ports in the background (the native frontend on its
+        own threads)."""
+        if self.native_frontend is not None:
+            self.native_frontend.start()
+        else:
+            self._serve_in_background(self._httpd, "http")
         self._serve_in_background(self._readiness, "readiness")
 
     def serve_forever(self) -> None:
-        """Serve the readiness port on a background thread and the API on
-        this one until ``stop()``."""
+        """Serve until ``stop()``: the API on this thread (the readiness
+        port in the background), or under the native frontend, which runs
+        on its own threads, the readiness port on this one."""
+        if self.native_frontend is not None:
+            self.native_frontend.start()
+            self._readiness.serve_forever()
+            return
         self._serve_in_background(self._readiness, "readiness")
         self._httpd.serve_forever()
 
     def stop(self) -> None:
+        if self.native_frontend is not None:
+            # stop accepting first; in-flight requests are answered below
+            # once the batcher's close has delivered them
+            self.native_frontend.stop_accepting()
         for httpd in (self._httpd, self._readiness):
-            httpd.shutdown()
-            httpd.server_close()
+            if httpd is not None:
+                httpd.shutdown()
         for t in self._threads:
             t.join(5)
         self.batcher.close()
+        self._close_api()
+        self._readiness.server_close()
         if self._recorder is not None and flightrec.recorder() is self._recorder:
             flightrec.install(None)

@@ -183,6 +183,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.api.profiling",
             "policy_server_tpu_torch.api.state",
             "policy_server_tpu_torch.api.api_error",
+            "policy_server_tpu_torch.runtime.native_frontend",
+            "policy_server_tpu_torch.runtime.frontend",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
@@ -204,6 +206,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     }
     assert "policy_server_tpu_torch.server" in imported
     assert not {n for n in imported if n.split(".")[0] in _NOT_ON_THE_CARD}
+
+
+def test_native_frontend_builds_the_ports_source_only(tmp_path, monkeypatch):
+    """The native frontend's g++ build reads the port's copy,
+    ``policy_server_tpu_torch/csrc/httpfront.cpp``, and never the JAX
+    package's ``csrc/``; it builds into ``build/torch_kernels/``."""
+    from policy_server_tpu_torch.runtime import native_frontend as nf
+
+    port_source = os.path.join(
+        REPO, "policy_server_tpu_torch", "csrc", "httpfront.cpp"
+    )
+    assert os.path.samefile(nf.SOURCE, port_source)
+    assert nf.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+    commands = []
+    real_run = subprocess.run
+
+    def recording_run(cmd, *args, **kwargs):
+        commands.append(list(cmd))
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(nf.subprocess, "run", recording_run)
+    monkeypatch.setattr(nf, "BUILD_DIR", tmp_path / "build" / "torch_kernels")
+    monkeypatch.setattr(nf, "_library", None)
+    lib = nf.build_library()
+    assert lib.build_seconds > 0 and lib.path.parent == nf.BUILD_DIR
+    (cmd,) = commands
+    sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert sources == [str(nf.SOURCE)]
+    root_csrc = os.path.join(REPO, "csrc")
+    assert not any(a.startswith(root_csrc + os.sep) for a in cmd)
+    assert "-ldl" in cmd and "-pthread" in cmd
 
 
 def test_builder_without_a_device_raises_when_no_card(monkeypatch):

@@ -175,8 +175,13 @@ def test_metrics_expose_the_runtime_families_the_port_has(server):
         ("policy_server_tail_exemplar_latency_seconds", "gauge"),
         ("policy_server_phase_latency_seconds", "histogram"),
         ("kubewarden_policy_evaluation_latency_milliseconds", "histogram"),
+        # the native frontend's, zero under the standard-library frontend
+        ("policy_server_native_http_requests_total", "counter"),
+        ("policy_server_native_inflight_requests", "gauge"),
+        ("policy_server_bulk_submits_total", "counter"),
     ):
         assert types.get(name) == kind, name
+    assert "policy_server_native_http_requests_total 0.0" in text
     assert "policy_server_pallas_buckets_armed 2.0" in text
     batches = float(re.search(
         r"^policy_server_batches_dispatched_total (\S+)$", text, re.M
@@ -185,7 +190,7 @@ def test_metrics_expose_the_runtime_families_the_port_has(server):
     # subsystems the port has not got export no family
     for prefix in ("policy_server_tenant", "policy_server_audit",
                    "policy_server_policy_reload", "policy_server_shard",
-                   "policy_server_shed", "policy_server_native"):
+                   "policy_server_shed"):
         assert not [n for n in types if n.startswith(prefix)], prefix
 
 

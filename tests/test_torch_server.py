@@ -158,9 +158,40 @@ def test_validate_raw_bodies_are_byte_equal(servers):
         assert got == want, (pid, got, want)
 
 
+def test_audit_bodies_are_byte_equal(servers):
+    """POST /audit/{policy_id}: an audit-origin evaluation (the mode and
+    mutation constraints are not applied), as the JAX package's
+    ``audit_handler`` answers it."""
+    jax_server, port_server = servers
+    reviews = _reviews()
+    mutating = build_admission_review_dict()
+    mutating["request"]["object"] = {
+        "kind": "Pod", "apiVersion": "v1", "metadata": {"name": "m"},
+        "spec": {"containers": [{"name": "c", "image": "docker.io/a:1"}]},
+    }
+    reviews += [
+        (pid, json.dumps(mutating).encode())
+        for pid in ("psp-capabilities", "priv-monitor")
+    ]
+    differs_from_validate = 0
+    for pid, body in reviews:
+        want = _post(jax_server.port, f"/audit/{pid}", body)
+        got = _post(port_server.port, f"/audit/{pid}", body)
+        assert got == want, (pid, got, want)
+        differs_from_validate += got != _post(
+            port_server.port, f"/validate/{pid}", body
+        )
+    assert differs_from_validate > 0  # the constraints were skipped
+
+
 @pytest.mark.parametrize(
     "path,body",
     [
+        ("/audit/no-such-policy", None),
+        ("/audit/pod-privileged", b"{not json"),
+        ("/validate/team-a/pod-privileged", None),
+        ("/audit/team-a/pod-privileged", None),
+        ("/validate_raw/team-a/pod-privileged", None),
         ("/validate/no-such-policy", None),
         ("/validate/pod-privileged", b"{not json"),
         ("/validate/pod-privileged", b'{"request": 3}'),
