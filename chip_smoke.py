@@ -87,12 +87,44 @@ card's name and power limit:
    kernel-only run (one wave) under ``profiling.start_device_trace`` for
    the card's busy share.
 
+8. reload, rollback and self-heal on the card — the server built through
+   the command line (``__main__.build_cli`` + ``server_from_args``) from a
+   policies file (JSON) at the default flags plus ``--frontend native
+   --enable-metrics --reload-admin-token`` and ``--selfheal-interval-seconds
+   0.2`` (so ``--policy-reload-mode auto`` watches the file), driven by the
+   phase 7 client process: wave A under the flagship set; the file
+   rewritten to a changed set (trusted-repos' settings changed,
+   ``baseline-canary`` removed) and wave B sent while the watch reloads
+   (every body equal to the old set's oracle or the new one's); wave C
+   after the promotion (the new set's oracle, ``policy_server_policy_epoch``
+   1); ``POST /policies/rollback`` and wave D (the old set's); a
+   ``reload.canary`` raise armed and the file rewritten with the same set
+   in other bytes: the reload is rejected, the failure and rollback
+   counters rise by one, wave E is the old set's; five reload-and-rollback
+   cycles through the admin endpoints with no traffic, each reload's wall
+   time per stage, its K2 launches (the candidate's build) and its K1
+   launches in the warmup and in the canary apart, and after each cycle
+   ``torch.cuda.memory_allocated`` and ``max_memory_reserved`` (the phase
+   fails if the allocation after the fifth cycle exceeds the second's by
+   more than 1 MiB); the drainer killed (a ``frontend.accept`` action that
+   ends its thread; the burst it held answers 500) and the dispatch loop
+   killed (``shard.dispatch``), both revived by the watchdog, each revive
+   counter +1 on /metrics, wave F answered by the serving set's oracle;
+   then ``stop()`` with a wave in flight: every answer a verdict of the
+   serving set or the in-band 503 "policy server shutting down", none a
+   500. p50/p99 of waves A, B and C. The changed set's K1 programs are
+   held against their plain version at B = 128 in both buckets. Launch
+   counts are zeroed just before the server is built and read after it
+   stops.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
 
-``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH`` is
-phase 7's load generator: it needs neither torch nor the package.
+``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH
+[tolerate-close]`` is the load generator of phases 7 and 8: it needs
+neither torch nor the package (``tolerate-close``: a connection the server
+closes leaves its unanswered requests empty instead of failing the run).
 """
 
 from __future__ import annotations
@@ -125,6 +157,18 @@ TRACED_REQUESTS = 256
 NATIVE_CONNS = 32
 NATIVE_DEPTH = 8
 NATIVE_WAVES = 4
+# phase 8: wave sizes, reload-and-rollback cycles, the admin token and
+# the self-heal cadence
+RELOAD_WAVE = 512
+RELOAD_B_WAVE = 256
+RELOAD_F_WAVE = 256
+RELOAD_STOP_WAVE = 1024
+RELOAD_CYCLES = 5
+RELOAD_TOKEN = "chip-smoke-admin-token"
+RELOAD_SELFHEAL_SECONDS = 0.2
+# a plateau: the allocation after the last cycle within this of the
+# second cycle's
+RELOAD_MEMORY_SLACK = 1 << 20
 COVER_BATCHES = (51, 129, 1029)
 SPILL_BATCHES = (51, 129)
 
@@ -765,7 +809,7 @@ def native_phase(reviews, policy_ids, oracle, enc_build, card: str) -> None:
     batcher = MicroBatcher(
         env, host_fastpath_threshold=0, latency_budget_ms=0,
         batch_timeout_ms=5.0,
-    )
+    ).start()
     try:
         passes = []
         for name, docs in (
@@ -814,7 +858,7 @@ def native_phase(reviews, policy_ids, oracle, enc_build, card: str) -> None:
         if env.breaker_stats["trips"]:
             fail(f"the breaker tripped in the cache passes: {env.breaker_stats}")
     finally:
-        batcher.close()
+        batcher.shutdown()
 
     # the breaker: five injected fetch faults trip it, tripped batches
     # answer from the host oracle, a probe after the cooldown recovers it
@@ -879,6 +923,7 @@ def native_client_main(argv: list[str]) -> int:
 
     port, corpus_path, out_path = int(argv[0]), argv[1], argv[2]
     conns, depth = int(argv[3]), int(argv[4])
+    tolerate_close = argv[5:6] == ["tolerate-close"]
     waves: list[list[bytes]] = []
     with open(corpus_path, "rb") as f:
         blob = f.read()
@@ -928,6 +973,9 @@ def native_client_main(argv: list[str]) -> int:
                         raise ConnectionError("server closed mid-wave")
                     buf += chunk
             s.close()
+        except (ConnectionError, OSError) as e:
+            if not tolerate_close:
+                errors.append(f"{type(e).__name__}: {e}")
         except Exception as e:  # noqa: BLE001 — reported in OUT
             errors.append(f"{type(e).__name__}: {e}")
 
@@ -949,6 +997,8 @@ def native_client_main(argv: list[str]) -> int:
         results.extend(out)
     with open(out_path, "w") as f:
         json.dump({"walls": walls, "results": results, "errors": errors}, f)
+    if tolerate_close:
+        return 1 if errors else 0
     return 1 if errors or any(r is None for r in results) else 0
 
 
@@ -1038,6 +1088,21 @@ def native_phase_split(rec, since: int) -> dict:
     }
 
 
+def write_corpus(path: str, waves: list) -> None:
+    """The client's corpus: each wave's (policy id, body) pairs as raw
+    POSTs to /validate (u32 wave, u32 length, bytes each)."""
+    with open(path, "wb") as f:
+        for w, wave in enumerate(waves):
+            for pid, body in wave:
+                req = (
+                    f"POST /validate/{pid} HTTP/1.1\r\nHost: smoke\r\n"
+                    f"Content-Type: application/json\r\n"
+                    f"Content-Length: {len(body)}\r\n\r\n"
+                ).encode() + body
+                f.write(w.to_bytes(4, "little") + len(req).to_bytes(4, "little"))
+                f.write(req)
+
+
 def native_http_run(
     label: str, waves: list, oracle_bodies: list, oracle_rejected: int,
     card: str, trace_dir: str | None = None, **flags,
@@ -1061,16 +1126,7 @@ def native_http_run(
     corpus_path = os.path.join(work_dir, "corpus.bin")
     out_path = os.path.join(work_dir, "results.json")
     flat = [item for wave in waves for item in wave]
-    with open(corpus_path, "wb") as f:
-        for w, wave in enumerate(waves):
-            for pid, body in wave:
-                req = (
-                    f"POST /validate/{pid} HTTP/1.1\r\nHost: smoke\r\n"
-                    f"Content-Type: application/json\r\n"
-                    f"Content-Length: {len(body)}\r\n\r\n"
-                ).encode() + body
-                f.write(w.to_bytes(4, "little") + len(req).to_bytes(4, "little"))
-                f.write(req)
+    write_corpus(corpus_path, waves)
     ck.reset_launch_counts()
     server = PolicyServer(
         flagship_policies(), host="127.0.0.1", port=0, readiness_probe_port=0,
@@ -1230,6 +1286,483 @@ def native_http_run(
             f"{json.dumps(run['native_phases'])} [{card}]"
         )
     return run
+
+
+# -- phase 8: reload, rollback and self-heal ---------------------------------
+
+
+def changed_specs(specs: dict) -> dict:
+    """The reload's new set: trusted-repos allows one registry only, and
+    baseline-canary is removed."""
+    out = copy.deepcopy(specs)
+    out["trusted-repos"]["settings"]["registries"]["allow"] = ["docker.io"]
+    del out["baseline-canary"]
+    return out
+
+
+def expected_answer(oracle, pid: str, body: bytes) -> tuple[int, bytes]:
+    """(status, body) the API writes for ``body`` under ``oracle``'s set:
+    the verdict, or the 404 of a policy the set does not have."""
+    from policy_server_tpu_torch.evaluation.errors import PolicyNotFoundError
+
+    try:
+        return 200, oracle_body(oracle, pid, body)
+    except PolicyNotFoundError as e:
+        return 404, json.dumps({"message": str(e), "status": 404}).encode()
+
+
+def stopping_body(body: bytes) -> bytes:
+    """The in-band 503 of a request answered while the server stops."""
+    from policy_server_tpu_torch.models import (
+        AdmissionResponse,
+        AdmissionReviewResponse,
+    )
+
+    uid = json.loads(body)["request"]["uid"]
+    return json.dumps(AdmissionReviewResponse(
+        AdmissionResponse.reject(uid, "policy server shutting down", 503)
+    ).to_dict()).encode()
+
+
+def wave_of(work_docs: list, n: int, tag: str) -> list:
+    """The first ``n`` (policy id, doc) pairs as request bodies with uids
+    of their own."""
+    out = []
+    for pid, d in work_docs[:n]:
+        d = copy.deepcopy(d)
+        d["request"]["uid"] = f"{d['request']['uid']}-{tag}"
+        out.append((pid, json.dumps(d).encode()))
+    return out
+
+
+def start_client(port: int, wave: list, name: str, tolerate_close: bool = False):
+    """The ``--native-client`` process sending one wave → (process, OUT)."""
+    work_dir = os.path.join(REPO, "build", "chip_smoke_reload")
+    os.makedirs(work_dir, exist_ok=True)
+    corpus = os.path.join(work_dir, f"{name}.bin")
+    out = os.path.join(work_dir, f"{name}.json")
+    write_corpus(corpus, [wave])
+    args = [sys.executable, os.path.abspath(__file__), "--native-client",
+            str(port), corpus, out, str(NATIVE_CONNS), str(NATIVE_DEPTH)]
+    if tolerate_close:
+        args.append("tolerate-close")
+    proc = subprocess.Popen(
+        args, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+    return proc, out
+
+
+def finish_client(proc, out: str, label: str) -> list:
+    """Wait for a client process → its results (status, ms, body) or
+    None per request."""
+    try:
+        _o, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"the client of {label} failed: {err[-2000:]}")
+    with open(out) as f:
+        doc = json.load(f)
+    os.unlink(out)
+    return doc["results"]
+
+
+def client_wave(port: int, wave: list, name: str) -> list:
+    return finish_client(*start_client(port, wave, name), name)
+
+
+def check_wave(label: str, results: list, wave: list, expectations: list,
+               allow_stopping: bool = False) -> dict:
+    """Every answer must equal one of ``expectations`` (lists of (status,
+    body) per request), or under ``allow_stopping`` the in-band 503; an
+    unanswered request counts only under ``allow_stopping``. → counts per
+    expectation that only it matched, 503s, unanswered, p50/p99 ms."""
+    only = [0] * len(expectations)
+    stopping = missing = 0
+    bad = []
+    lat = []
+    for i, r in enumerate(results):
+        if r is None:
+            if not allow_stopping:
+                fail(f"{label}: request {i} unanswered")
+            missing += 1
+            continue
+        status, ms, body = r
+        got = (status, body.encode("latin-1"))
+        lat.append(ms)
+        hits = [k for k, exp in enumerate(expectations) if exp[i] == got]
+        if len(hits) == 1:
+            only[hits[0]] += 1
+        if hits:
+            continue
+        if allow_stopping and got == (200, stopping_body(wave[i][1])):
+            stopping += 1
+            continue
+        bad.append((i, status, body[:300]))
+    if bad:
+        for i, status, body in bad[:3]:
+            print(f"phase8 mismatch ({label}) request {i}: status {status} body {body!r}")
+        fail(f"{len(bad)} answers of {label} match no expected body")
+    lat.sort()
+    return {
+        "answered": len(lat), "only": only, "stopping_503": stopping,
+        "unanswered": missing,
+        "p50": lat[len(lat) // 2] if lat else None,
+        "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
+    }
+
+
+def admin_post(port: int, path: str) -> tuple[int, dict]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", path, body=b"",
+                     headers={"Authorization": f"Bearer {RELOAD_TOKEN}"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def wait_until(pred, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def join_retirements() -> None:
+    """Wait for the lifecycle's background retirements (drain, shut the
+    batcher down, close the environment past the pin)."""
+    for t in threading.enumerate():
+        if t.name.startswith("epoch-") and t.name.endswith("-retire"):
+            t.join(60)
+
+
+def hold_changed_set_against_plain(specs: dict, docs: list, card: str) -> int:
+    """The changed set's K1 programs on the card against their plain
+    version at B = 128, both buckets, narrow form → max abs error."""
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    env = EvaluationEnvironmentBuilder(device="cuda").build(parse_policies(specs))
+    err = 0
+    for idx, schema in enumerate(env.schemas):
+        encs = []
+        for d in docs:
+            d = widen(d) if idx == 1 else d
+            payload = AdmissionReviewRequest.from_dict(d).request.to_dict()
+            got_idx, enc = env.encode_bucketed(payload)
+            if got_idx == idx:
+                encs.append(enc)
+            if len(encs) == 128:
+                break
+        if len(encs) < 128:
+            fail(f"phase 8 has {len(encs)} reviews for bucket {idx}, not 128")
+        wide = schema.pack(schema.stack(encs, batch_size=128))
+        buf = schema.to_transport(wide, vocab_size=len(env.table))["__packed__"]
+        program = env.program_for(idx, True, True)
+        dev = torch.from_numpy(buf).to("cuda")
+        want_a, want_r = ck.policy_matrix_plain(dev, program)
+        got_a, got_r = ck.policy_matrix(dev, program)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
+            fail(f"the changed set's policy_matrix disagrees with its plain version (bucket {idx})")
+        err = max(err, int((got_r - want_r).abs().max()))
+    env.close()
+    print(
+        f"phase8 changed set: policy_matrix exact against its plain version "
+        f"at B=128, both buckets, narrow [{card}]"
+    )
+    return err
+
+
+def reload_phase(work_docs: list, card: str) -> dict:
+    """Phase 8 (see the module docstring) → its numbers for the kernels
+    line."""
+    import torch
+
+    from policy_server_tpu_torch import failpoints
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    old_specs = flagship_policy_specs()
+    new_specs = changed_specs(old_specs)
+    work_dir = os.path.join(REPO, "build", "chip_smoke_reload")
+    os.makedirs(work_dir, exist_ok=True)
+    path = os.path.join(work_dir, "policies.json")
+    with open(path, "w") as f:
+        json.dump(old_specs, f)
+    old = EvaluationEnvironmentBuilder(backend="oracle").build(parse_policies(old_specs))
+    new = EvaluationEnvironmentBuilder(backend="oracle").build(parse_policies(new_specs))
+
+    def expect(oracle, wave):
+        return [expected_answer(oracle, pid, body) for pid, body in wave]
+
+    args = build_cli().parse_args([
+        "--policies", path, "--addr", "127.0.0.1", "--port", "0",
+        "--readiness-probe-port", "0", "--frontend", "native",
+        "--enable-metrics", "--reload-admin-token", RELOAD_TOKEN,
+        "--selfheal-interval-seconds", str(RELOAD_SELFHEAL_SECONDS),
+    ])
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t_build = time.perf_counter()
+    server = server_from_args(args)
+    build_s = time.perf_counter() - t_build
+    boot = ck.launch_counts()
+    server.start()
+    rp = server.readiness_port
+    lc = server.lifecycle
+    out: dict = {"build_s": build_s, "boot_launches": boot}
+    candidates: list = []
+    stopped = False
+    try:
+        if args.policy_reload_mode != "auto" or args.selfheal_interval_seconds <= 0:
+            fail("phase 8 does not run at the default reload mode")
+        status, text = http_get(rp, "/readiness")
+        if status != 200:
+            fail(f"/readiness answered {status} {text!r} (phase 8)")
+
+        # A: the flagship set
+        wave = wave_of(work_docs, RELOAD_WAVE, "r8a")
+        out["A"] = check_wave("wave A", client_wave(server.port, wave, "a"),
+                              wave, [expect(old, wave)])
+
+        # B: the file rewritten; waves while the watch reloads
+        with open(path, "w") as f:
+            json.dump(new_specs, f)
+        t_rewrite = time.perf_counter()
+        b_results, b_waves, n = [], [], 0
+        while True:
+            done = lc.stats()["reloads"] >= 1 and not lc.reload_in_flight()
+            wave = wave_of(work_docs, RELOAD_B_WAVE, f"r8b{n}")
+            res = client_wave(server.port, wave, f"b{n}")
+            b_results += res
+            b_waves += wave
+            n += 1
+            if done or time.perf_counter() - t_rewrite > 120:
+                break
+        out["B"] = check_wave("wave B", b_results, b_waves,
+                              [expect(old, b_waves), expect(new, b_waves)])
+        out["B"]["waves"] = n
+        stats = lc.stats()
+        if stats["reloads"] != 1 or stats["epoch"] != 1:
+            fail(f"the file watch did not promote the changed set: {stats}")
+        out["reload_B"] = dict(lc.last_stage_seconds)
+
+        # C: the new set, epoch 1
+        wave = wave_of(work_docs, RELOAD_WAVE, "r8c")
+        exp_new, exp_old = expect(new, wave), expect(old, wave)
+        if exp_new == exp_old:
+            fail("the changed set answers wave C as the old one does")
+        out["C"] = check_wave("wave C", client_wave(server.port, wave, "c"),
+                              wave, [exp_new])
+        out["C"]["differs_from_old"] = sum(a != b for a, b in zip(exp_new, exp_old))
+        if metric_value(rp, "policy_server_policy_epoch") != 1.0:
+            fail("policy_server_policy_epoch is not 1 after the promotion")
+
+        # D: rollback to the old set
+        status, body = admin_post(rp, "/policies/rollback")
+        if (status, body) != (200, {"status": "rolled-back", "epoch": 0}):
+            fail(f"POST /policies/rollback answered {status} {body}")
+        wave = wave_of(work_docs, RELOAD_WAVE, "r8d")
+        out["D"] = check_wave("wave D", client_wave(server.port, wave, "d"),
+                              wave, [expect(old, wave)])
+
+        # E: a canary fault rejects the reload; the old set keeps serving
+        failures0 = metric_value(rp, "policy_server_policy_reload_failures_total")
+        rollbacks0 = metric_value(rp, "policy_server_policy_reload_rollbacks_total")
+
+        def canary_fault() -> None:
+            raise failpoints.FailpointError("injected canary fault")
+
+        failpoints.set_failpoint("reload.canary", canary_fault, count=1)
+        with open(path, "w") as f:
+            json.dump(new_specs, f, indent=1)
+        wait_until(
+            lambda: lc.stats()["reload_failures"] >= 1 and not lc.reload_in_flight(),
+            120, "the rejected reload",
+        )
+        failpoints.reset()
+        failures1 = metric_value(rp, "policy_server_policy_reload_failures_total")
+        rollbacks1 = metric_value(rp, "policy_server_policy_reload_rollbacks_total")
+        if (failures1 - failures0, rollbacks1 - rollbacks0) != (1.0, 1.0):
+            fail(f"a rejected canary moved the counters by {failures1 - failures0}, {rollbacks1 - rollbacks0}")
+        if lc.stats()["last_outcome"] != "rejected:canary" or lc.current_epoch != 0:
+            fail(f"the rejected reload changed the serving epoch: {lc.stats()}")
+        wave = wave_of(work_docs, RELOAD_WAVE, "r8e")
+        out["E"] = check_wave("wave E", client_wave(server.port, wave, "e"),
+                              wave, [expect(old, wave)])
+        out["rejected"] = {"failures": failures1, "rollbacks": rollbacks1}
+
+        # five reload-and-rollback cycles through the admin endpoints
+        marks: dict = {}
+
+        def mark(name):
+            def fn() -> None:
+                marks[name] = ck.launch_counts()
+            return fn
+
+        cycles = []
+        for c in range(RELOAD_CYCLES):
+            failpoints.set_failpoint("reload.compile", mark("compile"))
+            failpoints.set_failpoint("reload.canary", mark("canary"))
+            reloads = lc.stats()["reloads"]
+            status, body = admin_post(rp, "/policies/reload")
+            if status != 202 or body.get("status") != "reload started":
+                fail(f"POST /policies/reload answered {status} {body}")
+            wait_until(
+                lambda: lc.stats()["reloads"] > reloads and not lc.reload_in_flight(),
+                120, f"reload {c + 1}",
+            )
+            end = ck.launch_counts()
+            failpoints.reset()
+            candidates.append({
+                "stages_s": dict(lc.last_stage_seconds),
+                "probe": marks["canary"]["probe"] - marks["compile"]["probe"],
+                "k1_warmup": (
+                    marks["canary"]["policy_matrix"]
+                    - marks["compile"]["policy_matrix"]
+                ),
+                "k1_canary": end["policy_matrix"] - marks["canary"]["policy_matrix"],
+            })
+            status, body = admin_post(rp, "/policies/rollback")
+            if status != 200 or body.get("status") != "rolled-back":
+                fail(f"POST /policies/rollback answered {status} {body}")
+            join_retirements()
+            gc.collect()
+            torch.cuda.synchronize()
+            cycles.append({
+                "memory_allocated": torch.cuda.memory_allocated(),
+                "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            })
+        out["candidates"] = candidates
+        out["cycles"] = cycles
+        for cand in candidates:
+            if cand["probe"] < 1 or cand["k1_warmup"] < 1 or cand["k1_canary"] < 1:
+                fail(f"a reload candidate did not launch both kernels: {cand}")
+        grown = cycles[-1]["memory_allocated"] - cycles[1]["memory_allocated"]
+        out["memory_growth_after_cycle_2"] = grown
+        if grown > RELOAD_MEMORY_SLACK:
+            fail(f"device memory keeps growing over the reload cycles: {cycles}")
+
+        # F: kill the drainer and the dispatch loop; the watchdog revives
+        front0 = metric_value(rp, "policy_server_selfheal_frontend_revives_total")
+        batch0 = metric_value(rp, "policy_server_selfheal_batcher_revives_total")
+
+        class DrainerDeath(BaseException):
+            """Ends the thread it is raised on."""
+
+        def kill_drainer() -> None:
+            raise DrainerDeath()
+
+        failpoints.set_failpoint("frontend.accept", kill_drainer, count=1)
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+        try:
+            conn.request("POST", f"/validate/{work_docs[0][0]}",
+                         body=json.dumps(work_docs[0][1]).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            killed = (resp.status, json.loads(resp.read()))
+        finally:
+            conn.close()
+        if killed != (500, {"message": "Something went wrong", "status": 500}):
+            fail(f"the drainer's last burst was answered {killed}")
+        wait_until(lambda: metric_value(
+            rp, "policy_server_selfheal_frontend_revives_total") == front0 + 1,
+            30, "the drainer's revive")
+
+        def kill_loop() -> None:
+            raise failpoints.FailpointError("injected dispatch-loop death")
+
+        failpoints.set_failpoint("shard.dispatch", kill_loop, count=1)
+        wait_until(lambda: metric_value(
+            rp, "policy_server_selfheal_batcher_revives_total") == batch0 + 1,
+            30, "the dispatch loop's revive")
+        failpoints.reset()
+        wave = wave_of(work_docs, RELOAD_F_WAVE, "r8f")
+        out["F"] = check_wave("wave F", client_wave(server.port, wave, "f"),
+                              wave, [expect(old, wave)])
+        out["revives"] = server.state.supervisor.stats()
+
+        # G: stop with a wave in flight
+        wave = wave_of(work_docs, RELOAD_STOP_WAVE, "r8g")
+        requests0 = server.native_frontend.stats()["http_requests"]
+        proc, res_path = start_client(server.port, wave, "g", tolerate_close=True)
+        wait_until(
+            lambda: server.native_frontend.stats()["http_requests"] - requests0
+            >= RELOAD_STOP_WAVE // 8 or proc.poll() is not None,
+            60, "the stop wave to start",
+        )
+        t_stop = time.perf_counter()
+        server.stop()
+        stopped = True
+        out["stop_s"] = time.perf_counter() - t_stop
+        results = finish_client(proc, res_path, "the stop wave")
+        out["G"] = check_wave("wave G (stop)", results, wave,
+                              [expect(old, wave)], allow_stopping=True)
+    finally:
+        failpoints.reset()
+        if not stopped:
+            server.stop()
+    torch.cuda.synchronize()
+    out["launches"] = ck.launch_counts()
+    out["k1_err"] = hold_changed_set_against_plain(
+        new_specs, [d for _pid, d in work_docs], card
+    )
+    return out
+
+
+def print_reload_phase(r8: dict, card: str) -> None:
+    for name in ("A", "B", "C", "D", "E", "F"):
+        w = r8[name]
+        print(
+            f"phase8 wave {name}: {w['answered']} answered, p50 {w['p50']:.3f} "
+            f"ms p99 {w['p99']:.3f} ms, matched only by each expected set "
+            f"{w['only']}" + (f", {w['waves']} client waves" if "waves" in w else "")
+            + f" [{card}]"
+        )
+    g = r8["G"]
+    print(
+        f"phase8 stop with a wave in flight: {g['answered']} answered "
+        f"({g['stopping_503']} the in-band 503, the rest verdicts of the "
+        f"serving set, 0 of them 500), {g['unanswered']} unanswered "
+        f"(connections closed); stop() {r8['stop_s']:.3f} s [{card}]"
+    )
+    print(
+        f"phase8 server build {r8['build_s']:.3f} s (launches "
+        f"{r8['boot_launches']}); watch-triggered reload under wave B, "
+        f"stage seconds {json.dumps(r8['reload_B'])}; rejected canary: "
+        f"{json.dumps(r8['rejected'])} [{card}]"
+    )
+    for i, (cand, cyc) in enumerate(zip(r8["candidates"], r8["cycles"])):
+        print(
+            f"phase8 cycle {i + 1}: reload stage seconds "
+            f"{json.dumps(cand['stages_s'])}; candidate launches probe "
+            f"{cand['probe']}, policy_matrix warmup {cand['k1_warmup']} "
+            f"canary {cand['k1_canary']}; after rollback "
+            f"memory_allocated {cyc['memory_allocated']} "
+            f"max_memory_reserved {cyc['max_memory_reserved']} [{card}]"
+        )
+    print(
+        f"phase8 revives {json.dumps(r8['revives'])}; phase launches "
+        f"{json.dumps(r8['launches'])}; allocation after cycle 5 minus "
+        f"cycle 2: {r8['memory_growth_after_cycle_2']} B [{card}]"
+    )
 
 
 def main() -> int:
@@ -1693,6 +2226,12 @@ def main() -> int:
     )
     print(f"phase7 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 8: reload, rollback and self-heal on the card ---------------
+    t_phase = time.perf_counter()
+    r8 = reload_phase(work_docs, card)
+    print_reload_phase(r8, card)
+    print(f"phase8 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -1724,8 +2263,15 @@ def main() -> int:
                     f"phase7 native {name} x{w}": run["serving_launches"]
                     for (name, w), run in native_runs.items()
                 },
+                "phase8 reload path (server build, 1 watch reload under "
+                "traffic, 1 rejected, 5 admin reloads, 6 rollbacks, serving "
+                "waves)": r8["launches"]["policy_matrix"],
             },
-            "max_abs_err": k1_err,
+            "reload_candidates": [
+                {"warmup": c["k1_warmup"], "canary": c["k1_canary"]}
+                for c in r8["candidates"]
+            ],
+            "max_abs_err": max(k1_err, r8["k1_err"]),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -1742,6 +2288,11 @@ def main() -> int:
                 f"phase 7 native HTTP run {kernel_label}, 4 pipeline "
                 f"workers: the environment's build"
             ),
+            "launches_by_path": {
+                "phase8 reload path (server build and every candidate's "
+                "build)": r8["launches"]["probe"],
+            },
+            "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,
             "ms": probe_ms,
             "plain_ms": probe_plain_ms,

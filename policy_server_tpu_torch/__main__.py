@@ -2,21 +2,25 @@
 
 Reads the policies file with PyYAML where it is installed (a JSON file
 needs nothing) and serves /validate on ``--port`` (3000) and /readiness,
-/metrics and /debug/timeline on ``--readiness-probe-port`` (8081) until
-interrupted; ``--frontend native`` serves the API port's evaluation POSTs
-from the C++ frontend. The flags, their defaults, choices and ``KUBEWARDEN_*``
-environment variables are the JAX package's (``config/cli.py``).
+/metrics, /debug/timeline and the /policies/* admin endpoints on
+``--readiness-probe-port`` (8081) until interrupted; ``--frontend native``
+serves the API port's evaluation POSTs from the C++ frontend. By default
+the policies file is watched and a changed digest, SIGHUP or ``POST
+/policies/reload`` reloads it (``--policy-reload-mode``). The flags, their
+defaults, choices, validation and ``KUBEWARDEN_*`` environment variables
+are the JAX package's (``config/cli.py``, ``config/config.py``).
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
+import signal
 import sys
+import threading
 from typing import Any
 
-from policy_server_tpu_torch.models.policy import parse_policies
+from policy_server_tpu_torch import __version__
 from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_BATCH_TIMEOUT_MS,
     DEFAULT_HOST_FASTPATH_THRESHOLD,
@@ -29,8 +33,12 @@ from policy_server_tpu_torch.server import (
     DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
     DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
     DEFAULT_READINESS_PROBE_PORT,
+    DEFAULT_RELOAD_CANARY_REQUESTS,
+    DEFAULT_SELFHEAL_INTERVAL_SECONDS,
     FRONTENDS,
+    RELOAD_MODES,
     PolicyServer,
+    read_policies_source,
 )
 from policy_server_tpu_torch.telemetry import flightrec
 from policy_server_tpu_torch.telemetry.tracing import setup_tracing
@@ -53,14 +61,7 @@ def parse_size(value: str) -> int:
     return int(s)
 
 
-def _read_policies(path: str) -> dict:
-    with open(path, encoding="utf-8") as f:
-        text = f.read()
-    try:
-        import yaml
-    except ImportError:
-        return parse_policies(json.loads(text))
-    return parse_policies(yaml.safe_load(text))
+PROG = "policy_server_tpu_torch"
 
 
 def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
@@ -83,10 +84,17 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
          dict(default="policies.yml", metavar="POLICIES_FILE",
               help="YAML (or JSON) file holding the policies to be loaded "
                    "and their settings")),
+        ("--workers", "KUBEWARDEN_WORKERS",
+         dict(type=int, default=None, metavar="WORKERS_NUMBER",
+              help="Number of concurrent evaluation slots (default: number "
+                   "of CPUs); with --max-batch-size it bounds the batcher's "
+                   "queue (WORKERS x MAX_BATCH_SIZE rows)")),
         ("--policy-timeout", "KUBEWARDEN_POLICY_TIMEOUT",
          dict(type=float, default=DEFAULT_POLICY_TIMEOUT,
               metavar="MAXIMUM_EXECUTION_TIME_SECONDS",
               help="Interrupt policy evaluation after the given time")),
+        ("--disable-timeout-protection", "KUBEWARDEN_DISABLE_TIMEOUT_PROTECTION",
+         dict(action="store_true", help="Disable policy timeout protection")),
         ("--always-accept-admission-reviews-on-namespace",
          "KUBEWARDEN_ALWAYS_ACCEPT_ADMISSION_REVIEWS_ON_NAMESPACE",
          dict(default=None, metavar="NAMESPACE",
@@ -201,6 +209,51 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
               help="Native frontend: cap on concurrent connections; "
                    "accepts over it answer an in-band 503 + Retry-After "
                    "and close (counted; 0 = uncapped)")),
+        ("--policy-reload-mode", "KUBEWARDEN_POLICY_RELOAD_MODE",
+         dict(default="auto", metavar="MODE", choices=list(RELOAD_MODES),
+              help="Zero-downtime policy hot reload (epoch-based, "
+                   "lifecycle.py): 'auto' builds and warms a new policy set "
+                   "in the background on SIGHUP / policies-file change / "
+                   "POST /policies/reload, shadow-canaries it against the "
+                   "host oracle, and promotes atomically only on a clean "
+                   "canary (last-good keeps serving otherwise); 'manual' "
+                   "stages the validated candidate for an explicit POST "
+                   "/policies/promote; 'off' freezes the policy set at "
+                   "boot")),
+        ("--reload-canary-requests", "KUBEWARDEN_RELOAD_CANARY_REQUESTS",
+         dict(type=int, default=DEFAULT_RELOAD_CANARY_REQUESTS, metavar="N",
+              help="Shadow-canary replay budget: the candidate epoch "
+                   "replays up to N recently served requests (a bounded "
+                   "ring recorded at dispatch, plus one synthetic review "
+                   "per candidate policy) and cross-checks every verdict "
+                   "against the host oracle before promotion")),
+        ("--reload-divergence-threshold",
+         "KUBEWARDEN_RELOAD_DIVERGENCE_THRESHOLD",
+         dict(type=float, default=0.0, metavar="FRACTION",
+              help="Fraction of canary replays allowed to diverge from "
+                   "the host oracle before the candidate policy set is "
+                   "rejected (default 0.0: any divergence, trap, or "
+                   "canary timeout keeps last-good serving and increments "
+                   "the rollback counter)")),
+        ("--reload-admin-token", "KUBEWARDEN_RELOAD_ADMIN_TOKEN",
+         dict(default=None, metavar="TOKEN",
+              help="Bearer token authenticating the policy-lifecycle "
+                   "admin endpoints (POST /policies/reload, /policies/"
+                   "promote, /policies/rollback on the readiness port); "
+                   "unset disables them")),
+        ("--selfheal-interval-seconds", "KUBEWARDEN_SELFHEAL_INTERVAL_SECONDS",
+         dict(type=float, default=DEFAULT_SELFHEAL_INTERVAL_SECONDS,
+              metavar="SECONDS",
+              help="Self-heal watchdog cadence (supervision.py): every "
+                   "tick it verifies the batcher dispatch loop and the "
+                   "native frontend's drainer thread are alive, and "
+                   "REBUILDS a dead one instead of serving zombies "
+                   "(counted on /metrics as "
+                   "policy_server_selfheal_*_revives). 0 disables")),
+        ("--no-warmup", "KUBEWARDEN_NO_WARMUP",
+         dict(action="store_true",
+              help="Skip the warmup of every batch bucket at boot and for "
+                   "each reload candidate")),
         ("--device", None,
          dict(default=None,
               help="torch device (default: the CUDA card; 'cpu' runs the "
@@ -211,7 +264,10 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
 def build_cli() -> argparse.ArgumentParser:
     """The parser; a flag's environment variable, when set, replaces its
     default."""
-    parser = argparse.ArgumentParser(prog="policy_server_tpu_torch")
+    parser = argparse.ArgumentParser(prog=PROG)
+    parser.add_argument(
+        "--version", action="version", version=f"{PROG} {__version__}"
+    )
     for flag, env, kwargs in _flag_specs():
         kwargs = dict(kwargs)
         if env is not None:
@@ -228,9 +284,42 @@ def build_cli() -> argparse.ArgumentParser:
     return parser
 
 
+def validate_args(args: argparse.Namespace) -> None:
+    """The JAX package's checks (``Config.validate``) of this package's
+    flags; raises ValueError with its text."""
+    if args.workers is not None and args.workers < 1:
+        raise ValueError("--workers must be >= 1")
+    if args.max_batch_size < 1:
+        raise ValueError("--max-batch-size must be >= 1")
+    if not (0 <= args.port <= 65535) or not (
+        0 <= args.readiness_probe_port <= 65535
+    ):
+        raise ValueError("ports must be in [0, 65535]")
+    if args.breaker_failure_threshold < 1:
+        raise ValueError("--breaker-failure-threshold must be >= 1")
+    if args.breaker_window_seconds <= 0:
+        raise ValueError("--breaker-window-seconds must be > 0")
+    if args.breaker_cooldown_seconds < 0:
+        raise ValueError("--breaker-cooldown-seconds must be >= 0")
+    if args.reload_canary_requests < 0:
+        raise ValueError("--reload-canary-requests must be >= 0")
+    if args.selfheal_interval_seconds < 0:
+        raise ValueError("--selfheal-interval-seconds must be >= 0")
+    if args.native_idle_timeout_seconds < 0:
+        raise ValueError("--native-idle-timeout-seconds must be >= 0")
+    if args.native_read_timeout_seconds < 0:
+        raise ValueError("--native-read-timeout-seconds must be >= 0")
+    if args.native_max_connections < 0:
+        raise ValueError("--native-max-connections must be >= 0")
+    if not (0.0 <= args.reload_divergence_threshold <= 1.0):
+        raise ValueError("--reload-divergence-threshold must be in [0, 1]")
+
+
 def server_from_args(args: argparse.Namespace) -> PolicyServer:
+    validate_args(args)
+    policies, text = read_policies_source(args.policies)
     return PolicyServer(
-        _read_policies(args.policies),
+        policies,
         host=args.addr,
         port=args.port,
         readiness_probe_port=args.readiness_probe_port,
@@ -244,7 +333,9 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         verdict_cache_size=args.verdict_cache_size,
         host_fastpath_threshold=args.host_fastpath_threshold,
         latency_budget_ms=args.latency_budget_ms,
-        policy_timeout=args.policy_timeout,
+        policy_timeout=(
+            None if args.disable_timeout_protection else args.policy_timeout
+        ),
         breaker_failure_threshold=args.breaker_failure_threshold,
         breaker_window_seconds=args.breaker_window_seconds,
         breaker_cooldown_seconds=args.breaker_cooldown_seconds,
@@ -258,13 +349,32 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         native_idle_timeout_seconds=args.native_idle_timeout_seconds,
         native_read_timeout_seconds=args.native_read_timeout_seconds,
         native_max_connections=args.native_max_connections,
+        workers=args.workers,
+        warmup=not args.no_warmup,
+        policy_reload_mode=args.policy_reload_mode,
+        reload_canary_requests=args.reload_canary_requests,
+        reload_divergence_threshold=args.reload_divergence_threshold,
+        reload_admin_token=args.reload_admin_token,
+        selfheal_interval_seconds=args.selfheal_interval_seconds,
+        policies_path=args.policies,
+        policies_text=text,
     )
+
+
+def install_reload_signal(server: PolicyServer) -> None:
+    """SIGHUP → ``server.reload_signal()`` (from the main thread only, where
+    the platform has the signal)."""
+    sighup = getattr(signal, "SIGHUP", None)
+    if sighup is None or threading.current_thread() is not threading.main_thread():
+        return
+    signal.signal(sighup, lambda _signum, _frame: server.reload_signal())
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_cli().parse_args(argv)
     log = setup_tracing(args.log_level, args.log_fmt, args.log_no_color)
     server = server_from_args(args)
+    install_reload_signal(server)
     log.info(
         "serving on %s:%d, readiness on %d (%s, %s frontend)",
         args.addr, server.port, server.readiness_port, server.env.device,

@@ -19,16 +19,24 @@ Readiness port (``ReadinessHandler``):
 
 * GET ``/readiness`` → ``ok`` (with the device breaker's counters once it
   has tripped or a device error was seen; 503 while it is open under
-  ``--degraded-mode reject``, and before the warmup has finished)
+  ``--degraded-mode reject``, and before the first policy epoch is built
+  and warmed)
 * GET ``/metrics``   → the process registry in Prometheus text format
 * GET ``/debug/timeline``, as on the API port
+* POST ``/policies/reload`` (202), ``/policies/promote`` and
+  ``/policies/rollback`` → the policy lifecycle's admin actions
+  (``lifecycle.py``), behind ``Authorization: Bearer <--reload-admin-token>``:
+  404 when reload is off, 403 when no token is configured, 401 for a
+  missing or wrong bearer, 409 with the rejection's text when the
+  lifecycle refuses. Promote and rollback run on the handler's thread.
 
 The native frontend (``runtime/native_frontend.py``) serves the same
 evaluation routes with the same bytes when ``--frontend native``.
 
 Error mapping: a malformed JSON body → 422 ``{"message", "status"}``;
 PolicyNotFound → 404; any other evaluation error → 500 "Something went
-wrong". Bodies are ``json.dumps`` of the response dict with the default
+wrong". Overload (429) and shutdown (503) are in-band answers of the
+batcher, inside a 200 AdmissionReview. Bodies are ``json.dumps`` of the response dict with the default
 separators, byte for byte what the JAX package's aiohttp frontend writes;
 a ``FragVerdict`` (a cache hit answered from a pre-built template) writes
 the bytes of ``FragTemplate.to_response(uid)``. Each evaluation runs in a
@@ -37,6 +45,7 @@ request span (``telemetry.tracing.span``) with the JAX package's fields.
 
 from __future__ import annotations
 
+import hmac
 import json
 from http.server import BaseHTTPRequestHandler
 from typing import Any
@@ -67,7 +76,10 @@ from policy_server_tpu_torch.telemetry.tracing import logger, span
 __all__ = [
     "ApiHandler",
     "ReadinessHandler",
+    "admin_gate",
     "evaluate_body",
+    "lifecycle_action",
+    "policies_reload",
     "readiness",
 ]
 
@@ -217,6 +229,57 @@ def _pprof_heap() -> tuple[int, bytes, str]:
         return (*something_went_wrong(), _JSON)
 
 
+def admin_gate(state: ApiServerState, authorization: str) -> tuple[int, bytes] | None:
+    """The /policies/* endpoints' gate: a token must be configured
+    (``--reload-admin-token``) and presented as a bearer; None lets the
+    request through."""
+    if state.lifecycle is None:
+        return 404, api_error_body(404, "policy hot reload is disabled")
+    if not state.admin_token:
+        return 403, api_error_body(
+            403,
+            "policy admin endpoints disabled: --reload-admin-token is "
+            "not configured",
+        )
+    if not hmac.compare_digest(authorization, f"Bearer {state.admin_token}"):
+        return 401, api_error_body(401, "invalid or missing bearer token")
+    return None
+
+
+def policies_reload(state: ApiServerState, authorization: str) -> tuple[int, bytes]:
+    """POST /policies/reload: start a background reload → 202."""
+    denied = admin_gate(state, authorization)
+    if denied is not None:
+        return denied
+    started = state.lifecycle.request_reload("admin-endpoint")
+    body = {
+        "status": "reload started" if started else "reload already in progress",
+        "epoch": state.lifecycle.current_epoch,
+    }
+    return 202, json.dumps(body).encode()
+
+
+def lifecycle_action(
+    state: ApiServerState, authorization: str, action: str
+) -> tuple[int, bytes]:
+    """POST /policies/promote (``promote_staged``) and /policies/rollback
+    (``rollback``), run on the calling thread; a rejection → 409."""
+    from policy_server_tpu_torch.lifecycle import ReloadRejected
+
+    denied = admin_gate(state, authorization)
+    if denied is not None:
+        return denied
+    try:
+        outcome = getattr(state.lifecycle, action)()
+    except ReloadRejected as e:
+        return 409, api_error_body(409, str(e))
+    except Exception as e:  # noqa: BLE001 — keep the JSON error contract
+        logger.error("policy %s failed: %s", action, e)
+        return something_went_wrong()
+    body = {"status": outcome, "epoch": state.lifecycle.current_epoch}
+    return 200, json.dumps(body).encode()
+
+
 def _timeline() -> tuple[int, bytes]:
     """GET /debug/timeline: the recorder's ring as Chrome trace JSON."""
     rec = flightrec.recorder()
@@ -300,9 +363,33 @@ class ApiHandler(_Handler):
         self._send_json(status, payload)
 
 
+_ADMIN_ACTIONS = {
+    "/policies/promote": "promote_staged",
+    "/policies/rollback": "rollback",
+}
+
+
 class ReadinessHandler(_Handler):
-    """The plaintext readiness port: probes, the Prometheus scrape and the
-    timeline."""
+    """The plaintext readiness port: probes, the Prometheus scrape, the
+    timeline and the policy lifecycle's admin endpoints."""
+
+    def do_POST(self) -> None:  # noqa: N802 — http.server's hook name
+        path = self.path.partition("?")[0]
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            self.close_connection = True
+            self._send_json(413, api_error_body(413, "request body too large"))
+            return
+        self.rfile.read(length)
+        authorization = self.headers.get("Authorization", "")
+        if path == "/policies/reload":
+            self._send_json(*policies_reload(self.state, authorization))
+        elif path in _ADMIN_ACTIONS:
+            self._send_json(
+                *lifecycle_action(self.state, authorization, _ADMIN_ACTIONS[path])
+            )
+        else:
+            self._not_found()
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's hook name
         path = self.path.partition("?")[0]

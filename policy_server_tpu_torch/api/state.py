@@ -1,5 +1,10 @@
 """Shared API server state, and the readiness verdict both HTTP ports'
-handlers read."""
+handlers read.
+
+The environment and batcher fields are the policy lifecycle's epoch
+pointer (``lifecycle.py``): a hot reload promotes a new epoch by rebinding
+them, and handlers read them per request, so a request racing the flip
+lands on one serving epoch or the other."""
 
 from __future__ import annotations
 
@@ -8,17 +13,17 @@ from typing import Any
 
 
 def readiness(batcher: Any) -> tuple[int, str]:
-    """The /readiness verdict. 503 while the device breaker is open under
-    ``--degraded-mode reject``, as the JAX package's (every review would be
-    answered with an in-band 503); otherwise 200. Once the breaker has
-    tripped, or a kernel or CUDA error has failed requests, the body shows
-    the counts, so host answers in place of the device's are never
-    silent."""
+    """The /readiness verdict of a serving epoch. 503 while the device
+    breaker is open under ``--degraded-mode reject``, as the JAX package's
+    (every review would be answered with an in-band 503); otherwise 200.
+    Once the breaker has tripped, or a kernel or CUDA error has failed
+    requests, the body shows the counts, so host answers in place of the
+    device's are never silent."""
     env = batcher.env
     if batcher.degraded_mode == "reject" and env.breaker_all_open:
         return 503, (
-            "the device breaker is open and --degraded-mode reject refuses "
-            "traffic"
+            "every device shard breaker is open and --degraded-mode "
+            "reject refuses traffic"
         )
     stats = env.breaker_stats
     errors = env.device_errors
@@ -39,13 +44,38 @@ class ApiServerState:
     hostname: str = ""
     # routes /debug/pprof/cpu and /debug/pprof/heap on the API port
     enable_pprof: bool = False
-    # False until the environment is built and the batcher warmed
+    # False until the first policy epoch is built and warmed
+    # (lifecycle.install_first_epoch flips it); True for states built
+    # directly (tests, embedding)
     ready: bool = True
     # the runtime/native_frontend.NativeFrontend under --frontend native
     native_frontend: Any = None
+    # the lifecycle.PolicyLifecycleManager; None under
+    # --policy-reload-mode off
+    lifecycle: Any = None
+    # the bearer token of the /policies/* admin endpoints; None disables
+    # them
+    admin_token: str | None = None
+    # the supervision.SupervisorStats (worker respawns, self-heal revives)
+    supervisor: Any = None
+
+    def _supervisor_note(self, body: str) -> str:
+        """A 200 body names the frontend worker slots that gave up
+        respawning, as the JAX package's does."""
+        if self.supervisor is None:
+            return body
+        given_up = self.supervisor.stats().get("worker_slots_given_up", 0)
+        if given_up:
+            return (
+                f"{body} (degraded: {given_up} frontend worker slot(s) "
+                "gave up respawning after crash-looping)"
+            )
+        return body
 
     def readiness(self) -> tuple[int, str]:
-        """503 before the first warmup has finished, then ``readiness``."""
+        """503 until the first epoch is built and warmed, then the serving
+        epoch's ``readiness`` (200 on last-good during a reload)."""
         if not self.ready:
-            return 503, "policies not yet compiled and warmed"
-        return readiness(self.batcher)
+            return 503, "first policy epoch not yet compiled and warmed"
+        code, body = readiness(self.batcher)
+        return code, (self._supervisor_note(body) if code == 200 else body)

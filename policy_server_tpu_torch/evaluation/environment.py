@@ -43,6 +43,16 @@ host fast path stamps nothing of its own.
 Backends: ``torch`` (the device path; ``device="cpu"`` runs the kernels'
 plain PyTorch versions, and the fetch is immediate) and ``oracle`` (the
 host interpreter).
+
+``close()`` retires an environment (the policy lifecycle closes every epoch
+past its rollback pin): every later dispatch raises ``RuntimeError
+("environment closed")``; the dispatches in progress are waited for (up to
+a bound; past it the device state is kept, never freed under a launch);
+then the CUDA events this environment recorded are waited on, and the
+kernel programs' device code, the launch structs that point into it and
+the page-locked buffer pool are dropped. The build's probe launch waits on
+its own stream's event, never on the whole card, so building a reload
+candidate does not wait for the serving epoch's batches.
 """
 
 from __future__ import annotations
@@ -210,6 +220,14 @@ class PinnedBuffers:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._free: dict[tuple, list[torch.Tensor]] = {}  # guarded-by: _lock
+        self._closed = False  # guarded-by: _lock
+
+    def close(self) -> None:
+        """Drop every pooled buffer; buffers given back later are dropped
+        too."""
+        with self._lock:
+            self._closed = True
+            self._free.clear()
 
     def take(self, shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
         with self._lock:
@@ -220,6 +238,8 @@ class PinnedBuffers:
 
     def give(self, *buffers: torch.Tensor) -> None:
         with self._lock:
+            if self._closed:
+                return
             for b in buffers:
                 self._free.setdefault((tuple(b.shape), b.dtype), []).append(b)
 
@@ -592,6 +612,12 @@ class EvaluationEnvironment:
         self._blob_plain_memo: dict[int, bool] = {}
         self._frag_eligible_memo: dict[int, bool] = {}
         self._pinned = PinnedBuffers()
+        # close(): the dispatches in progress, and the last CUDA event this
+        # environment recorded on each stream
+        self._gate = threading.Condition()
+        self._active = 0  # guarded-by: _gate
+        self._closed = False  # guarded-by: _gate
+        self._last_events: dict[int, Any] = {}  # guarded-by: _gate
         self._compile()
         if backend == "torch" and device is not None and device.type == "cuda":
             self._probe_device()
@@ -663,12 +689,63 @@ class EvaluationEnvironment:
         failed build or launch raises with the compiler's or the CUDA
         runtime's text."""
         cuda_kernels.build_library()
-        x = torch.arange(8 * 128, dtype=torch.float32, device=self.device)
-        x = x.reshape(8, 128)
-        y = cuda_kernels.probe(x)
-        torch.cuda.synchronize(self.device)
-        if not torch.equal(y, x + 1.0):
+        # on a stream of its own: waiting on its event waits for the probe,
+        # not for the batches other environments run on the card
+        stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            x = torch.arange(8 * 128, dtype=torch.float32, device=self.device)
+            x = x.reshape(8, 128)
+            y = cuda_kernels.probe(x)
+            ok = torch.equal(y, x + 1.0)
+        if not ok:
             raise RuntimeError("probe kernel returned a wrong result")
+
+    # -- retirement --------------------------------------------------------
+
+    def _enter(self) -> None:
+        """Start a dispatch; raises once the environment is closed."""
+        with self._gate:
+            if self._closed:
+                raise RuntimeError("environment closed")
+            self._active += 1
+
+    def _leave(self) -> None:
+        with self._gate:
+            self._active -= 1
+            if not self._active:
+                self._gate.notify_all()
+
+    def close(self, timeout: float = 30.0) -> bool:
+        """Retire the environment (idempotent): refuse later dispatches,
+        wait up to ``timeout`` seconds for those in progress, wait on the
+        CUDA events it recorded, then drop the kernel programs' device
+        code and launch structs and the page-locked buffers. False when a
+        dispatch was still running at the bound: the device state is then
+        kept, since freeing it under a launch would be a use after free.
+        Called by whoever built the environment, never by a batcher."""
+        with self._gate:
+            if self._closed:
+                return True
+            self._closed = True
+            drained = self._gate.wait_for(lambda: self._active == 0, timeout)
+            events = list(self._last_events.values())
+            self._last_events.clear()
+        if not drained:
+            logger.warning(
+                "environment closed with a dispatch still running after "
+                "%.1f s; its device code is kept", timeout,
+            )
+            return False
+        for event in events:
+            event.synchronize()
+        with self._lock:
+            programs = list(self._programs.values())
+            self._programs = {}
+            self._combine_cols = {}
+        for program in programs:
+            program.release_device_code()
+        self._pinned.close()
+        return True
 
     def install_reference_state(
         self, strings: Sequence[str], layouts: Sequence[Mapping[str, Any]]
@@ -1143,6 +1220,13 @@ class EvaluationEnvironment:
         page-locked buffer, all queued on the card's current stream, then
         a CUDA event. Returns without waiting; ``InflightStep.wait`` is the
         fetch. On the CPU the step runs at once."""
+        self._enter()
+        try:
+            return self._enqueue_open(buf)
+        finally:
+            self._leave()
+
+    def _enqueue_open(self, buf: np.ndarray) -> InflightStep:
         idx, _layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
         program = self.program_for(idx, transport, narrow)
         if self.device.type != "cuda":
@@ -1159,8 +1243,11 @@ class EvaluationEnvironment:
             out = self._combine_outputs(a_mat, r_mat, program.column_of)
             host_out = pool.take(tuple(out.shape), out.dtype)
             host_out.copy_(out, non_blocking=True)
+            stream = torch.cuda.current_stream()
             event = torch.cuda.Event()
-            event.record()
+            event.record(stream)
+        with self._gate:
+            self._last_events[stream.cuda_stream] = event
         return InflightStep(event, host_in, host_out, pool)
 
     def evaluate_packed(self, buf: np.ndarray) -> np.ndarray:
@@ -1265,8 +1352,12 @@ class EvaluationEnvironment:
         through the breaker and the ``device.fetch`` failpoint."""
         if self.backend != "torch":
             raise RuntimeError("run_batch needs the torch backend")
-        step = self._device_call(self._enqueue_features, features)
-        return self._unpack(self._device_fetch(step))
+        self._enter()
+        try:
+            step = self._device_call(self._enqueue_features, features)
+            return self._unpack(self._device_fetch(step))
+        finally:
+            self._leave()
 
     def warmup(self, batch_sizes: tuple[int, ...] = (1,)) -> None:
         """Run an all-missing batch of each size through every schema
@@ -1375,18 +1466,24 @@ class EvaluationEnvironment:
         Exception entries; rows no schema holds fall back to the host
         oracle. ``prefer_host=True`` (the batcher's latency fast path)
         answers with the targeted host oracle instead of the device; while
-        the breaker is open, every batch does."""
-        if self.backend == "oracle":
-            return self._validate_batch_oracle(items, run_hooks)
-        if prefer_host:
-            return self._validate_batch_hostpath(items, run_hooks)
-        if not self.breaker.allow_device():
-            # tripped: the bit-exact host oracle serves until a half-open
-            # probe (admitted by allow_device after the cooldown) closes it
-            with self._stats_lock:
-                self._breaker_short_circuited += len(items)
-            return self._validate_batch_hostpath(items, run_hooks)
-        return self._validate_batch_native(items, run_hooks)
+        the breaker is open, every batch does. Raises once the environment
+        is closed."""
+        self._enter()
+        try:
+            if self.backend == "oracle":
+                return self._validate_batch_oracle(items, run_hooks)
+            if prefer_host:
+                return self._validate_batch_hostpath(items, run_hooks)
+            if not self.breaker.allow_device():
+                # tripped: the bit-exact host oracle serves until a
+                # half-open probe (admitted by allow_device after the
+                # cooldown) closes it
+                with self._stats_lock:
+                    self._breaker_short_circuited += len(items)
+                return self._validate_batch_hostpath(items, run_hooks)
+            return self._validate_batch_native(items, run_hooks)
+        finally:
+            self._leave()
 
     def _validate_batch_oracle(
         self, items: list[tuple[str, ValidateRequest]], run_hooks: bool
@@ -1576,11 +1673,20 @@ class EvaluationEnvironment:
         waiting for device results. Returns a handle for
         validate_batch_finish, or None when the pipeline is unavailable
         (the oracle backend, or a tripped breaker); the caller then uses
-        validate_batch."""
-        if self.backend != "torch" or not self.breaker.allow_device():
-            return None
-        deferred: list = []
-        results = self._validate_batch_native(items, run_hooks, defer_sink=deferred)
+        validate_batch. Raises once the environment is closed; a returned
+        handle keeps the dispatch open until its finish."""
+        self._enter()
+        try:
+            if self.backend != "torch" or not self.breaker.allow_device():
+                self._leave()
+                return None
+            deferred: list = []
+            results = self._validate_batch_native(
+                items, run_hooks, defer_sink=deferred
+            )
+        except BaseException:
+            self._leave()
+            raise
         return (results, deferred)
 
     def validate_batch_finish(
@@ -1589,8 +1695,11 @@ class EvaluationEnvironment:
         """Device half: wait for each chunk's fetch and materialize the
         responses. All blocking happens here (watchdog-safe)."""
         results, deferred = handle
-        for materialize_fn, entry in deferred:
-            materialize_fn(entry)
+        try:
+            for materialize_fn, entry in deferred:
+                materialize_fn(entry)
+        finally:
+            self._leave()
         return results  # type: ignore[return-value]
 
     def _native_schema_pass(

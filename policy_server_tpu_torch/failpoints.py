@@ -36,6 +36,19 @@ Sites instrumented (grep for ``failpoints.fire``):
 ``frontend.accept`` the native HTTP frontend's intake of one drained
                     burst (runtime/native_frontend.py) — ``raise``
                     answers every request of the burst 500 in-band
+``shard.dispatch``  top of each MicroBatcher dispatch-loop iteration
+                    (runtime/batcher.py), before any queue pop — ``raise``
+                    kills the dispatch thread holding no row (the
+                    self-heal watchdog revives it)
+``reload.fetch``    policy hot-reload fetch stage (lifecycle.py) —
+                    ``raise`` = an unreadable policies file; the reload
+                    is rejected and last-good keeps serving
+``reload.compile``  policy hot-reload compile+warm stage (lifecycle.py) —
+                    ``raise`` = a candidate set that fails to build;
+                    ``sleep`` = a compile stall (serving is untouched)
+``reload.canary``   policy hot-reload shadow canary (lifecycle.py) —
+                    ``raise`` = a canary fault; the candidate is
+                    rejected, never promoted
 ==================  =====================================================
 
 Every fire is counted (``fired_count(site)``) so a test can check that an

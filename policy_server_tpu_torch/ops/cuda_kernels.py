@@ -954,6 +954,13 @@ class PolicyMatrixProgram:
                 hit = self._launches[key] = (args, ctypes.addressof(args), scratch)
         return hit[1], hit[2]
 
+    def release_device_code(self) -> None:
+        """Drop the launch structs and the device code they point into.
+        The caller makes sure no launch of this program is still queued."""
+        with self._launch_lock:
+            self._launches.clear()
+            self._device_code.clear()
+
 
 def build_policy_matrix(
     layout: PackedLayout,

@@ -48,6 +48,23 @@ Future, and ``sink.deliver_many([(token, response, exc), ...])`` is called
 once per phase of a dispatched batch that answers any of them (the native
 HTTP frontend's bulk completion). The pipeline workers call it
 concurrently; a sink that raises is logged and never takes the batch down.
+
+The submission queue is bounded (``queue_capacity``, by default eight
+batches; the server passes ``--workers`` × ``--max-batch-size``). A full
+queue waits for room in 50 ms slices up to the request's policy timeout
+(without one, for as long as it takes) and then answers an in-band 429,
+"policy server overloaded"; callers that must never block
+(``submit_nowait``, and the rows of a ``submit_many`` burst that do not
+fit) park that wait on a pool of eight overload threads. ``shutdown()``
+answers every row still queued, and every later submission, with an
+in-band 503, "policy server shutting down".
+
+Construction does not start the dispatch loop: ``start()`` does (an epoch
+of the policy lifecycle is built and warmed, and started only when it is
+promoted). ``dispatch_wedged()`` and ``revive_dispatch()`` are the self-heal
+watchdog's view of the loop (``supervision.py``); a ``shadow_recorder``
+sees every formed batch's ``(policy_id, request)`` pairs once (the reload
+canary's replay ring, ``lifecycle.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +77,7 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Any
 
+from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.api import service
 from policy_server_tpu_torch.api.service import (
     RequestOrigin,
@@ -89,6 +107,8 @@ DEGRADED_MODES = ("oracle", "monitor", "reject")
 
 DEADLINE_MESSAGE = "execution deadline exceeded"
 DEGRADED_MESSAGE = "policy server degraded: device backend unavailable"
+OVERLOADED_MESSAGE = "policy server overloaded"
+STOPPING_MESSAGE = "policy server shutting down"
 
 # pipeline workers: consecutive batches overlap across them
 PIPELINE_WORKERS = 4
@@ -183,8 +203,8 @@ class MicroBatcher:
     with the final response (service-layer constraints applied; an
     ``AdmissionResponse``, or a ``FragVerdict`` for a cache hit, which
     serializes to the same bytes) or the EvaluationError of an invalid or
-    unknown policy id. Starts its loop thread at construction; ``close()``
-    stops it."""
+    unknown policy id. ``start()`` starts its loop thread; ``shutdown()``
+    stops it and answers what is left."""
 
     def __init__(
         self,
@@ -195,6 +215,8 @@ class MicroBatcher:
         host_fastpath_threshold: int = DEFAULT_HOST_FASTPATH_THRESHOLD,
         latency_budget_ms: float = DEFAULT_LATENCY_BUDGET_MS,
         degraded_mode: str = "oracle",
+        queue_capacity: int | None = None,
+        shadow_recorder: Any = None,
     ) -> None:
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be at least 1")
@@ -211,6 +233,9 @@ class MicroBatcher:
             None if latency_budget_ms <= 0 else latency_budget_ms / 1e3
         )
         self.degraded_mode = degraded_mode
+        # the reload canary's replay ring (lifecycle.ShadowRecorder): one
+        # observe per formed batch; None when reload is off
+        self.shadow_recorder = shadow_recorder
         self._env_fastpath = env.supports_host_fastpath
         # EWMA device round trip per batch bucket, seconds (seeded by
         # warmup, learned from real dispatches, decayed on each budget
@@ -221,8 +246,17 @@ class MicroBatcher:
         self._host_cost_per_row = 1e-4
         # policy ids known to resolve, and whether their target has hooks
         self._hookless: dict[str, bool] = {}
-        self._queue: queue.Queue[_Pending] = queue.Queue()
-        self._closed = False
+        self._queue: queue.Queue[_Pending] = queue.Queue(
+            maxsize=queue_capacity or self.max_batch_size * 8
+        )
+        self._stop = threading.Event()
+        # set first by shutdown(): every submission from then on answers
+        # 503, and overload waiters see it within one wait slice
+        self._stopping = False
+        self._thread: threading.Thread | None = None
+        # the bounded waits of rows that found the queue full and whose
+        # caller must not block (submit_nowait, a burst's overflow)
+        self._overload_pool = DaemonExecutor(8, "overload-wait")
         # batch workers run a batch's phases and its watchdog wait; device
         # workers run the evaluation itself, so a hung device call wedges a
         # device worker, never a batch worker (daemon threads: a wedged
@@ -249,12 +283,39 @@ class MicroBatcher:
         # the burst size the native frontend admits at once)
         self.bulk_submits = 0  # guarded-by: _stats_lock
         self.bulk_submitted_rows = 0  # guarded-by: _stats_lock
-        self._thread = threading.Thread(
-            target=self._loop, name="micro-batcher", daemon=True
-        )
-        self._thread.start()
 
     # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "MicroBatcher":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name="micro-batcher", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def dispatch_wedged(self) -> bool:
+        """True when the dispatch loop died outside shutdown: submissions
+        still queue, nothing forms a batch."""
+        t = self._thread
+        return (
+            t is not None
+            and not t.is_alive()
+            and not self._stopping
+            and not self._stop.is_set()
+        )
+
+    def revive_dispatch(self) -> bool:
+        """Start a new dispatch loop in place of a dead one (the queue and
+        the pools are still up). False when there is nothing to revive:
+        alive, never started, or shutting down."""
+        if not self.dispatch_wedged():
+            return False
+        self._thread = threading.Thread(
+            target=self._loop, name="micro-batcher-revived", daemon=True
+        )
+        self._thread.start()
+        return True
 
     def warmup(self) -> None:
         """Warm every batch bucket up to ``max_batch_size`` and seed the
@@ -277,11 +338,35 @@ class MicroBatcher:
             self.env.warmup((b,))
             self._dev_rtt[bucket_size(b)] = (time.perf_counter() - t0) / per_warmup
 
-    def close(self, timeout: float = 5.0) -> None:
-        self._closed = True
-        self._thread.join(timeout)
+    def shutdown(self) -> None:
+        """Stop the loop and answer every row: batches already formed
+        finish (bounded by the watchdog), rows still queued and every later
+        submission answer 503. The batcher borrows its environment and
+        never closes it."""
+        # refuse new rows and wake the overload waiters into the 503 path
+        # before draining, so no put that lands after the drain strands
+        self._stopping = True
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
         self._batch_pool.shutdown(wait=True)
+        self._drain_rejecting()
+        # every overload waiter sees _stopping within a slice and answers
+        # itself, or has enqueued; the second drain answers the latter
+        self._overload_pool.shutdown(wait=True)
+        self._drain_rejecting()
+        # a wedged device call must not hold shutdown: its rows were
+        # answered by the watchdog
         self._device_pool.shutdown(wait=False)
+
+    def _drain_rejecting(self) -> None:
+        while True:
+            try:
+                p = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            self._reject_stopping(p)
 
     # -- submission --------------------------------------------------------
 
@@ -291,12 +376,75 @@ class MicroBatcher:
         request: ValidateRequest,
         origin: RequestOrigin = RequestOrigin.VALIDATE,
     ) -> Future:
-        """Queue one request → a Future of its response."""
-        if self._closed:
-            raise RuntimeError("batcher closed")
-        future: Future = Future()
-        self._queue.put(_Pending(policy_id, request, origin, future))
-        return future
+        """Queue one request → a Future of its response. A full queue waits
+        for room (``_put_waiting``); after ``shutdown()`` the Future holds
+        the 503."""
+        pending = _Pending(policy_id, request, origin, Future())
+        if self._stopping:
+            self._reject_stopping(pending)
+            return pending.future
+        self._put_waiting(pending)
+        return pending.future
+
+    # overload waiters sleep in bounded slices, so each sees shutdown
+    # within one slice (an unbounded put could outlast the drain)
+    _WAIT_SLICE_SECONDS = 0.05
+
+    def _put_waiting(self, pending: _Pending) -> bool:
+        """Enqueue, waiting for room up to the request's policy timeout
+        (unbounded without one) and always watching ``_stopping``. True
+        when enqueued; False when answered in-band (429 or 503)."""
+        while True:
+            if self._stopping:
+                self._reject_stopping(pending)
+                return False
+            if self.policy_timeout is None:
+                wait = self._WAIT_SLICE_SECONDS
+            else:
+                remaining = (
+                    pending.enqueued_at + self.policy_timeout
+                    - time.perf_counter()
+                )
+                if remaining <= 0:
+                    self._reject_overloaded(pending)
+                    return False
+                wait = min(self._WAIT_SLICE_SECONDS, remaining)
+            try:
+                self._queue.put(pending, timeout=wait)
+            except queue.Full:
+                continue
+            # shutdown may have finished both drains between the check
+            # above and this put: drain again (a second answer to a row
+            # is dropped)
+            if self._stopping:
+                self._drain_rejecting()
+            return True
+
+    def submit_nowait(
+        self,
+        policy_id: str,
+        request: ValidateRequest,
+        origin: RequestOrigin = RequestOrigin.VALIDATE,
+    ) -> Future:
+        """``submit`` for callers that must never block (the native
+        frontend's drainer): a full queue parks the bounded wait on the
+        overload pool and the Future is returned at once."""
+        pending = _Pending(policy_id, request, origin, Future())
+        if self._stopping:
+            self._reject_stopping(pending)
+            return pending.future
+        try:
+            self._queue.put_nowait(pending)
+            if self._stopping:
+                self._drain_rejecting()
+            return pending.future
+        except queue.Full:
+            pass
+        try:
+            self._overload_pool.submit(self._put_waiting, pending)
+        except RuntimeError:  # the pool was shut down: a stop race
+            self._reject_stopping(pending)
+        return pending.future
 
     def submit_many(
         self,
@@ -308,9 +456,8 @@ class MicroBatcher:
         """Queue a burst under one admission stamp. Without ``sink``: one
         Future per item. With ``sink`` and a parallel list of ``tokens``:
         no Futures (returns None); ``sink.deliver_many([(token, response,
-        exc), ...])`` answers the rows batch by batch."""
-        if self._closed:
-            raise RuntimeError("batcher closed")
+        exc), ...])`` answers the rows batch by batch. Rows that do not fit
+        the queue wait on the overload pool; never blocks."""
         if sink is not None and (tokens is None or len(tokens) != len(items)):
             raise ValueError("a sink needs one token per item")
         now = time.perf_counter()
@@ -329,20 +476,45 @@ class MicroBatcher:
         with self._stats_lock:
             self.bulk_submits += 1
             self.bulk_submitted_rows += len(pendings)
-        self._put_burst(pendings)
+        if self._stopping:
+            for p in pendings:
+                self._reject_stopping(p)
+            return futures
+        overflow = self._put_burst(pendings)
+        if self._stopping:
+            self._drain_rejecting()
+        for p in overflow:
+            try:
+                self._overload_pool.submit(self._put_waiting, p)
+            except RuntimeError:  # the pool was shut down: a stop race
+                self._reject_stopping(p)
         return futures
 
-    def _put_burst(self, pendings: list[_Pending]) -> None:
-        """Enqueue a whole burst under one acquisition of the queue's
-        mutex (the deque and condition ``queue.Queue.put`` uses, without
-        its lock round-trip per row). The queue is unbounded, so every row
-        fits; its one consumer, the formation loop, drains greedily, so a
+    def _put_burst(self, pendings: list[_Pending]) -> list[_Pending]:
+        """Enqueue as many rows of a burst as fit under one acquisition of
+        the queue's mutex (the deque and condition ``queue.Queue.put``
+        uses, without its lock round-trip per row) → the rows that did not
+        fit. Its one consumer, the formation loop, drains greedily, so a
         single notify wakes it."""
         q = self._queue
         with q.mutex:
-            q.queue.extend(pendings)
-            q.unfinished_tasks += len(pendings)
-            q.not_empty.notify()
+            space = q.maxsize - len(q.queue) if q.maxsize > 0 else len(pendings)
+            take = pendings[: max(0, space)]
+            if take:
+                q.queue.extend(take)
+                q.unfinished_tasks += len(take)
+                q.not_empty.notify()
+        return pendings[len(take):]
+
+    def _reject_overloaded(self, p: _Pending) -> None:
+        self._resolve(
+            p, AdmissionResponse.reject(p.request.uid(), OVERLOADED_MESSAGE, 429)
+        )
+
+    def _reject_stopping(self, p: _Pending) -> None:
+        self._resolve(
+            p, AdmissionResponse.reject(p.request.uid(), STOPPING_MESSAGE, 503)
+        )
 
     def queue_depth(self) -> int:
         """Requests waiting for batch formation."""
@@ -376,30 +548,57 @@ class MicroBatcher:
     # -- the loop ----------------------------------------------------------
 
     def _loop(self) -> None:
-        while not (self._closed and self._queue.empty()):
+        while not self._stop.is_set():
+            batch: list[_Pending] = []
             try:
-                first = self._queue.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            batch = [first]
-            # a backlog drains at once: the timeout window only bounds the
-            # latency ADDED under light load
-            deadline = first.enqueued_at + self.batch_timeout
-            while len(batch) < self.max_batch_size:
+                # chaos site, before any pop: a raise kills this thread
+                # holding no row (the self-heal drill)
+                failpoints.fire("shard.dispatch")
                 try:
-                    batch.append(self._queue.get_nowait())
+                    first = self._queue.get(timeout=0.05)
+                except queue.Empty:
                     continue
-                except queue.Empty:
-                    pass
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    batch.append(self._queue.get(timeout=remaining))
-                except queue.Empty:
-                    break
-            self._inflight.acquire()
+                batch.append(first)
+                # a backlog drains at once: the timeout window only bounds
+                # the latency ADDED under light load
+                deadline = first.enqueued_at + self.batch_timeout
+                while len(batch) < self.max_batch_size:
+                    try:
+                        batch.append(self._queue.get_nowait())
+                        continue
+                    except queue.Empty:
+                        pass
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        batch.append(self._queue.get(timeout=remaining))
+                    except queue.Empty:
+                        break
+                self._launch_batch(batch)
+            except BaseException as e:
+                # the thread is dying: rows it popped belong to no batch
+                # worker, so answer them before dispatch_wedged() sees it
+                delivery = _DeliveryBatch()
+                for p in batch:
+                    self._fail(p, e, delivery)
+                delivery.flush()
+                raise
+
+    def _launch_batch(self, batch: list[_Pending]) -> None:
+        """Hand a formed batch to the pipeline pool (bounded in flight);
+        a stop while waiting for a slot answers the batch 503."""
+        while not self._inflight.acquire(timeout=0.05):
+            if self._stopping or self._stop.is_set():
+                for p in batch:
+                    self._reject_stopping(p)
+                return
+        try:
             self._batch_pool.submit(self._process_batch, batch)
+        except RuntimeError:  # the pool was shut down: a stop race
+            self._inflight.release()
+            for p in batch:
+                self._reject_stopping(p)
 
     def _process_batch(self, batch: list[_Pending]) -> None:
         try:
@@ -416,15 +615,19 @@ class MicroBatcher:
     # -- completion --------------------------------------------------------
 
     def _resolve(
-        self, p: _Pending, response: Any, delivery: _DeliveryBatch
+        self, p: _Pending, response: Any, delivery: _DeliveryBatch | None = None
     ) -> None:
         """Answer one row: its Future, or its sink through ``delivery``,
-        which the caller flushes once for the batch."""
+        which the caller flushes once for the batch (without one, the sink
+        is called at once)."""
         if p.sink is not None:
             if p.answered:
                 return
             p.answered = True
-            delivery.add(p, response, None)
+            if delivery is None:
+                _deliver_sink(p.sink, [(p.token, response, None)])
+            else:
+                delivery.add(p, response, None)
         else:
             if p.future.done():
                 return
@@ -479,6 +682,13 @@ class MicroBatcher:
                 int(formed_at * 1e9),
                 rows=len(batch), batch=brec.bid,
             )
+        if self.shadow_recorder is not None:
+            try:
+                self.shadow_recorder.observe(
+                    [(p.policy_id, p.request) for p in batch]
+                )
+            except Exception:  # noqa: BLE001 — the canary corpus just
+                pass  # stays smaller; the batch is unaffected
         # phase 1 (host): pre-evaluation and bounded pre-eval hooks; rows
         # that short-circuit or fail resolve here, sink rows in one call
         delivery = _DeliveryBatch()

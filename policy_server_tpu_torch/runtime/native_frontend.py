@@ -367,7 +367,7 @@ class NativeFrontend:
 
     def shutdown(self, timeout: float = 10.0) -> None:
         """Stop serving: wait for every in-flight request's completion to
-        flush (the batcher's close answered them before this is called),
+        flush (the batcher's shutdown answered them before this is called),
         then stop the loops, join the drainer and free the instance."""
         with self._lock:
             if self._closed:
@@ -402,6 +402,30 @@ class NativeFrontend:
             self._sock.close()
         except OSError:
             pass
+
+    # -- self-heal (supervision.SelfHealWatchdog) ---------------------------
+
+    def drainer_wedged(self) -> bool:
+        """True when the drain thread died while the frontend still serves:
+        the native loops keep framing requests into the ring, and nothing
+        moves them to the batcher."""
+        with self._lock:
+            closed = self._closed
+        t = self._drainer
+        return not closed and t is not None and not t.is_alive()
+
+    def revive_drainer(self) -> bool:
+        """Start a new drain thread in place of a dead one. The ring has one
+        consumer: the old one is dead (``drainer_wedged``) before the new
+        one starts."""
+        if not self.drainer_wedged():
+            return False
+        self._drainer = threading.Thread(
+            target=self._drain_loop, name="httpfront-drain-revived",
+            daemon=True,
+        )
+        self._drainer.start()
+        return True
 
     # -- completions (any thread) -------------------------------------------
     # Each takes the frontend lock, so no completion reaches an instance
@@ -561,6 +585,11 @@ class NativeFrontend:
             except Exception as e:  # noqa: BLE001 — answer, never hang
                 logger.error("native frontend burst failed: %s", e)
                 self._fail_burst(burst)
+            except BaseException:
+                # the thread is dying: its burst is answered first, so
+                # nothing strands until the watchdog revives the drainer
+                self._fail_burst(burst)
+                raise
 
 
 # -- native response assembly: the one packing path --------------------------
@@ -879,7 +908,7 @@ class BatcherSink:
         if batcher is None:
             frontend.complete(req_id, 404, not_found)
             return
-        fut = batcher.submit(policy_id, request, origin)
+        fut = batcher.submit_nowait(policy_id, request, origin)
         fut.add_done_callback(lambda f: _deliver(frontend, req_id, raw_shape, f))
 
     # -- batch-granular completion (MicroBatcher's sink) ---------------------

@@ -13,6 +13,23 @@ says which). Each port is a ``ThreadingHTTPServer``: each connection's
 thread parses its request and waits on the batcher's future, so
 concurrent requests form micro-batches.
 
+The server runs the JAX package's default lifecycle: with
+``policy_reload_mode`` other than ``off`` (``auto`` by default) the boot
+environment and batcher are the policy lifecycle's first epoch
+(``lifecycle.py``; /readiness answers 503 until it is installed), every
+batcher feeds one shadow-canary ring, the policies file (``policies_path``)
+is watched for a changed digest, SIGHUP (``reload_signal``) and ``POST
+/policies/reload`` start a reload, and ``/policies/promote`` and
+``/policies/rollback`` answer on the readiness port behind
+``--reload-admin-token``. Every batcher comes from one builder
+(``make_batcher``): its queue holds ``workers`` × ``max_batch_size`` rows.
+With ``selfheal_interval_seconds`` above 0 (5 by default) a watchdog
+(``supervision.py``) revives a dead dispatch loop or native drainer.
+``stop()`` follows the JAX package's order: the watchdog, then the native
+frontend stops accepting, then every epoch's batcher answers what it holds
+(503 for rows not yet in a batch) and its environment closes, then the
+native frontend flushes and frees.
+
 ``frontend="native"`` (``--frontend native``) serves the API port's
 evaluation POSTs (``/validate``, ``/validate_raw``, ``/audit``) from the
 C++ epoll frontend instead (``runtime/native_frontend.py``): it frames and
@@ -27,7 +44,9 @@ the standard-library frontend.
 from __future__ import annotations
 
 import gc
+import json
 import logging
+import os
 import socket
 import threading
 from http.server import ThreadingHTTPServer
@@ -40,7 +59,10 @@ from policy_server_tpu_torch.evaluation.environment import (
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
 )
+from policy_server_tpu_torch.lifecycle import PolicyLifecycleManager, ShadowRecorder
+from policy_server_tpu_torch.models.policy import parse_policies
 from policy_server_tpu_torch.runtime import native_frontend as nf
+from policy_server_tpu_torch.supervision import SelfHealWatchdog, SupervisorStats
 from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_BATCH_TIMEOUT_MS,
     DEFAULT_HOST_FASTPATH_THRESHOLD,
@@ -58,6 +80,9 @@ from policy_server_tpu_torch.telemetry import (
 
 DEFAULT_READINESS_PROBE_PORT = 8081
 FRONTENDS = ("python", "native")
+RELOAD_MODES = ("off", "auto", "manual")
+DEFAULT_RELOAD_CANARY_REQUESTS = 64
+DEFAULT_SELFHEAL_INTERVAL_SECONDS = 5.0
 DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS = nf.NativeFrontend.IDLE_TIMEOUT_MS / 1000
 DEFAULT_NATIVE_READ_TIMEOUT_SECONDS = nf.NativeFrontend.READ_TIMEOUT_MS / 1000
 
@@ -78,14 +103,34 @@ class _HttpServer(ThreadingHTTPServer):
         super().__init__(addr, handler)
 
 
+def default_workers() -> int:
+    """``--workers``' default: the number of CPUs."""
+    return os.cpu_count() or 1
+
+
+def read_policies_source(path: str) -> tuple[dict, str]:
+    """A policies file → (the parsed mapping, the exact text parsed). YAML
+    where PyYAML is installed; a JSON file needs nothing."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        return parse_policies(json.loads(text)), text
+    return parse_policies(yaml.safe_load(text)), text
+
+
 def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     """The serving runtime's families for one /metrics scrape, under the
     JAX package's names: the batcher's counters, the environment's
     ``dedup_stats``, ``host_profile``, ``breaker_stats``,
-    ``device_errors`` and kernel stats, and the flight recorder's.
-    Families whose subsystem the port has not got (tenants, audit, reload,
-    shards, shedding) are not emitted; the native frontend's read zero
-    under ``--frontend python``."""
+    ``device_errors`` and kernel stats, the policy lifecycle's and the
+    supervisor's counters, and the flight recorder's. Everything is read
+    through ``state``, so the scrape follows the epoch flips. Families
+    whose subsystem the port has not got (tenants, audit, shards,
+    shedding) are not emitted; the native frontend's read zero under
+    ``--frontend python``, the lifecycle's under
+    ``--policy-reload-mode off``."""
     batcher = state.batcher
     env = state.evaluation_environment
     b = batcher.stats_snapshot()
@@ -218,6 +263,43 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.PALLAS_BUCKETS_ARMED, "gauge",
            "Schema buckets the policy_matrix kernel serves",
            kernel["buckets_armed"])
+    lstats = state.lifecycle.stats() if state.lifecycle is not None else {}
+    yield (names.POLICY_RELOADS, "counter",
+           "Policy hot-reload promotions (new epoch serving)",
+           lstats.get("reloads", 0))
+    yield (names.POLICY_RELOAD_FAILURES, "counter",
+           "Policy reload candidates rejected (fetch/compile/canary "
+           "failure) — last-good kept serving",
+           lstats.get("reload_failures", 0))
+    yield (names.POLICY_RELOAD_ROLLBACKS, "counter",
+           "Reverts to the last-good policy set: rejected canaries plus "
+           "explicit POST /policies/rollback", lstats.get("rollbacks", 0))
+    yield (names.RELOAD_CANARY_REPLAYS, "counter",
+           "Recorded/synthetic requests replayed through candidate epochs "
+           "during shadow canary", lstats.get("canary_replays", 0))
+    yield (names.RELOAD_CANARY_DIVERGENCES, "counter",
+           "Canary replays whose candidate verdict diverged from the host "
+           "oracle", lstats.get("canary_divergences", 0))
+    yield (names.POLICY_EPOCH, "gauge",
+           "Monotonic number of the currently serving policy epoch (0 = the "
+           "boot set)", lstats.get("epoch", 0))
+    sup = state.supervisor.stats() if state.supervisor is not None else {}
+    yield (names.WORKER_RESPAWNS, "counter",
+           "Prefork frontend workers respawned after dying",
+           sup.get("worker_respawns", 0))
+    yield (names.WORKER_RESPAWN_BACKOFF_SECONDS, "counter",
+           "Cumulative crash-loop backoff applied before worker respawns",
+           sup.get("worker_backoff_seconds", 0.0))
+    yield (names.WORKER_SLOTS_GIVEN_UP, "gauge",
+           "Frontend worker slots abandoned by the respawn breaker "
+           "(crash-looped past the give-up cap; /readiness reports the "
+           "degradation)", sup.get("worker_slots_given_up", 0))
+    yield (names.SELFHEAL_BATCHER_REVIVES, "counter",
+           "Batcher dispatch loops the self-heal watchdog found dead and "
+           "rebuilt", sup.get("batcher_revives", 0))
+    yield (names.SELFHEAL_FRONTEND_REVIVES, "counter",
+           "Native-frontend drainer threads the self-heal watchdog found "
+           "dead and rebuilt", sup.get("frontend_revives", 0))
     rec = flightrec.recorder()
     yield (names.FLIGHT_RECORDER_EVENTS, "counter",
            "Phase events written to the flight-recorder ring",
@@ -269,9 +351,23 @@ class PolicyServer:
         native_idle_timeout_seconds: float = DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
         native_read_timeout_seconds: float = DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
         native_max_connections: int = 0,
+        workers: int | None = None,
+        warmup: bool = True,
+        policy_reload_mode: str = "auto",
+        reload_canary_requests: int = DEFAULT_RELOAD_CANARY_REQUESTS,
+        reload_divergence_threshold: float = 0.0,
+        reload_admin_token: str | None = None,
+        selfheal_interval_seconds: float = DEFAULT_SELFHEAL_INTERVAL_SECONDS,
+        policies_path: str | None = None,
+        policies_text: str | None = None,
     ) -> None:
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
+        if policy_reload_mode not in RELOAD_MODES:
+            raise ValueError(
+                f"invalid policy reload mode {policy_reload_mode!r} "
+                "(expected off, auto, or manual)"
+            )
         if enable_metrics:
             setup_metrics()
         # the recorder goes in before the environment and the batcher are
@@ -288,35 +384,87 @@ class PolicyServer:
         flightrec.install(self._recorder)
         if enable_pprof:
             profiling.activate_memory_profiling()
-        self.env = EvaluationEnvironmentBuilder(
-            device=device,
-            continue_on_errors=continue_on_errors,
-            always_accept_admission_reviews_on_namespace=(
-                always_accept_admission_reviews_on_namespace
-            ),
-            verdict_cache_size=verdict_cache_size,
-            breaker_config=dict(
-                failure_threshold=breaker_failure_threshold,
-                window_seconds=breaker_window_seconds,
-                cooldown_seconds=breaker_cooldown_seconds,
-            ),
-        ).build(policies)
-        self.batcher = MicroBatcher(
-            self.env,
-            max_batch_size=max_batch_size,
-            batch_timeout_ms=batch_timeout_ms,
-            policy_timeout=policy_timeout,
-            host_fastpath_threshold=host_fastpath_threshold,
-            latency_budget_ms=latency_budget_ms,
-            degraded_mode=degraded_mode,
+        reload_enabled = policy_reload_mode != "off"
+        # the canary's replay ring: every epoch's batcher feeds the same
+        # one, so a reload replays the traffic the serving epoch saw
+        recorder = (
+            ShadowRecorder(capacity=reload_canary_requests)
+            if reload_enabled else None
         )
+        queue_capacity = (workers or default_workers()) * max_batch_size
+
+        def build_environment(policy_set: Mapping[str, Any]) -> Any:
+            return EvaluationEnvironmentBuilder(
+                device=device,
+                continue_on_errors=continue_on_errors,
+                always_accept_admission_reviews_on_namespace=(
+                    always_accept_admission_reviews_on_namespace
+                ),
+                verdict_cache_size=verdict_cache_size,
+                breaker_config=dict(
+                    failure_threshold=breaker_failure_threshold,
+                    window_seconds=breaker_window_seconds,
+                    cooldown_seconds=breaker_cooldown_seconds,
+                ),
+            ).build(dict(policy_set))
+
+        def build_oracle_environment(policy_set: Mapping[str, Any]) -> Any:
+            # the canary's referee: the host oracle over the same set
+            return EvaluationEnvironmentBuilder(
+                backend="oracle",
+                continue_on_errors=continue_on_errors,
+                always_accept_admission_reviews_on_namespace=(
+                    always_accept_admission_reviews_on_namespace
+                ),
+            ).build(dict(policy_set))
+
+        def make_batcher(env: Any) -> MicroBatcher:
+            """The one batcher builder: boot, every reload epoch and every
+            rollback get the same knobs (not started)."""
+            return MicroBatcher(
+                env,
+                max_batch_size=max_batch_size,
+                batch_timeout_ms=batch_timeout_ms,
+                policy_timeout=policy_timeout,
+                host_fastpath_threshold=host_fastpath_threshold,
+                latency_budget_ms=latency_budget_ms,
+                degraded_mode=degraded_mode,
+                queue_capacity=queue_capacity,
+                shadow_recorder=recorder,
+            )
+
+        env = build_environment(policies)
+        batcher = make_batcher(env)
+        self._selfheal_interval = selfheal_interval_seconds
+        self._selfheal: SelfHealWatchdog | None = None
         self.state = ApiServerState(
-            self.env, self.batcher, hostname=socket.gethostname(),
+            env, batcher, hostname=socket.gethostname(),
             enable_pprof=enable_pprof, ready=False,
+            admin_token=reload_admin_token, supervisor=SupervisorStats(),
         )
-        self.batcher.warmup()
+        self.lifecycle: PolicyLifecycleManager | None = None
         self._httpd: _HttpServer | None = None
         try:
+            if warmup:
+                batcher.warmup()
+            batcher.start()
+            if reload_enabled:
+                self.lifecycle = self.state.lifecycle = PolicyLifecycleManager(
+                    state=self.state,
+                    build_environment=build_environment,
+                    build_oracle_environment=build_oracle_environment,
+                    build_batcher=make_batcher,
+                    recorder=recorder,
+                    read_policies=(
+                        (lambda: read_policies_source(policies_path))
+                        if policies_path else None
+                    ),
+                    policies_path=policies_path,
+                    mode=policy_reload_mode,
+                    canary_requests=reload_canary_requests,
+                    divergence_threshold=reload_divergence_threshold,
+                    warmup=warmup,
+                )
             # the API port first (its native library and poll buffer too,
             # before the collection below), the readiness port once it is
             # bound
@@ -344,15 +492,39 @@ class PolicyServer:
             )
         except BaseException:
             self._close_api()
-            self.batcher.close()
+            batcher.shutdown()
+            env.close()
             if flightrec.recorder() is self._recorder:
                 flightrec.install(None)
             raise
         default_registry().attach_runtime_stats(
             lambda: runtime_stats(self.state)
         )
-        self.state.ready = True
+        if self.lifecycle is not None:
+            # epoch 0 is the boot build; installing it flips readiness
+            self.lifecycle.install_first_epoch(
+                env, batcher, policies, policies_yaml=policies_text
+            )
+            self.lifecycle.start_watching()
+        else:
+            self.state.ready = True
         self._threads: list[threading.Thread] = []
+
+    @property
+    def env(self) -> Any:
+        """The serving epoch's environment."""
+        return self.state.evaluation_environment
+
+    @property
+    def batcher(self) -> MicroBatcher:
+        """The serving epoch's batcher."""
+        return self.state.batcher
+
+    @property
+    def selfheal(self) -> SelfHealWatchdog | None:
+        """The self-heal watchdog once serving has started (None when its
+        interval is 0)."""
+        return self._selfheal
 
     def _bind_native_frontend(
         self, host: str, port: int, idle_s: float, read_s: float,
@@ -408,9 +580,17 @@ class PolicyServer:
         t.start()
         self._threads.append(t)
 
+    def _start_selfheal(self) -> None:
+        if self._selfheal_interval > 0 and self._selfheal is None:
+            self._selfheal = SelfHealWatchdog(
+                self.state, self.state.supervisor,
+                interval_seconds=self._selfheal_interval,
+            ).start()
+
     def start(self) -> None:
         """Serve both ports in the background (the native frontend on its
-        own threads)."""
+        own threads), with the self-heal watchdog."""
+        self._start_selfheal()
         if self.native_frontend is not None:
             self.native_frontend.start()
         else:
@@ -421,6 +601,7 @@ class PolicyServer:
         """Serve until ``stop()``: the API on this thread (the readiness
         port in the background), or under the native frontend, which runs
         on its own threads, the readiness port on this one."""
+        self._start_selfheal()
         if self.native_frontend is not None:
             self.native_frontend.start()
             self._readiness.serve_forever()
@@ -428,17 +609,33 @@ class PolicyServer:
         self._serve_in_background(self._readiness, "readiness")
         self._httpd.serve_forever()
 
+    def reload_signal(self) -> None:
+        """SIGHUP: start a background policy reload (the work runs on a
+        daemon thread, so this is safe in a signal handler)."""
+        if self.lifecycle is not None:
+            self.lifecycle.request_reload("sighup")
+
     def stop(self) -> None:
+        if self._selfheal is not None:
+            # first: threads that are shutting down must not be taken for
+            # dead ones and revived
+            self._selfheal.stop()
+            self._selfheal = None
         if self.native_frontend is not None:
-            # stop accepting first; in-flight requests are answered below
-            # once the batcher's close has delivered them
+            # stop accepting; in-flight requests are answered below once
+            # the batcher's shutdown has delivered them
             self.native_frontend.stop_accepting()
         for httpd in (self._httpd, self._readiness):
             if httpd is not None:
                 httpd.shutdown()
         for t in self._threads:
             t.join(5)
-        self.batcher.close()
+        if self.lifecycle is not None:
+            # the lifecycle owns every epoch: current, pinned and staged
+            self.lifecycle.shutdown()
+        else:
+            self.batcher.shutdown()
+            self.env.close()
         self._close_api()
         self._readiness.server_close()
         if self._recorder is not None and flightrec.recorder() is self._recorder:

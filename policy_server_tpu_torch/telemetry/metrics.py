@@ -69,6 +69,13 @@ POLICY_RELOAD_ROLLBACKS = "policy_server_policy_reload_rollbacks"
 RELOAD_CANARY_REPLAYS = "policy_server_reload_canary_replays"
 RELOAD_CANARY_DIVERGENCES = "policy_server_reload_canary_divergences"
 POLICY_EPOCH = "policy_server_policy_epoch"
+WORKER_RESPAWNS = "policy_server_worker_respawns"
+WORKER_RESPAWN_BACKOFF_SECONDS = (
+    "policy_server_worker_respawn_backoff_seconds_total"
+)
+WORKER_SLOTS_GIVEN_UP = "policy_server_worker_slots_given_up"
+SELFHEAL_BATCHER_REVIVES = "policy_server_selfheal_batcher_revives"
+SELFHEAL_FRONTEND_REVIVES = "policy_server_selfheal_frontend_revives"
 AUDIT_ROWS_SCANNED = "policy_server_audit_rows_scanned"
 AUDIT_BATCHES_DISPATCHED = "policy_server_audit_batches_dispatched"
 AUDIT_PREEMPTIONS = "policy_server_audit_preemptions"

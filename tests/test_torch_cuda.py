@@ -310,3 +310,49 @@ def test_device_trace_records_the_kernels(card_env, tmp_path):
             if e.get("cat") == "kernel"
         ]
     assert sum("policy_matrix" in n for n in names) >= 3
+
+
+@pytest.mark.cuda
+def test_closed_environments_return_device_memory_to_a_plateau():
+    """Three environments in turn, each built (probe on its own stream),
+    warmed, serving through a batcher and closed: each close drops its
+    kernel programs' device code, and ``torch.cuda.memory_allocated`` comes
+    back to the same level after the second and the third; a dispatch
+    after close raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from policy_server_tpu_torch.runtime.batcher import MicroBatcher
+
+    ids = sorted(flagship_policies())
+    pairs = [
+        (ids[i % len(ids)], ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(d).request
+        ))
+        for i, d in enumerate(synthetic_firehose(96, seed=43))
+    ]
+    want = None
+    after = []
+    for _ in range(3):
+        env = EvaluationEnvironmentBuilder(
+            device="cuda", verdict_cache_size=0
+        ).build(flagship_policies())
+        batcher = MicroBatcher(
+            env, host_fastpath_threshold=0, latency_budget_ms=0
+        ).start()
+        batcher.warmup()
+        got = [
+            f.result(timeout=60).to_dict() for f in batcher.submit_many(pairs)
+        ]
+        batcher.shutdown()
+        want = want or got
+        assert got == want
+        programs = list(env._programs.values())
+        assert any(p._device_code for p in programs)
+        assert env.close() is True
+        assert not any(p._device_code or p._launches for p in programs)
+        with pytest.raises(RuntimeError, match="environment closed"):
+            env.validate_batch(pairs[:1])
+        del env, batcher, programs
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[2] <= after[1], after

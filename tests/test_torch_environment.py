@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -185,6 +186,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.api.api_error",
             "policy_server_tpu_torch.runtime.native_frontend",
             "policy_server_tpu_torch.runtime.frontend",
+            "policy_server_tpu_torch.supervision",
+            "policy_server_tpu_torch.lifecycle",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
@@ -249,3 +252,96 @@ def test_builder_without_a_device_raises_when_no_card(monkeypatch):
     env = EvaluationEnvironmentBuilder(device="cpu").build(flagship_policies())
     assert env.device == torch.device("cpu")
     EvaluationEnvironmentBuilder(backend="oracle")
+
+
+def _close_env_and_pairs():
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+
+    specs = {"pod-privileged": {"module": "builtin://pod-privileged"}}
+    tenv = torch_env(specs, verdict_cache_size=0)
+    pairs = [
+        ("pod-privileged", ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(d).request
+        ))
+        for d in firehose_docs(6, 51, wide_every=0)
+    ]
+    return specs, tenv, pairs
+
+
+def test_dispatch_after_close_raises_as_the_jax_package():
+    """After close() every dispatch raises RuntimeError("environment
+    closed"), the JAX environment's error; the kernel programs are
+    dropped; close is idempotent."""
+    specs, tenv, pairs = _close_env_and_pairs()
+    jenv = jax_env(specs)
+    jenv.close()
+    with pytest.raises(RuntimeError) as jerr:
+        jenv.validate_batch([("pod-privileged", JValidateRequest.from_admission(
+            __import__("policy_server_tpu.models", fromlist=["x"])
+            .AdmissionReviewRequest.from_dict(firehose_docs(1, 51)[0]).request
+        ))])
+    want = tenv.validate_batch(pairs)
+    buf = tenv.schemas[0].empty_batch_packed(1)
+    assert tenv._programs and tenv.close() is True
+    assert tenv._closed and tenv._programs == {}
+    for call in (
+        lambda: tenv.validate_batch(pairs),
+        lambda: tenv.validate_batch(pairs, prefer_host=True),
+        lambda: tenv.validate_batch_begin(pairs),
+        lambda: tenv.run_batch(buf),
+        lambda: tenv.warmup((1,)),
+    ):
+        with pytest.raises(RuntimeError) as err:
+            call()
+        assert str(err.value) == str(jerr.value) == "environment closed"
+    assert tenv.close() is True
+    assert not isinstance(want[0], Exception)
+
+
+def test_close_waits_for_an_in_flight_step():
+    """A dispatch held in its fetch keeps close() waiting; once it
+    finishes, close returns and the dispatch's answers are whole. A close
+    bounded shorter than the hold refuses to drop the device state."""
+    import threading
+
+    from policy_server_tpu_torch import failpoints
+
+    _specs, tenv, pairs = _close_env_and_pairs()
+    want = [r.to_dict() for r in tenv.validate_batch(pairs)]
+    release = threading.Event()
+    failpoints.set_failpoint("device.fetch", lambda: release.wait(10))
+    try:
+        box: dict = {}
+        worker = threading.Thread(
+            target=lambda: box.setdefault("got", tenv.validate_batch(pairs))
+        )
+        worker.start()
+        deadline = time.monotonic() + 10
+        while failpoints.fired_count("device.fetch") < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert tenv.close(timeout=0.2) is False  # held: nothing dropped
+        assert tenv._programs
+        _s, tenv2, _p = _close_env_and_pairs()
+        worker2 = threading.Thread(
+            target=lambda: box.setdefault("got2", tenv2.validate_batch(pairs))
+        )
+        worker2.start()
+        while failpoints.fired_count("device.fetch") < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        closer = threading.Thread(
+            target=lambda: box.setdefault("closed", tenv2.close(timeout=10))
+        )
+        closer.start()
+        time.sleep(0.3)
+        assert closer.is_alive() and "closed" not in box
+        release.set()
+        for t in (worker, worker2, closer):
+            t.join(10)
+        assert box["closed"] is True and tenv2._programs == {}
+        assert [r.to_dict() for r in box["got2"]] == want
+        assert [r.to_dict() for r in box["got"]] == want
+    finally:
+        release.set()
+        failpoints.reset()

@@ -1270,7 +1270,7 @@ def test_submit_many_sink_delivers_once_per_batch(host_fastpath_threshold):
     kw = dict(max_batch_size=16, batch_timeout_ms=20.0,
               host_fastpath_threshold=host_fastpath_threshold,
               latency_budget_ms=0)
-    tb = MicroBatcher(tenv, **kw)
+    tb = MicroBatcher(tenv, **kw).start()
     jb = JaxBatcher(jenv, **kw).start()
     sink = _RecordingSink()
     try:
@@ -1290,7 +1290,7 @@ def test_submit_many_sink_delivers_once_per_batch(host_fastpath_threshold):
         time.sleep(0.1)
         tstats, jstats = tb.stats_snapshot(), jb.stats_snapshot()
     finally:
-        tb.close()
+        tb.shutdown()
         jb.shutdown()
     delivered = [tok for call in sink.calls for tok, _r, _e in call]
     assert sorted(delivered) == list(range(sum(sizes)))
@@ -1312,20 +1312,20 @@ def test_a_broken_sink_never_takes_the_batch_down():
             raise RuntimeError("sink fault")
 
     tenv = torch_env({"pod-privileged": SPECS["pod-privileged"]})
-    b = MicroBatcher(tenv, max_batch_size=8)
+    b = MicroBatcher(tenv, max_batch_size=8).start()
     try:
         (pid, _j, t), = items_for(catalog_docs(1, 4)[:1], ["pod-privileged"], 4)
         b.submit_many([(pid, t)], sink=Broken(), tokens=[0])
         # the worker survives: later requests still answer
         assert b.submit(pid, t).result(timeout=30).uid == t.uid()
     finally:
-        b.close()
+        b.shutdown()
 
 
 def test_sink_rows_answer_once_when_the_batch_fails(monkeypatch):
     tenv = torch_env({"pod-privileged": SPECS["pod-privileged"]})
     b = MicroBatcher(tenv, max_batch_size=8, host_fastpath_threshold=0,
-                     latency_budget_ms=0)
+                     latency_budget_ms=0).start()
     sink = _RecordingSink()
     sink.expected = 3
     monkeypatch.setattr(b, "_evaluate_runnable",
@@ -1337,7 +1337,7 @@ def test_sink_rows_answer_once_when_the_batch_fails(monkeypatch):
         assert sink.done.wait(timeout=30)
         time.sleep(0.1)
     finally:
-        b.close()
+        b.shutdown()
     delivered = [(tok, type(e).__name__) for c in sink.calls for tok, _r, e in c]
     assert sorted(delivered) == [(0, "RuntimeError"), (1, "RuntimeError"),
                                  (2, "RuntimeError")]

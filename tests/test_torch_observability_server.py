@@ -179,8 +179,21 @@ def test_metrics_expose_the_runtime_families_the_port_has(server):
         ("policy_server_native_http_requests_total", "counter"),
         ("policy_server_native_inflight_requests", "gauge"),
         ("policy_server_bulk_submits_total", "counter"),
+        # the policy lifecycle's and the supervisor's
+        ("policy_server_policy_reloads_total", "counter"),
+        ("policy_server_policy_reload_failures_total", "counter"),
+        ("policy_server_policy_reload_rollbacks_total", "counter"),
+        ("policy_server_reload_canary_replays_total", "counter"),
+        ("policy_server_reload_canary_divergences_total", "counter"),
+        ("policy_server_policy_epoch", "gauge"),
+        ("policy_server_selfheal_batcher_revives_total", "counter"),
+        ("policy_server_selfheal_frontend_revives_total", "counter"),
+        ("policy_server_worker_respawns_total", "counter"),
+        ("policy_server_worker_respawn_backoff_seconds_total", "counter"),
+        ("policy_server_worker_slots_given_up", "gauge"),
     ):
         assert types.get(name) == kind, name
+    assert "policy_server_policy_epoch 0.0" in text
     assert "policy_server_native_http_requests_total 0.0" in text
     assert "policy_server_pallas_buckets_armed 2.0" in text
     batches = float(re.search(
@@ -189,8 +202,7 @@ def test_metrics_expose_the_runtime_families_the_port_has(server):
     assert batches >= N_REQUESTS / 8
     # subsystems the port has not got export no family
     for prefix in ("policy_server_tenant", "policy_server_audit",
-                   "policy_server_policy_reload", "policy_server_shard",
-                   "policy_server_shed"):
+                   "policy_server_shard", "policy_server_shed"):
         assert not [n for n in types if n.startswith(prefix)], prefix
 
 

@@ -269,12 +269,12 @@ def test_submit_many_batches_and_matches_evaluate():
             firehose_docs(40, seed=72), sorted(SPECS), seed=73
         )
     ]
-    batcher = MicroBatcher(env, max_batch_size=16, batch_timeout_ms=50.0)
+    batcher = MicroBatcher(env, max_batch_size=16, batch_timeout_ms=50.0).start()
     try:
         futures = batcher.submit_many(items)
         got = [f.result(timeout=60).to_dict() for f in futures]
     finally:
-        batcher.close()
+        batcher.shutdown()
     want = [
         evaluate(env, p, r, RequestOrigin.VALIDATE).to_dict() for p, r in items
     ]
@@ -292,7 +292,7 @@ def test_concurrent_submitters_all_answered():
         evaluate(env, p, t, RequestOrigin.VALIDATE).to_dict()
         for p, _j, t in triples
     ]
-    batcher = MicroBatcher(env, max_batch_size=8, batch_timeout_ms=2.0)
+    batcher = MicroBatcher(env, max_batch_size=8, batch_timeout_ms=2.0).start()
     got: list = [None] * len(triples)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
@@ -310,5 +310,5 @@ def test_concurrent_submitters_all_answered():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
-        batcher.close()
+        batcher.shutdown()
     assert got == want

@@ -122,7 +122,7 @@ def test_fastpath_handles_unknown_policy():
 
 def _batcher(env, threshold: int, **kw) -> MicroBatcher:
     kw.setdefault("policy_timeout", 5.0)
-    return MicroBatcher(env, host_fastpath_threshold=threshold, **kw)
+    return MicroBatcher(env, host_fastpath_threshold=threshold, **kw).start()
 
 
 def test_batcher_small_batch_takes_fastpath():
@@ -136,7 +136,7 @@ def test_batcher_small_batch_takes_fastpath():
         assert env.host_fastpath_requests >= 6
         assert env.host_profile["dispatched_chunks"] == 0
     finally:
-        b.close()
+        b.shutdown()
 
 
 def test_batcher_large_batch_uses_device():
@@ -167,7 +167,7 @@ def test_batcher_large_batch_uses_device():
         assert env.host_fastpath_requests < 8
         assert env.host_profile["dispatched_chunks"] >= 1
     finally:
-        b.close()
+        b.shutdown()
 
 
 def test_batcher_fastpath_disabled():
@@ -181,7 +181,7 @@ def test_batcher_fastpath_disabled():
         assert b.host_fastpath_batches == 0
         assert env.host_fastpath_requests == 0
     finally:
-        b.close()
+        b.shutdown()
 
 
 @pytest.mark.parametrize("rtt,routed", [(5.0, True), (1e-6, False)])
@@ -206,7 +206,7 @@ def test_budget_routing_with_seeded_rtt(rtt, routed):
         assert b.batches == 1
         assert b.budget_routed_batches == b.host_fastpath_batches == int(routed)
     finally:
-        b.close()
+        b.shutdown()
 
 
 def test_warmup_seeds_every_bucket():
@@ -217,7 +217,7 @@ def test_warmup_seeds_every_bucket():
         assert sorted(b._dev_rtt) == [1, 2, 4, 8]
         assert all(v > 0 for v in b._dev_rtt.values())
     finally:
-        b.close()
+        b.shutdown()
 
 
 def _drive_breaker(cls) -> list:
@@ -327,7 +327,7 @@ def test_watchdog_answers_in_band_and_counts_a_breaker_failure():
         assert env.breaker_stats["short_circuited_requests"] == 1
     finally:
         release.set()
-        b.close()
+        b.shutdown()
 
 
 CUDA_FAULT = (
@@ -373,7 +373,7 @@ def test_cuda_errors_fail_requests_and_never_trip_the_breaker(
         assert got == response_dicts(oracle.validate_batch(items[:4]))
         assert env.breaker_stats["trips"] == 0
     finally:
-        b.close()
+        b.shutdown()
 
 
 @pytest.mark.parametrize("mode", ["oracle", "reject"])
@@ -409,7 +409,7 @@ def test_breaker_trip_is_logged_and_shown_on_readiness(mode, caplog):
         assert status == 200
         assert "device breaker closed: trips 1, recoveries 1" in text
     finally:
-        b.close()
+        b.shutdown()
 
 
 @pytest.mark.parametrize("mode", ["reject", "monitor"])
@@ -425,7 +425,7 @@ def test_degraded_mode_matches_jax(mode):
         host_fastpath_threshold=0, latency_budget_ms=0, degraded_mode=mode,
     )
     jb = JaxBatcher(jenv, **kw).start()
-    tb = MicroBatcher(tenv, **kw)
+    tb = MicroBatcher(tenv, **kw).start()
     try:
         for pid, j, t in corpus()[::5]:
             want = jb.submit(pid, j, JOrigin.VALIDATE).result(timeout=10)
@@ -439,7 +439,7 @@ def test_degraded_mode_matches_jax(mode):
         assert tb.degraded_responses == jb.degraded_responses > 0
     finally:
         jb.shutdown()
-        tb.close()
+        tb.shutdown()
 
 
 def test_cache_hits_come_back_as_fragments_with_equal_bytes():
@@ -471,4 +471,4 @@ def test_cache_hits_come_back_as_fragments_with_equal_bytes():
             "response": frag.to_dict(),
         }).encode()
     finally:
-        b.close()
+        b.shutdown()

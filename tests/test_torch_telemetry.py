@@ -271,7 +271,7 @@ def test_batcher_metrics_match_jax():
         host_fastpath_threshold=0, latency_budget_ms=0,
     )
     jb = JaxBatcher(jenv, **bkw).start()
-    tb = MicroBatcher(tenv, **bkw)
+    tb = MicroBatcher(tenv, **bkw).start()
     work = _batcher_work()
     try:
         for _pass in range(2):
@@ -283,7 +283,7 @@ def test_batcher_metrics_match_jax():
                 assert _outcome(b) == _outcome(a)
     finally:
         jb.shutdown()
-        tb.close()
+        tb.shutdown()
     assert tenv.dedup_stats["fragment_hits"] > 0
     n = assert_registries_agree(
         jmetrics.default_registry(), metrics.default_registry()
@@ -648,13 +648,13 @@ def test_batcher_stamps_each_phase_once_per_batch(route):
         env, max_batch_size=8, batch_timeout_ms=20.0, policy_timeout=30.0,
         host_fastpath_threshold=64 if route == "host" else 0,
         latency_budget_ms=0,
-    )
+    ).start()
     try:
         futs = b.submit_many(_stamp_requests(24))
         for f in futs:
             f.result(timeout=60)
     finally:
-        b.close()
+        b.shutdown()
     by_batch: dict = {}
     for e in rec.snapshot():
         if e["batch"] > 0 and e["kind"] != "row":
@@ -681,12 +681,12 @@ def test_chrome_trace_schema_from_the_batcher():
     env = torch_env(STAMP_POLICIES, verdict_cache_size=0)
     rec = flightrec.install(FlightRecorder(capacity=4096, row_sample_rate=1.0))
     b = MicroBatcher(env, max_batch_size=8, batch_timeout_ms=1.0,
-                     policy_timeout=10.0, host_fastpath_threshold=0)
+                     policy_timeout=10.0, host_fastpath_threshold=0).start()
     try:
         for f in b.submit_many(_stamp_requests(8)):
             f.result(timeout=60)
     finally:
-        b.close()
+        b.shutdown()
     doc = json.loads(rec.chrome_trace_json())
     assert doc["displayTimeUnit"] == "ms"
     events = doc["traceEvents"]
@@ -735,7 +735,7 @@ def test_a_telemetry_fault_fails_loudly_never_a_host_answer(
         )
     b = MicroBatcher(env, max_batch_size=8, batch_timeout_ms=1.0,
                      policy_timeout=10.0, host_fastpath_threshold=0,
-                     latency_budget_ms=0)
+                     latency_budget_ms=0).start()
     caplog.set_level(logging.ERROR, logger="kubewarden-policy-server")
     try:
         for _ in range(6):
@@ -747,7 +747,7 @@ def test_a_telemetry_fault_fails_loudly_never_a_host_answer(
                 else:
                     assert f.result(timeout=60).uid.startswith("s-")
     finally:
-        b.close()
+        b.shutdown()
     assert env.breaker_stats["trips"] == 0
     assert env.breaker_short_circuited_requests == 0
     assert env.host_fastpath_requests == 0
