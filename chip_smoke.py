@@ -117,12 +117,42 @@ card's name and power limit:
    counts are zeroed just before the server is built and read after it
    stops.
 
+9. tenants, shedding and shards on the card — the server built through
+   the command line at the default flags plus ``--frontend native
+   --enable-metrics --serving-shards 2`` and a JSON ``--tenants`` manifest:
+   ``team-a`` serves phase 8's changed set, ``team-b`` the first 12 of the
+   flagship set's ids with a quota (400 rows/s, burst 400) and a 500 ms
+   ``request-timeout-ms``; every tenant's plane is a shard router over two
+   environments (six on the card). Waves from the phase 7 client process:
+   T, 1,024 reviews over the default tenant, team-a and team-b (every body
+   its tenant's oracle's) and an unknown tenant (the 404 of the port's
+   ``unknown_tenant_message``), with ``/readiness/team-a`` 200; Q, team-b
+   past its quota beside a team-a wave (team-b answers its oracle's body
+   or 429 with Retry-After and the shed body, as many 429s as
+   ``policy_server_tenant_shed_rows{tenant="team-b"}`` rises; team-a's
+   bodies its oracle's); X, a ``device.fetch`` sleep scoped to team-b
+   (its batchers sent to the device for the wave) past its deadline:
+   queued rows answer the in-band 504 "request deadline exceeded before
+   evaluation", as many as team-b's expired-row counter rises (the
+   /metrics family, as the JAX package's, reads the default tenant); S,
+   ``shard.dispatch`` killing the default tenant's shard 0 under a wave:
+   fenced within one heartbeat (plus ``S_FENCE_ALLOWANCE_S``) of its
+   thread's end, its rows re-routed or answered the fenced 503, every request answered once, the shard revived in place,
+   ``policy_server_shard_fences`` and the self-heal revives +1 each. Per
+   environment: tenant, shard, build and warmup seconds, K1 program build
+   seconds, ``memory_allocated`` of its build and warmup, K2 and K1
+   launches; ``memory_allocated`` after the stop. Team-b's K1 programs
+   (the one set no other phase holds) exact against their plain version
+   at B = 128, both buckets. Then req/s and p50/p99
+   of a default-flag native server at ``--serving-shards 1`` and 2
+   (measured only).
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
 
 ``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH
-[tolerate-close]`` is the load generator of phases 7 and 8: it needs
+[tolerate-close]`` is the load generator of phases 7 to 9: it needs
 neither torch nor the package (``tolerate-close``: a connection the server
 closes leaves its unanswered requests empty instead of failing the run).
 """
@@ -169,6 +199,26 @@ RELOAD_SELFHEAL_SECONDS = 0.2
 # a plateau: the allocation after the last cycle within this of the
 # second cycle's
 RELOAD_MEMORY_SLACK = 1 << 20
+# phase 9: team-b's policies (the first of the flagship set's sorted ids),
+# its quota (a bucket that holds wave T's share of team-b, refilled in
+# one second) and deadline, the wave sizes (wave X's after a plug of
+# single requests that occupies team-b's batch workers), the sleep of its
+# device fetch in wave X, and the waves of each rate run
+TEAM_B_POLICIES = 12
+TEAM_B_RATE = 400
+TEAM_B_BURST = 400
+TEAM_B_TIMEOUT_MS = 500
+T_WAVE = 1024
+Q_WAVE = 1024
+X_WAVE = 256
+X_PLUG = 12
+X_SLEEP_SECONDS = 1.0
+S_WAVE = 1024
+# wave S's limit on the delay from the killed loop's thread ending to its
+# fence, past one heartbeat: the heartbeat pass's own time, its thread's
+# wake beside the serving threads and this script's 1 ms poll
+S_FENCE_ALLOWANCE_S = 0.1
+RATE_WAVES = 2
 COVER_BATCHES = (51, 129, 1029)
 SPILL_BATCHES = (51, 129)
 
@@ -917,8 +967,8 @@ def native_client_main(argv: list[str]) -> int:
     the next ``DEPTH``; a response's latency runs from its pipelined
     group's send. CORPUS is the waves' raw HTTP requests (u32 wave, u32
     length, bytes each); OUT receives one JSON document: each wave's wall
-    time and, per request in corpus order, its status, latency and
-    body."""
+    time and, per request in corpus order, its status, latency, body and
+    Retry-After header (None without one)."""
     import socket
 
     port, corpus_path, out_path = int(argv[0]), argv[1], argv[2]
@@ -960,10 +1010,15 @@ def native_client_main(argv: list[str]) -> int:
                                 break
                         total = he + 4 + cl
                         if len(buf) >= total:
+                            retry = None
+                            for ln in buf[:he].split(b"\r\n")[1:]:
+                                if ln[:12].lower() == b"retry-after:":
+                                    retry = int(ln[12:])
                             out[group[got]] = (
                                 int(buf[9:12]),
                                 (time.perf_counter() - t0) * 1e3,
                                 buf[he + 4 : total].decode("latin-1"),
+                                retry,
                             )
                             buf = buf[total:]
                             got += 1
@@ -1217,7 +1272,7 @@ def native_http_run(
     results = doc["results"]
     mismatches = [
         (i, st, body[:300], want[:300])
-        for i, ((st, _lat, body), want) in enumerate(zip(results, oracle_bodies))
+        for i, ((st, _lat, body, _retry), want) in enumerate(zip(results, oracle_bodies))
         if st != 200 or body.encode("latin-1") != want
     ]
     lat = sorted(r[1] for r in results)
@@ -1353,8 +1408,8 @@ def start_client(port: int, wave: list, name: str, tolerate_close: bool = False)
 
 
 def finish_client(proc, out: str, label: str) -> list:
-    """Wait for a client process → its results (status, ms, body) or
-    None per request."""
+    """Wait for a client process → its results (status, ms, body,
+    Retry-After) or None per request."""
     try:
         _o, err = proc.communicate(timeout=300)
     finally:
@@ -1389,7 +1444,7 @@ def check_wave(label: str, results: list, wave: list, expectations: list,
                 fail(f"{label}: request {i} unanswered")
             missing += 1
             continue
-        status, ms, body = r
+        status, ms, body, _retry = r
         got = (status, body.encode("latin-1"))
         lat.append(ms)
         hits = [k for k, exp in enumerate(expectations) if exp[i] == got]
@@ -1403,7 +1458,7 @@ def check_wave(label: str, results: list, wave: list, expectations: list,
         bad.append((i, status, body[:300]))
     if bad:
         for i, status, body in bad[:3]:
-            print(f"phase8 mismatch ({label}) request {i}: status {status} body {body!r}")
+            print(f"mismatch ({label}) request {i}: status {status} body {body!r}")
         fail(f"{len(bad)} answers of {label} match no expected body")
     lat.sort()
     return {
@@ -1441,9 +1496,10 @@ def join_retirements() -> None:
             t.join(60)
 
 
-def hold_changed_set_against_plain(specs: dict, docs: list, card: str) -> int:
-    """The changed set's K1 programs on the card against their plain
-    version at B = 128, both buckets, narrow form → max abs error."""
+def hold_set_against_plain(specs: dict, docs: list, card: str, label: str) -> int:
+    """A policy set's K1 programs on the card against their plain version
+    at B = 128, both buckets, narrow form → max abs error. ``label`` names
+    the set in the messages."""
     import torch
 
     from policy_server_tpu_torch.evaluation.environment import (
@@ -1466,7 +1522,7 @@ def hold_changed_set_against_plain(specs: dict, docs: list, card: str) -> int:
             if len(encs) == 128:
                 break
         if len(encs) < 128:
-            fail(f"phase 8 has {len(encs)} reviews for bucket {idx}, not 128")
+            fail(f"{label} has {len(encs)} reviews for bucket {idx}, not 128")
         wide = schema.pack(schema.stack(encs, batch_size=128))
         buf = schema.to_transport(wide, vocab_size=len(env.table))["__packed__"]
         program = env.program_for(idx, True, True)
@@ -1475,11 +1531,11 @@ def hold_changed_set_against_plain(specs: dict, docs: list, card: str) -> int:
         got_a, got_r = ck.policy_matrix(dev, program)
         torch.cuda.synchronize()
         if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
-            fail(f"the changed set's policy_matrix disagrees with its plain version (bucket {idx})")
+            fail(f"{label}: policy_matrix disagrees with its plain version (bucket {idx})")
         err = max(err, int((got_r - want_r).abs().max()))
     env.close()
     print(
-        f"phase8 changed set: policy_matrix exact against its plain version "
+        f"{label}: policy_matrix exact against its plain version "
         f"at B=128, both buckets, narrow [{card}]"
     )
     return err
@@ -1721,8 +1777,8 @@ def reload_phase(work_docs: list, card: str) -> dict:
             server.stop()
     torch.cuda.synchronize()
     out["launches"] = ck.launch_counts()
-    out["k1_err"] = hold_changed_set_against_plain(
-        new_specs, [d for _pid, d in work_docs], card
+    out["k1_err"] = hold_set_against_plain(
+        new_specs, [d for _pid, d in work_docs], card, "phase8 changed set"
     )
     return out
 
@@ -1763,6 +1819,610 @@ def print_reload_phase(r8: dict, card: str) -> None:
         f"{json.dumps(r8['launches'])}; allocation after cycle 5 minus "
         f"cycle 2: {r8['memory_growth_after_cycle_2']} B [{card}]"
     )
+
+
+# -- phase 9: tenants, shedding and shards -----------------------------------
+
+
+def tenant_specs() -> dict:
+    """Phase 9's policy sets: the default tenant's flagship set, team-a's
+    the phase 8 changed set, team-b's a subset of the flagship set."""
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    base = flagship_policy_specs()
+    return {
+        "default": base,
+        "team-a": changed_specs(base),
+        "team-b": {k: base[k] for k in sorted(base)[:TEAM_B_POLICIES]},
+    }
+
+
+def tenant_wave(work_docs: list, n: int, tag: str, tenants: tuple,
+                subsets: dict) -> list:
+    """``n`` requests spread round-robin over ``tenants`` → (route, body,
+    tenant, policy id) each; a tenant's rows address its own set's ids."""
+    out = []
+    for i, (pid, d) in enumerate(work_docs[:n]):
+        tenant = tenants[i % len(tenants)]
+        ids = subsets[tenant]
+        if pid not in ids:
+            pid = ids[i % len(ids)]
+        d = copy.deepcopy(d)
+        d["request"]["uid"] = f"{d['request']['uid']}-{tag}"
+        route = pid if tenant == "default" else f"{tenant}/{pid}"
+        out.append((route, json.dumps(d).encode(), tenant, pid))
+    return out
+
+
+def client_run(port: int, wave: list, name: str) -> tuple:
+    """Start the client process on one wave of (route, body, ...) → (the
+    process, its OUT path) for ``finish_run``."""
+    work_dir = os.path.join(REPO, "build", "chip_smoke_tenants")
+    corpus = os.path.join(work_dir, f"{name}.bin")
+    out = os.path.join(work_dir, f"{name}.json")
+    write_corpus(corpus, [[(route, body) for route, body, *_ in wave]])
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--native-client",
+         str(port), corpus, out, str(NATIVE_CONNS), str(NATIVE_DEPTH)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, out
+
+
+def finish_run(proc, out: str, label: str) -> tuple[list, float]:
+    """Wait for a ``client_run`` → (its results, the wave's wall
+    seconds)."""
+    try:
+        _o, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"the client of {label} failed: {err[-2000:]}")
+    with open(out) as f:
+        doc = json.load(f)
+    os.unlink(out)
+    return doc["results"], sum(doc["walls"])
+
+
+def classify(label: str, results: list, wave: list, kinds: dict) -> dict:
+    """Each answer must match one kind: ``kinds`` maps a name to a
+    function (wave item, status, body bytes, Retry-After) → bool. → count
+    per kind and p50/p99 ms; fails on an unanswered request or one that
+    matches no kind."""
+    counts = dict.fromkeys(kinds, 0)
+    lat, bad = [], []
+    for i, (r, item) in enumerate(zip(results, wave)):
+        if r is None:
+            fail(f"{label}: request {i} unanswered")
+        status, ms, body, retry = r
+        body = body.encode("latin-1")
+        lat.append(ms)
+        for name, match in kinds.items():
+            if match(item, status, body, retry):
+                counts[name] += 1
+                break
+        else:
+            bad.append((i, status, retry, body[:300]))
+    if bad:
+        for row in bad[:3]:
+            print(f"mismatch ({label}) request {row[0]}: {row[1:]}")
+        fail(f"{len(bad)} answers of {label} match no expected answer")
+    lat.sort()
+    counts["p50"] = lat[len(lat) // 2]
+    counts["p99"] = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    return counts
+
+
+def post_one(port: int, item: tuple, out: list, i: int) -> None:
+    """POST one (route, body, ...) on a connection of its own → ``out[i]``
+    as the client process records it."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", f"/validate/{item[0]}", body=item[1],
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        retry = resp.getheader("Retry-After")
+        out[i] = (resp.status, (time.perf_counter() - t0) * 1e3,
+                  resp.read().decode("latin-1"),
+                  None if retry is None else int(retry))
+    finally:
+        conn.close()
+
+
+def labelled_value(port: int, name: str, label: str) -> float:
+    status, text = http_get(port, "/metrics")
+    for line in text.decode().splitlines():
+        head, _, value = line.rpartition(" ")
+        if head == f"{name}{{{label}}}":
+            return float(value)
+    return 0.0
+
+
+def in_band_body(body: bytes, message: str, code: int) -> bytes:
+    """The 200 AdmissionReview body of an in-band rejection of ``body``."""
+    from policy_server_tpu_torch.models import (
+        AdmissionResponse,
+        AdmissionReviewResponse,
+    )
+
+    uid = json.loads(body)["request"]["uid"]
+    return json.dumps(AdmissionReviewResponse(
+        AdmissionResponse.reject(uid, message, code)
+    ).to_dict()).encode()
+
+
+class EnvLedger:
+    """Per-environment accounting of a server's build: seconds and
+    ``memory_allocated`` of each build and warmup, probe (K2) launches at
+    the build, seconds building K1 programs; installed around the builder
+    for the phase, then removed."""
+
+    def __init__(self) -> None:
+        import torch
+
+        from policy_server_tpu_torch.evaluation import environment as em
+        from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+        self.rows: dict[int, dict] = {}
+        # K1 programs are built inside the environment's constructor, before
+        # its row exists
+        self.k1_build_s: dict[int, float] = {}
+        builder, env_cls = em.EvaluationEnvironmentBuilder, em.EvaluationEnvironment
+        self._saved = (builder.build, env_cls.warmup, env_cls.program_for)
+        real_build, real_warmup, real_program = self._saved
+        rows, k1_build_s = self.rows, self.k1_build_s
+
+        def build(b, policies):
+            if b.backend != "torch":
+                return real_build(b, policies)
+            torch.cuda.synchronize()
+            m0, p0, t0 = torch.cuda.memory_allocated(), ck.launch_counts()["probe"], time.perf_counter()
+            env = real_build(b, policies)
+            torch.cuda.synchronize()
+            rows[id(env)] = {
+                "env": env, "build_s": time.perf_counter() - t0,
+                "build_bytes": torch.cuda.memory_allocated() - m0,
+                "probe": ck.launch_counts()["probe"] - p0,
+                "warmup_s": 0.0, "warmup_bytes": 0, "warmup_k1": 0,
+            }
+            return env
+
+        def warmup(env, batch_sizes=(1,)):
+            row = rows.get(id(env))
+            torch.cuda.synchronize()
+            m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+            k0 = ck.launch_counts()["policy_matrix"]
+            real_warmup(env, batch_sizes)
+            torch.cuda.synchronize()
+            if row is not None:
+                row["warmup_s"] += time.perf_counter() - t0
+                row["warmup_bytes"] += torch.cuda.memory_allocated() - m0
+                row["warmup_k1"] += ck.launch_counts()["policy_matrix"] - k0
+
+        def program_for(env, schema_idx, transport, narrow):
+            new = (schema_idx, transport, narrow) not in env._programs
+            t0 = time.perf_counter()
+            program = real_program(env, schema_idx, transport, narrow)
+            if new:
+                k1_build_s[id(env)] = (
+                    k1_build_s.get(id(env), 0.0) + time.perf_counter() - t0
+                )
+            return program
+
+        builder.build, env_cls.warmup, env_cls.program_for = build, warmup, program_for
+        self._classes = (builder, env_cls)
+
+    def remove(self) -> None:
+        builder, env_cls = self._classes
+        builder.build = self._saved[0]
+        env_cls.warmup, env_cls.program_for = self._saved[1:]
+
+    def table(self, server) -> list:
+        """One row per serving environment of ``server``: its tenant and
+        shard, build and warmup seconds, the bytes both allocated, K1
+        program build seconds, K2 launches at the build, and K1 launches in
+        the warmup and in serving (the environment's device dispatches)
+        so far."""
+        out = []
+        for t in server.state.tenants.all():
+            plane = t.state.batcher
+            shards = getattr(plane, "_shards", None)
+            pairs = [(s.index, s.env) for s in shards] if shards else [(0, plane.env)]
+            for idx, env in pairs:
+                row = self.rows.get(id(env))
+                if row is None:
+                    fail(f"tenant {t.name} shard {idx} has an unrecorded environment")
+                out.append({
+                    "tenant": t.name, "shard": idx,
+                    "build_s": round(row["build_s"], 4),
+                    "warmup_s": round(row["warmup_s"], 4),
+                    "k1_build_s": round(self.k1_build_s.get(id(env), 0.0), 4),
+                    "memory_allocated": row["build_bytes"] + row["warmup_bytes"],
+                    "probe_launches": row["probe"],
+                    "policy_matrix_warmup_launches": row["warmup_k1"],
+                    "policy_matrix_serving_launches": env.kernel_stats["dispatches"],
+                })
+        return out
+
+
+def tenants_phase(work_docs: list, card: str) -> dict:
+    """Phase 9 (see the module docstring) → its numbers."""
+    import torch
+
+    from policy_server_tpu_torch import failpoints
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.api.api_error import api_error_body, shed_body
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.runtime.batcher import (
+        DEADLINE_MESSAGE,
+        EXPIRED_MESSAGE,
+        FencedError,
+        ShedError,
+    )
+    from policy_server_tpu_torch.runtime.shards import ShardRouter
+    from policy_server_tpu_torch.tenancy import unknown_tenant_message
+
+    specs = tenant_specs()
+    work_dir = os.path.join(REPO, "build", "chip_smoke_tenants")
+    os.makedirs(work_dir, exist_ok=True)
+    for name, s in specs.items():
+        with open(os.path.join(work_dir, f"{name}.json"), "w") as f:
+            json.dump(s, f)
+    manifest = os.path.join(work_dir, "tenants.json")
+    with open(manifest, "w") as f:
+        json.dump({"tenants": {
+            "team-a": {"policies": "team-a.json"},
+            "team-b": {
+                "policies": "team-b.json",
+                "quota-rows-per-second": TEAM_B_RATE,
+                "quota-burst": TEAM_B_BURST,
+                "request-timeout-ms": TEAM_B_TIMEOUT_MS,
+            },
+        }}, f)
+    oracles = {
+        name: EvaluationEnvironmentBuilder(backend="oracle").build(parse_policies(s))
+        for name, s in specs.items()
+    }
+    subsets = {name: sorted(s) for name, s in specs.items()}
+    args = build_cli().parse_args([
+        "--policies", os.path.join(work_dir, "default.json"),
+        "--addr", "127.0.0.1", "--port", "0", "--readiness-probe-port", "0",
+        "--frontend", "native", "--enable-metrics", "--serving-shards", "2",
+        "--tenants", manifest,
+    ])
+    if (args.request_timeout_ms, args.shard_heartbeat_seconds) != (10000.0, 0.5):
+        fail("phase 9 does not run at the default request timeout and heartbeat")
+
+    def verdict(item, status, body, _retry):
+        _route, req, tenant, pid = item
+        return tenant in oracles and (
+            (status, body) == expected_answer(oracles[tenant], pid, req)
+        )
+
+    def shed(_item, status, body, retry):
+        return (status == ShedError.http_status and retry is not None
+                and body == shed_body(retry, ShedError.message))
+
+    def fenced(_item, status, body, retry):
+        return (status == FencedError.http_status and retry is not None
+                and body == shed_body(retry, FencedError.message))
+
+    def expired(item, status, body, _retry):
+        return (status, body) == (200, in_band_body(item[1], EXPIRED_MESSAGE, 504))
+
+    def deadline(item, status, body, _retry):
+        return (status, body) == (200, in_band_body(item[1], DEADLINE_MESSAGE, 500))
+
+    out: dict = {}
+    # the earlier phases' garbage first: freed later, it would read as this
+    # phase's release
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ledger = EnvLedger()
+    ck.reset_launch_counts()
+    t_build = time.perf_counter()
+    try:
+        server = server_from_args(args)
+    finally:
+        ledger.remove()
+    out["build_s"] = time.perf_counter() - t_build
+    out["boot_launches"] = ck.launch_counts()
+    server.start()
+    rp = server.readiness_port
+    stopped = False
+    try:
+        tenants = server.state.tenants
+        planes = {t.name: t.state.batcher for t in tenants.all()}
+        if sorted(planes) != ["default", "team-a", "team-b"] or not all(
+            type(p) is ShardRouter and p.serving_shards == 2 for p in planes.values()
+        ):
+            fail(f"phase 9's tenants are not each served by two shards: {planes}")
+
+        # T: every tenant's set, and an unknown tenant
+        wave = tenant_wave(work_docs, T_WAVE, "t9",
+                           ("default", "default", "team-a", "team-b"), subsets)
+        for _route, body, _t, pid in wave[:8]:
+            wave.append((f"nope/{pid}", body, "nope", pid))
+        nope = api_error_body(404, unknown_tenant_message("nope"))
+        results, wall = finish_run(*client_run(server.port, wave, "t"), "wave T")
+        out["T"] = classify("wave T", results, wave, {
+            "verdict": verdict,
+            "unknown_tenant": lambda it, st, b, _r: it[2] == "nope" and (st, b) == (404, nope),
+        })
+        out["T"]["req_s"] = len(wave) / wall
+        if out["T"]["unknown_tenant"] != 8:
+            fail(f"wave T: unknown tenant answers {out['T']}")
+        for path in ("/readiness", "/readiness/team-a", "/readiness/team-b"):
+            status, text = http_get(rp, path)
+            if status != 200:
+                fail(f"{path} answered {status} {text!r}")
+
+        # Q: team-b over its quota beside team-a
+        time.sleep(TEAM_B_BURST / TEAM_B_RATE + 0.5)  # team-b's bucket refills
+        shed0 = labelled_value(rp, "policy_server_tenant_shed_rows_total", 'tenant="team-b"')
+        q_b = tenant_wave(work_docs, Q_WAVE, "q9b", ("team-b",), subsets)
+        q_a = tenant_wave(work_docs, Q_WAVE // 2, "q9a", ("team-a",), subsets)
+        runs = [client_run(server.port, q_b, "qb"), client_run(server.port, q_a, "qa")]
+        (res_b, wall_b), (res_a, _wall_a) = (
+            finish_run(*runs[0], "wave Q team-b"), finish_run(*runs[1], "wave Q team-a")
+        )
+        out["Q_b"] = classify("wave Q team-b", res_b, q_b,
+                              {"verdict": verdict, "shed_429": shed})
+        out["Q_a"] = classify("wave Q team-a", res_a, q_a, {"verdict": verdict})
+        shed1 = labelled_value(rp, "policy_server_tenant_shed_rows_total", 'tenant="team-b"')
+        out["Q_tenant_shed_rows"] = shed1 - shed0
+        if not (0 < out["Q_b"]["shed_429"] < len(q_b)):
+            fail(f"wave Q: team-b did not overflow its quota in part: {out['Q_b']}")
+        if shed1 - shed0 != out["Q_b"]["shed_429"]:
+            fail(f"policy_server_tenant_shed_rows{{tenant=\"team-b\"}} moved by "
+                 f"{shed1 - shed0}, not the {out['Q_b']['shed_429']} answers 429")
+
+        # X: team-b's device fetch sleeps past its request timeout
+        time.sleep(TEAM_B_BURST / TEAM_B_RATE + 0.5)
+        plane_b = planes["team-b"]
+        expired0 = plane_b.stats_snapshot()["expired_dropped"]
+        default_expired0 = metric_value(rp, "policy_server_expired_dropped_rows_total")
+        # every team-b batch to the device, where the fetch sleeps; its
+        # verdict caches emptied, since they hold waves T and Q's answers
+        # and a cache hit never reaches the fetch
+        for s in plane_b._shards:
+            s.batcher.host_fastpath_threshold = 0
+            s.env._verdict_cache.clear()
+            s.env._blob_cache.clear()
+        failpoints.set_failpoint(
+            "device.fetch", lambda: time.sleep(X_SLEEP_SECONDS), scope="team-b"
+        )
+        try:
+            # first the plug: single requests a few ms apart, each its own
+            # batch, until every team-b batch worker waits on the fetch;
+            # then the wave, whose rows queue behind them past 500 ms
+            plug = tenant_wave(work_docs, X_PLUG, "x9p", ("team-b",), subsets)
+            plug_res: list = [None] * len(plug)
+            threads = []
+            for i, item in enumerate(plug):
+                threads.append(threading.Thread(
+                    target=post_one, args=(server.port, item, plug_res, i)
+                ))
+                threads[-1].start()
+                time.sleep(0.01)
+            x = tenant_wave(work_docs, X_WAVE, "x9", ("team-b",), subsets)
+            res_x, _w = finish_run(*client_run(server.port, x, "x"), "wave X")
+            for t in threads:
+                t.join(60)
+        finally:
+            failpoints.clear("device.fetch")
+            for s in plane_b._shards:
+                s.batcher.host_fastpath_threshold = args.host_fastpath_threshold
+        x, res_x = plug + x, plug_res + res_x
+        out["X"] = classify("wave X", res_x, x, {
+            "verdict": verdict, "expired_504": expired,
+            "deadline_500": deadline, "shed_429": shed,
+        })
+        out["X_expired_rows"] = plane_b.stats_snapshot()["expired_dropped"] - expired0
+        if out["X"]["expired_504"] < 1 or out["X_expired_rows"] != out["X"]["expired_504"]:
+            fail(f"wave X: {out['X']}; team-b's expired rows moved by {out['X_expired_rows']}")
+        # the family reads the default tenant's plane, as the JAX package's
+        out["X_default_family"] = metric_value(
+            rp, "policy_server_expired_dropped_rows_total"
+        )
+        if out["X_default_family"] != default_expired0 or default_expired0 != (
+            planes["default"].stats_snapshot()["expired_dropped"]
+        ):
+            fail("policy_server_expired_dropped_rows is not the default tenant's count")
+        out["X_breaker"] = plane_b.env.breaker_stats
+
+        # S: kill one of the default tenant's shards under a wave
+        plane = planes["default"]
+        victim = plane._shards[0].batcher
+        fences0 = metric_value(rp, "policy_server_shard_fences_total")
+        revives0 = server.state.supervisor.stats()["batcher_revives"]
+        killed: dict = {}
+
+        def kill() -> None:
+            if not killed and threading.current_thread() is victim._thread:
+                killed["at"] = time.perf_counter()
+                killed["thread"] = threading.current_thread()
+                raise failpoints.FailpointError("injected shard death")
+
+        wave = tenant_wave(work_docs, S_WAVE, "s9", ("default",), subsets)
+        requests0 = server.native_frontend.stats()["http_requests"]
+        proc, res_path = client_run(server.port, wave, "s")
+        wait_until(
+            lambda: server.native_frontend.stats()["http_requests"] - requests0
+            >= S_WAVE // 8 or proc.poll() is not None,
+            60, "wave S to start",
+        )
+        f0 = plane.stats_snapshot()["shard_fences"]
+        failpoints.set_failpoint("shard.dispatch", kill, scope="shard-0")
+        # the death is the thread's end, what the heartbeat can see: the
+        # raise ends the thread only after the loop and the interpreter's
+        # thread-exception hook have run
+        dead_at = fenced_at = None
+        give_up = time.perf_counter() + 10
+        while fenced_at is None and time.perf_counter() < give_up:
+            now = time.perf_counter()
+            if dead_at is None and "thread" in killed and not killed["thread"].is_alive():
+                dead_at = now
+            if plane.stats_snapshot()["shard_fences"] > f0:
+                fenced_at = now
+            time.sleep(0.001)
+        if fenced_at is None:
+            fail("timed out waiting for the killed shard's fence")
+        dead_at = dead_at or fenced_at
+        out["S_death_s"] = dead_at - killed["at"]
+        out["S_fence_s"] = fenced_at - dead_at
+        failpoints.clear("shard.dispatch")
+        wait_until(lambda: plane.stats_snapshot()["shard_respawns"] >= 1, 10,
+                   "the killed shard's revive")
+        res_s, _w = finish_run(proc, res_path, "wave S")
+        out["S"] = classify("wave S", res_s, wave,
+                            {"verdict": verdict, "fenced_503": fenced})
+        snap = plane.stats_snapshot()
+        out["S_router"] = {k: snap[k] for k in (
+            "shard_fences", "shard_reroutes", "shard_fenced_rows", "shard_respawns",
+        )}
+        out["S_metric_fences"] = metric_value(rp, "policy_server_shard_fences_total") - fences0
+        out["S_revives"] = server.state.supervisor.stats()["batcher_revives"] - revives0
+        if (out["S_metric_fences"], out["S_revives"], snap["shard_respawns"]) != (1.0, 1, 1):
+            fail(f"wave S: fences {out['S_metric_fences']}, revives {out['S_revives']}, {snap}")
+        out["S_fence_limit_s"] = args.shard_heartbeat_seconds + S_FENCE_ALLOWANCE_S
+        if out["S_fence_s"] > out["S_fence_limit_s"]:
+            fail(f"the killed shard was fenced {out['S_fence_s']:.3f} s after its thread ended")
+        if not all(h["healthy"] and h["dispatch_alive"] for h in plane.shard_health()):
+            fail(f"the killed shard is not back: {plane.shard_health()}")
+        out["envs"] = ledger.table(server)
+        server.stop()
+        stopped = True
+    finally:
+        failpoints.reset()
+        if not stopped:
+            server.stop()
+    join_retirements()
+    gc.collect()
+    torch.cuda.synchronize()
+    out["memory_after_stop"] = torch.cuda.memory_allocated() - mem0
+    out["launches"] = ck.launch_counts()
+    if out["launches"]["probe"] < 6 or out["launches"]["policy_matrix"] < 1:
+        fail(f"phase 9 did not launch both kernels in its six environments: {out['launches']}")
+    # team-b's subset is the one K1 program this phase adds (the default
+    # set is held in phase 2, team-a's in phase 8)
+    out["k1_err"] = hold_set_against_plain(
+        specs["team-b"], [d for _pid, d in work_docs], card, "phase9 team-b set"
+    )
+    out["rates"] = shard_rates(work_docs, oracles["default"], card)
+    return out
+
+
+def shard_rates(work_docs: list, oracle, card: str) -> dict:
+    """req/s and p50/p99 of a default-flag native server with one serving
+    shard and with two, the same waves, every body the oracle's; measured,
+    not compared."""
+    import torch
+
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    path = os.path.join(REPO, "build", "chip_smoke_tenants", "default.json")
+    rates = {}
+    for shards in (1, 2):
+        args = build_cli().parse_args([
+            "--policies", path, "--addr", "127.0.0.1", "--port", "0",
+            "--readiness-probe-port", "0", "--frontend", "native",
+            "--serving-shards", str(shards),
+        ])
+        ck.reset_launch_counts()
+        server = server_from_args(args)
+        server.start()
+        try:
+            boot = ck.launch_counts()
+            rows, wall, lat = 0, 0.0, []
+            for w in range(RATE_WAVES):
+                wave = [
+                    (pid, body, "default", pid)
+                    for pid, body in wave_of(work_docs, N_REQUESTS, f"r9s{shards}w{w}")
+                ]
+                res, wall_w = finish_run(
+                    *client_run(server.port, wave, f"rate{shards}"), f"rate {shards}"
+                )
+                for (route, body, _t, pid), r in zip(wave, res):
+                    if r is None or (r[0], r[2].encode("latin-1")) != expected_answer(oracle, pid, body):
+                        fail(f"--serving-shards {shards}: an answer differs from the oracle's")
+                    lat.append(r[1])
+                rows += len(wave)
+                wall += wall_w
+            end = ck.launch_counts()
+        finally:
+            server.stop()
+        lat.sort()
+        rates[shards] = {
+            "req_s": rows / wall, "p50": lat[len(lat) // 2],
+            "p99": lat[int(0.99 * (len(lat) - 1))],
+            "serving_launches": end["policy_matrix"] - boot["policy_matrix"],
+            "probe": end["probe"],
+        }
+    torch.cuda.synchronize()
+    return rates
+
+
+def print_tenants_phase(r9: dict, card: str) -> None:
+    t = r9["T"]
+    print(
+        f"phase9 server build {r9['build_s']:.3f} s (3 tenants x 2 shards; "
+        f"launches {json.dumps(r9['boot_launches'])}) [{card}]"
+    )
+    print(
+        f"phase9 wave T: {t['verdict']} verdicts of their tenant's oracle, "
+        f"{t['unknown_tenant']} unknown-tenant 404s, {t['req_s']:.1f} req/s, "
+        f"p50 {t['p50']:.3f} ms p99 {t['p99']:.3f} ms [{card}]"
+    )
+    print(
+        f"phase9 wave Q: team-b {r9['Q_b']['verdict']} verdicts, "
+        f"{r9['Q_b']['shed_429']} answers 429 with Retry-After "
+        f"(policy_server_tenant_shed_rows{{tenant=\"team-b\"}} +"
+        f"{r9['Q_tenant_shed_rows']:.0f}); team-a beside it "
+        f"{r9['Q_a']['verdict']} verdicts, p50 {r9['Q_a']['p50']:.3f} ms "
+        f"p99 {r9['Q_a']['p99']:.3f} ms [{card}]"
+    )
+    x = r9["X"]
+    print(
+        f"phase9 wave X (team-b fetch sleeps {X_SLEEP_SECONDS} s past its "
+        f"{TEAM_B_TIMEOUT_MS} ms deadline): {x['verdict']} verdicts, "
+        f"{x['expired_504']} expired 504s (team-b's expired_dropped "
+        f"+{r9['X_expired_rows']}), {x['deadline_500']} deadline 500s, "
+        f"{x['shed_429']} shed 429s; team-b breaker {json.dumps(r9['X_breaker'])} [{card}]"
+    )
+    s = r9["S"]
+    print(
+        f"phase9 wave S (default tenant's shard 0 killed): its thread "
+        f"ended {r9['S_death_s']:.3f} s after the raise, fenced "
+        f"{r9['S_fence_s']:.3f} s after that (limit "
+        f"{r9['S_fence_limit_s']:.3f} s); {s['verdict']} verdicts, "
+        f"{s['fenced_503']} fenced 503s; router {json.dumps(r9['S_router'])}; "
+        f"policy_server_shard_fences +{r9['S_metric_fences']:.0f}, self-heal "
+        f"batcher revives +{r9['S_revives']}; p50 {s['p50']:.3f} ms p99 "
+        f"{s['p99']:.3f} ms [{card}]"
+    )
+    for row in r9["envs"]:
+        print(f"phase9 environment {json.dumps(row)} [{card}]")
+    print(
+        f"phase9 launches {json.dumps(r9['launches'])}; memory_allocated "
+        f"after stop minus before build: {r9['memory_after_stop']} B [{card}]"
+    )
+    for shards, r in sorted(r9["rates"].items()):
+        print(
+            f"phase9 rate --serving-shards {shards}, default flags, native: "
+            f"{r['req_s']:.1f} req/s, p50 {r['p50']:.3f} ms p99 {r['p99']:.3f} "
+            f"ms over {RATE_WAVES} waves of {N_REQUESTS}; {r['serving_launches']} "
+            f"policy_matrix launches after the warmup [{card}]"
+        )
 
 
 def main() -> int:
@@ -2232,6 +2892,12 @@ def main() -> int:
     print_reload_phase(r8, card)
     print(f"phase8 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 9: tenants, shedding and shards on the card ------------------
+    t_phase = time.perf_counter()
+    r9 = tenants_phase(work_docs, card)
+    print_tenants_phase(r9, card)
+    print(f"phase9 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -2266,12 +2932,30 @@ def main() -> int:
                 "phase8 reload path (server build, 1 watch reload under "
                 "traffic, 1 rejected, 5 admin reloads, 6 rollbacks, serving "
                 "waves)": r8["launches"]["policy_matrix"],
+                "phase9 tenants and shards (3 tenants x 2 shards: build, "
+                "waves T, Q, X, S)": r9["launches"]["policy_matrix"],
+                **{
+                    f"phase9 --serving-shards {n} after the warmup": r["serving_launches"]
+                    for n, r in r9["rates"].items()
+                },
             },
+            "phase9_launches_by_environment": [
+                {k: row[k] for k in (
+                    "tenant", "shard", "policy_matrix_warmup_launches",
+                    "policy_matrix_serving_launches",
+                )}
+                for row in r9["envs"]
+            ],
             "reload_candidates": [
                 {"warmup": c["k1_warmup"], "canary": c["k1_canary"]}
                 for c in r8["candidates"]
             ],
-            "max_abs_err": max(k1_err, r8["k1_err"]),
+            "max_abs_err": max(k1_err, r8["k1_err"], r9["k1_err"]),
+            "max_abs_err_by_program": {
+                "phase2 flagship set": k1_err,
+                "phase8 changed set (team-a in phase 9)": r8["k1_err"],
+                "phase9 team-b set": r9["k1_err"],
+            },
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -2291,6 +2975,11 @@ def main() -> int:
             "launches_by_path": {
                 "phase8 reload path (server build and every candidate's "
                 "build)": r8["launches"]["probe"],
+                "phase9 tenants and shards (one per environment)": r9["launches"]["probe"],
+                **{
+                    f"phase9 --serving-shards {n} (server build)": r["probe"]
+                    for n, r in r9["rates"].items()
+                },
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,

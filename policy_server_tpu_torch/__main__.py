@@ -6,7 +6,9 @@ needs nothing) and serves /validate on ``--port`` (3000) and /readiness,
 ``--readiness-probe-port`` (8081) until interrupted; ``--frontend native``
 serves the API port's evaluation POSTs from the C++ frontend. By default
 the policies file is watched and a changed digest, SIGHUP or ``POST
-/policies/reload`` reloads it (``--policy-reload-mode``). The flags, their
+/policies/reload`` reloads it (``--policy-reload-mode``); ``--tenants``
+serves named tenants beside the default one and ``--serving-shards`` serves
+each from several stacks. The flags, their
 defaults, choices, validation and ``KUBEWARDEN_*`` environment variables
 are the JAX package's (``config/cli.py``, ``config/config.py``).
 """
@@ -34,7 +36,9 @@ from policy_server_tpu_torch.server import (
     DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
     DEFAULT_READINESS_PROBE_PORT,
     DEFAULT_RELOAD_CANARY_REQUESTS,
+    DEFAULT_REQUEST_TIMEOUT_MS,
     DEFAULT_SELFHEAL_INTERVAL_SECONDS,
+    DEFAULT_SHARD_HEARTBEAT_SECONDS,
     FRONTENDS,
     RELOAD_MODES,
     PolicyServer,
@@ -42,6 +46,7 @@ from policy_server_tpu_torch.server import (
 )
 from policy_server_tpu_torch.telemetry import flightrec
 from policy_server_tpu_torch.telemetry.tracing import setup_tracing
+from policy_server_tpu_torch.tenancy import read_tenants_file
 
 _SIZE_SUFFIXES = {
     "k": 1024, "ki": 1024, "kb": 1000,
@@ -93,6 +98,16 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
          dict(type=float, default=DEFAULT_POLICY_TIMEOUT,
               metavar="MAXIMUM_EXECUTION_TIME_SECONDS",
               help="Interrupt policy evaluation after the given time")),
+        ("--request-timeout-ms", "KUBEWARDEN_REQUEST_TIMEOUT_MS",
+         dict(type=float, default=DEFAULT_REQUEST_TIMEOUT_MS, metavar="MS",
+              help="Propagated per-request deadline, aligned to the "
+                   "admission webhook timeoutSeconds model (the API server "
+                   "abandons a review after its timeout, so work past it is "
+                   "waste). Requests whose estimated queue wait exceeds the "
+                   "budget are shed at admission with 429 + Retry-After, "
+                   "and rows already expired when their batch forms are "
+                   "dropped before encode/dispatch. 0 disables deadline "
+                   "propagation and load shedding")),
         ("--disable-timeout-protection", "KUBEWARDEN_DISABLE_TIMEOUT_PROTECTION",
          dict(action="store_true", help="Disable policy timeout protection")),
         ("--always-accept-admission-reviews-on-namespace",
@@ -250,6 +265,50 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "REBUILDS a dead one instead of serving zombies "
                    "(counted on /metrics as "
                    "policy_server_selfheal_*_revives). 0 disables")),
+        ("--tenants", "KUBEWARDEN_TENANTS",
+         dict(default=None, metavar="TENANTS_FILE",
+              help="Multi-tenant serving (tenancy.py): a manifest (JSON, or "
+                   "YAML where PyYAML is installed) mapping tenant names to "
+                   "their own policies files plus per-tenant knobs — weight "
+                   "(weighted-fair dispatch share), quota-rows-per-second + "
+                   "quota-burst (token-bucket admission; overflow answers "
+                   "429 + Retry-After), max-inflight (admitted-unresolved "
+                   "row cap), request-timeout-ms (per-tenant deadline "
+                   "class), and degraded-mode (per-tenant breaker "
+                   "fallback). Each named tenant owns an independent epoch "
+                   "lifecycle (reload/canary/rollback/digest watch) over its "
+                   "policies file and is served at POST "
+                   "/validate/{tenant}/{policy_id} (plus the audit/raw "
+                   "variants and GET /readiness/{tenant}); every "
+                   "un-prefixed URL stays the reserved 'default' tenant, "
+                   "configured by --policies as before. A top-level "
+                   "'default:' entry applies quota/weight knobs to the "
+                   "default tenant; 'max-concurrent-dispatches' caps the "
+                   "shared weighted-fair dispatch scheduler. Unset = "
+                   "single-tenant, bit-identical to the pre-tenancy "
+                   "serving path")),
+        ("--serving-shards", "KUBEWARDEN_SERVING_SHARDS",
+         dict(type=int, default=1, metavar="M",
+              help="Host-local serving shards (runtime/shards.py): M full "
+                   "serving stacks — each with its own evaluation "
+                   "environment (kernel programs, verdict cache + breaker) "
+                   "and micro-batcher — behind a health + queue-depth-EWMA "
+                   "router. A shard whose dispatch loop wedges or dies is "
+                   "fenced within one heartbeat interval (queued rows "
+                   "re-routed to a sibling or answered 503 with "
+                   "Retry-After, never double-answered) and warm-revived in "
+                   "place without touching its siblings; SIGTERM drains "
+                   "shards in sequence. 1 bypasses the router entirely — "
+                   "the serving path is byte-identical to a routerless "
+                   "build")),
+        ("--shard-heartbeat-seconds", "KUBEWARDEN_SHARD_HEARTBEAT_SECONDS",
+         dict(type=float, default=DEFAULT_SHARD_HEARTBEAT_SECONDS,
+              metavar="SECONDS",
+              help="Shard router heartbeat cadence: each tick probes every "
+                   "shard's dispatch loop, fences a wedged/dead shard "
+                   "(draining its queued rows to the healthiest sibling), "
+                   "and warm-revives it. Bounds the fencing latency after a "
+                   "shard death. Ignored when --serving-shards is 1")),
         ("--no-warmup", "KUBEWARDEN_NO_WARMUP",
          dict(action="store_true",
               help="Skip the warmup of every batch bucket at boot and for "
@@ -313,6 +372,10 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--native-max-connections must be >= 0")
     if not (0.0 <= args.reload_divergence_threshold <= 1.0):
         raise ValueError("--reload-divergence-threshold must be in [0, 1]")
+    if args.serving_shards < 1:
+        raise ValueError("--serving-shards must be >= 1")
+    if args.shard_heartbeat_seconds <= 0:
+        raise ValueError("--shard-heartbeat-seconds must be > 0")
 
 
 def server_from_args(args: argparse.Namespace) -> PolicyServer:
@@ -358,6 +421,10 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         selfheal_interval_seconds=args.selfheal_interval_seconds,
         policies_path=args.policies,
         policies_text=text,
+        request_timeout_ms=args.request_timeout_ms,
+        tenants=read_tenants_file(args.tenants) if args.tenants else None,
+        serving_shards=args.serving_shards,
+        shard_heartbeat_seconds=args.shard_heartbeat_seconds,
     )
 
 

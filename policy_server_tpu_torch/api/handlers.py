@@ -8,8 +8,10 @@ API port (``ApiHandler``):
 * POST ``/validate_raw/{policy_id}`` → the raw review response
 * POST ``/audit/{policy_id}``        → the AdmissionReview response of an
   audit-origin evaluation (no mode or mutation constraints)
-* POST ``/{validate,validate_raw,audit}/{tenant}/{policy_id}`` → 404
-  ``unknown tenant: {tenant}`` (the port serves no tenants)
+* POST ``/{validate,validate_raw,audit}/{tenant}/{policy_id}`` → the same,
+  served by that tenant's batcher under ``--tenants`` (``tenancy.py``); 404
+  ``unknown tenant: {tenant}`` for a name the manifest lacks (every name,
+  without one)
 * GET  ``/debug/timeline``           → the flight recorder's Chrome trace
   JSON (404 when the recorder is off)
 * GET  ``/debug/pprof/cpu?interval=&frequency=`` and ``/debug/pprof/heap``
@@ -20,7 +22,9 @@ Readiness port (``ReadinessHandler``):
 * GET ``/readiness`` → ``ok`` (with the device breaker's counters once it
   has tripped or a device error was seen; 503 while it is open under
   ``--degraded-mode reject``, and before the first policy epoch is built
-  and warmed)
+  and warmed; under ``--tenants``, 503 only when every tenant is degraded)
+* GET ``/readiness/{tenant}`` → that tenant's own verdict (404 for an
+  unknown tenant)
 * GET ``/metrics``   → the process registry in Prometheus text format
 * GET ``/debug/timeline``, as on the API port
 * POST ``/policies/reload`` (202), ``/policies/promote`` and
@@ -34,8 +38,11 @@ The native frontend (``runtime/native_frontend.py``) serves the same
 evaluation routes with the same bytes when ``--frontend native``.
 
 Error mapping: a malformed JSON body → 422 ``{"message", "status"}``;
-PolicyNotFound → 404; any other evaluation error → 500 "Something went
-wrong". Overload (429) and shutdown (503) are in-band answers of the
+PolicyNotFound → 404; a ``ShedError`` (load shed at admission or a tenant's
+quota) → 429, and its ``FencedError`` (a fenced serving shard) → 503, each
+with ``Retry-After`` and ``{"message", "retry_after_seconds"}``; any other
+evaluation error → 500 "Something went wrong". Overload of the queue (429),
+an expired deadline (504) and shutdown (503) are in-band answers of the
 batcher, inside a 200 AdmissionReview. Bodies are ``json.dumps`` of the response dict with the default
 separators, byte for byte what the JAX package's aiohttp frontend writes;
 a ``FragVerdict`` (a cache hit answered from a pre-built template) writes
@@ -54,6 +61,7 @@ from urllib.parse import parse_qs
 from policy_server_tpu_torch.api import profiling
 from policy_server_tpu_torch.api.api_error import (
     api_error_body,
+    shed_answer,
     something_went_wrong,
 )
 from policy_server_tpu_torch.api.service import RequestOrigin
@@ -70,8 +78,10 @@ from policy_server_tpu_torch.models import (
     ValidateRequest,
 )
 from policy_server_tpu_torch.models.admission import FragVerdict
+from policy_server_tpu_torch.runtime.batcher import ShedError
 from policy_server_tpu_torch.telemetry import default_registry, flightrec
 from policy_server_tpu_torch.telemetry.tracing import logger, span
+from policy_server_tpu_torch.tenancy import lookup_tenant, unknown_tenant_message
 
 __all__ = [
     "ApiHandler",
@@ -157,9 +167,10 @@ _EVALUATION_ROUTES = {
 
 def evaluate_body(
     batcher: Any, kind: str, policy_id: str, body: bytes, hostname: str = ""
-) -> tuple[int, bytes]:
-    """One POST body → (status, response body). ``kind`` is ``validate``,
-    ``validate_raw`` or ``audit``."""
+) -> tuple[int, bytes, dict[str, str] | None]:
+    """One POST body → (status, response body, headers). ``kind`` is
+    ``validate``, ``validate_raw`` or ``audit``. The headers are a shed or
+    fenced answer's Retry-After, else None."""
     span_name, origin = _EVALUATION_ROUTES[kind]
     try:
         if kind == "validate_raw":
@@ -171,20 +182,23 @@ def evaluate_body(
             request = ValidateRequest.from_admission(review.request)
             fields = _span_fields_from_admission(review)
     except BodyError as e:
-        return 422, api_error_body(422, e.message)
+        return 422, api_error_body(422, e.message), None
     with span(
         span_name, host=hostname, policy_id=policy_id, **fields,
     ) as span_fields:
         try:
             result = batcher.submit(policy_id, request, origin).result()
+        except ShedError as e:
+            status, retry, body = shed_answer(e)
+            return status, body, {"Retry-After": str(retry)}
         except PolicyNotFoundError as e:
-            return 404, api_error_body(404, str(e))
+            return 404, api_error_body(404, str(e)), None
         except EvaluationError as e:
             logger.error("Evaluation error: %s", e)
-            return something_went_wrong()
+            return *something_went_wrong(), None
         except Exception as e:  # noqa: BLE001 — keep the JSON error contract
             logger.error("Evaluation error: %s", e)
-            return something_went_wrong()
+            return *something_went_wrong(), None
         if type(result) is FragVerdict:
             result = result.to_response()
         _record_response(span_fields, result)
@@ -193,7 +207,7 @@ def evaluate_body(
         if kind == "validate_raw"
         else AdmissionReviewResponse(result)
     )
-    return 200, json.dumps(envelope.to_dict()).encode()
+    return 200, json.dumps(envelope.to_dict()).encode(), None
 
 
 def _pprof_cpu(query: str) -> tuple[int, bytes, str]:
@@ -305,15 +319,22 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, format: str, *args: Any) -> None:  # noqa: A002
         logger.debug("%s - %s", self.address_string(), format % args)
 
-    def _send(self, status: int, body: bytes, content_type: str) -> None:
+    def _send(
+        self, status: int, body: bytes, content_type: str,
+        headers: dict[str, str] | None = None,
+    ) -> None:
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
 
-    def _send_json(self, status: int, body: bytes) -> None:
-        self._send(status, body, _JSON)
+    def _send_json(
+        self, status: int, body: bytes, headers: dict[str, str] | None = None
+    ) -> None:
+        self._send(status, body, _JSON, headers)
 
     def _not_found(self) -> None:
         self._send_json(404, api_error_body(404, "Not Found"))
@@ -351,16 +372,24 @@ class ApiHandler(_Handler):
         ):
             self._not_found()
             return
-        if len(parts) == 3:
-            self._send_json(
-                404, api_error_body(404, f"unknown tenant: {parts[1]}")
-            )
-            return
         state = self.state
-        status, payload = evaluate_body(
-            state.batcher, parts[0], parts[1], body, state.hostname
-        )
-        self._send_json(status, payload)
+        if len(parts) == 3:
+            tenant = lookup_tenant(state, parts[1])
+            if tenant is None:
+                self._send_json(
+                    404, api_error_body(404, unknown_tenant_message(parts[1]))
+                )
+                return
+            batcher = tenant.state.batcher
+        else:
+            batcher = state.batcher
+        self._send_json(*evaluate_body(
+            batcher, parts[0], parts[-1], body, state.hostname
+        ))
+
+
+def _one_segment(name: str) -> bool:
+    return bool(name) and "/" not in name
 
 
 _ADMIN_ACTIONS = {
@@ -396,6 +425,16 @@ class ReadinessHandler(_Handler):
         if path == "/readiness":
             status, text = self.state.readiness()
             self._send(status, text.encode(), _TEXT)
+        elif path.startswith("/readiness/") and _one_segment(path[11:]):
+            name = path[11:]
+            tenant = lookup_tenant(self.state, name)
+            if tenant is None:
+                self._send_json(
+                    404, api_error_body(404, unknown_tenant_message(name))
+                )
+            else:
+                status, text = tenant.readiness()
+                self._send(status, text.encode(), _TEXT)
         elif path == "/metrics":
             self._send(200, default_registry().exposition(), _TEXT)
         elif path == "/debug/timeline":

@@ -37,6 +37,15 @@ def readiness(batcher: Any) -> tuple[int, str]:
     )
 
 
+def readiness_verdict(ready: bool, batcher: Any) -> tuple[int, str]:
+    """One tenant's verdict: 503 until its first epoch is built and warmed,
+    then its serving epoch's ``readiness`` (200 on last-good during a
+    reload)."""
+    if not ready:
+        return 503, "first policy epoch not yet compiled and warmed"
+    return readiness(batcher)
+
+
 @dataclass
 class ApiServerState:
     evaluation_environment: Any
@@ -58,6 +67,9 @@ class ApiServerState:
     admin_token: str | None = None
     # the supervision.SupervisorStats (worker respawns, self-heal revives)
     supervisor: Any = None
+    # the tenancy.TenantManager under --tenants (the default tenant
+    # included); None serves every URL from this state's epoch pointer
+    tenants: Any = None
 
     def _supervisor_note(self, body: str) -> str:
         """A 200 body names the frontend worker slots that gave up
@@ -73,9 +85,18 @@ class ApiServerState:
         return body
 
     def readiness(self) -> tuple[int, str]:
-        """503 until the first epoch is built and warmed, then the serving
-        epoch's ``readiness`` (200 on last-good during a reload)."""
-        if not self.ready:
-            return 503, "first policy epoch not yet compiled and warmed"
-        code, body = readiness(self.batcher)
-        return code, (self._supervisor_note(body) if code == 200 else body)
+        """Without tenants, this state's ``readiness_verdict``. With
+        tenants, 503 only when every tenant is degraded: a partial outage
+        keeps the pod in rotation, with the degraded tenants named in the
+        200 body (``/readiness/{tenant}`` gives each one's verdict)."""
+        if self.tenants is None:
+            code, body = readiness_verdict(self.ready, self.batcher)
+            return code, (self._supervisor_note(body) if code == 200 else body)
+        degraded = self.tenants.degraded_names()
+        if not self.tenants.any_ready():
+            return 503, "every tenant is degraded: " + ", ".join(degraded)
+        if degraded:
+            return 200, self._supervisor_note(
+                "ok (degraded tenants: " + ", ".join(degraded) + ")"
+            )
+        return 200, self._supervisor_note("ok")

@@ -442,7 +442,7 @@ class EvaluationEnvironmentBuilder:
                     ) from e
                 init_errors[name] = str(e)
 
-        return EvaluationEnvironment(
+        env = EvaluationEnvironment(
             backend=self.backend,
             device=self.device,
             bound=bound,
@@ -453,6 +453,11 @@ class EvaluationEnvironmentBuilder:
             verdict_cache_size=self.verdict_cache_size,
             breaker_config=self.breaker_config,
         )
+        # the mapping it was built from: the shard router rebuilds sibling
+        # environments from it (runtime/shards.py); the serving path never
+        # reads it
+        env.source_policies = dict(policies)
+        return env
 
 
 _NO_CACHE_STATS = {

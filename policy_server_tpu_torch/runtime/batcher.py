@@ -59,6 +59,21 @@ fit) park that wait on a pool of eight overload threads. ``shutdown()``
 answers every row still queued, and every later submission, with an
 in-band 503, "policy server shutting down".
 
+With ``request_timeout_ms`` above 0 (the server's ``--request-timeout-ms``,
+10,000 by default) every row carries a propagated deadline: a submission
+whose estimated queue wait (``estimated_wait``, from the measured device
+round trip) already exceeds its budget is shed with ``ShedError`` (429 and
+Retry-After), an overload wait ends at the deadline, and a row whose
+deadline passed in the queue is dropped before it is encoded, answered 504
+"request deadline exceeded before evaluation". A tenant's ``admission``
+quota (``tenancy.TenantAdmission``) is charged once per submission and
+released exactly once per row, on whichever answer comes first; a
+``scheduler`` (``runtime/scheduler.py``) grants each batch's evaluation a
+dispatch slot shared by every tenant. A dispatch loop that dies holding
+popped rows answers each ``FencedError`` (503 and Retry-After): they were
+never dispatched, so a retry is safe. ``fence_drain()`` hands the serving
+shard router (``runtime/shards.py``) every row still queued.
+
 Construction does not start the dispatch loop: ``start()`` does (an epoch
 of the policy lifecycle is built and warmed, and started only when it is
 promoted). ``dispatch_wedged()`` and ``revive_dispatch()`` are the self-heal
@@ -70,6 +85,7 @@ canary's replay ring, ``lifecycle.py``).
 from __future__ import annotations
 
 import logging
+import math
 import queue
 import threading
 import time
@@ -106,6 +122,9 @@ DEFAULT_LATENCY_BUDGET_MS = 50.0
 DEGRADED_MODES = ("oracle", "monitor", "reject")
 
 DEADLINE_MESSAGE = "execution deadline exceeded"
+# a row whose propagated deadline passed while it queued: the webhook
+# caller has given up, so it is dropped before encode and dispatch
+EXPIRED_MESSAGE = "request deadline exceeded before evaluation"
 DEGRADED_MESSAGE = "policy server degraded: device backend unavailable"
 OVERLOADED_MESSAGE = "policy server overloaded"
 STOPPING_MESSAGE = "policy server shutting down"
@@ -114,10 +133,34 @@ STOPPING_MESSAGE = "policy server shutting down"
 PIPELINE_WORKERS = 4
 
 
+class ShedError(Exception):
+    """Raised (or set on a row's Future) at admission when the row cannot
+    be served within its deadline: the queue's estimated wait exceeds the
+    budget, or the tenant's quota is spent. The HTTP layer answers
+    ``http_status`` with ``Retry-After: ceil(retry_after_seconds)``."""
+
+    http_status = 429
+    message = "policy server overloaded; retry later"
+
+    def __init__(self, retry_after_seconds: float):
+        super().__init__(self.message)
+        self.retry_after_seconds = max(0.001, retry_after_seconds)
+
+
+class FencedError(ShedError):
+    """The answer for a row a serving shard can no longer serve: its
+    dispatch loop died or wedged and no healthy sibling had room. The row
+    was never dispatched, so a retry is safe; a 503, so the overload (429)
+    counts never absorb a fence."""
+
+    http_status = 503
+    message = "serving shard fenced; retry later"
+
+
 class _Pending:
     __slots__ = (
         "policy_id", "request", "origin", "future", "enqueued_at", "sink",
-        "token", "answered",
+        "token", "answered", "deadline", "quota_token", "owner",
     )
 
     def __init__(
@@ -145,6 +188,16 @@ class _Pending:
         # and a late result, or a failed batch, may both try, each on the
         # batch's one worker thread, so no lock is needed
         self.answered = False
+        # the propagated deadline (absolute perf_counter time), stamped at
+        # submission under a request timeout; None without one
+        self.deadline: float | None = None
+        # the TenantAdmission this row was charged to, cleared by its first
+        # answer so the in-flight claim is released exactly once
+        self.quota_token: Any = None
+        # the batcher responsible for answering the row while it is queued:
+        # stamped at every enqueue, cleared by fence_drain under the queue
+        # mutex, stamped again by the sibling a fenced row is re-routed to
+        self.owner: Any = None
 
 
 class _DeliveryBatch:
@@ -217,6 +270,10 @@ class MicroBatcher:
         degraded_mode: str = "oracle",
         queue_capacity: int | None = None,
         shadow_recorder: Any = None,
+        request_timeout_ms: float = 0.0,
+        admission: Any = None,
+        scheduler: Any = None,
+        tenant: str = "default",
     ) -> None:
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be at least 1")
@@ -232,7 +289,26 @@ class MicroBatcher:
         self.latency_budget = (
             None if latency_budget_ms <= 0 else latency_budget_ms / 1e3
         )
+        # the propagated request deadline (a webhook's timeoutSeconds,
+        # distinct from policy_timeout, the bound on one evaluation); None
+        # disables deadlines and load shedding
+        self.request_timeout = (
+            request_timeout_ms / 1e3 if request_timeout_ms > 0 else None
+        )
         self.degraded_mode = degraded_mode
+        # the tenant's admission quota (tenancy.TenantAdmission), charged
+        # once per submission; None without one
+        self.admission = admission
+        # the dispatch slots every tenant's batcher shares
+        # (runtime/scheduler.py); None without tenants
+        self.scheduler = scheduler
+        # this batcher's tenant: also the failpoint scope its evaluation
+        # threads carry, so a scoped fault hits one tenant
+        self.tenant = tenant
+        # the serving shard's failpoint scope ("shard-<i>", set by the
+        # shard router) under which the loop fires ``shard.dispatch``;
+        # None passes the caller's scope through
+        self.failpoint_scope: str | None = None
         # the reload canary's replay ring (lifecycle.ShadowRecorder): one
         # observe per formed batch; None when reload is off
         self.shadow_recorder = shadow_recorder
@@ -261,9 +337,10 @@ class MicroBatcher:
         # workers run the evaluation itself, so a hung device call wedges a
         # device worker, never a batch worker (daemon threads: a wedged
         # call is abandoned at exit, never joined)
-        self._batch_pool = DaemonExecutor(PIPELINE_WORKERS, "batch")
-        self._device_pool = DaemonExecutor(PIPELINE_WORKERS, "device-dispatch")
-        self._inflight = threading.BoundedSemaphore(PIPELINE_WORKERS)
+        self._batch_workers = PIPELINE_WORKERS
+        self._batch_pool = DaemonExecutor(self._batch_workers, "batch")
+        self._device_pool = DaemonExecutor(self._batch_workers, "device-dispatch")
+        self._inflight = threading.BoundedSemaphore(self._batch_workers)
         self._stats_lock = threading.Lock()
         self.batches = 0  # guarded-by: _stats_lock; formed micro-batches
         self.batch_rows = 0  # guarded-by: _stats_lock; rows in them
@@ -277,6 +354,10 @@ class MicroBatcher:
         self.deadline_rejections = 0  # guarded-by: _stats_lock
         self.max_answer_seconds = 0.0  # guarded-by: _stats_lock
         self.degraded_responses = 0  # guarded-by: _stats_lock
+        # rows shed at admission (429), and rows dropped with their
+        # deadline passed before evaluation (504)
+        self.shed_requests = 0  # guarded-by: _stats_lock
+        self.expired_dropped = 0  # guarded-by: _stats_lock
         # summed time from submission to batch formation
         self.queue_wait_ns = 0  # guarded-by: _stats_lock
         # submit_many calls and the rows they carried (rows per call is
@@ -320,7 +401,7 @@ class MicroBatcher:
     def warmup(self) -> None:
         """Warm every batch bucket up to ``max_batch_size`` and seed the
         device-RTT estimator: each bucket warms twice, and the second run
-        is the routing baseline."""
+        is the routing and shedding baseline."""
         sizes = []
         b = 1
         while b < self.max_batch_size:
@@ -328,7 +409,11 @@ class MicroBatcher:
             b <<= 1
         sizes.append(bucket_size(self.max_batch_size))
         self.env.warmup(tuple(sizes))
-        if self.latency_budget is None:
+        # the estimators serve the latency-budget router and the shedding
+        # check alike, so either knob seeds them; the seed is the second,
+        # build-free run (a first run's program build would overestimate
+        # the wait and shed sound traffic at boot)
+        if self.latency_budget is None and self.request_timeout is None:
             return
         # one warmup((b,)) dispatches once per schema bucket; a serving
         # batch dispatches once
@@ -368,6 +453,81 @@ class MicroBatcher:
                 break
             self._reject_stopping(p)
 
+    def fence_drain(self) -> list[_Pending]:
+        """Take every row still queued, atomically (the shard router's
+        fencing step). A queued row belongs to no batch worker and has not
+        been answered, so the router may re-route it or answer it 503
+        without a second answer being possible; rows the loop already
+        popped are answered by their batch worker (or, when the loop died
+        holding them, ``FencedError``). Overload waiters are woken to see
+        the room."""
+        q = self._queue
+        with q.mutex:
+            taken = list(q.queue)
+            q.queue.clear()
+            for p in taken:
+                p.owner = None  # the router answers for them now
+            q.not_full.notify_all()
+        return taken
+
+    # -- admission: deadlines, shedding and quota ----------------------------
+
+    def estimated_wait(self) -> float:
+        """Seconds until a row enqueued now would be dispatched: the queue
+        in batches × the measured device round trip of a full batch, over
+        the pipeline width (the host's cost per row stands in before any
+        device measurement). The shedding signal; it adds no margin, since
+        shedding on a pessimistic estimate would turn a burst that clears
+        into 429s."""
+        depth = self._queue.qsize()
+        if depth <= 0:
+            return 0.0
+        rtt = self._dev_rtt.get(bucket_size(self.max_batch_size))
+        if rtt is None:
+            rtt = self._host_cost_per_row * self.max_batch_size
+        batches = math.ceil(depth / self.max_batch_size)
+        return batches * rtt / self._batch_workers
+
+    def _shed_check(self, pending: _Pending) -> None:
+        """Raise ShedError when the estimated wait already exceeds the
+        row's remaining budget (no-op without a request timeout)."""
+        if pending.deadline is None:
+            return
+        est = self.estimated_wait()
+        if est > pending.deadline - time.perf_counter():
+            with self._stats_lock:
+                self.shed_requests += 1
+            raise ShedError(est)
+
+    def _admit_quota(self, pendings: list[_Pending]) -> None:
+        """Charge the rows to the tenant's quota; a denial raises ShedError
+        and counts the rows as shed here too (no-op without a quota)."""
+        adm = self.admission
+        if adm is None:
+            return
+        try:
+            adm.admit(len(pendings))
+        except ShedError:
+            with self._stats_lock:
+                self.shed_requests += len(pendings)
+            raise
+        for p in pendings:
+            p.quota_token = adm
+
+    @staticmethod
+    def _release_quota(p: _Pending) -> None:
+        """Release a row's in-flight claim on its first answer (the token is
+        cleared, so a later answer releases nothing)."""
+        tok = p.quota_token
+        if tok is not None:
+            p.quota_token = None
+            tok.release(1)
+
+    def _stamp(self, pending: _Pending) -> _Pending:
+        if self.request_timeout is not None:
+            pending.deadline = pending.enqueued_at + self.request_timeout
+        return pending
+
     # -- submission --------------------------------------------------------
 
     def submit(
@@ -378,11 +538,14 @@ class MicroBatcher:
     ) -> Future:
         """Queue one request → a Future of its response. A full queue waits
         for room (``_put_waiting``); after ``shutdown()`` the Future holds
-        the 503."""
-        pending = _Pending(policy_id, request, origin, Future())
+        the 503. Under a request timeout or a quota this may raise
+        ShedError instead."""
+        pending = self._stamp(_Pending(policy_id, request, origin, Future()))
         if self._stopping:
             self._reject_stopping(pending)
             return pending.future
+        self._shed_check(pending)
+        self._admit_quota([pending])
         self._put_waiting(pending)
         return pending.future
 
@@ -391,26 +554,36 @@ class MicroBatcher:
     _WAIT_SLICE_SECONDS = 0.05
 
     def _put_waiting(self, pending: _Pending) -> bool:
-        """Enqueue, waiting for room up to the request's policy timeout
-        (unbounded without one) and always watching ``_stopping``. True
-        when enqueued; False when answered in-band (429 or 503)."""
+        """Enqueue, waiting for room up to the request's policy timeout and
+        its propagated deadline (unbounded without either) and always
+        watching ``_stopping``. True when enqueued; False when answered
+        in-band (429, 504 or 503)."""
         while True:
             if self._stopping:
                 self._reject_stopping(pending)
                 return False
-            if self.policy_timeout is None:
+            bounds = []
+            if self.policy_timeout is not None:
+                bounds.append(pending.enqueued_at + self.policy_timeout)
+            if pending.deadline is not None:
+                bounds.append(pending.deadline)
+            if not bounds:
                 wait = self._WAIT_SLICE_SECONDS
             else:
-                remaining = (
-                    pending.enqueued_at + self.policy_timeout
-                    - time.perf_counter()
-                )
+                now = time.perf_counter()
+                remaining = min(bounds) - now
                 if remaining <= 0:
-                    self._reject_overloaded(pending)
+                    # a wait that ran out the propagated deadline is an
+                    # expired drop (504, counted), not an overload 429
+                    if pending.deadline is not None and now >= pending.deadline:
+                        self._reject_expired(pending)
+                    else:
+                        self._reject_overloaded(pending)
                     return False
                 wait = min(self._WAIT_SLICE_SECONDS, remaining)
             try:
                 self._queue.put(pending, timeout=wait)
+                pending.owner = self
             except queue.Full:
                 continue
             # shutdown may have finished both drains between the check
@@ -428,13 +601,17 @@ class MicroBatcher:
     ) -> Future:
         """``submit`` for callers that must never block (the native
         frontend's drainer): a full queue parks the bounded wait on the
-        overload pool and the Future is returned at once."""
-        pending = _Pending(policy_id, request, origin, Future())
+        overload pool and the Future is returned at once. Sheds as
+        ``submit`` does."""
+        pending = self._stamp(_Pending(policy_id, request, origin, Future()))
         if self._stopping:
             self._reject_stopping(pending)
             return pending.future
+        self._shed_check(pending)
+        self._admit_quota([pending])
         try:
             self._queue.put_nowait(pending)
+            pending.owner = self
             if self._stopping:
                 self._drain_rejecting()
             return pending.future
@@ -453,11 +630,13 @@ class MicroBatcher:
         sink: Any = None,
         tokens: list | None = None,
     ) -> list[Future] | None:
-        """Queue a burst under one admission stamp. Without ``sink``: one
-        Future per item. With ``sink`` and a parallel list of ``tokens``:
-        no Futures (returns None); ``sink.deliver_many([(token, response,
-        exc), ...])`` answers the rows batch by batch. Rows that do not fit
-        the queue wait on the overload pool; never blocks."""
+        """Queue a burst under one admission stamp, one shed estimate and
+        one quota charge. Without ``sink``: one Future per item. With
+        ``sink`` and a parallel list of ``tokens``: no Futures (returns
+        None); ``sink.deliver_many([(token, response, exc), ...])`` answers
+        the rows batch by batch. A shed burst answers every row ShedError
+        (a bulk call cannot raise per row). Rows that do not fit the queue
+        wait on the overload pool; never blocks."""
         if sink is not None and (tokens is None or len(tokens) != len(items)):
             raise ValueError("a sink needs one token per item")
         now = time.perf_counter()
@@ -473,6 +652,10 @@ class MicroBatcher:
                 _Pending(pid, req, origin, None, now, sink, token)
                 for (pid, req), token in zip(items, tokens)
             ]
+        if self.request_timeout is not None:
+            deadline = now + self.request_timeout
+            for p in pendings:
+                p.deadline = deadline
         with self._stats_lock:
             self.bulk_submits += 1
             self.bulk_submitted_rows += len(pendings)
@@ -480,6 +663,19 @@ class MicroBatcher:
             for p in pendings:
                 self._reject_stopping(p)
             return futures
+        if self.request_timeout is not None:
+            est = self.estimated_wait()
+            if est > self.request_timeout:
+                with self._stats_lock:
+                    self.shed_requests += len(pendings)
+                self._fail_all(pendings, ShedError(est))
+                return futures
+        if self.admission is not None:
+            try:
+                self._admit_quota(pendings)
+            except ShedError as err:
+                self._fail_all(pendings, err)
+                return futures
         overflow = self._put_burst(pendings)
         if self._stopping:
             self._drain_rejecting()
@@ -493,14 +689,16 @@ class MicroBatcher:
     def _put_burst(self, pendings: list[_Pending]) -> list[_Pending]:
         """Enqueue as many rows of a burst as fit under one acquisition of
         the queue's mutex (the deque and condition ``queue.Queue.put``
-        uses, without its lock round-trip per row) → the rows that did not
-        fit. Its one consumer, the formation loop, drains greedily, so a
-        single notify wakes it."""
+        uses, without its lock round-trip per row), stamping their owner
+        under it → the rows that did not fit. Its one consumer, the
+        formation loop, drains greedily, so a single notify wakes it."""
         q = self._queue
         with q.mutex:
             space = q.maxsize - len(q.queue) if q.maxsize > 0 else len(pendings)
             take = pendings[: max(0, space)]
             if take:
+                for p in take:
+                    p.owner = self
                 q.queue.extend(take)
                 q.unfinished_tasks += len(take)
                 q.not_empty.notify()
@@ -514,6 +712,19 @@ class MicroBatcher:
     def _reject_stopping(self, p: _Pending) -> None:
         self._resolve(
             p, AdmissionResponse.reject(p.request.uid(), STOPPING_MESSAGE, 503)
+        )
+
+    def _reject_expired(
+        self, p: _Pending, delivery: _DeliveryBatch | None = None
+    ) -> None:
+        """Answer a row whose propagated deadline passed before it was
+        evaluated: 504 in-band, counted, never encoded."""
+        with self._stats_lock:
+            self.expired_dropped += 1
+        self._resolve(
+            p,
+            AdmissionResponse.reject(p.request.uid(), EXPIRED_MESSAGE, 504),
+            delivery,
         )
 
     def queue_depth(self) -> int:
@@ -530,6 +741,8 @@ class MicroBatcher:
                 "deadline_abandoned_batches": self.deadline_abandoned_batches,
                 "host_fastpath_batches": self.host_fastpath_batches,
                 "budget_routed_batches": self.budget_routed_batches,
+                "shed_requests": self.shed_requests,
+                "expired_dropped": self.expired_dropped,
                 "degraded_responses": self.degraded_responses,
                 "queue_wait_ns": self.queue_wait_ns,
                 "bulk_submits": self.bulk_submits,
@@ -552,8 +765,10 @@ class MicroBatcher:
             batch: list[_Pending] = []
             try:
                 # chaos site, before any pop: a raise kills this thread
-                # holding no row (the self-heal drill)
-                failpoints.fire("shard.dispatch")
+                # holding no row (the self-heal and shard-fence drills),
+                # under the shard's scope so one shard can be killed
+                with failpoints.scope(self.failpoint_scope):
+                    failpoints.fire("shard.dispatch")
                 try:
                     first = self._queue.get(timeout=0.05)
                 except queue.Empty:
@@ -576,13 +791,12 @@ class MicroBatcher:
                     except queue.Empty:
                         break
                 self._launch_batch(batch)
-            except BaseException as e:
+            except BaseException:
                 # the thread is dying: rows it popped belong to no batch
-                # worker, so answer them before dispatch_wedged() sees it
-                delivery = _DeliveryBatch()
-                for p in batch:
-                    self._fail(p, e, delivery)
-                delivery.flush()
+                # worker and were never dispatched, so answer each 503 with
+                # Retry-After (a retry is safe) before dispatch_wedged()
+                # sees the dead thread
+                self._fail_all(batch, FencedError(0.5))
                 raise
 
     def _launch_batch(self, batch: list[_Pending]) -> None:
@@ -602,7 +816,9 @@ class MicroBatcher:
 
     def _process_batch(self, batch: list[_Pending]) -> None:
         try:
-            self._dispatch(batch)
+            # the tenant's failpoint scope rides the batch worker
+            with failpoints.scope(self.tenant):
+                self._dispatch(batch)
         except Exception as e:  # noqa: BLE001 — the worker must survive
             logger.exception("micro-batch dispatch failed")
             delivery = _DeliveryBatch()
@@ -620,6 +836,7 @@ class MicroBatcher:
         """Answer one row: its Future, or its sink through ``delivery``,
         which the caller flushes once for the batch (without one, the sink
         is called at once)."""
+        self._release_quota(p)
         if p.sink is not None:
             if p.answered:
                 return
@@ -639,8 +856,11 @@ class MicroBatcher:
         with self._stats_lock:
             self.max_answer_seconds = max(self.max_answer_seconds, waited)
 
-    @staticmethod
-    def _fail(p: _Pending, exc: BaseException, delivery: _DeliveryBatch) -> None:
+    @classmethod
+    def _fail(
+        cls, p: _Pending, exc: BaseException, delivery: _DeliveryBatch
+    ) -> None:
+        cls._release_quota(p)
         if p.sink is not None:
             if p.answered:
                 return
@@ -695,6 +915,11 @@ class MicroBatcher:
         runnable: list[_Pending] = []
         now = formed_at
         for p in batch:
+            # a row whose propagated deadline passed while it queued is
+            # dropped here, before any encode or dispatch
+            if p.deadline is not None and now >= p.deadline:
+                self._reject_expired(p, delivery)
+                continue
             try:
                 short = pre_evaluate(
                     self.env, p.policy_id, p.request, p.origin, p.enqueued_at
@@ -728,8 +953,27 @@ class MicroBatcher:
                 flightrec.PH_FORM, int(formed_at * 1e9), int(phase1_end * 1e9),
                 rows=len(batch), batch=brec.bid,
             )
-        if runnable:
+        if not runnable:
+            return
+        sched = self.scheduler
+        if sched is None:
             self._evaluate_runnable(runnable, brec)
+            return
+        from policy_server_tpu_torch.runtime import scheduler as fair
+
+        # the weighted-fair dispatch slot: a tenant past its share waits
+        # here, spending its own rows' budget while the others' batches
+        # keep flowing
+        if not sched.acquire(
+            self.tenant, fair.LIVE, should_abort=lambda: self._stopping
+        ):
+            for p in runnable:
+                self._reject_stopping(p)
+            return
+        try:
+            self._evaluate_runnable(runnable, brec)
+        finally:
+            sched.release(self.tenant)
 
     def _route_host(self, runnable: list[_Pending]) -> bool:
         """The latency fast path, two tiers: occupancy (a batch of at most
@@ -784,7 +1028,7 @@ class MicroBatcher:
         handoffs: list[tuple[int, int]] = []
         if self.policy_timeout is None:
             try:
-                with flightrec.batch_scope(bid):
+                with failpoints.scope(self.tenant), flightrec.batch_scope(bid):
                     results = fn(*args)
             except Exception as e:  # noqa: BLE001
                 self._fail_all(runnable, e)
@@ -894,12 +1138,12 @@ class MicroBatcher:
                 flightrec.FlightRecorder.ROW_SAMPLED,
             )
 
-    @staticmethod
-    def _scoped_timed(bid: int, fn: Any, *args: Any) -> tuple[Any, int, int]:
-        """``fn(*args)`` on a pool worker under the batch's recorder scope
-        → (result, start ns, end ns): the worker-side stamps give the
-        hand-off gaps around the pool crossing."""
-        with flightrec.batch_scope(bid):
+    def _scoped_timed(self, bid: int, fn: Any, *args: Any) -> tuple[Any, int, int]:
+        """``fn(*args)`` on a pool worker under the tenant's failpoint scope
+        and the batch's recorder scope → (result, start ns, end ns): the
+        worker-side stamps give the hand-off gaps around the pool
+        crossing."""
+        with failpoints.scope(self.tenant), flightrec.batch_scope(bid):
             t0 = time.perf_counter_ns()
             out = fn(*args)
             return out, t0, time.perf_counter_ns()
@@ -922,8 +1166,12 @@ class MicroBatcher:
     def _observe_dispatch(
         self, use_host: bool, n: int, dur: float, lower_bound: bool = False
     ) -> None:
-        """Feed the routing estimators with a measured evaluation."""
-        if self.latency_budget is None or n <= 0:
+        """Feed the estimators with a measured evaluation: they serve the
+        latency-budget router and the shedding check, so they stay live
+        when either knob is on."""
+        if (
+            self.latency_budget is None and self.request_timeout is None
+        ) or n <= 0:
             return
         if use_host:
             if not lower_bound:  # a truncated host batch measures nothing

@@ -43,8 +43,10 @@ from typing import Any
 
 from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.api.api_error import api_error_body as _api_error_body
+from policy_server_tpu_torch.api.api_error import shed_answer
 from policy_server_tpu_torch.api.handlers import MAX_BODY_BYTES, ApiHandler
 from policy_server_tpu_torch.models.admission import FragVerdict
+from policy_server_tpu_torch.runtime.batcher import ShedError
 from policy_server_tpu_torch.telemetry import flightrec
 from policy_server_tpu_torch.telemetry.tracing import logger
 
@@ -784,18 +786,29 @@ class BatcherSink:
 
     def _route(self, policy_id: str):
         """A bare id → the server's batcher; a two-segment id
-        ("tenant/policy", passed through verbatim by the C++ router)
-        names a tenant, and the port serves none: ``(None, policy, 404
-        body)`` with the JAX package's unknown-tenant text."""
+        ("tenant/policy", passed through verbatim by the C++ router) →
+        that tenant's batcher (``tenancy.resolve_tenant_batcher``), or
+        ``(None, policy, 404 body)`` with the unknown-tenant text both
+        frontends share. Per record of every burst, so the common case is
+        one substring test."""
         if "/" not in policy_id:
             return self.state.batcher, policy_id, None
-        tenant, _, pid = policy_id.partition("/")
-        return None, pid, _api_error_body(404, f"unknown tenant: {tenant}")
+        from policy_server_tpu_torch.tenancy import (
+            resolve_tenant_batcher,
+            unknown_tenant_message,
+        )
+
+        batcher, pid, unknown = resolve_tenant_batcher(self.state, policy_id)
+        if batcher is None:
+            return None, pid, _api_error_body(
+                404, unknown_tenant_message(unknown)
+            )
+        return batcher, pid, None
 
     def handle_burst(self, frontend: NativeFrontend, burst: list[tuple]) -> None:
-        """One poll burst → at most one submit_many per origin; fallback
-        records (the Python parse oracle, raw shapes) keep their
-        per-record path."""
+        """One poll burst → at most one submit_many per (tenant batcher,
+        origin); fallback records (the Python parse oracle, raw shapes)
+        keep their per-record path."""
         from policy_server_tpu_torch.api.service import RequestOrigin
         from policy_server_tpu_torch.runtime.frontend import WireValidateRequest
 
@@ -908,7 +921,11 @@ class BatcherSink:
         if batcher is None:
             frontend.complete(req_id, 404, not_found)
             return
-        fut = batcher.submit_nowait(policy_id, request, origin)
+        try:
+            fut = batcher.submit_nowait(policy_id, request, origin)
+        except ShedError as e:
+            _complete_shed(frontend, req_id, e)
+            return
         fut.add_done_callback(lambda f: _deliver(frontend, req_id, raw_shape, f))
 
     # -- batch-granular completion (MicroBatcher's sink) ---------------------
@@ -978,13 +995,21 @@ class BatcherSink:
     def _deliver_exc(frontend, req_id: int, exc: BaseException) -> None:
         from policy_server_tpu_torch.evaluation.errors import PolicyNotFoundError
 
-        if isinstance(exc, PolicyNotFoundError):
+        if isinstance(exc, ShedError):
+            _complete_shed(frontend, req_id, exc)
+        elif isinstance(exc, PolicyNotFoundError):
             frontend.complete(req_id, 404, _api_error_body(404, str(exc)))
         else:
             logger.error("Evaluation error: %s", exc)
             frontend.complete(
                 req_id, 500, _api_error_body(500, "Something went wrong")
             )
+
+
+def _complete_shed(frontend: NativeFrontend, req_id: int, exc) -> None:
+    """A shed (429) or fenced (503) answer, with its Retry-After header."""
+    status, retry, body = shed_answer(exc)
+    frontend.complete(req_id, status, body, retry)
 
 
 def _deliver(frontend: NativeFrontend, req_id: int, raw_shape: bool, fut) -> None:

@@ -25,10 +25,27 @@ is watched for a changed digest, SIGHUP (``reload_signal``) and ``POST
 (``make_batcher``): its queue holds ``workers`` × ``max_batch_size`` rows.
 With ``selfheal_interval_seconds`` above 0 (5 by default) a watchdog
 (``supervision.py``) revives a dead dispatch loop or native drainer.
+``request_timeout_ms`` (10,000 by default, as the JAX package's
+``--request-timeout-ms``) gives every row a propagated deadline: the
+batcher sheds at admission (429 and Retry-After) and drops rows that
+expired in its queue (504).
+
+``tenants`` (a ``tenancy.TenantManifest``, ``--tenants``) adds named
+tenants beside the default one: each gets its own environments, batcher
+(its quota, deadline and degraded mode from its manifest entry) and
+lifecycle over its own policies file, all sharing one weighted-fair
+dispatch scheduler (``state.tenants`` is the ``TenantManager``).
+``serving_shards`` above 1 serves every tenant from that many stacks behind
+a ``runtime/shards.ShardRouter`` whose heartbeat (``shard_heartbeat_seconds``)
+fences a dead shard and revives it; at 1 the plain batcher serves, with no
+router on the path. Every epoch, reload candidate and rollback of every
+tenant builds its serving plane through one ``build_batcher``.
+
 ``stop()`` follows the JAX package's order: the watchdog, then the native
-frontend stops accepting, then every epoch's batcher answers what it holds
-(503 for rows not yet in a batch) and its environment closes, then the
-native frontend flushes and frees.
+frontend stops accepting, then the named tenants' epochs, then every epoch
+of the default tenant: each batcher answers what it holds (503 for rows not
+yet in a batch) and its environments close, then the native frontend
+flushes and frees.
 
 ``frontend="native"`` (``--frontend native``) serves the API port's
 evaluation POSTs (``/validate``, ``/validate_raw``, ``/audit``) from the
@@ -52,6 +69,7 @@ import threading
 from http.server import ThreadingHTTPServer
 from typing import Any, Iterator, Mapping
 
+from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.api import profiling
 from policy_server_tpu_torch.api.handlers import ApiHandler, ReadinessHandler
 from policy_server_tpu_torch.api.state import ApiServerState
@@ -71,6 +89,17 @@ from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_POLICY_TIMEOUT,
     MicroBatcher,
 )
+from policy_server_tpu_torch.runtime.scheduler import FairDispatchScheduler
+from policy_server_tpu_torch.runtime.shards import build_serving_shards
+from policy_server_tpu_torch.tenancy import (
+    DEFAULT_TENANT,
+    Tenant,
+    TenantAdmission,
+    TenantManager,
+    TenantManifest,
+    TenantSpec,
+    TenantState,
+)
 from policy_server_tpu_torch.telemetry import (
     default_registry,
     flightrec,
@@ -83,6 +112,8 @@ FRONTENDS = ("python", "native")
 RELOAD_MODES = ("off", "auto", "manual")
 DEFAULT_RELOAD_CANARY_REQUESTS = 64
 DEFAULT_SELFHEAL_INTERVAL_SECONDS = 5.0
+DEFAULT_REQUEST_TIMEOUT_MS = 10000.0
+DEFAULT_SHARD_HEARTBEAT_SECONDS = 0.5
 DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS = nf.NativeFrontend.IDLE_TIMEOUT_MS / 1000
 DEFAULT_NATIVE_READ_TIMEOUT_SECONDS = nf.NativeFrontend.READ_TIMEOUT_MS / 1000
 
@@ -101,6 +132,18 @@ class _HttpServer(ThreadingHTTPServer):
     ) -> None:
         self.state = state
         super().__init__(addr, handler)
+
+
+def _admission_of(spec: TenantSpec) -> TenantAdmission | None:
+    """A tenant's quota, or None when its entry sets none."""
+    if spec.quota_rows_per_second > 0 or spec.max_inflight > 0:
+        return TenantAdmission(
+            spec.name,
+            rows_per_second=spec.quota_rows_per_second,
+            burst=spec.quota_burst,
+            max_inflight=spec.max_inflight,
+        )
+    return None
 
 
 def default_workers() -> int:
@@ -127,10 +170,11 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     ``device_errors`` and kernel stats, the policy lifecycle's and the
     supervisor's counters, and the flight recorder's. Everything is read
     through ``state``, so the scrape follows the epoch flips. Families
-    whose subsystem the port has not got (tenants, audit, shards,
-    shedding) are not emitted; the native frontend's read zero under
-    ``--frontend python``, the lifecycle's under
-    ``--policy-reload-mode off``."""
+    whose subsystem the port has not got (audit) are not emitted; the
+    native frontend's read zero under ``--frontend python``, the
+    lifecycle's under ``--policy-reload-mode off``, the tenant families
+    have no samples without ``--tenants`` and the shard families show one
+    shard and no fence at ``--serving-shards 1``, as the JAX package's."""
     batcher = state.batcher
     env = state.evaluation_environment
     b = batcher.stats_snapshot()
@@ -198,6 +242,12 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.BUDGET_ROUTED_BATCHES, "counter",
            "Batches routed host-side by the latency-budget check",
            b["budget_routed_batches"])
+    yield (names.SHED_REQUESTS, "counter",
+           "Requests shed at admission (429 + Retry-After)",
+           b["shed_requests"])
+    yield (names.EXPIRED_DROPPED, "counter",
+           "Expired rows dropped before encode/dispatch (no dead work)",
+           b["expired_dropped"])
     yield (names.DEGRADED_RESPONSES, "counter",
            "Requests answered by the --degraded-mode policy while the "
            "device breaker was fully tripped", b["degraded_responses"])
@@ -263,6 +313,7 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.PALLAS_BUCKETS_ARMED, "gauge",
            "Schema buckets the policy_matrix kernel serves",
            kernel["buckets_armed"])
+    yield from _tenant_families(state)
     lstats = state.lifecycle.stats() if state.lifecycle is not None else {}
     yield (names.POLICY_RELOADS, "counter",
            "Policy hot-reload promotions (new epoch serving)",
@@ -300,6 +351,7 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.SELFHEAL_FRONTEND_REVIVES, "counter",
            "Native-frontend drainer threads the self-heal watchdog found "
            "dead and rebuilt", sup.get("frontend_revives", 0))
+    yield from _shard_families(batcher, b)
     rec = flightrec.recorder()
     yield (names.FLIGHT_RECORDER_EVENTS, "counter",
            "Phase events written to the flight-recorder ring",
@@ -320,6 +372,79 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
         ],
         ("trace_id", "policy_id", "slowest_phase"),
     )
+
+
+def _tenant_families(state: ApiServerState) -> Iterator[tuple]:
+    """The tenant-labelled families (no samples without tenants)."""
+    t = state.tenants.stats() if state.tenants is not None else {}
+    for name, kind, text, key in (
+        (names.TENANT_SHED_ROWS, "counter",
+         "Rows shed by a tenant's admission quota (token bucket + "
+         "in-flight cap; 429 + Retry-After)", "shed_rows"),
+        (names.TENANT_ADMITTED_ROWS, "counter",
+         "Rows admitted through a tenant's admission quota", "admitted_rows"),
+        (names.TENANT_INFLIGHT_ROWS, "gauge",
+         "Admitted-but-unresolved rows per tenant (the max-inflight cap's "
+         "numerator)", "inflight_rows"),
+        (names.TENANT_QUEUE_DEPTH, "gauge",
+         "Requests waiting in each tenant batcher's submission queue",
+         "queue_depth"),
+        (names.TENANT_DISPATCH_GRANTS, "counter",
+         "Weighted-fair dispatch slots granted per tenant (live + audit "
+         "classes)", "dispatch_grants"),
+        (names.TENANT_DISPATCH_WAIT_SECONDS, "counter",
+         "Cumulative time each tenant's batches waited for a "
+         "fair-scheduler dispatch slot", "dispatch_wait_seconds"),
+        (names.TENANT_EPOCH, "gauge",
+         "Each tenant's currently serving policy epoch", "epoch"),
+        (names.TENANT_ROLLBACKS, "counter",
+         "Per-tenant reverts to last-good (rejected canaries + explicit "
+         "rollbacks)", "rollbacks"),
+        (names.TENANT_READY, "gauge",
+         "Per-tenant honest readiness (1 ready, 0 degraded — the "
+         "/readiness/{tenant} verdict)", "ready"),
+    ):
+        yield (name, kind, text, t.get(key, []), ("tenant",))
+    yield (names.TENANTS_SERVING, "gauge",
+           "Tenants served by this process (0 without a tenants manifest; "
+           "includes the default tenant otherwise)", t.get("serving", 0))
+
+
+def _shard_families(batcher: Any, b: dict) -> Iterator[tuple]:
+    """The serving-shard families of the default tenant's plane: one
+    shard and no fence at ``--serving-shards 1``."""
+    rows = batcher.shard_health() if hasattr(batcher, "shard_health") else []
+    yield (names.SHARDS_SERVING, "gauge",
+           "Host-local serving shards behind the router (--serving-shards; "
+           "1 = router bypassed)", len(rows) or 1)
+    yield (names.SHARD_HEALTHY, "gauge",
+           "Per-shard routability (1 = routable, 0 = fenced pending warm "
+           "revive)",
+           [((str(r["shard"]),), 1 if r["healthy"] else 0) for r in rows],
+           ("shard",))
+    yield (names.SHARD_QUEUE_DEPTH, "gauge",
+           "Per-shard submission queue depth (the router's EWMA routing "
+           "signal reads this)",
+           [((str(r["shard"]),), r["queue_depth"]) for r in rows],
+           ("shard",))
+    for name, text, key in (
+        (names.SHARD_FENCES,
+         "Shards fenced by the heartbeat (wedged/dead dispatch loop or "
+         "faulted probe)", "shard_fences"),
+        (names.SHARD_REROUTED_ROWS,
+         "Queued rows re-routed to a sibling shard at fence time "
+         "(deadline, trace, and quota token preserved)", "shard_reroutes"),
+        (names.SHARD_FENCED_ROWS,
+         "Queued rows answered 503+Retry-After at fence time (no sibling "
+         "had room)", "shard_fenced_rows"),
+        (names.SHARD_RESPAWNS,
+         "Fenced shards warm-revived in place (queue, pools, caches, and "
+         "compiled programs survive)", "shard_respawns"),
+        (names.SHARD_HEARTBEAT_FAULTS,
+         "shard.heartbeat failpoint faults observed by the router's prober",
+         "shard_heartbeat_faults"),
+    ):
+        yield (name, "counter", text, b.get(key, 0))
 
 
 class PolicyServer:
@@ -360,6 +485,10 @@ class PolicyServer:
         selfheal_interval_seconds: float = DEFAULT_SELFHEAL_INTERVAL_SECONDS,
         policies_path: str | None = None,
         policies_text: str | None = None,
+        request_timeout_ms: float = DEFAULT_REQUEST_TIMEOUT_MS,
+        tenants: TenantManifest | None = None,
+        serving_shards: int = 1,
+        shard_heartbeat_seconds: float = DEFAULT_SHARD_HEARTBEAT_SECONDS,
     ) -> None:
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
@@ -418,9 +547,37 @@ class PolicyServer:
                 ),
             ).build(dict(policy_set))
 
-        def make_batcher(env: Any) -> MicroBatcher:
-            """The one batcher builder: boot, every reload epoch and every
-            rollback get the same knobs (not started)."""
+        # the tenants' shared dispatch scheduler and the default tenant's
+        # quota exist before any batcher; without a manifest both are None
+        # and every batcher is the single-tenant one
+        scheduler = None
+        default_spec: TenantSpec | None = None
+        default_admission = None
+        if tenants is not None:
+            default_spec = tenants.default
+            weights = {n: t.weight for n, t in tenants.tenants.items()}
+            weights[DEFAULT_TENANT] = default_spec.weight
+            scheduler = FairDispatchScheduler(
+                max_concurrent=tenants.max_concurrent_dispatches,
+                weights=weights,
+            )
+            default_admission = _admission_of(default_spec)
+        supervisor = SupervisorStats()
+
+        def make_batcher(
+            env: Any, tenant: str, admission: Any, spec: TenantSpec | None,
+            shadow: Any,
+        ) -> MicroBatcher:
+            """The one batcher builder: every tenant, epoch and rollback
+            gets the same knobs (not started), with a tenant's own
+            deadline and degraded mode where its manifest entry sets
+            them."""
+            timeout_ms, degraded = request_timeout_ms, degraded_mode
+            if spec is not None:
+                if spec.request_timeout_ms is not None:
+                    timeout_ms = spec.request_timeout_ms
+                if spec.degraded_mode is not None:
+                    degraded = spec.degraded_mode
             return MicroBatcher(
                 env,
                 max_batch_size=max_batch_size,
@@ -428,22 +585,50 @@ class PolicyServer:
                 policy_timeout=policy_timeout,
                 host_fastpath_threshold=host_fastpath_threshold,
                 latency_budget_ms=latency_budget_ms,
-                degraded_mode=degraded_mode,
+                degraded_mode=degraded,
                 queue_capacity=queue_capacity,
-                shadow_recorder=recorder,
+                shadow_recorder=shadow,
+                request_timeout_ms=timeout_ms,
+                admission=admission,
+                scheduler=scheduler,
+                tenant=tenant,
             )
 
+        def plane_builder(
+            tenant: str, admission: Any, spec: TenantSpec | None, shadow: Any
+        ):
+            """A tenant's ``build_batcher``: the plain batcher at one
+            shard, else a shard router whose siblings' environments are
+            rebuilt from ``env.source_policies``; the tenant's quota and
+            the scheduler are shared by its shards."""
+            return lambda env: build_serving_shards(
+                env,
+                lambda e: make_batcher(e, tenant, admission, spec, shadow),
+                build_environment,
+                serving_shards,
+                heartbeat_seconds=shard_heartbeat_seconds,
+                supervisor=supervisor,
+            )
+
+        build_batcher = plane_builder(
+            DEFAULT_TENANT, default_admission, default_spec, recorder
+        )
         env = build_environment(policies)
-        batcher = make_batcher(env)
+        try:
+            batcher = build_batcher(env)
+        except BaseException:
+            env.close()
+            raise
         self._selfheal_interval = selfheal_interval_seconds
         self._selfheal: SelfHealWatchdog | None = None
         self.state = ApiServerState(
             env, batcher, hostname=socket.gethostname(),
             enable_pprof=enable_pprof, ready=False,
-            admin_token=reload_admin_token, supervisor=SupervisorStats(),
+            admin_token=reload_admin_token, supervisor=supervisor,
         )
         self.lifecycle: PolicyLifecycleManager | None = None
         self._httpd: _HttpServer | None = None
+        manager = None
         try:
             if warmup:
                 batcher.warmup()
@@ -453,7 +638,7 @@ class PolicyServer:
                     state=self.state,
                     build_environment=build_environment,
                     build_oracle_environment=build_oracle_environment,
-                    build_batcher=make_batcher,
+                    build_batcher=build_batcher,
                     recorder=recorder,
                     read_policies=(
                         (lambda: read_policies_source(policies_path))
@@ -465,6 +650,20 @@ class PolicyServer:
                     divergence_threshold=reload_divergence_threshold,
                     warmup=warmup,
                 )
+            if tenants is not None:
+                manager = TenantManager(scheduler=scheduler)
+                manager.add(
+                    Tenant(DEFAULT_TENANT, default_spec, self.state,
+                           default_admission)
+                )
+                for name, spec in tenants.tenants.items():
+                    manager.add(self._build_tenant(
+                        name, spec, build_environment,
+                        build_oracle_environment, plane_builder,
+                        reload_enabled, policy_reload_mode,
+                        reload_canary_requests, reload_divergence_threshold,
+                        warmup,
+                    ))
             # the API port first (its native library and poll buffer too,
             # before the collection below), the readiness port once it is
             # bound
@@ -491,6 +690,8 @@ class PolicyServer:
                 (host, readiness_probe_port), ReadinessHandler, self.state
             )
         except BaseException:
+            if manager is not None:
+                manager.shutdown()
             self._close_api()
             batcher.shutdown()
             env.close()
@@ -508,7 +709,86 @@ class PolicyServer:
             self.lifecycle.start_watching()
         else:
             self.state.ready = True
+        if manager is not None:
+            for t in manager.named():
+                if t.state.lifecycle is not None:
+                    t.state.lifecycle.start_watching()
+            self.state.tenants = manager
         self._threads: list[threading.Thread] = []
+
+    @staticmethod
+    def _build_tenant(
+        name: str, spec: TenantSpec, build_environment: Any,
+        build_oracle_environment: Any, plane_builder: Any,
+        reload_enabled: bool, reload_mode: str, canary_requests: int,
+        divergence_threshold: float, warmup: bool,
+    ) -> Tenant:
+        """One named tenant's stack: its policies (the ``tenant.reload``
+        failpoint fires first, under its scope), environment, serving
+        plane (its quota, deadline and degraded mode) and, with reload on,
+        its lifecycle over its policies file with a shadow ring of its
+        own."""
+        with failpoints.scope(name):
+            failpoints.fire("tenant.reload")
+        t_policies, t_text = read_policies_source(spec.policies_path)
+        admission = _admission_of(spec)
+        shadow = (
+            ShadowRecorder(capacity=canary_requests) if reload_enabled else None
+        )
+        build_batcher = plane_builder(name, admission, spec, shadow)
+        t_env = build_environment(t_policies)
+        try:
+            t_batcher = build_batcher(t_env)
+        except BaseException:
+            t_env.close()
+            raise
+        state = TenantState(name=name)
+        try:
+            if warmup:
+                t_batcher.warmup()
+            t_batcher.start()
+        except BaseException:
+            t_batcher.shutdown()
+            t_env.close()
+            raise
+        if reload_enabled:
+
+            def read_policies(path: str = spec.policies_path):
+                # the tenant's reload runs under its failpoint scope, so a
+                # scoped fault here rejects this tenant's reload only
+                failpoints.fire("tenant.reload")
+                return read_policies_source(path)
+
+            state.lifecycle = PolicyLifecycleManager(
+                state=state,
+                build_environment=build_environment,
+                build_oracle_environment=build_oracle_environment,
+                build_batcher=build_batcher,
+                recorder=shadow,
+                read_policies=read_policies,
+                policies_path=spec.policies_path,
+                mode=reload_mode,
+                canary_requests=canary_requests,
+                divergence_threshold=divergence_threshold,
+                warmup=warmup,
+                tenant=name,
+            )
+            state.lifecycle.install_first_epoch(
+                t_env, t_batcher, t_policies, policies_yaml=t_text
+            )
+        else:
+            state.evaluation_environment = t_env
+            state.batcher = t_batcher
+            state.ready = True
+        logger.info(
+            "tenant serving", extra={"span_fields": {
+                "tenant": name,
+                "policies": len(t_policies),
+                "weight": spec.weight,
+                "quota_rows_per_second": spec.quota_rows_per_second,
+            }},
+        )
+        return Tenant(name, spec, state, admission)
 
     @property
     def env(self) -> Any:
@@ -610,9 +890,12 @@ class PolicyServer:
         self._httpd.serve_forever()
 
     def reload_signal(self) -> None:
-        """SIGHUP: start a background policy reload (the work runs on a
-        daemon thread, so this is safe in a signal handler)."""
-        if self.lifecycle is not None:
+        """SIGHUP: start a background policy reload, of every tenant under
+        ``--tenants`` (the work runs on daemon threads, so this is safe in
+        a signal handler)."""
+        if self.state.tenants is not None:
+            self.state.tenants.reload_all("sighup")
+        elif self.lifecycle is not None:
             self.lifecycle.request_reload("sighup")
 
     def stop(self) -> None:
@@ -630,6 +913,10 @@ class PolicyServer:
                 httpd.shutdown()
         for t in self._threads:
             t.join(5)
+        if self.state.tenants is not None:
+            # the named tenants first (each lifecycle closes its own
+            # epochs); the default tenant follows
+            self.state.tenants.shutdown()
         if self.lifecycle is not None:
             # the lifecycle owns every epoch: current, pinned and staged
             self.lifecycle.shutdown()

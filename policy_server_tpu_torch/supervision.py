@@ -9,7 +9,8 @@
 
 * :class:`SelfHealWatchdog` — a daemon thread that checks, every
   ``interval_seconds``, that the threads a request depends on are alive:
-  the batcher's dispatch loop and the native frontend's drainer. A thread
+  every tenant's batcher's dispatch loop (a shard router's heartbeat, under
+  ``--serving-shards``) and the native frontend's drainer. A thread
   that died outside shutdown leaves a zombie server: the port stays bound,
   readiness answers 200 and every request times out. The watchdog starts a
   new thread in its place (``MicroBatcher.revive_dispatch``,
@@ -98,9 +99,17 @@ class SelfHealWatchdog:
             self._thread = None
 
     def _batchers(self) -> list[Any]:
-        """The batchers to check: the serving epoch's (the port serves no
-        tenants)."""
-        return [self.state.batcher]
+        """The batchers to check: the serving epoch's of every tenant. A
+        shard router's liveness is its heartbeat's, which owns fencing and
+        reviving its shards, so each shard revive is counted once."""
+        out = [self.state.batcher]
+        tenants = self.state.tenants
+        if tenants is not None:
+            for t in tenants.all():
+                b = t.state.batcher
+                if b is not None and b not in out:
+                    out.append(b)
+        return out
 
     def check_once(self) -> int:
         """One liveness pass → the number of revives it made."""

@@ -116,6 +116,26 @@ WATCH_EVENTS_DROPPED = "policy_server_audit_watch_events_dropped"
 WATCH_RESYNCS = "policy_server_audit_watch_resyncs"
 NATIVE_IDLE_CLOSES = "policy_server_native_idle_timeout_closes"
 NATIVE_CONN_CAP_REJECTS = "policy_server_native_connection_cap_rejections"
+TENANT_SHED_ROWS = "policy_server_tenant_shed_rows"
+TENANT_ADMITTED_ROWS = "policy_server_tenant_admitted_rows"
+TENANT_INFLIGHT_ROWS = "policy_server_tenant_inflight_rows"
+TENANT_QUEUE_DEPTH = "policy_server_tenant_queue_depth"
+TENANT_DISPATCH_GRANTS = "policy_server_tenant_dispatch_grants"
+TENANT_DISPATCH_WAIT_SECONDS = (
+    "policy_server_tenant_dispatch_wait_seconds_total"
+)
+TENANT_EPOCH = "policy_server_tenant_policy_epoch"
+TENANT_ROLLBACKS = "policy_server_tenant_reload_rollbacks"
+TENANT_READY = "policy_server_tenant_ready"
+TENANTS_SERVING = "policy_server_tenants_serving"
+SHARDS_SERVING = "policy_server_shards_serving"
+SHARD_HEALTHY = "policy_server_shard_healthy"
+SHARD_QUEUE_DEPTH = "policy_server_shard_queue_depth"
+SHARD_FENCES = "policy_server_shard_fences"
+SHARD_REROUTED_ROWS = "policy_server_shard_rerouted_rows"
+SHARD_FENCED_ROWS = "policy_server_shard_fenced_rows"
+SHARD_RESPAWNS = "policy_server_shard_respawns"
+SHARD_HEARTBEAT_FAULTS = "policy_server_shard_heartbeat_faults"
 SOAK_WINDOW_RPS = "policy_server_soak_window_rps"
 SOAK_WINDOW_P99_MS = "policy_server_soak_window_p99_ms"
 SOAK_WINDOW_SHED_RATE = "policy_server_soak_window_shed_rate"

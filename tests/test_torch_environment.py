@@ -188,6 +188,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.runtime.frontend",
             "policy_server_tpu_torch.supervision",
             "policy_server_tpu_torch.lifecycle",
+            "policy_server_tpu_torch.tenancy",
+            "policy_server_tpu_torch.runtime.scheduler",
+            "policy_server_tpu_torch.runtime.shards",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
@@ -208,6 +211,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         if isinstance(node, ast.ImportFrom) and node.module
     }
     assert "policy_server_tpu_torch.server" in imported
+    assert "policy_server_tpu_torch.runtime.shards" in imported
     assert not {n for n in imported if n.split(".")[0] in _NOT_ON_THE_CARD}
 
 

@@ -200,10 +200,20 @@ def test_metrics_expose_the_runtime_families_the_port_has(server):
         r"^policy_server_batches_dispatched_total (\S+)$", text, re.M
     ).group(1))
     assert batches >= N_REQUESTS / 8
-    # subsystems the port has not got export no family
-    for prefix in ("policy_server_tenant", "policy_server_audit",
-                   "policy_server_shard", "policy_server_shed"):
-        assert not [n for n in types if n.startswith(prefix)], prefix
+    # the audit subsystem, which the port has not got, exports no family;
+    # shedding, tenants and shards export theirs at the default flags
+    assert not [n for n in types if n.startswith("policy_server_audit")]
+    for name, kind in (
+        ("policy_server_shed_requests_total", "counter"),
+        ("policy_server_expired_dropped_rows_total", "counter"),
+        ("policy_server_tenant_shed_rows_total", "counter"),
+        ("policy_server_tenants_serving", "gauge"),
+        ("policy_server_shards_serving", "gauge"),
+        ("policy_server_shard_fences_total", "counter"),
+    ):
+        assert types.get(name) == kind, name
+    assert "policy_server_tenants_serving 0.0" in text
+    assert "policy_server_shards_serving 1.0" in text
 
 
 def test_timeline_is_chrome_trace_json_with_each_stamped_phase(server):

@@ -13,12 +13,22 @@ timeouts of 0.2 s.
 
 Also held: the server's queue bound (``--workers`` × ``--max-batch-size``)
 and a server stopped with requests in flight, through both frontends,
-answering each with a verdict or the in-band 503, never a 500."""
+answering each with a verdict or the in-band 503, never a 500.
+
+Deadlines and load shedding (``--request-timeout-ms``, the cases of the
+JAX package's ``tests/test_resilience.py`` and ``test_native_frontend.py``):
+the shed at admission (``ShedError``, 429), the expired rows' 504 before
+encode, the overload wait that ends at the deadline, a shed burst's
+Retry-After from the measured round trip, the round trip seeded from the
+second warmup run under a request timeout alone, the 429/503 answers with
+Retry-After through both frontends, and the 10 s default; the JAX side runs
+on its host oracle here."""
 
 from __future__ import annotations
 
 import http.client
 import json
+import re
 import struct
 import threading
 import time
@@ -338,9 +348,9 @@ def test_overload_and_shutdown_bodies_through_both_frontends(envs):
     tb = tside.batcher(queue_capacity=1)
     (tp0, tr0), _, _ = tside.pairs(items)
     tb.submit(tp0, tr0, tside.origin)
-    got = [evaluate_body(tb, "validate", items[1][0], json.dumps(docs[1]).encode())]
+    got = [evaluate_body(tb, "validate", items[1][0], json.dumps(docs[1]).encode())[:2]]
     tb.shutdown()
-    got.append(evaluate_body(tb, "validate", items[2][0], json.dumps(docs[2]).encode()))
+    got.append(evaluate_body(tb, "validate", items[2][0], json.dumps(docs[2]).encode())[:2])
 
     # the port's native frontend: its sink's deliveries, rendered
     tb = tside.batcher(queue_capacity=1)
@@ -533,3 +543,316 @@ def test_concurrent_submitters_racing_shutdown_all_answered_once(envs):
         t_service.evaluate(tside.env, p, r, tside.origin).to_dict() for p, r in pairs
     ]))
     assert set(codes) <= verdicts | {429, 503} and 503 in codes
+
+
+# -- deadlines and load shedding (--request-timeout-ms) -------------------------
+
+
+@pytest.fixture(scope="module")
+def shed_envs():
+    """(the JAX package's host-oracle environment, the port's on the CPU)."""
+    return (
+        jax_env(SPECS, backend="oracle"),
+        torch_env(SPECS, verdict_cache_size=0),
+    )
+
+
+def _shed(exc) -> tuple:
+    return (type(exc).__name__, exc.http_status, exc.message)
+
+
+def test_admission_sheds_when_estimated_wait_exceeds_budget(shed_envs):
+    """A measured slow device and a queue: a row whose deadline cannot be
+    met raises ShedError at admission, counted, and the admitted row stays
+    queued (503 at shutdown)."""
+    items = _items(2, 20)
+    out = {}
+    for side in sides(shed_envs):
+        b = side.batcher(max_batch_size=4, policy_timeout=5.0,
+                         request_timeout_ms=50.0)
+        (p0, r0), (p1, r1) = side.pairs(items)
+        b._dev_rtt[4] = 1.0  # 1 s per full batch
+        fut = b.submit(p0, r0, side.origin)
+        with pytest.raises(Exception) as e:
+            b.submit(p1, r1, side.origin)
+        shed = (_shed(e.value), e.value.retry_after_seconds > 0.05,
+                b.stats_snapshot()["shed_requests"], fut.done())
+        b.shutdown()
+        out[side.name] = (shed, _dict(fut.result(timeout=1)))
+    assert out["port"] == out["jax"]
+    (name, status, message), _retry, shed_count, done = out["port"][0]
+    assert (name, status, shed_count, done) == ("ShedError", 429, 1, False)
+    assert out["port"][1]["status"]["code"] == 503
+
+
+def test_expired_rows_dropped_pre_encode_no_dead_work(shed_envs):
+    """Rows whose deadline passed in the queue answer 504 "request
+    deadline exceeded before evaluation", counted, and are never encoded;
+    a fresh row on the same batcher is served."""
+    items = _items(6, 21)
+    out = {}
+    for side in sides(shed_envs):
+        b = side.batcher(max_batch_size=8, policy_timeout=5.0,
+                         request_timeout_ms=100.0, host_fastpath_threshold=0,
+                         latency_budget_ms=0)
+        pairs = side.pairs(items)
+        futs = [b.submit(p, r, side.origin) for p, r in pairs[:5]]
+        time.sleep(0.25)
+        rows0 = side.env.host_profile["encode_rows"] if side.name == "port" else 0
+        b.start()
+        got = [_dict(f.result(timeout=5)) for f in futs]
+        expired = b.stats_snapshot()["expired_dropped"]
+        if side.name == "port":
+            assert side.env.host_profile["encode_rows"] == rows0
+        p, r = pairs[5]
+        fresh = _dict(b.submit(p, r, side.origin).result(timeout=10))
+        if side.name == "port":
+            assert side.env.host_profile["encode_rows"] > rows0
+        b.shutdown()
+        out[side.name] = (got, expired, fresh)
+    assert out["port"] == out["jax"]
+    got, expired, fresh = out["port"]
+    assert _codes(got) == [504] * 5 and expired == 5
+    assert {d["status"]["message"] for d in got} == {
+        "request deadline exceeded before evaluation"
+    }
+    assert (fresh.get("status") or {}).get("code") != 504
+
+
+def test_request_timeout_disabled_keeps_legacy_behavior(shed_envs):
+    items = _items(1, 22)
+    out = {}
+    for side in sides(shed_envs):
+        b = side.batcher(max_batch_size=4, policy_timeout=5.0)
+        b._dev_rtt[4] = 100.0
+        b.start()
+        (p, r), = side.pairs(items)
+        got = _dict(b.submit(p, r, side.origin).result(timeout=10))
+        stats = b.stats_snapshot()
+        b.shutdown()
+        out[side.name] = (got, stats["shed_requests"], stats["expired_dropped"])
+    assert out["port"] == out["jax"]
+    assert out["port"][1:] == (0, 0)
+
+
+def test_overload_wait_past_the_deadline_is_an_expired_504(shed_envs):
+    """A full queue: a row whose request deadline ends before its policy
+    timeout answers the expired 504, not the overload 429."""
+    items = _items(2, 23)
+    out = {}
+    for side in sides(shed_envs):
+        b = side.batcher(queue_capacity=1, policy_timeout=5.0,
+                         request_timeout_ms=150.0)
+        (p0, r0), (p1, r1) = side.pairs(items)
+        b.submit(p0, r0, side.origin)
+        t0 = time.perf_counter()
+        got = _dict(b.submit_nowait(p1, r1, side.origin).result(timeout=5))
+        assert 0.1 < time.perf_counter() - t0 < 2.0, side.name
+        out[side.name] = (got, b.stats_snapshot()["expired_dropped"])
+        b.shutdown()
+    assert out["port"] == out["jax"]
+    assert out["port"][0]["status"]["code"] == 504 and out["port"][1] == 1
+
+
+def test_submit_many_shed_retry_after_derives_from_ewma(shed_envs):
+    """A shed burst answers every row ShedError stamped with the estimate
+    the check used: four times the device round trip, four times the
+    retry."""
+    items = _items(4, 24)
+    out = {}
+    for side in sides(shed_envs):
+        b = side.batcher(max_batch_size=4, policy_timeout=5.0,
+                         request_timeout_ms=50.0)
+        pairs = side.pairs(items)
+        b.submit(*pairs[0], side.origin)
+        retries = []
+        for rtt in (2.0, 8.0):
+            b._dev_rtt[4] = rtt
+            est = b.estimated_wait()
+            errs = []
+            for f in b.submit_many(pairs[1:], side.origin):
+                with pytest.raises(Exception) as e:
+                    f.result(timeout=1)
+                errs.append((_shed(e.value), e.value.retry_after_seconds))
+            assert {r for _s, r in errs} == {est}, side.name
+            retries.append(errs)
+        # and through a sink, one delivery per row
+        sink = _RecordingSink(3)
+        b.submit_many(pairs[1:], side.origin, sink=sink, tokens=[0, 1, 2])
+        assert sink.done.wait(5)
+        sunk = sorted((t, _shed(e), e.retry_after_seconds) for t, _r, e in sink.items)
+        out[side.name] = (retries, sunk, b.stats_snapshot()["shed_requests"])
+        b.shutdown()
+    assert out["port"] == out["jax"]
+    retries, sunk, shed = out["port"]
+    assert retries[1][0][1] == pytest.approx(4 * retries[0][0][1])
+    assert shed == 9 and len(sunk) == 3
+
+
+def test_shed_error_maps_to_http_429_with_retry_after():
+    """429 (and FencedError's 503), Retry-After ceil(retry) and the body
+    {"message", "retry_after_seconds"}: the JAX package's aiohttp handler's
+    answer, the port's standard-library frontend's and its native sink's."""
+    import asyncio
+
+    from policy_server_tpu.api import handlers as jhandlers
+    from policy_server_tpu.runtime import batcher as jbatcher
+    from policy_server_tpu_torch.runtime import batcher as tbatcher
+
+    doc = _docs(1, 25)[0]
+    for jerr, terr in (
+        (jbatcher.ShedError(2.3), tbatcher.ShedError(2.3)),
+        (jbatcher.FencedError(0.5), tbatcher.FencedError(0.5)),
+    ):
+        class JaxRaising:
+            async def submit_async(self, *args):
+                raise jerr
+
+        class PortRaising:
+            def submit(self, *args):
+                raise terr
+
+            def submit_many(self, items, origin, sink=None, tokens=None):
+                sink.deliver_many([(tokens[0], None, terr)])
+
+        resp = asyncio.run(jhandlers._evaluate(
+            JaxRaising(), "ns", None, jax_service.RequestOrigin.VALIDATE
+        ))
+        want = (resp.status, resp.body, resp.headers["Retry-After"])
+        status, body, headers = evaluate_body(
+            PortRaising(), "validate", "ns", json.dumps(doc).encode()
+        )
+        assert (status, body, headers["Retry-After"]) == want
+        sink = nf.BatcherSink(ApiServerState(None, PortRaising()))
+        front = _CaptureFrontendWithRetry()
+        sink.deliver_many([((front, 3, False), None, terr)])
+        assert front.answers[3] == (want[0], want[1], int(want[2]))
+        jfront = _CaptureFrontendWithRetry()
+        jnf.BatcherSink(None).deliver_many([((jfront, 3, False), None, jerr)])
+        assert jfront.answers[3] == front.answers[3]
+    assert want[0] == 503 and want[2] == "1"
+
+
+class _CaptureFrontendWithRetry:
+    def __init__(self):
+        self.answers = {}
+
+    def complete(self, req_id, status, body, retry_after=0):
+        self.answers[req_id] = (status, body, retry_after)
+
+
+def test_shed_429_carries_retry_after_natively():
+    """A port native server whose device looks pathologically slow: under
+    concurrent arrivals some requests are shed, each with 429, Retry-After
+    and the shed body."""
+    server = PolicyServer(
+        _policies(), port=0, readiness_probe_port=0, device="cpu",
+        frontend="native", request_timeout_ms=100.0, max_batch_size=2,
+        batch_timeout_ms=5.0, policy_timeout=30.0, policy_reload_mode="off",
+        selfheal_interval_seconds=0,
+    )
+    server.start()
+    try:
+        server.batcher._dev_rtt[2] = 50.0
+        body = json.dumps(_docs(1, 26)[0]).encode()
+        results: list = [None] * 128
+
+        def one(i: int) -> None:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+                conn.request("POST", "/validate/pod-privileged", body=body,
+                             headers={"Connection": "close"})
+                resp = conn.getresponse()
+                results[i] = (resp.status, resp.getheader("Retry-After"), resp.read())
+                conn.close()
+            except OSError:
+                results[i] = (None, None, None)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(128)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        sheds = [r for r in results if r[0] == 429]
+        assert sheds, results[:5]
+        for _status, ra, payload in sheds:
+            assert int(ra) >= 1
+            assert json.loads(payload) == {
+                "message": "policy server overloaded; retry later",
+                "retry_after_seconds": int(ra),
+            }
+        assert server.batcher.stats_snapshot()["shed_requests"] >= len(sheds)
+    finally:
+        server.stop()
+
+
+class _SlowFirstWarmEnv:
+    """An environment whose first warmup of each bucket pays a 'build'
+    (0.3 s) and whose second is quick: the batcher must seed its round
+    trip from the second."""
+
+    supports_host_fastpath = True
+    warmup_dispatches = 1
+
+    def __init__(self):
+        self.warmed: set = set()
+
+    def warmup(self, sizes) -> None:
+        slow = [b for b in sizes if b not in self.warmed]
+        self.warmed.update(sizes)
+        if slow:
+            time.sleep(0.3)
+
+
+def test_warmup_seeds_the_round_trip_from_the_second_run_under_a_timeout_alone():
+    """With the latency budget off and only a request timeout, warmup still
+    seeds the device round trip per bucket (shedding reads it), from the
+    build-free second run, as the JAX package does."""
+    from policy_server_tpu.runtime.batcher import MicroBatcher as JB
+
+    out = {}
+    for name, cls in (("jax", JB), ("port", MicroBatcher)):
+        seeded = []
+        for timeout_ms in (0.0, 10000.0):
+            b = cls(_SlowFirstWarmEnv(), max_batch_size=8, latency_budget_ms=0,
+                    request_timeout_ms=timeout_ms)
+            b.warmup()
+            seeded.append(sorted(b._dev_rtt))
+            assert all(v < 0.1 for v in b._dev_rtt.values()), (name, b._dev_rtt)
+            b.shutdown()
+        out[name] = seeded
+    assert out["port"] == out["jax"] == [[], [1, 2, 4, 8]]
+
+
+def test_default_flags_propagate_the_ten_second_deadline(monkeypatch):
+    """--request-timeout-ms defaults to 10,000 (KUBEWARDEN_REQUEST_TIMEOUT_MS
+    replaces it); the server's batcher stamps every row's deadline."""
+    from policy_server_tpu.config.cli import build_cli as jax_cli
+    from policy_server_tpu_torch.__main__ import build_cli, validate_args
+
+    args = build_cli().parse_args([])
+    assert args.request_timeout_ms == jax_cli().parse_args([]).request_timeout_ms == 10000.0
+    for flag, value, text in (
+        ("--serving-shards", "0", "--serving-shards must be >= 1"),
+        ("--shard-heartbeat-seconds", "0", "--shard-heartbeat-seconds must be > 0"),
+    ):
+        with pytest.raises(ValueError, match=re.escape(text)):
+            validate_args(build_cli().parse_args([flag, value]))
+    monkeypatch.setenv("KUBEWARDEN_REQUEST_TIMEOUT_MS", "2500")
+    monkeypatch.setenv("KUBEWARDEN_SERVING_SHARDS", "3")
+    args = build_cli().parse_args([])
+    assert (args.request_timeout_ms, args.serving_shards) == (2500.0, 3)
+    server = PolicyServer(
+        _policies(), port=0, readiness_probe_port=0, device="cpu",
+        policy_reload_mode="off", selfheal_interval_seconds=0,
+    )
+    server.start()
+    try:
+        b = server.batcher
+        assert b.request_timeout == 10.0
+        item, = _items(1, 27)
+        futs = b.submit_many([(item[0], item[2])], t_service.RequestOrigin.VALIDATE)
+        futs[0].result(timeout=10)
+        assert b.stats_snapshot()["shed_requests"] == 0
+    finally:
+        server.stop()

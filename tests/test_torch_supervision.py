@@ -86,6 +86,18 @@ def _sides(envs):
     )
 
 
+def _kill_once(fp, batcher) -> None:
+    """Kill ``batcher``'s dispatch loop once. The fault is scoped to this
+    batcher, so a loop another test left running in the process cannot
+    take it."""
+    batcher.failpoint_scope = "selfheal-drill"
+
+    def die() -> None:
+        raise fp.FailpointError("injected-loop-death")
+
+    fp.set_failpoint("shard.dispatch", die, count=1, scope="selfheal-drill")
+
+
 def test_selfheal_watchdog_revives_dead_dispatch_loop(envs):
     """The loop killed before any pop is wedged; each package's watchdog
     revives it once, and the next requests are served with equal bodies."""
@@ -98,7 +110,7 @@ def test_selfheal_watchdog_revives_dead_dispatch_loop(envs):
             stats = sup.SupervisorStats()
             dog = sup.SelfHealWatchdog(state, stats, interval_seconds=0.05)
             healthy = dog.check_once()
-            fp.configure("shard.dispatch=raise:injected-loop-death*1")
+            _kill_once(fp, batcher)
             assert wait_for(lambda: not batcher._thread.is_alive(), 5), name
             wedged = batcher.dispatch_wedged()
             dog.start()
@@ -235,7 +247,7 @@ def test_killed_dispatch_loop_is_revived_and_counted_on_metrics(frontend):
     try:
         rp = server.readiness_port
         assert _post(server.port, json.dumps(docs[0]).encode()) == (200, want[0])
-        tfp.configure("shard.dispatch=raise:injected-loop-death*1")
+        _kill_once(tfp, server.batcher)
         assert wait_for(lambda: _metric(
             rp, "policy_server_selfheal_batcher_revives_total") == 1.0)
         got = [_post(server.port, json.dumps(d).encode()) for d in docs]
