@@ -147,14 +147,52 @@ card's name and power limit:
    of a default-flag native server at ``--serving-shards 1`` and 2
    (measured only).
 
+10. audit on the card — the server built through the command line at the
+   default flags plus ``--frontend native --enable-metrics
+   --reload-admin-token`` and ``--audit-mode interval
+   --audit-interval-seconds 1 --audit-matrix --audit-matrix-whatif
+   --audit-resources-file`` (a JSON file of 8,192 distinct pod objects
+   from the seeded firehose, one in eight widened). Wave B: the boot sweep
+   (8,192 × 32 pairs on the audit lane) timed from ``start()`` while the
+   phase 7 client sends 1,024 /validate reviews (every body the oracle's),
+   with its rows, audit batches, preemptions and K1 launches (the audit
+   lane's from the flight recorder's ``device_execute`` events without a
+   batch id, every audit batch at least one, no host fallback), the live
+   p50/p99 beside the same wave sent again after it (the verdict cache
+   cleared); ``GET /audit/reports`` on the readiness port equal, row by
+   row and in its summary, to the host oracle's audit-origin verdicts of
+   the snapshot's rows, and 304 for its ETag; a second full sweep with
+   ``memory_allocated`` within 1 MiB of the first's. Wave M: 512 UPDATE
+   reviews, their dirty sweep, then the same with fresh uids: every body
+   the oracle's, ``policy_server_audit_matrix_lookup_hits`` up by the
+   frag-eligible pairs, only the ineligible rows reach the batcher and
+   K1. Wave P: a stream client (this script re-invoked with
+   ``--stream-client``) from cursor 0, then phase 8's changed set through
+   ``POST /policies/reload``: the what-if names the changed column and
+   counts the oracle's flips in the snapshot's first 256 rows (the JAX
+   package's sample of 32 bounds that count), the promotion's sweep is a
+   dirty-column sweep of one column over the inventory, and the matrix
+   and the client's view equal the new set's oracle (the stream's deltas
+   exactly the oracle's changes unless the client overflowed and
+   resynced, which is printed). Wave R: ``POST /policies/rollback`` marks
+   the promoted epoch's rows stale, a full sweep follows, the reports
+   equal the old set's oracle again and the stream carries the flips
+   back; a reconnect at a cursor 100 entries back replays exactly those.
+   Launch counts are zeroed before the build and read after the stop;
+   ``memory_allocated`` after the stop within 1 MiB of before the build.
+   Then K1 exact against its plain version on the inventory's packed rows
+   at B = 8, 16 and 64, both buckets, timed.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
 
 ``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH
-[tolerate-close]`` is the load generator of phases 7 to 9: it needs
+[tolerate-close]`` is the load generator of phases 7 to 10: it needs
 neither torch nor the package (``tolerate-close``: a connection the server
 closes leaves its unanswered requests empty instead of failing the run).
+``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
+10's ``/audit/stream`` reader.
 """
 
 from __future__ import annotations
@@ -219,6 +257,18 @@ S_WAVE = 1024
 # wake beside the serving threads and this script's 1 ms poll
 S_FENCE_ALLOWANCE_S = 0.1
 RATE_WAVES = 2
+# phase 10: the inventory (distinct objects), the live wave during the boot
+# sweep, the UPDATE wave of lookup admission, the what-if's bound on rows
+# and on the flips it counts (the JAX package's whatif_diff keeps a sample
+# of 32 and reports its length), K1's holds at the audit path's batch
+# sizes, and the entries a reconnect replays
+AUDIT_OBJECTS = 8192
+AUDIT_LIVE_WAVE = 1024
+AUDIT_UPDATE_WAVE = 512
+AUDIT_WHATIF_ROWS = 256
+AUDIT_WHATIF_FLIP_SAMPLE = 32
+AUDIT_HOLD_BATCHES = (8, 16, 64)
+AUDIT_RESUME_ENTRIES = 100
 COVER_BATCHES = (51, 129, 1029)
 SPILL_BATCHES = (51, 129)
 
@@ -2425,6 +2475,990 @@ def print_tenants_phase(r9: dict, card: str) -> None:
         )
 
 
+# -- phase 10: audit on the card ----------------------------------------------
+
+
+def stream_client_main(argv: list[str]) -> int:
+    """Phase 10's ``/audit/stream`` client, in a process of its own: reads
+    the NDJSON stream from ``CURSOR`` and appends every entry to OUT (one
+    JSON line each); after an OVERFLOW line, or a connection the server
+    closes, it writes a RECONNECT line and reconnects with the last
+    matrixVersion it holds (a RESYNC marker's, or a delta's). OUT.progress
+    holds the entries read, the last version and the reconnects; the
+    client stops once the file STOP exists and a quiet half second
+    passed."""
+    import select
+    import socket
+
+    port, cursor, out_path, stop_path = (
+        int(argv[0]), int(argv[1]), argv[2], argv[3]
+    )
+    n = reconnects = 0
+    last = cursor
+    in_state = False
+    out = open(out_path, "w")
+
+    def progress() -> None:
+        with open(out_path + ".tmp", "w") as f:
+            json.dump({"entries": n, "last_version": last,
+                       "reconnects": reconnects}, f)
+        os.replace(out_path + ".tmp", out_path + ".progress")
+
+    progress()
+    while True:
+        s = socket.create_connection(("127.0.0.1", port), timeout=30)
+        s.sendall(
+            f"GET /audit/stream?cursor={last} HTTP/1.1\r\nHost: smoke\r\n\r\n"
+            .encode()
+        )
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            chunk = s.recv(65536)
+            if not chunk:
+                raise ConnectionError("the stream closed before its headers")
+            buf += chunk
+        head, _, buf = buf.partition(b"\r\n\r\n")
+        if b" 200 " not in head.split(b"\r\n")[0]:
+            raise ConnectionError(f"the stream answered {head[:200]!r}")
+        body = b""
+        quiet_since = time.monotonic()
+        reconnect = False
+        while not reconnect:
+            # decode whole chunks, then whole lines
+            while True:
+                size_end = buf.find(b"\r\n")
+                if size_end < 0:
+                    break
+                size = int(buf[:size_end], 16)
+                if len(buf) < size_end + 2 + size + 2:
+                    break
+                if size == 0:
+                    reconnect = True
+                    break
+                body += buf[size_end + 2 : size_end + 2 + size]
+                buf = buf[size_end + 2 + size + 2 :]
+            lines = body.split(b"\n")
+            body = lines.pop()
+            for line in lines:
+                entry = json.loads(line)
+                out.write(line.decode() + "\n")
+                n += 1
+                kind = entry["type"]
+                if kind == "RESYNC":
+                    in_state = True
+                    last = entry["matrixVersion"]
+                elif kind == "OVERFLOW":
+                    reconnect = True
+                elif in_state and entry["matrixVersion"] <= last:
+                    pass  # the resynced state, each cell at its own version
+                else:
+                    in_state = False
+                    last = entry["matrixVersion"]
+            if lines:
+                out.flush()
+                progress()
+                quiet_since = time.monotonic()
+            if reconnect:
+                break
+            ready, _w, _x = select.select([s], [], [], 0.1)
+            if ready:
+                chunk = s.recv(1 << 20)
+                if not chunk:
+                    reconnect = True
+                    break
+                buf += chunk
+            elif (
+                os.path.exists(stop_path)
+                and time.monotonic() - quiet_since > 0.5
+            ):
+                s.close()
+                out.close()
+                progress()
+                return 0
+        s.close()
+        reconnects += 1
+        out.write(json.dumps({"type": "RECONNECT", "cursor": last}) + "\n")
+        out.flush()
+        progress()
+
+
+def read_progress(out_path: str) -> dict:
+    try:
+        with open(out_path + ".progress") as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {"entries": 0, "last_version": -1, "reconnects": 0}
+
+
+def replay_stream(entries: list) -> dict:
+    """The stream client's entries → its matrix view ((resource, policy) →
+    allowed), the delta entries (not resynced state), the RESYNC markers'
+    versions, the OVERFLOW lines and the reconnects. Fails unless every
+    delta's matrixVersion rises past the last delta's and the last
+    RESYNC marker's."""
+    view: dict = {}
+    deltas: list = []
+    resyncs: list = []
+    overflows = reconnects = 0
+    marker = 0
+    last_delta = 0
+    in_state = False
+    for e in entries:
+        kind = e["type"]
+        if kind == "RECONNECT":
+            reconnects += 1
+            in_state = False
+            continue
+        if kind == "OVERFLOW":
+            overflows += 1
+            continue
+        if kind == "RESYNC":
+            view = {}
+            marker = e["matrixVersion"]
+            resyncs.append(marker)
+            in_state = True
+            continue
+        v = e["matrixVersion"]
+        if in_state and v <= marker:
+            pass
+        else:
+            in_state = False
+            if v <= last_delta or v <= marker:
+                fail(f"the stream's matrixVersion did not rise: {v} after "
+                     f"{max(last_delta, marker)}")
+            last_delta = v
+            deltas.append(e)
+        key = (e["resource"], e["policy"])
+        if kind == "DELETE":
+            view.pop(key, None)
+        else:
+            view[key] = e["allowed"]
+    return {"view": view, "deltas": deltas, "resyncs": resyncs,
+            "overflows": overflows, "reconnects": reconnects}
+
+
+def read_stream(out_path: str) -> list:
+    with open(out_path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def audit_inventory(n: int, seed: int) -> list:
+    """``n`` distinct pod objects from the flagship firehose (seeded), one
+    in eight widened into the large schema bucket, each with a name of its
+    own."""
+    from policy_server_tpu_torch.policies.flagship import synthetic_firehose
+
+    objects = []
+    for i, d in enumerate(synthetic_firehose(n, seed=seed)):
+        if i % 8 == 0:
+            d = widen(d)
+        obj = copy.deepcopy(d["request"]["object"])
+        obj["metadata"]["name"] = f"{obj['metadata']['name']}-inv{i:05d}"
+        objects.append(obj)
+    return objects
+
+
+def oracle_results(oracle, req, policy_ids: list) -> dict:
+    """policy id → the oracle backend's raw result for ``req`` (what its
+    ``validate_batch(..., run_hooks=False)`` gives), with its host
+    interpreter run once per distinct evaluation payload rather than once
+    per policy."""
+    from policy_server_tpu_torch.evaluation.policy_id import PolicyID
+
+    outputs: dict = {}
+    out = {}
+    for pid in policy_ids:
+        try:
+            target = oracle._lookup_top_level(PolicyID.parse(pid))
+            payload = oracle.payload_for(target, req)
+            hit = outputs.get(id(payload))
+            if hit is None:
+                hit = outputs[id(payload)] = (
+                    payload, oracle._oracle_outputs(payload)
+                )
+            out[pid] = oracle._materialize(target, req, hit[1])
+        except Exception as e:  # noqa: BLE001 — an error row
+            out[pid] = e
+    return out
+
+
+def oracle_verdicts(oracle, rows: list, policy_ids: list, cache: dict) -> dict:
+    """(resource, policy) → the oracle's raw (audit-origin) verdict fields
+    (allowed, mutated, message, code, error) for every snapshot row ×
+    policy, memoized by the row's payload. Pre-eval hooks do not run, as
+    on the audit lane (the flagship set's signature policies have hooks
+    where ``cryptography`` is installed: their verdicts depend on the
+    images the live requests' hooks verified)."""
+    from policy_server_tpu_torch.audit import normalized_payload_hash
+
+    out = {}
+    for key, req in rows:
+        phash = normalized_payload_hash(req)
+        results = None
+        for pid in policy_ids:
+            hit = cache.get((key, pid))
+            if hit is None or hit[0] != phash:
+                # as the audit lane evaluates: no pre-eval hooks
+                if results is None:
+                    results = oracle_results(oracle, req, policy_ids)
+                r = results[pid]
+                if isinstance(r, Exception):
+                    v = (None, False, f"audit error: {r}", None, True)
+                else:
+                    st = r.status
+                    v = (bool(r.allowed), r.patch is not None,
+                         st.message if st else None, st.code if st else None,
+                         False)
+                hit = cache[(key, pid)] = (phash, v)
+            out[key, pid] = hit[1]
+    return out
+
+
+def check_reports(label: str, rp: int, scanner, oracle, policy_ids: list,
+                  cache: dict, epoch: int, card: str) -> dict:
+    """GET /audit/reports on the readiness port, with no sweep running and
+    nothing dirty: every (resource, policy) row's verdict equals the
+    oracle's for the snapshot's row, the summary counts agree, and the
+    same GET with the ETag answers 304."""
+    t0 = time.perf_counter()
+    with scanner._sweep_lock:
+        if scanner.snapshot.stats()["dirty"]:
+            fail(f"{label}: rows are dirty with no sweep running")
+        rows = scanner.snapshot.rows_snapshot()
+        conn = http.client.HTTPConnection("127.0.0.1", rp, timeout=300)
+        try:
+            conn.request("GET", "/audit/reports")
+            resp = conn.getresponse()
+            raw = resp.read()
+            etag = resp.getheader("ETag")
+            status = resp.status
+            conn.request("GET", "/audit/reports",
+                         headers={"If-None-Match": etag})
+            resp = conn.getresponse()
+            not_modified = (resp.status, resp.read(), resp.getheader("ETag"))
+        finally:
+            conn.close()
+    get_s = time.perf_counter() - t0
+    if status != 200:
+        fail(f"{label}: GET /audit/reports answered {status}")
+    if not_modified != (304, b"", etag):
+        fail(f"{label}: If-None-Match answered {not_modified[0]}, not 304")
+    body = json.loads(raw)
+    t1 = time.perf_counter()
+    want = oracle_verdicts(oracle, rows, policy_ids, cache)
+    oracle_s = time.perf_counter() - t1
+    got = {}
+    for r in body["reports"]:
+        got[r["resource"], r["policy_id"]] = (
+            r["allowed"], r["mutated"], r["message"], r["code"], r["error"],
+        )
+        if r["stale"] or r["epoch"] != epoch:
+            fail(f"{label}: row {r['resource']} {r['policy_id']} is stale "
+                 f"or of epoch {r['epoch']}, not {epoch}")
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        extra = [k for k in got if k not in want]
+        first = (bad or extra)[0]
+        fail(f"{label}: {len(bad)} report rows differ from the oracle, "
+             f"{len(extra)} extra (first {first}: {got.get(first)} against "
+             f"{want.get(first)})")
+    summary = {
+        "results": len(want),
+        "resources": len({k for k, _p in want}),
+        "pass": sum(1 for v in want.values() if v[0] is True),
+        "fail": sum(1 for v in want.values() if v[0] is False),
+        "error": sum(1 for v in want.values() if v[4]),
+        "mutated": sum(1 for v in want.values() if v[1]),
+        "stale": 0,
+    }
+    if body["summary"] != summary:
+        fail(f"{label}: summary {body['summary']} is not the oracle's {summary}")
+    print(
+        f"phase10 {label}: GET /audit/reports {len(raw)} B, "
+        f"{summary['results']} rows of {summary['resources']} resources "
+        f"equal the oracle's audit-origin verdicts (summary "
+        f"{json.dumps(summary)}); If-None-Match -> 304; GET {get_s:.3f} s, "
+        f"oracle {oracle_s:.3f} s [{card}]"
+    )
+    return summary
+
+
+def settle(scanner, what: str, timeout: float = 300) -> None:
+    """Wait until no row is dirty and no sweep is running (one that
+    collected rows clears their marks when it starts, so the sweep lock is
+    what says their verdicts have landed)."""
+    while True:
+        wait_until(lambda: not scanner.snapshot.stats()["dirty"], timeout, what)
+        with scanner._sweep_lock:
+            if not scanner.snapshot.stats()["dirty"]:
+                return
+
+
+def update_wave(work_docs: list, n: int, tag: str) -> list:
+    """``n`` UPDATE reviews of distinct objects (names of their own), with
+    uids tagged ``tag``."""
+    out = []
+    for i, (pid, d) in enumerate(work_docs[:n]):
+        d = copy.deepcopy(d)
+        req = d["request"]
+        req["operation"] = "UPDATE"
+        req["name"] = f"{req['name']}-m{i:04d}"
+        req["object"]["metadata"]["name"] = req["name"]
+        req["oldObject"] = req["object"]
+        req["uid"] = f"{req['uid']}-m{i:04d}-{tag}"
+        out.append((pid, json.dumps(d).encode()))
+    return out
+
+
+def retag(wave: list, tag: str) -> list:
+    """The same requests with fresh uids."""
+    out = []
+    for pid, body in wave:
+        d = json.loads(body)
+        d["request"]["uid"] = f"{d['request']['uid']}-{tag}"
+        out.append((pid, json.dumps(d).encode()))
+    return out
+
+
+def recorder_executes(rec, since: int) -> dict:
+    """The flight recorder's ``device_execute`` events since the cursor: one
+    per fetched K1 launch, with the rows (pairs) its verdicts answer; the
+    audit lane's carry no batch id (-1), the serving batches' their
+    own."""
+    evs = [ev for ev in rec.snapshot() if ev["seq"] >= since]
+    wrapped = rec.events_recorded() > since and (
+        not evs or evs[0]["seq"] > since
+    )
+    audit = [ev for ev in evs
+             if ev["phase"] == "device_execute" and ev["batch"] < 0]
+    live = [ev for ev in evs
+            if ev["phase"] == "device_execute" and ev["batch"] >= 0]
+    return {
+        "audit_launches": len(audit),
+        "audit_pairs": sum(ev["rows"] for ev in audit),
+        "live_launches": len(live),
+        "live_rows": sum(ev["rows"] for ev in live),
+        "wrapped": wrapped,
+    }
+
+
+ENV_PHASES = ("prepare", "blob_dedup", "encode", "bookkeeping", "fetch",
+              "materialize")
+
+
+class AuditLaneTimes:
+    """Stamps each audit job's submission and completion (the batcher's
+    ``submit_audit`` wrapped on the instance), for a sweep's attribution:
+    the lane (submission → result, which holds the pacing wait and the
+    environment's work) and the scanner (a result → the next submission:
+    report rows, matrix cells)."""
+
+    def __init__(self, batcher) -> None:
+        self.jobs: list = []
+        real = batcher.submit_audit
+
+        def submit_audit(pairs):
+            stamp = [time.perf_counter(), None]
+            self.jobs.append(stamp)
+            future = real(pairs)
+            future.add_done_callback(
+                lambda _f: stamp.__setitem__(1, time.perf_counter())
+            )
+            return future
+
+        batcher.submit_audit = submit_audit
+
+    def since(self, rec, cursor: int, first_job: int, wall: float) -> dict:
+        """ms per audit batch of each part of the sweep from ``first_job``,
+        with the environment's phases (the recorder's events without a
+        batch id since ``cursor``) inside the lane's time."""
+        jobs = [j for j in self.jobs[first_job:] if j[1] is not None]
+        n = max(1, len(jobs))
+        lane = sum(done - sub for sub, done in jobs)
+        scanner = sum(
+            nxt[0] - cur[1] for cur, nxt in zip(jobs, jobs[1:])
+        )
+        env_ns = dict.fromkeys(ENV_PHASES, 0)
+        evs = [ev for ev in rec.snapshot() if ev["seq"] >= cursor]
+        if rec.events_recorded() > cursor and (not evs or evs[0]["seq"] > cursor):
+            fail("phase10: the flight recorder ring wrapped during a sweep")
+        for ev in evs:
+            if ev["batch"] < 0 and ev["phase"] in env_ns:
+                env_ns[ev["phase"]] += ev["end_ns"] - ev["start_ns"]
+        env = sum(env_ns.values()) / 1e6
+        return {
+            "batches": len(jobs),
+            "wall_ms_per_batch": wall * 1e3 / n,
+            "lane_ms_per_batch": lane * 1e3 / n,
+            "env_ms_per_batch": env / n,
+            "env_phase_ms_per_batch": {
+                k: round(v / 1e6 / n, 4) for k, v in env_ns.items()
+            },
+            "lane_wait_ms_per_batch": (lane * 1e3 - env) / n,
+            "scanner_ms_per_batch": scanner * 1e3 / n,
+        }
+
+
+def device_memory() -> int:
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def hold_inventory_against_plain(objects: list, card: str) -> dict:
+    """K1 on the card against its plain version, exact, on packed rows of
+    the inventory's reviews at the audit path's batch sizes, both buckets,
+    narrow form → per (bucket, B) the error and times."""
+    import torch
+
+    from policy_server_tpu_torch.audit import synthesize_review
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+
+    env = EvaluationEnvironmentBuilder(device="cuda").build(flagship_policies())
+    per: dict = {}
+    need = max(AUDIT_HOLD_BATCHES)
+    for i, obj in enumerate(objects):
+        payload = synthesize_review(obj, uid=f"hold-{i}").payload()
+        idx, enc = env.encode_bucketed(payload)
+        encs = per.setdefault(idx, [])
+        if len(encs) < need:
+            encs.append(enc)
+        if len(per) == len(env.schemas) and all(
+            len(v) == need for v in per.values()
+        ):
+            break
+    rows = {}
+    for idx, schema in enumerate(env.schemas):
+        encs = per.get(idx, [])
+        if len(encs) < need:
+            fail(f"the inventory has {len(encs)} reviews for bucket {idx}")
+        program = env.program_for(idx, True, True)
+        for batch in AUDIT_HOLD_BATCHES:
+            wide = schema.pack(schema.stack(encs[:batch], batch_size=batch))
+            buf = schema.to_transport(wide, vocab_size=len(env.table))["__packed__"]
+            dev = torch.from_numpy(buf).to("cuda")
+            want_a, want_r = ck.policy_matrix_plain(dev, program)
+            got_a, got_r = ck.policy_matrix(dev, program)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
+                fail(f"phase10: policy_matrix disagrees with its plain version "
+                     f"on the inventory (bucket {idx}, B={batch})")
+            err = int((got_r - want_r).abs().max()) + int(
+                (got_a.to(torch.int32) - want_a.to(torch.int32)).abs().max()
+            )
+            nbytes = buf.nbytes + batch * program.out_cols * 5
+            ops = batch * program.element_ops_per_row()
+            bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound_ops_ms = ops / PEAK_OPS_PER_S * 1e3
+            rows[idx, batch] = {
+                "bucket": idx, "batch": batch, "width": int(buf.shape[1]),
+                "max_abs_err": err,
+                "ms": time_cuda(lambda: ck.policy_matrix(dev, program), 20),
+                "device_ms": graph_ms(lambda: ck.policy_matrix(dev, program)),
+                "plain_ms": time_cuda(
+                    lambda: ck.policy_matrix_plain(dev, program), 2, warmup=1
+                ),
+                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "bound_by": (
+                    "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+                ),
+                "card": card,
+            }
+            print(f"phase10 policy_matrix exact on the inventory: "
+                  f"{json.dumps(rows[idx, batch])}")
+    env.close()
+    return rows
+
+
+def audit_phase(work_docs: list, card: str) -> dict:
+    """Phase 10 (see the module docstring) → its numbers for the kernels
+    line."""
+    import torch
+
+    from policy_server_tpu_torch import failpoints
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.evaluation.policy_id import PolicyID
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+    from policy_server_tpu_torch.telemetry import flightrec
+
+    old_specs = flagship_policy_specs()
+    new_specs = changed_specs(old_specs)
+    changed = "trusted-repos"
+    removed = "baseline-canary"
+    work_dir = os.path.join(REPO, "build", "chip_smoke_audit")
+    os.makedirs(work_dir, exist_ok=True)
+    policies_path = os.path.join(work_dir, "policies.json")
+    old_bytes = json.dumps(old_specs).encode()
+    with open(policies_path, "wb") as f:
+        f.write(old_bytes)
+    objects = audit_inventory(AUDIT_OBJECTS, seed=10)
+    resources_path = os.path.join(work_dir, "resources.json")
+    with open(resources_path, "w") as f:
+        json.dump({"items": objects}, f)
+    old = EvaluationEnvironmentBuilder(backend="oracle").build(parse_policies(old_specs))
+    new = EvaluationEnvironmentBuilder(backend="oracle").build(parse_policies(new_specs))
+    old_ids, new_ids = sorted(old_specs), sorted(new_specs)
+
+    def expect(oracle, wave):
+        return [expected_answer(oracle, pid, body) for pid, body in wave]
+
+    args = build_cli().parse_args([
+        "--policies", policies_path, "--addr", "127.0.0.1", "--port", "0",
+        "--readiness-probe-port", "0", "--frontend", "native",
+        "--enable-metrics", "--reload-admin-token", RELOAD_TOKEN,
+        "--audit-mode", "interval", "--audit-interval-seconds", "1",
+        "--audit-matrix", "--audit-matrix-whatif",
+        "--audit-resources-file", resources_path,
+    ])
+    mem_before = device_memory()
+    ck.reset_launch_counts()
+    t_build = time.perf_counter()
+    server = server_from_args(args)
+    out: dict = {"build_s": time.perf_counter() - t_build,
+                 "boot_launches": ck.launch_counts()}
+    scanner, matrix, lc = server.state.audit, server.state.audit_matrix, server.lifecycle
+    rp = server.readiness_port
+    snap = scanner.snapshot.stats()
+    if snap["resources"] != AUDIT_OBJECTS or snap["evicted"]:
+        fail(f"phase10 seeded {snap} from {AUDIT_OBJECTS} objects")
+    out["snapshot"] = snap
+    out["memory"] = []
+    cache_old: dict = {}
+    stream_proc = None
+    stop_path = os.path.join(work_dir, "stream.stop")
+    stream_out = os.path.join(work_dir, "stream.jsonl")
+    if os.path.exists(stop_path):
+        os.unlink(stop_path)
+    stopped = False
+    try:
+        # B: the boot sweep under a live wave
+        rec = flightrec.recorder()
+        cursor = rec.events_recorded()
+        env = server.env
+        launches0 = ck.launch_counts()
+        b0 = server.batcher.stats_snapshot()
+        env0 = (env.oracle_fallbacks, env.breaker_stats.get("short_circuited_requests", 0),
+                env.device_errors)
+        unique0 = env.host_profile["dispatched_rows"]
+        wave = wave_of(work_docs, AUDIT_LIVE_WAVE, "r10b")
+        lane_times = AuditLaneTimes(server.batcher)
+        t0 = time.perf_counter()
+        server.start()
+        proc, res_path = start_client(server.port, wave, "audit-b")
+        wait_until(lambda: scanner.stats()["full_sweeps"] >= 1, 900, "the boot sweep")
+        boot_s = time.perf_counter() - t0
+        launches1 = ck.launch_counts()
+        b1 = server.batcher.stats_snapshot()
+        ex = recorder_executes(rec, cursor)
+        boot_parts = lane_times.since(rec, cursor, 0, boot_s)
+        live = check_wave("phase10 wave B", finish_client(proc, res_path, "wave B"),
+                          wave, [expect(old, wave)])
+        env1 = (env.oracle_fallbacks, env.breaker_stats.get("short_circuited_requests", 0),
+                env.device_errors)
+        unique = env.host_profile["dispatched_rows"] - unique0
+        audit_batches = b1["audit_batches_dispatched"] - b0["audit_batches_dispatched"]
+        k1 = launches1["policy_matrix"] - launches0["policy_matrix"]
+        if ex["wrapped"]:
+            fail("phase10: the flight recorder ring wrapped during the boot sweep")
+        if k1 != ex["audit_launches"] + ex["live_launches"]:
+            fail(f"phase10: {k1} K1 launches in the boot sweep, "
+                 f"{ex['audit_launches']} + {ex['live_launches']} fetched")
+        if ex["audit_launches"] < audit_batches or audit_batches < 1:
+            fail(f"phase10: {audit_batches} audit batches, {ex['audit_launches']} K1 launches")
+        if env1 != env0:
+            fail(f"phase10: host fallbacks, breaker short-circuits or device "
+                 f"errors during the boot sweep: {env0} -> {env1}")
+        sstats = scanner.stats()
+        out["B"] = {
+            "boot_sweep_s": boot_s, "rows_scanned": sstats["rows_scanned"],
+            "audit_batches": audit_batches,
+            "lane_rows": b1["audit_rows_dispatched"] - b0["audit_rows_dispatched"],
+            "unique_rows": unique,
+            "preemptions": b1["audit_preemptions"] - b0["audit_preemptions"],
+            "k1_launches": k1, **ex,
+            "launches_per_audit_batch": ex["audit_launches"] / audit_batches,
+            "live": live,
+            "attribution": boot_parts,
+        }
+        out["memory"].append(("after the boot sweep", device_memory()))
+        # the same wave again after the sweep, both tiers of the verdict
+        # cache cleared so it meets the cold cache the first did
+        env._verdict_cache.clear()
+        env._blob_cache.clear()
+        wave2 = retag(wave, "again")
+        out["B"]["live_after"] = check_wave(
+            "phase10 wave B again", client_wave(server.port, wave2, "audit-b2"),
+            wave2, [expect(old, wave2)])
+        # a second full sweep under the same epoch, after every live request:
+        # the allocation stays flat, and the signature policies' verdicts
+        # (their pre-eval hooks, which the audit lane does not run, verify
+        # the images of the live requests addressed to them, on the server
+        # as on the oracle) are judged with the same verified images the
+        # oracle holds
+        f = scanner.stats()["full_sweeps"]
+        settle(scanner, "the dirty sweep of wave B's objects")
+        cursor, first_job = rec.events_recorded(), len(lane_times.jobs)
+        t1 = time.perf_counter()
+        scanner.request_full_sweep("chip smoke memory check")
+        wait_until(lambda: scanner.stats()["full_sweeps"] > f, 900, "the second full sweep")
+        out["B"]["second_sweep_s"] = time.perf_counter() - t1
+        out["B"]["second_attribution"] = lane_times.since(
+            rec, cursor, first_job, out["B"]["second_sweep_s"]
+        )
+
+        out["memory"].append(("after a second full sweep", device_memory()))
+        grown = out["memory"][1][1] - out["memory"][0][1]
+        if abs(grown) > RELOAD_MEMORY_SLACK:
+            fail(f"phase10: memory_allocated moved {grown} B between full sweeps")
+        settle(scanner, "the dirty sweep of wave B's objects")
+        out["B"]["summary"] = check_reports(
+            "wave B reports", rp, scanner, old, old_ids, cache_old, 0, card)
+        print(f"phase10 progress, wave B: {json.dumps(out['B'])} [{card}]")
+
+        # M: lookup admission
+        wave = update_wave(work_docs, AUDIT_UPDATE_WAVE, "m1")
+        out["M"] = {"first": check_wave(
+            "phase10 wave M first", client_wave(server.port, wave, "audit-m1"),
+            wave, [expect(old, wave)])}
+        settle(scanner, "the dirty sweep of wave M's objects")
+        env = server.env
+
+        def gates(pid: str) -> tuple[bool, bool]:
+            """(hookless, fragment-eligible): the batcher asks the matrix
+            only for a hookless target, and a hit needs the fragment lane's
+            proof."""
+            target = env._lookup_top_level(PolicyID.parse(pid))
+            return not env._hooks_of(target), env._frag_eligible(target)
+
+        n_asked = sum(gates(pid)[0] for pid, _b in wave)
+        n_eligible = sum(all(gates(pid)) for pid, _b in wave)
+        hits0 = metric_value(rp, "policy_server_audit_matrix_lookup_hits_total")
+        misses0 = metric_value(rp, "policy_server_audit_matrix_lookup_misses_total")
+        b0 = server.batcher.stats_snapshot()
+        cursor = rec.events_recorded()
+        wave2 = retag(wave, "m2")
+        out["M"]["again"] = check_wave(
+            "phase10 wave M again", client_wave(server.port, wave2, "audit-m2"),
+            wave2, [expect(old, wave2)])
+        ex = recorder_executes(rec, cursor)
+        b1 = server.batcher.stats_snapshot()
+        hits = metric_value(rp, "policy_server_audit_matrix_lookup_hits_total") - hits0
+        misses = metric_value(rp, "policy_server_audit_matrix_lookup_misses_total") - misses0
+        dispatched = b1["requests_dispatched"] - b0["requests_dispatched"]
+        if hits != n_eligible or misses != n_asked - n_eligible:
+            fail(f"phase10 wave M: {hits} lookup hits and {misses} misses; "
+                 f"{n_asked} of {len(wave)} pairs hookless, {n_eligible} of "
+                 f"them frag-eligible")
+        if dispatched != len(wave) - n_eligible or ex["live_rows"] > dispatched:
+            fail(f"phase10 wave M: {dispatched} rows reached the batcher and "
+                 f"K1 served {ex['live_rows']}, {len(wave) - n_eligible} ineligible")
+        out["M"].update(eligible=n_eligible, asked=n_asked, hits=hits, misses=misses,
+                        dispatched=dispatched, serving_k1=ex["live_launches"],
+                        serving_k1_rows=ex["live_rows"])
+        print(f"phase10 progress, wave M: {json.dumps(out['M'])} [{card}]")
+
+        # P: the promotion, with the what-if and a stream client
+        settle(scanner, "a quiet scanner")
+        cells0 = matrix.stats()["cells_resident"]
+        # the readiness port: the native frontend's API port answers only
+        # the evaluation POSTs
+        stream_proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--stream-client",
+             str(rp), "0", stream_out, stop_path],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+
+        def streamed(pred) -> bool:
+            if stream_proc.poll() is not None:
+                fail(f"the stream client exited: {stream_proc.stderr.read()[-2000:]}")
+            return pred(read_progress(stream_out))
+
+        wait_until(lambda: streamed(lambda p: p["entries"] >= 1 + cells0),
+                   300, "the stream client's resync")
+        v_before = matrix.version
+        rows = scanner.snapshot.rows_snapshot()
+        keys = [k for k, _r in rows]
+        want_new = oracle_verdicts(new, rows, new_ids, {})
+        old_now = oracle_verdicts(old, rows, old_ids, cache_old)
+        head_flips = sum(
+            old_now[k, changed][0] != want_new[k, changed][0]
+            for k, _r in rows[:AUDIT_WHATIF_ROWS]
+        )
+        m0 = matrix.stats()
+        f_sweeps = scanner.stats()["full_sweeps"]
+        def restore_policies_file() -> None:
+            # the reload fetched the changed set: the file goes back to the
+            # bytes the watch holds, so it does not reload the set again
+            with open(policies_path, "wb") as f:
+                f.write(old_bytes)
+
+        failpoints.set_failpoint("reload.compile", restore_policies_file, count=1)
+        with open(policies_path, "w") as f:
+            json.dump(new_specs, f)
+        status, body = admin_post(rp, "/policies/reload")
+        if status != 202 or body.get("status") != "reload started":
+            fail(f"POST /policies/reload answered {status} {body}")
+        wait_until(lambda: lc.stats()["reloads"] >= 1 and not lc.reload_in_flight(),
+                   300, "the promotion")
+        failpoints.reset()
+        whatif = lc.stats()["whatif"]
+        if whatif is None or whatif["columns_changed"] != [changed]:
+            fail(f"phase10: the what-if names {whatif and whatif['columns_changed']}")
+        if (whatif["rows_evaluated"], whatif["verdict_flips"]) != (
+            min(AUDIT_WHATIF_ROWS, len(rows)),
+            min(AUDIT_WHATIF_FLIP_SAMPLE, head_flips),
+        ):
+            fail(f"phase10: the what-if evaluated {whatif['rows_evaluated']} "
+                 f"rows with {whatif['verdict_flips']} flips; the oracle "
+                 f"flips {head_flips} of the first {AUDIT_WHATIF_ROWS}")
+        # the hook's dirty sweep notes its column rows when it starts
+        wait_until(lambda: matrix.stats()["column_sweep_rows"] > m0["column_sweep_rows"],
+                   600, "the dirty-column sweep")
+        settle(scanner, "the dirty-column sweep")
+        m1 = matrix.stats()
+        column_rows = m1["column_sweep_rows"] - m0["column_sweep_rows"]
+        if column_rows != len(rows) or scanner.stats()["full_sweeps"] != f_sweeps:
+            fail(f"phase10: the promotion's sweep judged {column_rows} column "
+                 f"rows of {len(rows)} (full sweeps {f_sweeps} -> "
+                 f"{scanner.stats()['full_sweeps']})")
+        v_after_p = matrix.version
+        wait_until(lambda: streamed(lambda p: p["last_version"] == matrix.version),
+                   300, "the stream client after the promotion")
+        # a column whose policy content is unchanged keeps its cells (re-
+        # stamped, not re-judged): the old set's verdicts, the changed
+        # column the new set's
+        want_view = {
+            (k, p): (want_new if p == changed else old_now)[k, p][0]
+            for k in keys for p in new_ids
+        }
+        got_cells = {k: v[0] for k, v in matrix.cells_snapshot().items()}
+        if got_cells != want_view:
+            bad = [k for k in set(got_cells) | set(want_view)
+                   if got_cells.get(k) != want_view.get(k)]
+            fail(f"phase10: {len(bad)} matrix cells after the promotion are "
+                 f"not the oracle's (first {bad[0]}: "
+                 f"{got_cells.get(bad[0])} against {want_view.get(bad[0])})")
+        st = replay_stream(read_stream(stream_out))
+        if st["view"] != want_view:
+            fail("phase10: the stream client's view after the promotion is not "
+                 "the oracle's")
+        p_deltas = [e for e in st["deltas"] if v_before < e["matrixVersion"] <= v_after_p]
+        # a verdict change is one of allowed, code or message (the matrix
+        # emits on any of them)
+        def verdict(v: tuple) -> tuple:
+            return v[0], v[3], v[2]
+
+        flips_new = {(k, changed) + verdict(want_new[k, changed]) for k in keys
+                     if verdict(want_new[k, changed]) != verdict(old_now[k, changed])}
+        resynced_p = any(v > v_before for v in st["resyncs"])
+        exact_p = None
+        if not resynced_p:
+            got_v = {(e["resource"], e["policy"], e["allowed"], e["code"],
+                      e["message"]) for e in p_deltas if e["type"] == "VERDICT"}
+            got_d = {(e["resource"], e["policy"]) for e in p_deltas
+                     if e["type"] == "DELETE"}
+            exact_p = got_v == flips_new and got_d == {(k, removed) for k in keys}
+            if not exact_p:
+                fail(f"phase10: the promotion's stream deltas are not the "
+                     f"oracle's verdict changes: {len(got_v)} verdicts "
+                     f"({len(got_v - flips_new)} not the oracle's, "
+                     f"{len(flips_new - got_v)} missing), {len(got_d)} "
+                     f"deletes of {len(keys)} rows")
+        out["P"] = {
+            "whatif": {k: whatif[k] for k in ("columns_changed", "rows_evaluated",
+                                              "verdict_flips")},
+            "oracle_head_flips": head_flips, "column_rows": column_rows,
+            "oracle_changes": len(flips_new),
+            "oracle_flips": sum(
+                want_new[k, changed][0] != old_now[k, changed][0] for k in keys
+            ), "matrix_version": [v_before, v_after_p],
+            "stream": {k: st[k] if not isinstance(st[k], list) else len(st[k])
+                       for k in ("resyncs", "overflows", "reconnects")},
+            "deltas": len(p_deltas), "deltas_exact": exact_p,
+            "stages_s": dict(lc.last_stage_seconds),
+        }
+        print(f"phase10 progress, wave P: {json.dumps(out['P'])} [{card}]")
+
+        # R: the rollback
+        reports = scanner.reports.payload()["reports"]
+        promoted = sum(1 for r in reports if r["epoch"] == 1)
+        del reports
+        f_sweeps = scanner.stats()["full_sweeps"]
+        with scanner._sweep_lock:
+            status, body = admin_post(rp, "/policies/rollback")
+            stale = scanner.reports.stats()["stale"]
+        if (status, body) != (200, {"status": "rolled-back", "epoch": 0}):
+            fail(f"POST /policies/rollback answered {status} {body}")
+        if stale != promoted or not promoted:
+            fail(f"phase10: {stale} rows marked stale, the promoted epoch wrote {promoted}")
+        wait_until(lambda: scanner.stats()["full_sweeps"] > f_sweeps, 900,
+                   "the full sweep after the rollback")
+        out["memory"].append(("after the rollback's full sweep (the rolled-back "
+                              "epoch's environment stays pinned)", device_memory()))
+        settle(scanner, "no dirty row")
+        out["R"] = {"stale": stale, "summary": check_reports(
+            "wave R reports", rp, scanner, old, old_ids, cache_old, 0, card)}
+        v_after_r = matrix.version
+        wait_until(lambda: streamed(lambda p: p["last_version"] == matrix.version),
+                   300, "the stream client after the rollback")
+        st = replay_stream(read_stream(stream_out))
+        want_old = {(k, p): old_now[k, p][0] for k in keys for p in old_ids}
+        if st["view"] != want_old:
+            fail("phase10: the stream client's view after the rollback is not "
+                 "the old set's oracle")
+        r_deltas = [e for e in st["deltas"] if v_after_p < e["matrixVersion"] <= v_after_r]
+        resynced_r = any(v > v_after_p for v in st["resyncs"])
+        exact_r = None
+        if not resynced_r:
+            got_v = {(e["resource"], e["policy"], e["allowed"], e["code"],
+                      e["message"]) for e in r_deltas}
+            want_v = {(k, changed) + verdict(old_now[k, changed]) for k in keys
+                      if verdict(want_new[k, changed]) != verdict(old_now[k, changed])}
+            want_v |= {(k, removed) + verdict(old_now[k, removed]) for k in keys}
+            exact_r = got_v == want_v and all(e["type"] == "VERDICT" for e in r_deltas)
+            if not exact_r:
+                fail("phase10: the rollback's stream deltas are not the flips back")
+        out["R"].update(deltas=len(r_deltas), deltas_exact=exact_r,
+                        matrix_version=v_after_r,
+                        stream={k: st[k] if not isinstance(st[k], list) else len(st[k])
+                                for k in ("resyncs", "overflows", "reconnects")})
+        # a reconnect with a cursor the ring still covers replays exactly
+        # the entries after it
+        cursor_v = v_after_r - AUDIT_RESUME_ENTRIES
+        replay = stream_entries(rp, cursor_v, AUDIT_RESUME_ENTRIES)
+        seen = {e["matrixVersion"]: e for e in st["deltas"]
+                if e["matrixVersion"] > cursor_v}
+        if [e["matrixVersion"] for e in replay] != list(
+            range(cursor_v + 1, v_after_r + 1)
+        ) or any(seen.get(e["matrixVersion"], e) != e for e in replay):
+            fail("phase10: a reconnect at a covered cursor did not replay "
+                 "exactly the missed entries")
+        out["R"]["resume"] = {"cursor": cursor_v, "replayed": len(replay)}
+        print(f"phase10 progress, wave R: {json.dumps(out['R'])} [{card}]")
+        out["scanner"] = scanner.stats()
+        out["matrix"] = matrix.stats()
+        open(stop_path, "w").close()
+        _o, err = stream_proc.communicate(timeout=60)
+        if stream_proc.returncode != 0:
+            fail(f"the stream client failed: {err[-2000:]}")
+        stream_proc = None
+        server.stop()
+        stopped = True
+    finally:
+        failpoints.reset()
+        if stream_proc is not None:
+            stream_proc.kill()
+            stream_proc.wait(30)
+        if not stopped:
+            server.stop()
+    join_retirements()
+    out["launches"] = ck.launch_counts()
+    out["memory_after_stop"] = device_memory() - mem_before
+    if abs(out["memory_after_stop"]) > RELOAD_MEMORY_SLACK:
+        fail(f"phase10: {out['memory_after_stop']} B still allocated after the stop")
+    if out["launches"]["policy_matrix"] < 1 or out["launches"]["probe"] < 1:
+        fail(f"phase 10 did not launch both kernels: {out['launches']}")
+    out["holds"] = hold_inventory_against_plain(objects, card)
+    out["k1_err"] = max(r["max_abs_err"] for r in out["holds"].values())
+    return out
+
+
+def stream_entries(port: int, cursor: int, n: int) -> list:
+    """The first ``n`` entries GET /audit/stream?cursor= gives."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", f"/audit/stream?cursor={cursor}")
+        resp = conn.getresponse()
+        if resp.status != 200:
+            fail(f"/audit/stream?cursor={cursor} answered {resp.status}")
+        out = []
+        while len(out) < n:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip():
+                out.append(json.loads(line))
+        return out
+    finally:
+        conn.close()
+
+
+def print_audit_phase(r10: dict, card: str) -> None:
+    b = r10["B"]
+    print(
+        f"phase10 server build {r10['build_s']:.3f} s (launches "
+        f"{json.dumps(r10['boot_launches'])}); snapshot "
+        f"{json.dumps(r10['snapshot'])} ({r10['snapshot']['bytes'] / max(1, r10['snapshot']['resources']):.1f} B per object) [{card}]"
+    )
+    print(
+        f"phase10 wave B: boot sweep {b['boot_sweep_s']:.3f} s from start(): "
+        f"{b['rows_scanned']} rows in {b['audit_batches']} audit batches "
+        f"({b['lane_rows']} pairs), {b['preemptions']} preemptions; "
+        f"{b['k1_launches']} policy_matrix launches in the window, "
+        f"{b['audit_launches']} by the audit lane answering {b['audit_pairs']} "
+        f"pairs ({b['launches_per_audit_batch']:.3f} launches per audit batch), "
+        f"{b['live_launches']} by live batches; {b['unique_rows']} unique rows "
+        f"copied to the card in the window (audit and live); a second full sweep "
+        f"{b['second_sweep_s']:.3f} s [{card}]"
+    )
+    for name, att in (("boot sweep, under the live wave", b["attribution"]),
+                      ("second full sweep, quiet", b["second_attribution"])):
+        print(f"phase10 attribution of the {name}: {json.dumps(att)} [{card}]")
+    for name, w in (("during the boot sweep", b["live"]),
+                    ("after it (verdict cache cleared)", b["live_after"])):
+        print(
+            f"phase10 wave B live /validate {name}: {w['answered']} answered, "
+            f"every body the oracle's, p50 {w['p50']:.3f} ms p99 {w['p99']:.3f} ms "
+            f"[{card}]"
+        )
+    m = r10["M"]
+    print(
+        f"phase10 wave M: {m['first']['answered']} UPDATEs, then again with fresh "
+        f"uids (p50 {m['again']['p50']:.3f} ms p99 {m['again']['p99']:.3f} ms): "
+        f"lookup hits +{m['hits']:.0f} = the {m['eligible']} frag-eligible pairs, "
+        f"misses +{m['misses']:.0f} (the matrix is asked for the {m['asked']} "
+        f"pairs of hookless targets); {m['dispatched']} rows reached the batcher, "
+        f"K1 served {m['serving_k1_rows']} of them in {m['serving_k1']} launches "
+        f"[{card}]"
+    )
+    p = r10["P"]
+    print(
+        f"phase10 wave P: what-if {json.dumps(p['whatif'])} (oracle flips in "
+        f"the first {AUDIT_WHATIF_ROWS} rows: {p['oracle_head_flips']}); dirty-"
+        f"column sweep {p['column_rows']} rows; {p['oracle_flips']} verdicts "
+        f"flip and {p['oracle_changes']} change (allowed, code or message) "
+        f"in the snapshot; stream {json.dumps(p['stream'])}, "
+        f"{p['deltas']} deltas, exact {p['deltas_exact']}; stage seconds "
+        f"{json.dumps(p['stages_s'])} [{card}]"
+    )
+    r = r10["R"]
+    print(
+        f"phase10 wave R: {r['stale']} rows stale after the rollback; stream "
+        f"{json.dumps(r['stream'])}, {r['deltas']} deltas, exact "
+        f"{r['deltas_exact']}; resume at cursor {r['resume']['cursor']} "
+        f"replayed {r['resume']['replayed']} entries exactly [{card}]"
+    )
+    for label, mem in r10["memory"]:
+        print(f"phase10 memory_allocated {label}: {mem} B [{card}]")
+    print(
+        f"phase10 memory_allocated after the stop: {r10['memory_after_stop']} B "
+        f"beyond the phase's start; launches {json.dumps(r10['launches'])}; "
+        f"scanner {json.dumps({k: v for k, v in r10['scanner'].items() if k != 'rows_scanned_by_epoch'})}; "
+        f"matrix {json.dumps(r10['matrix'])} [{card}]"
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -2898,6 +3932,12 @@ def main() -> int:
     print_tenants_phase(r9, card)
     print(f"phase9 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 10: audit on the card ----------------------------------------
+    t_phase = time.perf_counter()
+    r10 = audit_phase(work_docs, card)
+    print_audit_phase(r10, card)
+    print(f"phase10 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -2938,6 +3978,12 @@ def main() -> int:
                     f"phase9 --serving-shards {n} after the warmup": r["serving_launches"]
                     for n, r in r9["rates"].items()
                 },
+                "phase10 audit path (server build, boot sweep under a live "
+                "wave, a second full sweep, lookup admission, promotion with "
+                "the what-if and its dirty-column sweep, rollback and its "
+                "full sweep)": r10["launches"]["policy_matrix"],
+                "phase10 boot sweep: audit lane": r10["B"]["audit_launches"],
+                "phase10 boot sweep: live batches": r10["B"]["live_launches"],
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -2950,12 +3996,19 @@ def main() -> int:
                 {"warmup": c["k1_warmup"], "canary": c["k1_canary"]}
                 for c in r8["candidates"]
             ],
-            "max_abs_err": max(k1_err, r8["k1_err"], r9["k1_err"]),
+            "max_abs_err": max(k1_err, r8["k1_err"], r9["k1_err"], r10["k1_err"]),
             "max_abs_err_by_program": {
                 "phase2 flagship set": k1_err,
                 "phase8 changed set (team-a in phase 9)": r8["k1_err"],
                 "phase9 team-b set": r9["k1_err"],
+                "phase10 flagship set on the audit inventory, B in "
+                f"{AUDIT_HOLD_BATCHES}": r10["k1_err"],
             },
+            "audit_inventory_holds": [
+                {k: row[k] for k in ("bucket", "batch", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "max_abs_err")}
+                for row in r10["holds"].values()
+            ],
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -2980,6 +4033,8 @@ def main() -> int:
                     f"phase9 --serving-shards {n} (server build)": r["probe"]
                     for n, r in r9["rates"].items()
                 },
+                "phase10 audit path (server build and the reload "
+                "candidate's build)": r10["launches"]["probe"],
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,
@@ -3009,4 +4064,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--native-client"]:
         sys.exit(native_client_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--stream-client"]:
+        sys.exit(stream_client_main(sys.argv[2:]))
     sys.exit(main())

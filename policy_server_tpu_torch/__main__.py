@@ -8,7 +8,11 @@ serves the API port's evaluation POSTs from the C++ frontend. By default
 the policies file is watched and a changed digest, SIGHUP or ``POST
 /policies/reload`` reloads it (``--policy-reload-mode``); ``--tenants``
 serves named tenants beside the default one and ``--serving-shards`` serves
-each from several stacks. The flags, their
+each from several stacks; ``--audit-mode interval|on-promote`` runs the
+background audit scanner (``--audit-matrix`` its verdict matrix; the live
+watch feed, ``--audit-watch``, waits for ROADMAP A10, and
+``--audit-matrix-spill-seconds`` is read only by the spill, which waits for
+A11). The flags, their
 defaults, choices, validation and ``KUBEWARDEN_*`` environment variables
 are the JAX package's (``config/cli.py``, ``config/config.py``).
 """
@@ -309,6 +313,105 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "(draining its queued rows to the healthiest sibling), "
                    "and warm-revives it. Bounds the fencing latency after a "
                    "shard death. Ignored when --serving-shards is 1")),
+        ("--audit-mode", "KUBEWARDEN_AUDIT_MODE",
+         dict(default="off", metavar="MODE",
+              choices=["off", "interval", "on-promote"],
+              help="Background audit scanner (audit/scanner.py): "
+                   "continuously re-scans a snapshot of cluster resources "
+                   "(seeded from --audit-resources-file and from every "
+                   "object served through /validate) through the live "
+                   "policy epoch on the micro-batcher's best-effort lane "
+                   "— live traffic strictly preempts audit work. "
+                   "'interval' sweeps the dirty set on a cadence and "
+                   "fully on every policy-epoch promotion; 'on-promote' "
+                   "sweeps fully on epoch flips only; 'off' disables the "
+                   "scanner and the GET /audit/reports endpoints")),
+        ("--audit-interval-seconds", "KUBEWARDEN_AUDIT_INTERVAL_SECONDS",
+         dict(type=float, default=30.0, metavar="SECONDS",
+              help="Dirty-set sweep cadence for --audit-mode interval "
+                   "(objects served through /validate since the last "
+                   "sweep are re-judged)")),
+        ("--audit-batch-size", "KUBEWARDEN_AUDIT_BATCH_SIZE",
+         dict(type=int, default=256, metavar="N",
+              help="Rows per best-effort audit-lane batch (audit rides "
+                   "idle device slots in large batches; at most one "
+                   "audit dispatch is ever in flight)")),
+        ("--audit-max-snapshot-bytes", "KUBEWARDEN_AUDIT_MAX_SNAPSHOT_BYTES",
+         dict(default="64Mi", metavar="BYTES",
+              help="Byte budget of the audit snapshot store holding "
+                   "cluster resources as pre-encoded admission rows "
+                   "(accepts K/M/G[i] suffixes; least-recently-recorded "
+                   "rows evict beyond it)")),
+        ("--audit-resources-file", "KUBEWARDEN_AUDIT_RESOURCES_FILE",
+         dict(default=None, metavar="RESOURCES_FILE",
+              help="YAML/JSON file of Kubernetes objects (a list or a "
+                   "List document) seeding the audit snapshot store at "
+                   "boot — the stand-in for the companion audit "
+                   "scanner's cluster LIST")),
+        ("--audit-watch", "KUBEWARDEN_AUDIT_WATCH",
+         dict(action="store_true",
+              help="Feed the audit snapshot store from the Kubernetes "
+                   "list+watch stream (audit/watch_feed.py): "
+                   "ADDED/MODIFIED events supersede, DELETED evicts and "
+                   "prunes report rows, and the scanner then audits the "
+                   "LIVE cluster instead of only /validate traffic and "
+                   "the seed file. Streams resume from the last "
+                   "resourceVersion on clean close; faults and "
+                   "queue overflows force a counted full re-LIST "
+                   "resync. Requires --audit-mode interval|on-promote")),
+        ("--audit-watch-resources", "KUBEWARDEN_AUDIT_WATCH_RESOURCES",
+         dict(default="v1/Pod,v1/Namespace,apps/v1/Deployment,"
+                      "apps/v1/ReplicaSet,apps/v1/StatefulSet,"
+                      "apps/v1/DaemonSet",
+              metavar="KINDS",
+              help="Comma-separated apiVersion/Kind list the audit "
+                   "watch feed follows (e.g. 'v1/Pod,apps/v1/"
+                   "Deployment')")),
+        ("--audit-watch-max-queue-events",
+         "KUBEWARDEN_AUDIT_WATCH_MAX_QUEUE_EVENTS",
+         dict(type=int, default=65536, metavar="N",
+              help="Bound of the watch-event queue between the per-kind "
+                   "watcher threads and the snapshot applier; an "
+                   "overflow drops the event (counted loudly) and "
+                   "forces a full re-LIST resync of that kind, so a "
+                   "drop can delay freshness but never corrupt the "
+                   "inventory")),
+        ("--audit-matrix", "KUBEWARDEN_AUDIT_MATRIX",
+         dict(action="store_true",
+              help="Maintain the persistent (object × policy) verdict "
+                   "matrix (audit/matrix.py): sweeps evaluate only the "
+                   "dirty cross-product (dirty rows × all columns + "
+                   "clean rows × dirty columns — a promotion changing 2 "
+                   "of 32 policies re-judges 2 columns, not the "
+                   "cluster), verdict changes stream on GET "
+                   "/audit/stream with a monotonic matrixVersion "
+                   "cursor, columns spill through --state-dir for warm "
+                   "resume, and a /validate UPDATE byte-identical to a "
+                   "judged row answers from the precomputed verdict. "
+                   "Requires --audit-mode interval|on-promote")),
+        ("--audit-stream-max-clients",
+         "KUBEWARDEN_AUDIT_STREAM_MAX_CLIENTS",
+         dict(type=int, default=64, metavar="N",
+              help="Cap on concurrent GET /audit/stream clients; beyond "
+                   "it new subscribers get an in-band 503 (each client "
+                   "holds a bounded changelog queue — a slow consumer "
+                   "overflows its own queue and is dropped with a "
+                   "counted close, never blocking the applier)")),
+        ("--audit-matrix-spill-seconds",
+         "KUBEWARDEN_AUDIT_MATRIX_SPILL_SECONDS",
+         dict(type=float, default=30.0, metavar="SECONDS",
+              help="Verdict-matrix spill cadence: how often the scanner "
+                   "spills the matrix columns (epoch-fingerprint-keyed) "
+                   "to --state-dir so a warm restart resumes compliance "
+                   "without re-judging clean rows")),
+        ("--audit-matrix-whatif", "KUBEWARDEN_AUDIT_MATRIX_WHATIF",
+         dict(action="store_true",
+              help="During a reload's shadow canary, also evaluate the "
+                   "CANDIDATE epoch's changed columns against the live "
+                   "audit snapshot and surface the cluster-wide what-if "
+                   "verdict diff on the reload status — canarying over "
+                   "the whole cluster, not just the request ring. "
+                   "Requires --audit-matrix")),
         ("--no-warmup", "KUBEWARDEN_NO_WARMUP",
          dict(action="store_true",
               help="Skip the warmup of every batch bucket at boot and for "
@@ -376,6 +479,35 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--serving-shards must be >= 1")
     if args.shard_heartbeat_seconds <= 0:
         raise ValueError("--shard-heartbeat-seconds must be > 0")
+    if args.audit_interval_seconds <= 0:
+        raise ValueError("--audit-interval-seconds must be > 0")
+    if args.audit_batch_size < 1:
+        raise ValueError("--audit-batch-size must be >= 1")
+    if parse_size(args.audit_max_snapshot_bytes) < 0:
+        raise ValueError("--audit-max-snapshot-bytes must be >= 0")
+    if args.audit_watch:
+        if args.audit_mode == "off":
+            raise ValueError(
+                "--audit-watch requires the audit scanner "
+                "(--audit-mode interval or on-promote)"
+            )
+        raise ValueError(
+            "--audit-watch: the live watch feed is not in this package yet "
+            "(ROADMAP A10)"
+        )
+    if args.audit_watch_max_queue_events < 1:
+        raise ValueError("--audit-watch-max-queue-events must be >= 1")
+    if args.audit_matrix and args.audit_mode == "off":
+        raise ValueError(
+            "--audit-matrix requires the audit scanner "
+            "(--audit-mode interval or on-promote)"
+        )
+    if args.audit_stream_max_clients < 1:
+        raise ValueError("--audit-stream-max-clients must be >= 1")
+    if args.audit_matrix_spill_seconds <= 0:
+        raise ValueError("--audit-matrix-spill-seconds must be > 0")
+    if args.audit_matrix_whatif and not args.audit_matrix:
+        raise ValueError("--audit-matrix-whatif requires --audit-matrix")
 
 
 def server_from_args(args: argparse.Namespace) -> PolicyServer:
@@ -425,6 +557,14 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         tenants=read_tenants_file(args.tenants) if args.tenants else None,
         serving_shards=args.serving_shards,
         shard_heartbeat_seconds=args.shard_heartbeat_seconds,
+        audit_mode=args.audit_mode,
+        audit_interval_seconds=args.audit_interval_seconds,
+        audit_batch_size=args.audit_batch_size,
+        audit_max_snapshot_bytes=parse_size(args.audit_max_snapshot_bytes),
+        audit_resources_file=args.audit_resources_file,
+        audit_matrix=args.audit_matrix,
+        audit_stream_max_clients=args.audit_stream_max_clients,
+        audit_matrix_whatif=args.audit_matrix_whatif,
     )
 
 

@@ -12,6 +12,15 @@ API port (``ApiHandler``):
   served by that tenant's batcher under ``--tenants`` (``tenancy.py``); 404
   ``unknown tenant: {tenant}`` for a name the manifest lacks (every name,
   without one)
+* GET  ``/audit/reports[/{namespace}]`` → the audit scanner's report
+  rows and summary (404 "the background audit scanner is disabled" under
+  ``--audit-mode off``), with an ETag; a matching If-None-Match → 304
+* GET  ``/audit/stream[?cursor=N]``  → the verdict matrix's changelog as
+  chunked ``application/x-ndjson``, one entry a line (404 "the verdict
+  matrix is disabled" without ``--audit-matrix``, 422 for a cursor that is
+  not an integer, 503 at ``--audit-stream-max-clients``); a client whose
+  queue overflowed gets an OVERFLOW line and the stream ends. The literal
+  ``reports`` and ``stream`` routes come before ``/audit/{policy_id}``.
 * GET  ``/debug/timeline``           → the flight recorder's Chrome trace
   JSON (404 when the recorder is off)
 * GET  ``/debug/pprof/cpu?interval=&frequency=`` and ``/debug/pprof/heap``
@@ -26,6 +35,9 @@ Readiness port (``ReadinessHandler``):
 * GET ``/readiness/{tenant}`` → that tenant's own verdict (404 for an
   unknown tenant)
 * GET ``/metrics``   → the process registry in Prometheus text format
+* GET ``/audit/reports[/{namespace}]`` and ``/audit/stream``, as on the API
+  port (also under ``--frontend native``, whose API port answers only the
+  evaluation POSTs)
 * GET ``/debug/timeline``, as on the API port
 * POST ``/policies/reload`` (202), ``/policies/promote`` and
   ``/policies/rollback`` → the policy lifecycle's admin actions
@@ -54,9 +66,11 @@ from __future__ import annotations
 
 import hmac
 import json
+import select
+import socket
 from http.server import BaseHTTPRequestHandler
 from typing import Any
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, unquote
 
 from policy_server_tpu_torch.api import profiling
 from policy_server_tpu_torch.api.api_error import (
@@ -294,6 +308,38 @@ def lifecycle_action(
     return 200, json.dumps(body).encode()
 
 
+def _audit_reports_etag(state: ApiServerState) -> str:
+    """The GET /audit/reports validator: the snapshot's generation (what
+    the cluster looks like), the serving epoch (which set judged it) and
+    the report store's version (what the sweeps wrote)."""
+    scanner = state.audit
+    generation = scanner.snapshot.stats().get("generation", 0)
+    epoch = state.lifecycle.current_epoch if state.lifecycle is not None else 0
+    return f'"audit-{generation}-{epoch}-{scanner.reports.version()}"'
+
+
+def _audit_reports(
+    state: ApiServerState, namespace: str | None, if_none_match: str | None
+) -> tuple[int, bytes, dict[str, str]]:
+    """GET /audit/reports[/{namespace}] → (status, body, headers): the
+    report rows and summary with the scanner's facts and an ETag, a 304
+    with an empty body for a matching If-None-Match, or the 404 of a
+    disabled scanner."""
+    if state.audit is None:
+        return 404, api_error_body(
+            404, "the background audit scanner is disabled"
+        ), {}
+    etag = _audit_reports_etag(state)
+    if if_none_match == etag:
+        return 304, b"", {"ETag": etag}
+    body = json.dumps(state.audit.report_payload(namespace)).encode()
+    return 200, body, {"ETag": etag}
+
+
+def _ndjson(entry: dict) -> bytes:
+    return json.dumps(entry, separators=(",", ":")).encode() + b"\n"
+
+
 def _timeline() -> tuple[int, bytes]:
     """GET /debug/timeline: the recorder's ring as Chrome trace JSON."""
     rec = flightrec.recorder()
@@ -339,6 +385,101 @@ class _Handler(BaseHTTPRequestHandler):
     def _not_found(self) -> None:
         self._send_json(404, api_error_body(404, "Not Found"))
 
+    def _audit_get(self, path: str, query: str) -> bool:
+        """Answer the audit GET routes → False for any other path."""
+        if path == "/audit/stream":
+            self._audit_stream(query)
+            return True
+        if path == "/audit/reports":
+            namespace = None
+        elif path.startswith("/audit/reports/") and _one_segment(path[15:]):
+            namespace = unquote(path[15:])
+        else:
+            return False
+        status, body, headers = _audit_reports(
+            self.state, namespace, self.headers.get("If-None-Match")
+        )
+        if status == 304:
+            self.send_response(304)
+            for name, value in headers.items():
+                self.send_header(name, value)
+            self.end_headers()
+        else:
+            self._send_json(status, body, headers)
+        return True
+
+    def _audit_stream(self, query: str) -> None:
+        """GET /audit/stream[?cursor=N]: the matrix's changelog as chunked
+        NDJSON until the client goes away, its queue overflows (an OVERFLOW
+        line, then the end) or the server stops."""
+        state = self.state
+        matrix = state.audit_matrix
+        if matrix is None:
+            self._send_json(
+                404, api_error_body(404, "the verdict matrix is disabled")
+            )
+            return
+        cap = state.audit_stream_max_clients
+        if matrix.stream_clients() >= cap:
+            self._send_json(503, api_error_body(
+                503, f"audit stream client cap reached ({cap}); retry later"
+            ))
+            return
+        cursor: int | None = None
+        raw = parse_qs(query).get("cursor")
+        if raw is not None:
+            try:
+                cursor = int(raw[-1])
+            except ValueError:
+                self._send_json(
+                    422, api_error_body(422, f"invalid cursor {raw[-1]!r}")
+                )
+                return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        self.close_connection = True
+        sub = matrix.subscribe(cursor)
+        closing = self.server.closing  # type: ignore[attr-defined]
+        try:
+            while not closing.is_set():
+                entries, dead = matrix.drain(sub)
+                data = b"".join(_ndjson(e) for e in entries)
+                if dead:
+                    # the queue overflowed: say so (the client reconnects
+                    # with its cursor) rather than leave a silent gap
+                    data += _ndjson(
+                        {"type": "OVERFLOW", "matrixVersion": matrix.version}
+                    )
+                if data:
+                    self._write_chunk(data)
+                if dead or self._client_gone(0.1):
+                    break
+            self._write_chunk(b"")
+        except OSError:
+            pass  # the client went away: its cursor covers its return
+        finally:
+            matrix.unsubscribe(sub)
+
+    def _write_chunk(self, data: bytes) -> None:
+        self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+        self.wfile.flush()
+
+    def _client_gone(self, wait: float) -> bool:
+        """Wait up to ``wait`` seconds for the client's socket to become
+        readable → True when it was closed (a stream client sends
+        nothing)."""
+        conn = self.connection
+        readable, _w, _x = select.select([conn], [], [], wait)
+        if not readable:
+            return False
+        try:
+            return conn.recv(1, socket.MSG_PEEK) == b""
+        except OSError:
+            return True
+
 
 class ApiHandler(_Handler):
     """The API port: evaluation, the timeline and, under
@@ -346,6 +487,8 @@ class ApiHandler(_Handler):
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's hook name
         path, _, query = self.path.partition("?")
+        if self._audit_get(path, query):
+            return
         if path == "/debug/timeline":
             self._send_json(*_timeline())
         elif path == "/debug/pprof/cpu" and self.state.enable_pprof:
@@ -421,7 +564,9 @@ class ReadinessHandler(_Handler):
             self._not_found()
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's hook name
-        path = self.path.partition("?")[0]
+        path, _, query = self.path.partition("?")
+        if self._audit_get(path, query):
+            return
         if path == "/readiness":
             status, text = self.state.readiness()
             self._send(status, text.encode(), _TEXT)

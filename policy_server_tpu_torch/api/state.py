@@ -70,6 +70,14 @@ class ApiServerState:
     # the tenancy.TenantManager under --tenants (the default tenant
     # included); None serves every URL from this state's epoch pointer
     tenants: Any = None
+    # the audit.AuditScanner under --audit-mode interval|on-promote (GET
+    # /audit/reports answers 404 without one)
+    audit: Any = None
+    # the audit.VerdictMatrix under --audit-matrix (GET /audit/stream
+    # answers 404 without one)
+    audit_matrix: Any = None
+    # concurrent GET /audit/stream clients; past it a new one gets 503
+    audit_stream_max_clients: int = 64
 
     def _supervisor_note(self, body: str) -> str:
         """A 200 body names the frontend worker slots that gave up

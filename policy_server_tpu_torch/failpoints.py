@@ -49,6 +49,9 @@ Sites instrumented (grep for ``failpoints.fire``):
 ``reload.canary``   policy hot-reload shadow canary (lifecycle.py) —
                     ``raise`` = a canary fault; the candidate is
                     rejected, never promoted
+``audit.sweep``     head of every audit sweep (audit/scanner.py) —
+                    ``raise`` aborts the sweep: its rows stay dirty, the
+                    error is counted and the next trigger retries
 ==================  =====================================================
 
 Every fire is counted (``fired_count(site)``) so a test can check that an

@@ -27,12 +27,23 @@ canary and last-good rollback.
   rollback, and closes only when a LATER promotion pushes it past the
   one-generation window.
 
+* **Epoch hooks.** ``set_epoch_hooks`` registers the audit scanner's
+  observers, fired after each pointer flip: ``on_promote(epoch)`` (a
+  re-judge under the new set) and ``on_rollback(rolled_back, serving)``
+  (the revoked epoch's reports go stale). A failing observer is logged and
+  never fails the promotion or rollback.
+
+* **Cluster what-if** (``set_whatif_matrix``, ``--audit-matrix-whatif``).
+  After a candidate passes its canary, the verdict matrix evaluates the
+  candidate's changed columns against the first rows of the live audit
+  snapshot and keeps the verdict-flip summary (``stats()["whatif"]``).
+  It is advisory: a failing what-if never rejects the candidate.
+
 Failpoints (``failpoints.py``): ``reload.fetch``, ``reload.compile``,
 ``reload.canary``, one per pipeline stage.
 
 Counterpart of ``policy_server_tpu/lifecycle.py``, without the state store
-(durable manifests), the audit scanner's epoch hooks and the cluster
-what-if, which this package does not have."""
+(durable manifests), which this package does not have."""
 
 from __future__ import annotations
 
@@ -227,6 +238,38 @@ class PolicyLifecycleManager:
         self._watch_thread: threading.Thread | None = None
         self._reload_inflight = threading.BoundedSemaphore(1)
         self.last_stage_seconds: dict[str, float] = {}
+        # epoch-transition observers (the audit scanner's), fired after the
+        # pointer flip outside _swap_lock
+        self._on_promote: Callable[[int], None] | None = None
+        self._on_rollback: Callable[[int, int], None] | None = None
+        # the verdict matrix asked for the cluster what-if; None = off
+        self._whatif_matrix: Any = None
+
+    def set_whatif_matrix(self, matrix: Any) -> None:
+        """Arm the cluster what-if of each candidate that passes its
+        canary (module docstring)."""
+        self._whatif_matrix = matrix
+
+    def set_epoch_hooks(
+        self,
+        on_promote: Callable[[int], None] | None = None,
+        on_rollback: Callable[[int, int], None] | None = None,
+    ) -> None:
+        """Register the epoch-transition observers: ``on_promote(epoch)``
+        after every promotion (a staged one's too) and
+        ``on_rollback(rolled_back_epoch, serving_epoch)`` after a
+        rollback."""
+        self._on_promote = on_promote
+        self._on_rollback = on_rollback
+
+    @staticmethod
+    def _fire_hook(hook: Callable | None, *args: Any) -> None:
+        if hook is None:
+            return
+        try:
+            hook(*args)
+        except Exception as e:  # noqa: BLE001 — observers must not fail
+            logger.error("epoch-transition hook failed: %s", e)
 
     # -- bootstrap ---------------------------------------------------------
 
@@ -370,6 +413,16 @@ class PolicyLifecycleManager:
                 stage = "canary"
                 self._run_canary(candidate_env, policies)
                 stages["canary"] = time.perf_counter() - t2
+                # the cluster what-if: what would flip cluster-wide if the
+                # candidate promoted (advisory; a fault never rejects it)
+                if self._whatif_matrix is not None:
+                    try:
+                        self._whatif_matrix.whatif_diff(candidate_env, policies)
+                    except Exception as we:  # noqa: BLE001 — advisory
+                        logger.warning(
+                            "matrix what-if diff failed (advisory, "
+                            "promotion unaffected): %s", we,
+                        )
             except ReloadRejected as e:
                 self.last_stage_seconds = stages
                 self._reject(
@@ -606,6 +659,8 @@ class PolicyLifecycleManager:
             # one generation is the pin window: the epoch demoted two
             # promotions ago closes for good
             self._retire(beyond_pin, close_env=True)
+        # the post-promote observers (the audit scanner's re-judge)
+        self._fire_hook(self._on_promote, epoch.number)
 
     def _retire(self, epoch: Epoch, close_env: bool) -> None:
         """Background drain-then-stop of a demoted epoch's batcher (and
@@ -705,6 +760,13 @@ class PolicyLifecycleManager:
             self.state.batcher = revived.batcher
             if demoted is not None:
                 self._retire(demoted, close_env=False)
+            # the post-rollback observers: the demoted epoch's reports go
+            # stale, then a re-judge under the revived one
+            self._fire_hook(
+                self._on_rollback,
+                demoted.number if demoted is not None else -1,
+                revived.number,
+            )
             logger.warning(
                 "policy set ROLLED BACK to epoch %d; the rejected epoch "
                 "stays pinned for forensic promote", revived.number,
@@ -728,9 +790,13 @@ class PolicyLifecycleManager:
                 "epoch": self._current.number if self._current else 0,
                 "staged": 1 if self._staged is not None else 0,
                 "last_outcome": self._last_outcome,
-                # the JAX package's cluster what-if of the last canary;
-                # this package has no verdict matrix to ask
-                "whatif": None,
+                # the last cluster what-if (None when --audit-matrix-whatif
+                # is off or no reload ran yet)
+                "whatif": (
+                    self._whatif_matrix.last_whatif()
+                    if self._whatif_matrix is not None
+                    else None
+                ),
             }
 
     @property

@@ -79,11 +79,25 @@ of the policy lifecycle is built and warmed, and started only when it is
 promoted). ``dispatch_wedged()`` and ``revive_dispatch()`` are the self-heal
 watchdog's view of the loop (``supervision.py``); a ``shadow_recorder``
 sees every formed batch's ``(policy_id, request)`` pairs once (the reload
-canary's replay ring, ``lifecycle.py``).
+canary's replay ring, ``lifecycle.py``), and an ``audit_tracker`` (the
+audit scanner's ``SnapshotStore``) every formed batch's VALIDATE requests.
+
+A second, best-effort lane serves the background audit scanner
+(``submit_audit``): an audit batch is dispatched only when the loop finds
+the live queue empty and the measured device round trip of the batch fits
+in half the request deadline, at most one audit dispatch is in flight (a
+pool of one thread of its own), and a popped audit batch whose worker sees
+live work queued goes back to the head of its lane (a preemption). Audit
+batches are raw verdicts (``validate_batch(..., run_hooks=False)``), on a
+card through the device path. With a ``verdict_matrix``
+(``audit/matrix.py``) a VALIDATE UPDATE byte-identical to a row the audit
+lane judged is answered from the stored verdict at submission, before
+shedding and quota (lookup admission).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import math
 import queue
@@ -128,6 +142,7 @@ EXPIRED_MESSAGE = "request deadline exceeded before evaluation"
 DEGRADED_MESSAGE = "policy server degraded: device backend unavailable"
 OVERLOADED_MESSAGE = "policy server overloaded"
 STOPPING_MESSAGE = "policy server shutting down"
+_AUDIT_CLOSED = "batcher shutting down; audit lane closed"
 
 # pipeline workers: consecutive batches overlap across them
 PIPELINE_WORKERS = 4
@@ -218,6 +233,13 @@ class _DeliveryBatch:
         self._by_sink.clear()
 
 
+def _fail_future(future: Future, exc: BaseException) -> None:
+    try:
+        future.set_exception(exc)
+    except Exception:  # noqa: BLE001 — a racing completion won
+        pass
+
+
 def _deliver_sink(sink: Any, items: list) -> None:
     """One batch-granular completion call; a broken sink never takes the
     dispatch path down."""
@@ -251,6 +273,17 @@ class _BatchRec:
         }
 
 
+class _AuditJob:
+    """One audit-lane batch: ``pairs`` of (policy_id, request), resolved
+    with the raw verdicts (audit origin: no constraint applied)."""
+
+    __slots__ = ("pairs", "future")
+
+    def __init__(self, pairs: list, future: Future):
+        self.pairs = pairs
+        self.future = future
+
+
 class MicroBatcher:
     """Thread-safe evaluation front: ``submit()`` returns a Future resolved
     with the final response (service-layer constraints applied; an
@@ -274,6 +307,8 @@ class MicroBatcher:
         admission: Any = None,
         scheduler: Any = None,
         tenant: str = "default",
+        audit_tracker: Any = None,
+        verdict_matrix: Any = None,
     ) -> None:
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be at least 1")
@@ -312,6 +347,13 @@ class MicroBatcher:
         # the reload canary's replay ring (lifecycle.ShadowRecorder): one
         # observe per formed batch; None when reload is off
         self.shadow_recorder = shadow_recorder
+        # the audit scanner's inventory (audit.SnapshotStore): every formed
+        # batch's VALIDATE requests, one observe per batch; None when the
+        # scanner is off (and for named tenants)
+        self.audit_tracker = audit_tracker
+        # the verdict matrix (audit.VerdictMatrix) of lookup admission;
+        # None without --audit-matrix
+        self.verdict_matrix = verdict_matrix
         self._env_fastpath = env.supports_host_fastpath
         # EWMA device round trip per batch bucket, seconds (seeded by
         # warmup, learned from real dispatches, decayed on each budget
@@ -364,6 +406,25 @@ class MicroBatcher:
         # the burst size the native frontend admits at once)
         self.bulk_submits = 0  # guarded-by: _stats_lock
         self.bulk_submitted_rows = 0  # guarded-by: _stats_lock
+        # audit batches dispatched and the rows they carried, and those
+        # re-queued because live work arrived first
+        self.audit_batches_dispatched = 0  # guarded-by: _stats_lock
+        self.audit_rows_dispatched = 0  # guarded-by: _stats_lock
+        self.audit_preemptions = 0  # guarded-by: _stats_lock
+        # requests answered from the verdict matrix, and matrix-eligible
+        # ones it could not answer
+        self.matrix_lookup_hits = 0  # guarded-by: _stats_lock
+        self.matrix_lookup_misses = 0  # guarded-by: _stats_lock
+        # fragment-lane metric memo: label tuple -> metric (bounded)
+        self._metric_memo: dict[tuple, Any] = {}
+        # the audit lane: jobs wait in a deque (a preempted one goes back
+        # to its head); the pool of one thread is the one-in-flight cap
+        self._audit_lock = threading.Lock()
+        self._audit_jobs: collections.deque[_AuditJob] = (
+            collections.deque()
+        )  # guarded-by: _audit_lock
+        self._audit_inflight = False  # guarded-by: _audit_lock
+        self._audit_pool = DaemonExecutor(1, "audit-dispatch")
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -444,6 +505,10 @@ class MicroBatcher:
         # a wedged device call must not hold shutdown: its rows were
         # answered by the watchdog
         self._device_pool.shutdown(wait=False)
+        # queued audit jobs fail (the scanner re-marks their rows dirty);
+        # an audit dispatch in flight is abandoned, never joined
+        self._drain_audit_rejecting()
+        self._audit_pool.shutdown(wait=False)
 
     def _drain_rejecting(self) -> None:
         while True:
@@ -530,6 +595,64 @@ class MicroBatcher:
 
     # -- submission --------------------------------------------------------
 
+    def _try_matrix(self, p: _Pending) -> bool:
+        """Lookup admission: answer the row from the verdict matrix when
+        every gate holds — VALIDATE origin, an UPDATE (a CREATE or DELETE
+        changes the inventory), no always-accept namespace, a hookless
+        target, and the matrix's own (byte-identical payload, current
+        column fingerprint, fragment eligibility). A hit resolves as a
+        FragVerdict and is not recorded for the audit tracker (its payload
+        is the row the verdict came from). False on any miss."""
+        matrix = self.verdict_matrix
+        if matrix is None or p.origin is not RequestOrigin.VALIDATE:
+            return False
+        adm = p.request.admission_request
+        if adm is None or (adm.operation or "").upper() != "UPDATE":
+            return False
+        if self.env.always_accept_namespace is not None:
+            return False
+        if self._target_hookless(p.policy_id) is not True:
+            return False
+        tmpl = matrix.lookup(p.policy_id, p.request, self.env)
+        if not tmpl:
+            with self._stats_lock:
+                self.matrix_lookup_misses += 1
+            return False
+        done_at = time.perf_counter()
+        with self._stats_lock:
+            self.matrix_lookup_hits += 1
+        try:
+            service._registry().record_evaluations_batch(
+                [((done_at - p.enqueued_at) * 1e3, self._metric_of(p, tmpl))]
+            )
+        except Exception:  # noqa: BLE001 — metrics must not fail serving
+            pass
+        verdict = FragVerdict(p.request.uid(), tmpl)
+        self._resolve(
+            p, verdict if p.sink is not None else verdict.to_response()
+        )
+        return True
+
+    def _metric_of(self, p: _Pending, tmpl: Any) -> Any:
+        """The evaluation metric of a row answered from a template,
+        memoized by its labels (bounded at 4,096: a stream of ever-new
+        labels is built per row)."""
+        adm = p.request.admission_request
+        key = (
+            p.policy_id, p.origin, tmpl.allowed, tmpl.code,
+            adm.request_kind.kind if adm.request_kind else "",
+            adm.namespace, adm.operation,
+        )
+        m = self._metric_memo.get(key)
+        if m is None:
+            m = service.evaluation_metric(
+                self.env, p.policy_id, p.request, p.origin,
+                accepted=tmpl.allowed, mutated=False, error_code=tmpl.code,
+            )
+            if len(self._metric_memo) < 4096:
+                self._metric_memo[key] = m
+        return m
+
     def submit(
         self,
         policy_id: str,
@@ -543,6 +666,8 @@ class MicroBatcher:
         pending = self._stamp(_Pending(policy_id, request, origin, Future()))
         if self._stopping:
             self._reject_stopping(pending)
+            return pending.future
+        if self._try_matrix(pending):
             return pending.future
         self._shed_check(pending)
         self._admit_quota([pending])
@@ -607,6 +732,8 @@ class MicroBatcher:
         if self._stopping:
             self._reject_stopping(pending)
             return pending.future
+        if self._try_matrix(pending):
+            return pending.future
         self._shed_check(pending)
         self._admit_quota([pending])
         try:
@@ -663,6 +790,12 @@ class MicroBatcher:
             for p in pendings:
                 self._reject_stopping(p)
             return futures
+        if self.verdict_matrix is not None:
+            # lookup admission row by row before the burst's shed and
+            # quota: a hit takes no queue room and no quota
+            pendings = [p for p in pendings if not self._try_matrix(p)]
+            if not pendings:
+                return futures
         if self.request_timeout is not None:
             est = self.estimated_wait()
             if est > self.request_timeout:
@@ -747,6 +880,11 @@ class MicroBatcher:
                 "queue_wait_ns": self.queue_wait_ns,
                 "bulk_submits": self.bulk_submits,
                 "bulk_submitted_rows": self.bulk_submitted_rows,
+                "audit_batches_dispatched": self.audit_batches_dispatched,
+                "audit_rows_dispatched": self.audit_rows_dispatched,
+                "audit_preemptions": self.audit_preemptions,
+                "matrix_lookup_hits": self.matrix_lookup_hits,
+                "matrix_lookup_misses": self.matrix_lookup_misses,
             }
 
     def evaluate(
@@ -757,6 +895,154 @@ class MicroBatcher:
     ) -> Any:
         """Submit and wait (the synchronous convenience)."""
         return self.submit(policy_id, request, origin).result()
+
+    # -- the best-effort audit lane ------------------------------------------
+
+    def submit_audit(self, pairs: list) -> Future:
+        """Queue one audit batch → a Future of ``validate_batch``'s results
+        (raw verdicts, or an Exception per row), resolved whenever an idle
+        slot dispatches it: the lane promises no latency. A stopping
+        batcher fails the Future; this never raises."""
+        future: Future = Future()
+        if self._stopping:
+            future.set_exception(RuntimeError(_AUDIT_CLOSED))
+            return future
+        with self._audit_lock:
+            self._audit_jobs.append(_AuditJob(list(pairs), future))
+        # shutdown may have drained the lane between the check and the
+        # append: drain again
+        if self._stopping:
+            self._drain_audit_rejecting()
+        return future
+
+    def audit_lane_depth(self) -> int:
+        """Audit batches waiting for an idle slot."""
+        with self._audit_lock:
+            return len(self._audit_jobs)
+
+    def cancel_audit(self, future: Future) -> bool:
+        """Take a job not yet dispatched out of the lane and fail its
+        Future (the scanner abandons a job it timed out on, so retries do
+        not stack duplicates). False when the job is gone already."""
+        with self._audit_lock:
+            for job in self._audit_jobs:
+                if job.future is future:
+                    self._audit_jobs.remove(job)
+                    break
+            else:
+                return False
+        _fail_future(future, RuntimeError("audit job cancelled by its submitter"))
+        return True
+
+    def _audit_slack_ok(self, audit_rows: int) -> bool:
+        """True when one audit batch of ``audit_rows`` may be dispatched now
+        without breaking a live request that arrives right after: the
+        breaker is not fully open (the scan pauses instead of taking the
+        oracle's capacity), and the batch's estimated device hold (the
+        round-trip EWMA of a full bucket times the full buckets the rows
+        span) fits in half the request deadline. The soft latency budget
+        does not gate here: a live batch formed while an audit dispatch
+        holds the device is routed to the host by the budget router."""
+        if self.env.breaker_all_open:
+            return False
+        if self.request_timeout is None:
+            return True
+        bucket = bucket_size(self.max_batch_size)
+        rtt = self._dev_rtt.get(bucket)
+        if rtt is None:
+            # no measurement yet: the first audit dispatch is one
+            return True
+        hold = rtt * max(1, math.ceil(audit_rows / bucket))
+        return hold <= 0.5 * self.request_timeout
+
+    def _maybe_dispatch_audit(self) -> None:
+        """Called by the loop only when the live queue came up empty: hand
+        at most one audit batch to the audit pool. The slack check runs
+        outside the lane lock (it reads the breaker; the lane lock stays
+        innermost)."""
+        if self._stopping:
+            return
+        with self._audit_lock:
+            if self._audit_inflight or not self._audit_jobs:
+                return
+            head_rows = len(self._audit_jobs[0].pairs)
+        if not self._audit_slack_ok(head_rows):
+            return
+        with self._audit_lock:
+            if self._audit_inflight or not self._audit_jobs:
+                return
+            job = self._audit_jobs.popleft()
+            self._audit_inflight = True
+        try:
+            self._audit_pool.submit(self._run_audit_job, job)
+        except RuntimeError:  # the pool was shut down: a stop race
+            with self._audit_lock:
+                self._audit_inflight = False
+            _fail_future(job.future, RuntimeError(_AUDIT_CLOSED))
+
+    def _requeue_audit(self, job: _AuditJob) -> None:
+        """A preemption: the job goes back to the head of its lane."""
+        with self._stats_lock:
+            self.audit_preemptions += 1
+        with self._audit_lock:
+            self._audit_jobs.appendleft(job)
+
+    def _run_audit_job(self, job: _AuditJob) -> None:
+        try:
+            # live work arrived between the pop and this worker's start:
+            # the live batch goes first
+            if self._queue.qsize() > 0 and not self._stopping:
+                self._requeue_audit(job)
+                return
+            if self._stopping:
+                _fail_future(job.future, RuntimeError(_AUDIT_CLOSED))
+                return
+            sched = self.scheduler
+            granted = False
+            if sched is not None:
+                from policy_server_tpu_torch.runtime import scheduler as fair
+
+                # under tenants audit also yields to every tenant's live
+                # waiters: a bounded wait, then back to the lane's head
+                granted = sched.acquire(
+                    self.tenant, fair.AUDIT, timeout=0.5,
+                    should_abort=lambda: self._stopping,
+                )
+                if not granted:
+                    if self._stopping:
+                        _fail_future(job.future, RuntimeError(_AUDIT_CLOSED))
+                    else:
+                        self._requeue_audit(job)
+                    return
+            try:
+                try:
+                    # raw verdicts on the device path, without hooks (the
+                    # scan judges policy logic, as the reload canary does)
+                    with failpoints.scope(self.tenant):
+                        results = self.env.validate_batch(
+                            job.pairs, run_hooks=False
+                        )
+                except Exception as e:  # noqa: BLE001 — the job carries it
+                    _fail_future(job.future, e)
+                    return
+                with self._stats_lock:
+                    self.audit_batches_dispatched += 1
+                    self.audit_rows_dispatched += len(job.pairs)
+                job.future.set_result(results)
+            finally:
+                if granted:
+                    sched.release(self.tenant)
+        finally:
+            with self._audit_lock:
+                self._audit_inflight = False
+
+    def _drain_audit_rejecting(self) -> None:
+        while True:
+            with self._audit_lock:
+                if not self._audit_jobs:
+                    return
+                job = self._audit_jobs.popleft()
+            _fail_future(job.future, RuntimeError(_AUDIT_CLOSED))
 
     # -- the loop ----------------------------------------------------------
 
@@ -769,6 +1055,13 @@ class MicroBatcher:
                 # under the shard's scope so one shard can be killed
                 with failpoints.scope(self.failpoint_scope):
                     failpoints.fire("shard.dispatch")
+                # the live lane is empty for the moment: the one time the
+                # audit lane may claim a slot (under steady load the queue
+                # drains to zero between bursts, and those gaps are the
+                # idle capacity audit rides; its dispatch runs on a pool of
+                # its own, so the get below is not delayed)
+                if self._queue.qsize() == 0:
+                    self._maybe_dispatch_audit()
                 try:
                     first = self._queue.get(timeout=0.05)
                 except queue.Empty:
@@ -909,6 +1202,16 @@ class MicroBatcher:
                 )
             except Exception:  # noqa: BLE001 — the canary corpus just
                 pass  # stays smaller; the batch is unaffected
+        if self.audit_tracker is not None:
+            try:
+                # only objects admitted through /validate belong in the
+                # cluster snapshot (audit replays must not feed it)
+                self.audit_tracker.observe(
+                    [p.request for p in batch
+                     if p.origin is RequestOrigin.VALIDATE]
+                )
+            except Exception:  # noqa: BLE001 — the scan corpus just
+                pass  # stays smaller; the batch is unaffected
         # phase 1 (host): pre-evaluation and bounded pre-eval hooks; rows
         # that short-circuit or fail resolve here, sink rows in one call
         delivery = _DeliveryBatch()
@@ -930,7 +1233,7 @@ class MicroBatcher:
             if short is not None:
                 self._resolve(p, short, delivery)
                 continue
-            if not self._target_hookless(p.policy_id):
+            if self._target_hookless(p.policy_id) is False:
                 try:
                     if not self._run_hooks_with_deadline(p, delivery):
                         continue  # deadline rejection already delivered
@@ -1264,17 +1567,18 @@ class MicroBatcher:
 
     # -- pre-eval hooks ----------------------------------------------------
 
-    def _target_hookless(self, policy_id: str) -> bool:
-        """True when the id's target has no pre-eval hooks (memoized for
-        registry-known ids only; an unknown id fails later, in
-        validate_batch, with its full semantics)."""
+    def _target_hookless(self, policy_id: str) -> bool | None:
+        """Whether the id's target has no pre-eval hooks (memoized for
+        registry-known ids only); None for an id the registry does not
+        know, which fails later, in validate_batch, with its full
+        semantics."""
         known = self._hookless.get(policy_id)
         if known is not None:
             return known
         try:
             target = self.env._lookup_top_level(PolicyID.parse(policy_id))
         except Exception:  # noqa: BLE001 — resolved later with semantics
-            return True
+            return None
         hookless = not self.env._hooks_of(target)
         self._hookless[policy_id] = hookless
         return hookless

@@ -14,6 +14,8 @@ grant order:
   converge to the weight ratio. A tenant that went idle banks no credit:
   its clock is floored to the lowest clock among the live waiters.
 
+A batcher asks for a LIVE slot for each formed batch and for an AUDIT slot
+for each batch of its best-effort audit lane (``MicroBatcher.submit_audit``).
 Without tenants no scheduler exists and the batcher never asks for a slot.
 Per tenant it counts grants, the summed wait for a slot and the waiters of
 the moment (the tenant-labelled /metrics families).

@@ -215,10 +215,20 @@ class ShardRouter:
             items, origin, sink=sink, tokens=tokens
         )
 
+    def submit_audit(self, pairs):
+        """An audit batch goes whole to the healthiest shard's lane."""
+        return self._pick().batcher.submit_audit(pairs)
+
+    def cancel_audit(self, future) -> bool:
+        return any(s.batcher.cancel_audit(future) for s in self._shards)
+
     # -- introspection -------------------------------------------------------
 
     def queue_depth(self) -> int:
         return sum(s.batcher.queue_depth() for s in self._shards)
+
+    def audit_lane_depth(self) -> int:
+        return sum(s.batcher.audit_lane_depth() for s in self._shards)
 
     def estimated_wait(self) -> float:
         """The wait a row routed now would see: the best healthy shard's."""

@@ -41,11 +41,23 @@ fences a dead shard and revives it; at 1 the plain batcher serves, with no
 router on the path. Every epoch, reload candidate and rollback of every
 tenant builds its serving plane through one ``build_batcher``.
 
+``audit_mode`` ``interval`` or ``on-promote`` (``--audit-mode``; ``off`` by
+default, as the JAX package's) adds the background audit scanner
+(``audit/``): a snapshot store of the cluster's resources, seeded from
+``audit_resources_file`` and fed by every default-tenant batcher, swept by
+an ``AuditScanner`` on the batchers' best-effort audit lane (started by
+``start()``), with the lifecycle's epoch hooks; ``audit_matrix`` adds the
+verdict matrix (built before the batchers, which consult it for lookup
+admission; ``GET /audit/stream``), and ``audit_matrix_whatif`` the
+lifecycle's cluster what-if. Named tenants feed neither. Every audit,
+matrix and watch family is on /metrics at every setting, with zeros for
+what is off.
+
 ``stop()`` follows the JAX package's order: the watchdog, then the native
-frontend stops accepting, then the named tenants' epochs, then every epoch
-of the default tenant: each batcher answers what it holds (503 for rows not
-yet in a batch) and its environments close, then the native frontend
-flushes and frees.
+frontend stops accepting and the audit streams end, then the audit scanner,
+then the named tenants' epochs, then every epoch of the default tenant:
+each batcher answers what it holds (503 for rows not yet in a batch) and
+its environments close, then the native frontend flushes and frees.
 
 ``frontend="native"`` (``--frontend native``) serves the API port's
 evaluation POSTs (``/validate``, ``/validate_raw``, ``/audit``) from the
@@ -71,6 +83,13 @@ from typing import Any, Iterator, Mapping
 
 from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.api import profiling
+from policy_server_tpu_torch.audit import (
+    AUDIT_MODES,
+    AuditScanner,
+    PolicyReportStore,
+    SnapshotStore,
+    VerdictMatrix,
+)
 from policy_server_tpu_torch.api.handlers import ApiHandler, ReadinessHandler
 from policy_server_tpu_torch.api.state import ApiServerState
 from policy_server_tpu_torch.evaluation.environment import (
@@ -116,6 +135,10 @@ DEFAULT_REQUEST_TIMEOUT_MS = 10000.0
 DEFAULT_SHARD_HEARTBEAT_SECONDS = 0.5
 DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS = nf.NativeFrontend.IDLE_TIMEOUT_MS / 1000
 DEFAULT_NATIVE_READ_TIMEOUT_SECONDS = nf.NativeFrontend.READ_TIMEOUT_MS / 1000
+DEFAULT_AUDIT_INTERVAL_SECONDS = 30.0
+DEFAULT_AUDIT_BATCH_SIZE = 256
+DEFAULT_AUDIT_MAX_SNAPSHOT_BYTES = 64 * 1024 * 1024
+DEFAULT_AUDIT_STREAM_MAX_CLIENTS = 64
 
 logger = logging.getLogger("kubewarden-policy-server")
 
@@ -131,6 +154,9 @@ class _HttpServer(ThreadingHTTPServer):
         self, addr: tuple[str, int], handler: type, state: ApiServerState
     ) -> None:
         self.state = state
+        # set by PolicyServer.stop(): long-lived handlers (the audit
+        # stream) end within their poll interval
+        self.closing = threading.Event()
         super().__init__(addr, handler)
 
 
@@ -167,14 +193,17 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     """The serving runtime's families for one /metrics scrape, under the
     JAX package's names: the batcher's counters, the environment's
     ``dedup_stats``, ``host_profile``, ``breaker_stats``,
-    ``device_errors`` and kernel stats, the policy lifecycle's and the
-    supervisor's counters, and the flight recorder's. Everything is read
-    through ``state``, so the scrape follows the epoch flips. Families
-    whose subsystem the port has not got (audit) are not emitted; the
-    native frontend's read zero under ``--frontend python``, the
-    lifecycle's under ``--policy-reload-mode off``, the tenant families
-    have no samples without ``--tenants`` and the shard families show one
-    shard and no fence at ``--serving-shards 1``, as the JAX package's."""
+    ``device_errors`` and kernel stats, the policy lifecycle's, the
+    supervisor's, the audit scanner's and the verdict matrix's counters,
+    and the flight recorder's. Everything is read through ``state``, so the
+    scrape follows the epoch flips. As the JAX package's: the native
+    frontend's families read zero under ``--frontend python``, the
+    lifecycle's under ``--policy-reload-mode off``, the audit families
+    under ``--audit-mode off``, the matrix families without
+    ``--audit-matrix`` and the watch families always (the watch feed waits
+    for ROADMAP A10); the tenant families have no samples without
+    ``--tenants`` and the shard families show one shard and no fence at
+    ``--serving-shards 1``."""
     batcher = state.batcher
     env = state.evaluation_environment
     b = batcher.stats_snapshot()
@@ -334,6 +363,8 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.POLICY_EPOCH, "gauge",
            "Monotonic number of the currently serving policy epoch (0 = the "
            "boot set)", lstats.get("epoch", 0))
+    astats = state.audit.stats() if state.audit is not None else {}
+    yield from _audit_families(batcher, b, astats)
     sup = state.supervisor.stats() if state.supervisor is not None else {}
     yield (names.WORKER_RESPAWNS, "counter",
            "Prefork frontend workers respawned after dying",
@@ -352,6 +383,7 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
            "Native-frontend drainer threads the self-heal watchdog found "
            "dead and rebuilt", sup.get("frontend_revives", 0))
     yield from _shard_families(batcher, b)
+    yield from _matrix_families(state, b)
     rec = flightrec.recorder()
     yield (names.FLIGHT_RECORDER_EVENTS, "counter",
            "Phase events written to the flight-recorder ring",
@@ -408,6 +440,127 @@ def _tenant_families(state: ApiServerState) -> Iterator[tuple]:
     yield (names.TENANTS_SERVING, "gauge",
            "Tenants served by this process (0 without a tenants manifest; "
            "includes the default tenant otherwise)", t.get("serving", 0))
+
+
+def _audit_families(batcher: Any, b: dict, a: dict) -> Iterator[tuple]:
+    """The audit lane's (the default tenant's plane), the scanner's and the
+    watch feed's families."""
+    for name, kind, text, value in (
+        (names.AUDIT_BATCHES_DISPATCHED, "counter",
+         "Best-effort audit-lane batches dispatched on idle slots",
+         b["audit_batches_dispatched"]),
+        (names.AUDIT_PREEMPTIONS, "counter",
+         "Audit batches re-queued because live work arrived first",
+         b["audit_preemptions"]),
+        (names.AUDIT_LANE_DEPTH, "gauge",
+         "Audit batches waiting for an idle dispatch slot",
+         batcher.audit_lane_depth()),
+        (names.AUDIT_ROWS_SCANNED, "counter",
+         "Resource x policy rows the audit scanner has judged",
+         a.get("rows_scanned", 0)),
+        (names.AUDIT_FULL_SWEEPS, "counter",
+         "Completed full audit sweeps (boot, epoch promotions, rollbacks)",
+         a.get("full_sweeps", 0)),
+        (names.AUDIT_DIRTY_SWEEPS, "counter",
+         "Completed dirty-set audit sweeps (interval cadence)",
+         a.get("dirty_sweeps", 0)),
+        (names.AUDIT_SWEEP_ERRORS, "counter",
+         "Audit sweeps aborted by a fault (retried on the next trigger)",
+         a.get("sweep_errors", 0)),
+        (names.AUDIT_PAUSED_SWEEPS, "counter",
+         "Audit sweeps skipped while the device breaker was open",
+         a.get("paused_sweeps", 0)),
+        (names.AUDIT_REPORT_FRESHNESS, "gauge",
+         "Seconds since the last completed full audit sweep (-1 before the "
+         "first)", a.get("freshness_seconds", -1.0)),
+        (names.AUDIT_REPORTS_RESIDENT, "gauge",
+         "Audit report rows currently held", a.get("reports_resident", 0)),
+        (names.AUDIT_REPORTS_STALE, "gauge",
+         "Audit report rows stamped by a rolled-back policy epoch",
+         a.get("reports_stale", 0)),
+        (names.AUDIT_SNAPSHOT_RESOURCES, "gauge",
+         "Cluster resources held in the audit snapshot store",
+         a.get("snapshot_resources", 0)),
+        (names.AUDIT_SNAPSHOT_BYTES, "gauge",
+         "Resident bytes of the audit snapshot store",
+         a.get("snapshot_bytes", 0)),
+        (names.WATCH_EVENTS_APPLIED, "counter",
+         "Kubernetes watch events applied to the audit snapshot store "
+         "(ADDED/MODIFIED supersede, DELETED evicts)",
+         a.get("watch_events_applied", 0)),
+        (names.WATCH_EVENTS_DROPPED, "counter",
+         "Watch events dropped by the bounded feed queue (each forces a "
+         "counted full re-LIST resync of its kind)",
+         a.get("watch_events_dropped", 0)),
+        (names.WATCH_RESYNCS, "counter",
+         "Full re-LIST resyncs of the audit watch feed (410 expiry, "
+         "transport fault, queue overflow, or the staleness-bounding "
+         "interval)", a.get("watch_resyncs", 0)),
+    ):
+        yield (name, kind, text, value)
+
+
+def _matrix_families(state: ApiServerState, b: dict) -> Iterator[tuple]:
+    """The verdict matrix's families, and lookup admission's (the default
+    tenant's plane)."""
+    m = state.audit_matrix.stats() if state.audit_matrix is not None else {}
+    for name, kind, text, value in (
+        (names.MATRIX_ROWS_RESIDENT, "gauge",
+         "Distinct snapshot rows holding at least one verdict cell in the "
+         "matrix", m.get("rows_resident", 0)),
+        (names.MATRIX_CELLS_RESIDENT, "gauge",
+         "Resident (object x policy) verdict cells",
+         m.get("cells_resident", 0)),
+        (names.MATRIX_COLUMNS, "gauge",
+         "Policy columns of the serving epoch (keyed by policy content "
+         "fingerprint, not epoch number)", m.get("columns", 0)),
+        (names.MATRIX_DIRTY_COLUMNS, "gauge",
+         "Columns awaiting a column-dirty sweep (epoch promotion changed "
+         "their policy content)", m.get("dirty_columns", 0)),
+        (names.MATRIX_VERSION, "gauge",
+         "Monotonic matrix version — the /audit/stream resume cursor's "
+         "upper bound", m.get("matrix_version", 0)),
+        (names.MATRIX_ROW_SWEEP_ROWS, "counter",
+         "Matrix rows re-judged because the watch feed dirtied the object "
+         "row", m.get("row_sweep_rows", 0)),
+        (names.MATRIX_COLUMN_SWEEP_ROWS, "counter",
+         "Matrix rows re-judged because an epoch promotion dirtied the "
+         "policy column", m.get("column_sweep_rows", 0)),
+        (names.MATRIX_ROWS_EVICTED, "counter",
+         "Matrix rows evicted by watch-feed DELETEs",
+         m.get("rows_evicted", 0)),
+        (names.MATRIX_COLUMNS_INVALIDATED, "counter",
+         "Policy columns invalidated (content fingerprint changed or "
+         "policy removed at promotion/rollback)",
+         m.get("columns_invalidated", 0)),
+        (names.MATRIX_CHANGELOG_EMITS, "counter",
+         "Verdict-change entries emitted to the matrix changelog ring "
+         "(re-stamps that confirm a standing verdict do not emit)",
+         m.get("changelog_emits", 0)),
+        (names.MATRIX_STREAM_CLIENTS, "gauge",
+         "Connected GET /audit/stream subscribers",
+         m.get("stream_clients", 0)),
+        (names.MATRIX_STREAM_DROPPED_CLIENTS, "counter",
+         "Stream subscribers dropped for slow consumption (bounded "
+         "per-client queue overflowed; the applier never blocks)",
+         m.get("changelog_dropped_clients", 0)),
+        (names.MATRIX_LOOKUP_HITS, "counter",
+         "/validate requests answered from a precomputed matrix verdict "
+         "(byte-identical UPDATE payload, protect-mode hookless target)",
+         b.get("matrix_lookup_hits", 0)),
+        (names.MATRIX_LOOKUP_MISSES, "counter",
+         "Matrix-eligible /validate requests that fell through to full "
+         "evaluation (no cell, stale payload hash, or stale column "
+         "fingerprint)", b.get("matrix_lookup_misses", 0)),
+        (names.MATRIX_SPILLS, "counter",
+         "Matrix spills journaled to the statestore (cadenced sweep-tail "
+         "spills + the shutdown spill)", m.get("spills", 0)),
+        (names.MATRIX_CELLS_RESTORED, "gauge",
+         "Verdict cells restored from the statestore spill at warm boot "
+         "(column fingerprint + payload hash matched)",
+         m.get("cells_restored", 0)),
+    ):
+        yield (name, kind, text, value)
 
 
 def _shard_families(batcher: Any, b: dict) -> Iterator[tuple]:
@@ -489,9 +642,29 @@ class PolicyServer:
         tenants: TenantManifest | None = None,
         serving_shards: int = 1,
         shard_heartbeat_seconds: float = DEFAULT_SHARD_HEARTBEAT_SECONDS,
+        audit_mode: str = "off",
+        audit_interval_seconds: float = DEFAULT_AUDIT_INTERVAL_SECONDS,
+        audit_batch_size: int = DEFAULT_AUDIT_BATCH_SIZE,
+        audit_max_snapshot_bytes: int = DEFAULT_AUDIT_MAX_SNAPSHOT_BYTES,
+        audit_resources_file: str | None = None,
+        audit_matrix: bool = False,
+        audit_stream_max_clients: int = DEFAULT_AUDIT_STREAM_MAX_CLIENTS,
+        audit_matrix_whatif: bool = False,
     ) -> None:
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
+        if audit_mode not in AUDIT_MODES:
+            raise ValueError(
+                f"invalid audit mode {audit_mode!r} "
+                "(expected off, interval, or on-promote)"
+            )
+        if audit_matrix and audit_mode == "off":
+            raise ValueError(
+                "--audit-matrix requires the audit scanner "
+                "(--audit-mode interval or on-promote)"
+            )
+        if audit_matrix_whatif and not audit_matrix:
+            raise ValueError("--audit-matrix-whatif requires --audit-matrix")
         if policy_reload_mode not in RELOAD_MODES:
             raise ValueError(
                 f"invalid policy reload mode {policy_reload_mode!r} "
@@ -563,15 +736,29 @@ class PolicyServer:
             )
             default_admission = _admission_of(default_spec)
         supervisor = SupervisorStats()
+        # the audit scanner's inventory, fed by every epoch's default-tenant
+        # batcher (the dirty set survives reloads, as the canary ring
+        # does), and the verdict matrix, built before the batchers that
+        # consult it
+        snapshot = None
+        matrix = None
+        if audit_mode != "off":
+            snapshot = SnapshotStore(max_bytes=audit_max_snapshot_bytes)
+            if audit_resources_file:
+                snapshot.seed_from_file(audit_resources_file)
+            if audit_matrix:
+                matrix = VerdictMatrix(snapshot=snapshot)
+                matrix.set_columns(policies, 0)
 
         def make_batcher(
             env: Any, tenant: str, admission: Any, spec: TenantSpec | None,
-            shadow: Any,
+            shadow: Any, tracker: Any = None,
         ) -> MicroBatcher:
             """The one batcher builder: every tenant, epoch and rollback
             gets the same knobs (not started), with a tenant's own
             deadline and degraded mode where its manifest entry sets
-            them."""
+            them; only the default tenant's feed the audit snapshot and
+            consult the verdict matrix."""
             timeout_ms, degraded = request_timeout_ms, degraded_mode
             if spec is not None:
                 if spec.request_timeout_ms is not None:
@@ -592,10 +779,13 @@ class PolicyServer:
                 admission=admission,
                 scheduler=scheduler,
                 tenant=tenant,
+                audit_tracker=tracker,
+                verdict_matrix=matrix if tracker is not None else None,
             )
 
         def plane_builder(
-            tenant: str, admission: Any, spec: TenantSpec | None, shadow: Any
+            tenant: str, admission: Any, spec: TenantSpec | None, shadow: Any,
+            tracker: Any = None,
         ):
             """A tenant's ``build_batcher``: the plain batcher at one
             shard, else a shard router whose siblings' environments are
@@ -603,7 +793,9 @@ class PolicyServer:
             the scheduler are shared by its shards."""
             return lambda env: build_serving_shards(
                 env,
-                lambda e: make_batcher(e, tenant, admission, spec, shadow),
+                lambda e: make_batcher(
+                    e, tenant, admission, spec, shadow, tracker
+                ),
                 build_environment,
                 serving_shards,
                 heartbeat_seconds=shard_heartbeat_seconds,
@@ -611,7 +803,7 @@ class PolicyServer:
             )
 
         build_batcher = plane_builder(
-            DEFAULT_TENANT, default_admission, default_spec, recorder
+            DEFAULT_TENANT, default_admission, default_spec, recorder, snapshot
         )
         env = build_environment(policies)
         try:
@@ -625,6 +817,8 @@ class PolicyServer:
             env, batcher, hostname=socket.gethostname(),
             enable_pprof=enable_pprof, ready=False,
             admin_token=reload_admin_token, supervisor=supervisor,
+            audit_matrix=matrix,
+            audit_stream_max_clients=audit_stream_max_clients,
         )
         self.lifecycle: PolicyLifecycleManager | None = None
         self._httpd: _HttpServer | None = None
@@ -714,6 +908,25 @@ class PolicyServer:
                 if t.state.lifecycle is not None:
                     t.state.lifecycle.start_watching()
             self.state.tenants = manager
+        if snapshot is not None:
+            scanner = self.state.audit = AuditScanner(
+                state=self.state,
+                snapshot=snapshot,
+                reports=PolicyReportStore(),
+                mode=audit_mode,
+                interval_seconds=audit_interval_seconds,
+                batch_size=audit_batch_size,
+                matrix=matrix,
+            )
+            if self.lifecycle is not None:
+                # a promotion re-judges under the new set; a rollback
+                # stales the revoked epoch's rows
+                self.lifecycle.set_epoch_hooks(
+                    on_promote=scanner.on_promote,
+                    on_rollback=scanner.on_rollback,
+                )
+                if audit_matrix_whatif:
+                    self.lifecycle.set_whatif_matrix(matrix)
         self._threads: list[threading.Thread] = []
 
     @staticmethod
@@ -861,15 +1074,19 @@ class PolicyServer:
         self._threads.append(t)
 
     def _start_selfheal(self) -> None:
+        """The self-heal watchdog and the audit scanner (its boot sweep
+        runs on its first pass)."""
         if self._selfheal_interval > 0 and self._selfheal is None:
             self._selfheal = SelfHealWatchdog(
                 self.state, self.state.supervisor,
                 interval_seconds=self._selfheal_interval,
             ).start()
+        if self.state.audit is not None:
+            self.state.audit.start()
 
     def start(self) -> None:
         """Serve both ports in the background (the native frontend on its
-        own threads), with the self-heal watchdog."""
+        own threads), with the self-heal watchdog and the audit scanner."""
         self._start_selfheal()
         if self.native_frontend is not None:
             self.native_frontend.start()
@@ -910,9 +1127,14 @@ class PolicyServer:
             self.native_frontend.stop_accepting()
         for httpd in (self._httpd, self._readiness):
             if httpd is not None:
+                httpd.closing.set()  # the audit streams end
                 httpd.shutdown()
         for t in self._threads:
             t.join(5)
+        if self.state.audit is not None:
+            # sweeping stops before the epochs tear down: a sweep racing
+            # the batchers' shutdown would only burn its retries
+            self.state.audit.shutdown()
         if self.state.tenants is not None:
             # the named tenants first (each lifecycle closes its own
             # epochs); the default tenant follows

@@ -37,7 +37,8 @@ INIT_ERRORS_TOTAL = "kubewarden_policy_initialization_errors_total"
 # Serving-runtime families, read on each scrape from the provider the
 # server attaches (attach_runtime_stats). The names are the JAX
 # package's, those of subsystems the port has not got included; the
-# server emits only the families whose source it has.
+# server emits only the families whose source it has, and the audit,
+# matrix and watch families at every flag setting.
 BATCHES_DISPATCHED = "policy_server_batches_dispatched"
 REQUESTS_DISPATCHED = "policy_server_requests_dispatched"
 DEADLINE_ABANDONED_BATCHES = "policy_server_deadline_abandoned_batches"
@@ -146,6 +147,26 @@ PREDICATE_FIELDS_PRUNED = "policy_server_predicate_fields_pruned"
 PREDICATE_ROW_BYTES_SAVED = "policy_server_predicate_row_bytes_saved"
 PALLAS_DISPATCHES = "policy_server_pallas_dispatches"
 PALLAS_BUCKETS_ARMED = "policy_server_pallas_buckets_armed"
+
+# the verdict matrix's families (audit/matrix.py), with lookup admission's
+MATRIX_ROWS_RESIDENT = "policy_server_audit_matrix_rows_resident"
+MATRIX_CELLS_RESIDENT = "policy_server_audit_matrix_cells_resident"
+MATRIX_COLUMNS = "policy_server_audit_matrix_columns"
+MATRIX_DIRTY_COLUMNS = "policy_server_audit_matrix_dirty_columns"
+MATRIX_VERSION = "policy_server_audit_matrix_version"
+MATRIX_ROW_SWEEP_ROWS = "policy_server_audit_matrix_row_sweep_rows"
+MATRIX_COLUMN_SWEEP_ROWS = "policy_server_audit_matrix_column_sweep_rows"
+MATRIX_ROWS_EVICTED = "policy_server_audit_matrix_rows_evicted"
+MATRIX_COLUMNS_INVALIDATED = "policy_server_audit_matrix_columns_invalidated"
+MATRIX_CHANGELOG_EMITS = "policy_server_audit_matrix_changelog_emits"
+MATRIX_STREAM_CLIENTS = "policy_server_audit_matrix_stream_clients"
+MATRIX_STREAM_DROPPED_CLIENTS = (
+    "policy_server_audit_matrix_stream_dropped_clients"
+)
+MATRIX_LOOKUP_HITS = "policy_server_audit_matrix_lookup_hits"
+MATRIX_LOOKUP_MISSES = "policy_server_audit_matrix_lookup_misses"
+MATRIX_SPILLS = "policy_server_audit_matrix_spills"
+MATRIX_CELLS_RESTORED = "policy_server_audit_matrix_cells_restored"
 
 # flight recorder (telemetry/flightrec.py): the per-phase histogram, the
 # tail-exemplar gauges and the recorder's own volume counters

@@ -191,6 +191,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.tenancy",
             "policy_server_tpu_torch.runtime.scheduler",
             "policy_server_tpu_torch.runtime.shards",
+            "policy_server_tpu_torch.audit.snapshot",
+            "policy_server_tpu_torch.audit.reports",
+            "policy_server_tpu_torch.audit.matrix",
+            "policy_server_tpu_torch.audit.scanner",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)

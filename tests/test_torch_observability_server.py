@@ -200,9 +200,23 @@ def test_metrics_expose_the_runtime_families_the_port_has(server):
         r"^policy_server_batches_dispatched_total (\S+)$", text, re.M
     ).group(1))
     assert batches >= N_REQUESTS / 8
-    # the audit subsystem, which the port has not got, exports no family;
-    # shedding, tenants and shards export theirs at the default flags
-    assert not [n for n in types if n.startswith("policy_server_audit")]
+    # the JAX package's audit, verdict-matrix and watch families, with
+    # zeros at the default flags (--audit-mode off; freshness reads -1);
+    # shedding, tenants and shards export theirs too
+    from policy_server_tpu.telemetry import metrics as jax_metrics
+
+    audit_names = [
+        getattr(jax_metrics, k) for k in dir(jax_metrics)
+        if k.startswith(("AUDIT_", "MATRIX_", "WATCH_"))
+    ]
+    assert len(audit_names) == 32
+    exported = {n.removesuffix("_total") for n in types}
+    assert set(audit_names) <= exported
+    for name in audit_names:
+        value = re.search(
+            rf"^{name}(?:_total)? (\S+)$", text, re.M
+        ).group(1)
+        assert value == ("-1.0" if "freshness" in name else "0.0"), name
     for name, kind in (
         ("policy_server_shed_requests_total", "counter"),
         ("policy_server_expired_dropped_rows_total", "counter"),

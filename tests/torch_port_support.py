@@ -190,3 +190,113 @@ def response_dicts(results) -> list:
         r.to_dict() if not isinstance(r, Exception) else repr(r)
         for r in results
     ]
+
+
+# -- the audit subsystem's two sides -------------------------------------------
+
+
+def audit_sides():
+    """(JAX, PORT): namespaces of each package's audit-related modules and
+    types, so one scenario runs unchanged through either (the JAX side's
+    environments on its ``jax`` backend, the port's on the CPU)."""
+    from types import SimpleNamespace
+
+    from policy_server_tpu import audit as jaudit
+    from policy_server_tpu import failpoints as jfp
+    from policy_server_tpu.api.service import RequestOrigin as JOrigin
+    from policy_server_tpu.evaluation.environment import bucket_size as jbucket
+    from policy_server_tpu.models import AdmissionResponse as JResponse
+    from policy_server_tpu.runtime import shards as jshards
+    from policy_server_tpu.runtime.batcher import MicroBatcher as JBatcher
+    from policy_server_tpu_torch import audit as taudit
+    from policy_server_tpu_torch import failpoints as tfp
+    from policy_server_tpu_torch.api.service import RequestOrigin as TOrigin
+    from policy_server_tpu_torch.evaluation.environment import (
+        bucket_size as tbucket,
+    )
+    from policy_server_tpu_torch.models import AdmissionResponse as TResponse
+    from policy_server_tpu_torch.runtime import shards as tshards
+    from policy_server_tpu_torch.runtime.batcher import MicroBatcher as TBatcher
+
+    jax_side = SimpleNamespace(
+        name="jax", audit=jaudit, fp=jfp, Batcher=JBatcher, origin=JOrigin,
+        Review=AdmissionReviewRequest, ValidateRequest=ValidateRequest,
+        Response=JResponse, parse=parse_policy_entry, bucket_size=jbucket,
+        shards=jshards,
+        env=lambda specs, **kw: JaxBuilder(backend="jax", **kw).build(
+            {k: parse_policy_entry(k, v) for k, v in specs.items()}
+        ),
+    )
+    port_side = SimpleNamespace(
+        name="port", audit=taudit, fp=tfp, Batcher=TBatcher, origin=TOrigin,
+        Review=TAdmissionReviewRequest, ValidateRequest=TValidateRequest,
+        Response=TResponse, parse=t_parse_policy_entry, bucket_size=tbucket,
+        shards=tshards,
+        env=lambda specs, **kw: TorchBuilder(device="cpu", **kw).build(
+            {k: t_parse_policy_entry(k, v) for k, v in specs.items()}
+        ),
+    )
+    return jax_side, port_side
+
+
+def pod_doc(
+    name: str = "p",
+    namespace: str = "default",
+    privileged: bool = False,
+    operation: str = "CREATE",
+    uid: str | None = None,
+) -> dict:
+    """``tests/test_audit.py``'s pod review, as a document."""
+    from conftest import build_admission_review_dict
+
+    doc = build_admission_review_dict()
+    doc["request"]["uid"] = uid or f"uid-{namespace}-{name}"
+    doc["request"]["name"] = name
+    doc["request"]["namespace"] = namespace
+    doc["request"]["operation"] = operation
+    doc["request"]["kind"] = {"group": "", "version": "v1", "kind": "Pod"}
+    doc["request"]["object"] = {
+        "apiVersion": "v1",
+        "kind": "Pod",
+        "metadata": {"name": name, "namespace": namespace},
+        "spec": {
+            "containers": [
+                {
+                    "name": "c",
+                    "image": "nginx",
+                    "securityContext": {"privileged": privileged},
+                }
+            ]
+        },
+    }
+    return doc
+
+
+def side_request(side, doc: dict):
+    """A document → that side's ValidateRequest."""
+    return side.ValidateRequest.from_admission(
+        side.Review.from_dict(copy.deepcopy(doc)).request
+    )
+
+
+def pod_review(side, *args, **kwargs):
+    return side_request(side, pod_doc(*args, **kwargs))
+
+
+def report_view(body: dict) -> dict:
+    """An audit reports payload without its clock readings (each row's
+    ``scanned_at``, the scanner's ``freshness_seconds``)."""
+    body = copy.deepcopy(body)
+    for row in body.get("reports", ()):
+        row.pop("scanned_at", None)
+    scanner = body.get("scanner")
+    if scanner is not None:
+        scanner.pop("freshness_seconds", None)
+    return body
+
+
+def result_view(results) -> list:
+    """Audit-lane results as comparable data."""
+    return [
+        repr(r) if isinstance(r, Exception) else r.to_dict() for r in results
+    ]
