@@ -183,14 +183,40 @@ card's name and power limit:
    Then K1 exact against its plain version on the inventory's packed rows
    at B = 8, 16 and 64, both buckets, timed.
 
+11. TLS and the prefork workers — servers built through the command line
+   at the kernel-only flags with the flagship set, certificates made with
+   ``cryptography`` under ``build/chip_smoke_tls/``. Wave L: ``--frontend
+   native`` with ``--cert-file``, ``--key-file`` and ``--client-ca-file``;
+   the phase 7 client in its TLS mode, presenting a client certificate the
+   CA issued, sends 1,024 reviews (every body the oracle's, K1 launched,
+   ``policy_server_tls_native_termination`` 1, one handshake per
+   connection); a client with no certificate and one with another CA's are
+   refused, each counted once in ``handshakes_failed``. Wave R, on the same
+   server, under client waves that keep sending: a cert-only write changes
+   nothing; with the key written too, new connections see the new serial
+   within a digest poll plus 1 s while a connection opened before keeps
+   being answered under the old one; ``tls_reloads`` and
+   ``tls_generations`` rise by 1; a corrupt PEM (SIGHUP) keeps the last good
+   identity and counts 1 reload failure; the expiry gauge is the serving
+   certificate's notAfter. Wave S: the same reviews over TLS on
+   ``--frontend python``. Wave P: plaintext ``--http-workers 4`` and 1
+   under each frontend, 1,024 reviews over 64 connections (every body the
+   oracle's; workers answered part of them: the native main loop framed
+   fewer than were evaluated, or the bridge carried frames); one worker
+   SIGKILLed is respawned once within 2 s plus 1 s, and the next 256
+   reviews are answered; ``stop()`` leaves no worker, socket or directory.
+   Rates (req/s, p50, p99) of every wave, beside phase 7's plaintext
+   native kernel-only run.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
 
 ``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH
-[tolerate-close]`` is the load generator of phases 7 to 10: it needs
-neither torch nor the package (``tolerate-close``: a connection the server
-closes leaves its unanswered requests empty instead of failing the run).
+[tolerate-close] [tls | tls=CERT,KEY]`` is the load generator of phases 7
+to 11: it needs neither torch nor the package (``tolerate-close``: a
+connection the server closes leaves its unanswered requests empty instead
+of failing the run; ``tls``: HTTPS, with a client certificate for mTLS).
 ``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
 10's ``/audit/stream`` reader.
 """
@@ -1018,12 +1044,26 @@ def native_client_main(argv: list[str]) -> int:
     group's send. CORPUS is the waves' raw HTTP requests (u32 wave, u32
     length, bytes each); OUT receives one JSON document: each wave's wall
     time and, per request in corpus order, its status, latency, body and
-    Retry-After header (None without one)."""
+    Retry-After header (None without one). Options after DEPTH:
+    ``tolerate-close``, and ``tls`` or ``tls=CERT,KEY`` (HTTPS, with a
+    client certificate for mTLS)."""
     import socket
 
     port, corpus_path, out_path = int(argv[0]), argv[1], argv[2]
     conns, depth = int(argv[3]), int(argv[4])
-    tolerate_close = argv[5:6] == ["tolerate-close"]
+    tolerate_close = "tolerate-close" in argv[5:]
+    # "tls" or "tls=CERT,KEY": every connection shakes hands first (trusting
+    # any server), presenting the client certificate when given one
+    tls_ctx = None
+    for opt in argv[5:]:
+        if opt == "tls" or opt.startswith("tls="):
+            import ssl
+
+            tls_ctx = ssl.create_default_context()
+            tls_ctx.check_hostname = False
+            tls_ctx.verify_mode = ssl.CERT_NONE
+            if opt.startswith("tls="):
+                tls_ctx.load_cert_chain(*opt[4:].split(","))
     waves: list[list[bytes]] = []
     with open(corpus_path, "rb") as f:
         blob = f.read()
@@ -1044,6 +1084,8 @@ def native_client_main(argv: list[str]) -> int:
         try:
             s = socket.create_connection(("127.0.0.1", port), timeout=120)
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            if tls_ctx is not None:
+                s = tls_ctx.wrap_socket(s)
             buf = b""
             for lo in range(0, len(idx), depth):
                 group = idx[lo : lo + depth]
@@ -1440,17 +1482,22 @@ def wave_of(work_docs: list, n: int, tag: str) -> list:
     return out
 
 
-def start_client(port: int, wave: list, name: str, tolerate_close: bool = False):
-    """The ``--native-client`` process sending one wave → (process, OUT)."""
-    work_dir = os.path.join(REPO, "build", "chip_smoke_reload")
+def start_client(port: int, wave: list, name: str, tolerate_close: bool = False,
+                 tls: str | None = None, conns: int = NATIVE_CONNS,
+                 depth: int = NATIVE_DEPTH, work_dir: str | None = None):
+    """The ``--native-client`` process sending one wave → (process, OUT);
+    ``tls`` is its ``tls`` or ``tls=CERT,KEY`` option."""
+    work_dir = work_dir or os.path.join(REPO, "build", "chip_smoke_reload")
     os.makedirs(work_dir, exist_ok=True)
     corpus = os.path.join(work_dir, f"{name}.bin")
     out = os.path.join(work_dir, f"{name}.json")
     write_corpus(corpus, [wave])
     args = [sys.executable, os.path.abspath(__file__), "--native-client",
-            str(port), corpus, out, str(NATIVE_CONNS), str(NATIVE_DEPTH)]
+            str(port), corpus, out, str(conns), str(depth)]
     if tolerate_close:
         args.append("tolerate-close")
+    if tls is not None:
+        args.append(tls)
     proc = subprocess.Popen(
         args, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
     )
@@ -3459,6 +3506,501 @@ def print_audit_phase(r10: dict, card: str) -> None:
     )
 
 
+# -- phase 11: TLS, rotation and the prefork workers ---------------------------
+
+
+def make_identity(cn: str, issuer=None, is_ca: bool = False):
+    """(key, certificate) from ``cryptography``: self-signed, or signed by
+    ``issuer`` = (key, certificate); a new random serial each call."""
+    import datetime
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import NameOID
+
+    key = ec.generate_private_key(ec.SECP256R1())
+    subject = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, cn)])
+    issuer_key, issuer_cert = issuer if issuer is not None else (key, None)
+    now = datetime.datetime.now(datetime.timezone.utc).replace(microsecond=0)
+    cert = (
+        x509.CertificateBuilder()
+        .subject_name(subject)
+        .issuer_name(issuer_cert.subject if issuer_cert is not None else subject)
+        .public_key(key.public_key())
+        .serial_number(x509.random_serial_number())
+        .not_valid_before(now - datetime.timedelta(minutes=5))
+        .not_valid_after(now + datetime.timedelta(days=1))
+        .add_extension(
+            x509.BasicConstraints(ca=is_ca, path_length=None), critical=True
+        )
+        .sign(issuer_key, hashes.SHA256())
+    )
+    return key, cert
+
+
+def write_pem(path: str, key=None, cert=None) -> None:
+    from cryptography.hazmat.primitives import serialization
+
+    if cert is not None:
+        data = cert.public_bytes(serialization.Encoding.PEM)
+    else:
+        data = key.private_bytes(
+            serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+            serialization.NoEncryption(),
+        )
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def tls_connect(port: int, cert: str | None = None, key: str | None = None):
+    """A TLS socket to the API port (any server trusted), presenting the
+    client certificate when given one."""
+    import socket
+    import ssl
+
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    if cert:
+        ctx.load_cert_chain(cert, key)
+    return ctx.wrap_socket(
+        socket.create_connection(("127.0.0.1", port), timeout=30)
+    )
+
+
+def served_serial(port: int, cert: str, key: str) -> int:
+    """The serial of the certificate a new connection is served."""
+    from cryptography import x509
+
+    s = tls_connect(port, cert, key)
+    try:
+        return x509.load_der_x509_certificate(
+            s.getpeercert(binary_form=True)
+        ).serial_number
+    finally:
+        s.close()
+
+
+def refused(port: int, cert: str | None = None, key: str | None = None) -> bool:
+    """True when the server serves no HTTP to this client: the handshake
+    ends in an alert or a bare close."""
+    import ssl
+
+    try:
+        s = tls_connect(port, cert, key)
+        s.settimeout(10)
+        s.sendall(b"GET / HTTP/1.1\r\nHost: smoke\r\n\r\n")
+        data = s.recv(1000)
+        s.close()
+        return data == b""
+    except (OSError, ssl.SSLError):
+        return True
+
+
+def keepalive_answer(sock, pid: str, body: bytes) -> tuple[int, bytes]:
+    """One POST on a kept-alive socket → (status, body)."""
+    sock.sendall(
+        f"POST /validate/{pid} HTTP/1.1\r\nHost: smoke\r\n"
+        f"Content-Length: {len(body)}\r\n\r\n".encode() + body
+    )
+    data = b""
+    while b"\r\n\r\n" not in data:
+        chunk = sock.recv(65536)
+        if not chunk:
+            fail("the server closed a kept-alive connection")
+        data += chunk
+    head, _, rest = data.partition(b"\r\n\r\n")
+    n = 0
+    for ln in head.split(b"\r\n")[1:]:
+        if ln[:15].lower() == b"content-length:":
+            n = int(ln[15:])
+    while len(rest) < n:
+        rest += sock.recv(65536)
+    return int(head[9:12]), rest[:n]
+
+
+def tls_prefork_phase(work_docs: list, phase7: dict, card: str) -> dict:
+    """Phase 11 (see the module docstring) → its numbers for the kernels
+    line."""
+    import signal
+
+    import torch
+
+    try:
+        import cryptography  # noqa: F401 — the certificates are made with it
+    except ImportError:
+        fail("phase 11 needs the cryptography package for its certificates")
+    from cryptography import x509
+
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.certs import WATCH_INTERVAL_SECONDS
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_tls")
+    os.makedirs(work_dir, exist_ok=True)
+    specs = flagship_policy_specs()
+    policies_path = os.path.join(work_dir, "policies.json")
+    with open(policies_path, "w") as f:
+        json.dump(specs, f)
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        parse_policies(specs)
+    )
+    pem = {n: os.path.join(work_dir, f"{n}.pem") for n in (
+        "cert", "key", "ca", "good_cert", "good_key", "bad_cert", "bad_key",
+    )}
+    server_id = make_identity("original")
+    ca = make_identity("client-ca", is_ca=True)
+    good = make_identity("good-client", issuer=ca)
+    bad = make_identity("bad-client", issuer=make_identity("other-ca", is_ca=True))
+    write_pem(pem["cert"], cert=server_id[1])
+    write_pem(pem["key"], key=server_id[0])
+    write_pem(pem["ca"], cert=ca[1])
+    write_pem(pem["good_cert"], cert=good[1])
+    write_pem(pem["good_key"], key=good[0])
+    write_pem(pem["bad_cert"], cert=bad[1])
+    write_pem(pem["bad_key"], key=bad[0])
+    good_tls = f"tls={pem['good_cert']},{pem['good_key']}"
+    kernel_flags = ["--host-fastpath-threshold", "0", "--verdict-cache-size",
+                    "0", "--latency-budget-ms", "0"]
+    # the workers log at warn: a span line per request would bury the
+    # phase's own lines
+    base = ["--policies", policies_path, "--addr", "127.0.0.1", "--port", "0",
+            "--readiness-probe-port", "0", "--enable-metrics",
+            "--log-level", "warn", *kernel_flags]
+    tls_flags = ["--cert-file", pem["cert"], "--key-file", pem["key"],
+                 "--client-ca-file", pem["ca"]]
+    out: dict = {"launches": {"policy_matrix": 0, "probe": 0}}
+
+    def expect(wave):
+        return [expected_answer(oracle, pid, body) for pid, body in wave]
+
+    def build(extra: list):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        server = server_from_args(build_cli().parse_args(base + extra))
+        server.start()
+        return server, ck.launch_counts()
+
+    def finish(server, boot: dict, label: str) -> dict:
+        """Stop the server → its launches after the build; added to the
+        phase's."""
+        server.stop()
+        torch.cuda.synchronize()
+        got = ck.launch_counts()
+        for k in out["launches"]:
+            out["launches"][k] += got[k]
+        serving = got["policy_matrix"] - boot["policy_matrix"]
+        if got["probe"] < 1:
+            fail(f"{label}: the environment's build launched no probe")
+        if serving < 1:
+            fail(f"{label}: no policy_matrix launch served its traffic")
+        return {"serving_launches": serving, "probe": got["probe"]}
+
+    def run_wave(port: int, wave: list, name: str, label: str, tls=None,
+                 conns: int = NATIVE_CONNS, depth: int = NATIVE_DEPTH) -> dict:
+        proc, path = start_client(port, wave, name, tls=tls, conns=conns,
+                                  depth=depth, work_dir=work_dir)
+        results, wall = finish_run(proc, path, label)
+        r = check_wave(label, results, wave, [expect(wave)])
+        r["req_s"] = len(wave) / wall
+        return r
+
+    # -- wave L: native TLS with mTLS --------------------------------------
+    server, boot = build(["--frontend", "native", *tls_flags])
+    rp = server.readiness_port
+    try:
+        if server.state.native_tls is None:
+            fail("TLS does not terminate on the native loops")
+        if metric_value(rp, "policy_server_tls_native_termination") != 1.0:
+            fail("policy_server_tls_native_termination is not 1")
+        ok0 = metric_value(rp, "policy_server_tls_handshakes_ok_total")
+        l_wave = wave_of(work_docs, N_REQUESTS, "l11")
+        k0 = ck.launch_counts()["policy_matrix"]
+        out["L"] = run_wave(server.port, l_wave, "l", "wave L", tls=good_tls)
+        out["L"]["launches"] = ck.launch_counts()["policy_matrix"] - k0
+        if out["L"]["launches"] < 1:
+            fail("wave L launched no policy_matrix")
+        ok1 = metric_value(rp, "policy_server_tls_handshakes_ok_total")
+        if ok1 - ok0 != NATIVE_CONNS:
+            fail(f"wave L: {ok1 - ok0} handshakes for {NATIVE_CONNS} connections")
+        failed0 = metric_value(rp, "policy_server_tls_handshakes_failed_total")
+        refusals = []
+        for who, cert, key in (("no certificate", None, None),
+                               ("another CA", pem["bad_cert"], pem["bad_key"])):
+            if not refused(server.port, cert, key):
+                fail(f"a client with {who} was served")
+            time.sleep(0.2)
+            refusals.append(
+                metric_value(rp, "policy_server_tls_handshakes_failed_total") - failed0
+            )
+        if refusals != [1.0, 2.0]:
+            fail(f"each refusal did not count once in handshakes_failed: {refusals}")
+        out["L"]["handshakes_ok"] = ok1 - ok0
+        out["L"]["refusals"] = refusals
+
+        # -- wave R: rotation under load -----------------------------------
+        reloads0 = metric_value(rp, "policy_server_tls_reloads_total")
+        gens0 = metric_value(rp, "policy_server_tls_generations_total")
+        old_serial = server_id[1].serial_number
+        established = tls_connect(server.port, pem["good_cert"], pem["good_key"])
+        e_pid, e_body = wave_of(work_docs, 1, "r11e")[0]
+        if keepalive_answer(established, e_pid, e_body) != expected_answer(
+            oracle, e_pid, e_body
+        ):
+            fail("wave R: the established connection's first answer")
+        # the load: client processes, one wave after another, until the
+        # rotation's checks are done (fail() would only end this thread,
+        # so its errors are kept for the check below)
+        r_stop = threading.Event()
+        r_runs: list = []
+        r_errors: list = []
+
+        def r_traffic() -> None:
+            n = 0
+            try:
+                while not r_stop.is_set():
+                    wave = wave_of(work_docs, N_REQUESTS, f"r11-{n}")
+                    proc, path = start_client(
+                        server.port, wave, f"r{n}", tls=good_tls, conns=8,
+                        depth=2, work_dir=work_dir,
+                    )
+                    _o, err = proc.communicate(timeout=300)
+                    if proc.returncode != 0:
+                        r_errors.append(err[-2000:])
+                        return
+                    with open(path) as f:
+                        doc = json.load(f)
+                    os.unlink(path)
+                    r_runs.append((wave, doc["results"], sum(doc["walls"])))
+                    n += 1
+            except BaseException as e:  # noqa: BLE001 — checked below
+                r_errors.append(repr(e))
+
+        r_thread = threading.Thread(target=r_traffic, daemon=True)
+        r_thread.start()
+        time.sleep(0.5)
+        new_key, new_cert = make_identity("rotated")
+        write_pem(pem["cert"], cert=new_cert)  # half a rotation: cert only
+        time.sleep(WATCH_INTERVAL_SECONDS + 0.5)
+        half = (
+            metric_value(rp, "policy_server_tls_reloads_total") == reloads0
+            and metric_value(rp, "policy_server_tls_generations_total") == gens0
+            and served_serial(server.port, pem["good_cert"], pem["good_key"])
+            == old_serial
+        )
+        if not half:
+            fail("wave R: a half-written rotation changed the identity")
+        write_pem(pem["key"], key=new_key)
+        t_rot = time.perf_counter()
+        while served_serial(
+            server.port, pem["good_cert"], pem["good_key"]
+        ) != new_cert.serial_number:
+            if time.perf_counter() - t_rot > WATCH_INTERVAL_SECONDS + 1.0:
+                fail("wave R: new connections did not see the new serial in time")
+            time.sleep(0.05)
+        rotation_s = time.perf_counter() - t_rot
+        if keepalive_answer(established, e_pid, e_body) != expected_answer(
+            oracle, e_pid, e_body
+        ):
+            fail("wave R: the established connection stopped being answered")
+        if x509.load_der_x509_certificate(
+            established.getpeercert(binary_form=True)
+        ).serial_number != old_serial:
+            fail("wave R: the established connection changed identity")
+        established.close()
+        d_reloads = metric_value(rp, "policy_server_tls_reloads_total") - reloads0
+        d_gens = metric_value(rp, "policy_server_tls_generations_total") - gens0
+        if (d_reloads, d_gens) != (1.0, 1.0):
+            fail(f"wave R: reloads +{d_reloads}, generations +{d_gens}, not +1 each")
+        # a corrupt PEM (SIGHUP's forced reload): the last good identity
+        # keeps serving, one failure counted
+        fail0 = metric_value(rp, "policy_server_tls_reload_failures_total")
+        with open(pem["cert"], "w") as f:
+            f.write("-----NOT A CERT-----\n")
+        server.reload_signal()
+        wait_until(
+            lambda: metric_value(rp, "policy_server_tls_reload_failures_total") > fail0,
+            10, "the corrupt PEM's reload failure",
+        )
+        time.sleep(WATCH_INTERVAL_SECONDS + 0.5)
+        d_fail = metric_value(rp, "policy_server_tls_reload_failures_total") - fail0
+        if d_fail != 1.0:
+            fail(f"wave R: the corrupt PEM counted {d_fail} failures, not 1")
+        if served_serial(server.port, pem["good_cert"], pem["good_key"]) != (
+            new_cert.serial_number
+        ):
+            fail("wave R: the corrupt PEM replaced the last good identity")
+        expiry = metric_value(rp, "policy_server_tls_cert_expiry_seconds")
+        not_after = getattr(new_cert, "not_valid_after_utc", None)
+        if not_after is None:  # cryptography before 42
+            import datetime
+
+            not_after = new_cert.not_valid_after.replace(
+                tzinfo=datetime.timezone.utc
+            )
+        if abs((not_after.timestamp() - time.time()) - expiry) > 5:
+            fail(f"wave R: the expiry gauge {expiry} is not the serving notAfter")
+        r_stop.set()
+        r_thread.join(600)
+        if r_errors or len(r_runs) < 2:
+            fail(f"wave R's load: {len(r_runs)} waves, errors {r_errors}")
+        r_wave = [item for wave, _res, _w in r_runs for item in wave]
+        out["R"] = check_wave(
+            "wave R", [x for _w, res, _t in r_runs for x in res], r_wave,
+            [expect(r_wave)],
+        )
+        out["R"].update(
+            req_s=len(r_wave) / sum(t for _w, _r, t in r_runs),
+            waves=len(r_runs), rotation_s=rotation_s,
+            reloads=d_reloads, generations=d_gens, reload_failures=d_fail,
+            expiry_s=expiry,
+        )
+        with open(pem["cert"], "wb") as f:  # the last good pair on disk again
+            from cryptography.hazmat.primitives import serialization
+
+            f.write(new_cert.public_bytes(serialization.Encoding.PEM))
+    finally:
+        out["L_launches"] = finish(server, boot, "wave L")
+
+    # -- wave S: TLS on the standard-library frontend --------------------
+    server, boot = build(["--frontend", "python", *tls_flags])
+    try:
+        if server.frontend != "python" or server.state.native_tls is not None:
+            fail("wave S does not terminate TLS on the standard-library frontend")
+        s_wave = wave_of(work_docs, N_REQUESTS, "s11")
+        out["S"] = run_wave(server.port, s_wave, "s", "wave S", tls=good_tls)
+    finally:
+        out["S_launches"] = finish(server, boot, "wave S")
+
+    # -- wave P: the prefork workers, and the rates at 1 and 4 -----------
+    out["P"] = {}
+    for frontend in ("native", "python"):
+        for workers in (4, 1):
+            label = f"wave P --frontend {frontend} --http-workers {workers}"
+            server, boot = build(["--frontend", frontend,
+                                  "--http-workers", str(workers)])
+            rp = server.readiness_port
+            row: dict = {}
+            try:
+                if workers > 1:
+                    wait_until(
+                        lambda: server.bridge.stats()["connections"] == workers - 1,
+                        60, f"{label}: every worker on the bridge",
+                    )
+                p_wave = wave_of(work_docs, N_REQUESTS, f"p11{frontend}{workers}")
+                native0 = (metric_value(rp, "policy_server_native_http_requests_total")
+                           if frontend == "native" else 0.0)
+                frames0 = server.bridge.stats()["frames"] if workers > 1 else 0
+                row.update(run_wave(server.port, p_wave, f"p{frontend}{workers}",
+                                    label, conns=64, depth=4))
+                if workers > 1:
+                    # every request was framed by this process's loop or
+                    # crossed the bridge from a worker
+                    frames = server.bridge.stats()["frames"] - frames0
+                    main_loop = (
+                        metric_value(rp, "policy_server_native_http_requests_total")
+                        - native0 if frontend == "native" else None
+                    )
+                    if frames < 1:
+                        fail(f"{label}: no worker forwarded a request")
+                    if frontend == "native" and (
+                        main_loop >= len(p_wave)
+                        or main_loop + frames != len(p_wave)
+                    ):
+                        fail(f"{label}: main loop {main_loop} and worker frames "
+                             f"{frames} for {len(p_wave)} requests")
+                    row.update(worker_frames=frames, main_loop_requests=main_loop)
+                    # one worker killed: respawned once within the
+                    # supervisor's interval plus 1 s, and serving goes on
+                    victim = server.worker_procs[0]
+                    t_kill = time.perf_counter()
+                    os.kill(victim.pid, signal.SIGKILL)
+                    wait_until(
+                        lambda: server.state.supervisor.stats()["worker_respawns"] >= 1,
+                        server._WORKER_RESPAWN_INTERVAL_SECONDS + 1.0,
+                        f"{label}: the killed worker's respawn",
+                    )
+                    row["respawn_s"] = time.perf_counter() - t_kill
+                    wait_until(
+                        lambda: server.bridge.stats()["connections"] == workers - 1,
+                        30, f"{label}: the respawned worker on the bridge",
+                    )
+                    after = wave_of(work_docs[N_REQUESTS - 256:], 256,
+                                    f"p11k{frontend}")
+                    row["after_kill"] = run_wave(
+                        server.port, after, f"pk{frontend}",
+                        f"{label}, after the kill", conns=64, depth=4,
+                    )
+                    respawns = server.state.supervisor.stats()["worker_respawns"]
+                    if respawns != 1:
+                        fail(f"{label}: {respawns} respawns for one kill")
+                    procs = [p for p in server.worker_procs if hasattr(p, "pid")]
+                    bridge_dir = server._bridge_dir
+                    bridge_socket = server._bridge_socket
+            finally:
+                row["launches"] = finish(server, boot, label)
+            if workers > 1:
+                alive = [p.pid for p in procs if p.poll() is None]
+                if alive or os.path.exists(bridge_socket) or os.path.exists(bridge_dir):
+                    fail(f"{label}: stop() left workers {alive}, the socket "
+                         "or the directory behind")
+            out["P"][frontend, workers] = row
+    out["phase7_native"] = phase7
+    return out
+
+
+def print_tls_prefork_phase(r: dict, card: str) -> None:
+    L, R, S = r["L"], r["R"], r["S"]
+    p7 = r["phase7_native"]
+    print(
+        f"phase11 wave L native mTLS: {L['answered']} answers equal to the "
+        f"oracle's, {L['req_s']:.1f} req/s p50 {L['p50']:.3f} p99 "
+        f"{L['p99']:.3f} ms, {L['launches']} policy_matrix launches, "
+        f"{L['handshakes_ok']:.0f} handshakes for {NATIVE_CONNS} connections, "
+        f"refusals counted {L['refusals']}; phase 7 plaintext native "
+        f"kernel-only x4 in this call: {p7['req_s']:.1f} req/s p50 "
+        f"{p7['p50']:.3f} p99 {p7['p99']:.3f} ms [{card}]"
+    )
+    print(
+        f"phase11 wave R rotation under load: new serial on new connections "
+        f"{R['rotation_s']:.3f} s after the key landed, reloads +"
+        f"{R['reloads']:.0f}, generations +{R['generations']:.0f}, corrupt "
+        f"PEM failures +{R['reload_failures']:.0f}, expiry gauge "
+        f"{R['expiry_s']:.0f} s, {R['answered']} answers equal to the oracle's "
+        f"in {R['waves']} client waves through the rotation ({R['req_s']:.1f} "
+        f"req/s, 8 connections x depth 2) [{card}]"
+    )
+    print(
+        f"phase11 wave S stdlib TLS: {S['answered']} answers equal to the "
+        f"oracle's, {S['req_s']:.1f} req/s p50 {S['p50']:.3f} p99 "
+        f"{S['p99']:.3f} ms, {r['S_launches']['serving_launches']} "
+        f"policy_matrix launches [{card}]"
+    )
+    for (frontend, workers), row in r["P"].items():
+        extra = ""
+        if workers > 1:
+            extra = (
+                f", worker frames {row['worker_frames']}, main-loop requests "
+                f"{row['main_loop_requests']}, respawn {row['respawn_s']:.3f} s "
+                f"after SIGKILL, "
+                f"{row['after_kill']['answered']} answers after it"
+            )
+        print(
+            f"phase11 wave P --frontend {frontend} --http-workers {workers}: "
+            f"{row['answered']} answers equal to the oracle's, "
+            f"{row['req_s']:.1f} req/s p50 {row['p50']:.3f} p99 "
+            f"{row['p99']:.3f} ms (64 connections x depth 4), "
+            f"{row['launches']['serving_launches']} policy_matrix launches"
+            f"{extra} [{card}]"
+        )
+
+
 def main() -> int:
     try:
         import torch
@@ -3938,6 +4480,12 @@ def main() -> int:
     print_audit_phase(r10, card)
     print(f"phase10 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 11: TLS, rotation and the prefork workers on the card --------
+    t_phase = time.perf_counter()
+    r11 = tls_prefork_phase(work_docs, native_runs["kernel", 4], card)
+    print_tls_prefork_phase(r11, card)
+    print(f"phase11 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -3984,6 +4532,15 @@ def main() -> int:
                 "full sweep)": r10["launches"]["policy_matrix"],
                 "phase10 boot sweep: audit lane": r10["B"]["audit_launches"],
                 "phase10 boot sweep: live batches": r10["B"]["live_launches"],
+                "phase11 native mTLS (waves L and R) after the warmup":
+                    r11["L_launches"]["serving_launches"],
+                "phase11 stdlib TLS (wave S) after the warmup":
+                    r11["S_launches"]["serving_launches"],
+                **{
+                    f"phase11 prefork --frontend {fe} --http-workers {w} "
+                    "after the warmup": row["launches"]["serving_launches"]
+                    for (fe, w), row in r11["P"].items()
+                },
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -4035,6 +4592,8 @@ def main() -> int:
                 },
                 "phase10 audit path (server build and the reload "
                 "candidate's build)": r10["launches"]["probe"],
+                "phase11 TLS and prefork servers (one build each)":
+                    r11["launches"]["probe"],
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,

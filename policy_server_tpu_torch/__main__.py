@@ -4,7 +4,10 @@ Reads the policies file with PyYAML where it is installed (a JSON file
 needs nothing) and serves /validate on ``--port`` (3000) and /readiness,
 /metrics, /debug/timeline and the /policies/* admin endpoints on
 ``--readiness-probe-port`` (8081) until interrupted; ``--frontend native``
-serves the API port's evaluation POSTs from the C++ frontend. By default
+serves the API port's evaluation POSTs from the C++ frontend;
+``--cert-file``/``--key-file`` serve it over HTTPS (``--client-ca-file``
+adds mTLS; ``--native-tls``), and ``--http-workers N`` adds prefork worker
+processes on it. By default
 the policies file is watched and a changed digest, SIGHUP or ``POST
 /policies/reload`` reloads it (``--policy-reload-mode``); ``--tenants``
 serves named tenants beside the default one and ``--serving-shards`` serves
@@ -35,15 +38,19 @@ from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_POLICY_TIMEOUT,
     DEGRADED_MODES,
 )
+from policy_server_tpu_torch.certs import TlsConfig
 from policy_server_tpu_torch.server import (
     DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
     DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
+    DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS,
     DEFAULT_READINESS_PROBE_PORT,
     DEFAULT_RELOAD_CANARY_REQUESTS,
     DEFAULT_REQUEST_TIMEOUT_MS,
     DEFAULT_SELFHEAL_INTERVAL_SECONDS,
     DEFAULT_SHARD_HEARTBEAT_SECONDS,
+    DEFAULT_WORKER_RESPAWN_GIVEUP,
     FRONTENDS,
+    NATIVE_TLS_MODES,
     RELOAD_MODES,
     PolicyServer,
     read_policies_source,
@@ -228,6 +235,48 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
               help="Native frontend: cap on concurrent connections; "
                    "accepts over it answer an in-band 503 + Retry-After "
                    "and close (counted; 0 = uncapped)")),
+        ("--cert-file", "KUBEWARDEN_CERT_FILE",
+         dict(default=None, metavar="CERT_FILE",
+              help="Path to an X.509 certificate file for HTTPS")),
+        ("--key-file", "KUBEWARDEN_KEY_FILE",
+         dict(default=None, metavar="KEY_FILE",
+              help="Path to an X.509 private key file for HTTPS")),
+        ("--client-ca-file", "KUBEWARDEN_CLIENT_CA_FILE",
+         dict(default=None, metavar="CLIENT_CA_FILE", action="append",
+              help="Path to a CA certificate file that issued the client "
+                   "certificates; required to enable mTLS (repeatable)")),
+        ("--native-tls", "KUBEWARDEN_NATIVE_TLS",
+         dict(default="auto", metavar="MODE", choices=list(NATIVE_TLS_MODES),
+              help="Native frontend TLS termination: 'auto' terminates "
+                   "TLS on the C++ epoll loops when --cert/--key are set "
+                   "— SIGHUP/digest hot-rotation atomically swaps the "
+                   "SSL_CTX for NEW connections while established ones "
+                   "drain on the old identity, and a failed reload keeps "
+                   "last-good serving; a libssl that does not load stops "
+                   "the server. 'off' terminates TLS on the standard-"
+                   "library frontend even under --frontend native")),
+        ("--native-tls-handshake-timeout-seconds",
+         "KUBEWARDEN_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS",
+         dict(type=float, default=DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS,
+              metavar="SECONDS",
+              help="Native TLS: the full handshake must COMPLETE within "
+                   "this window measured from accept — byte drips never "
+                   "refresh it, so a TLS-layer slowloris is reaped on "
+                   "schedule (0 disables)")),
+        ("--http-workers", "KUBEWARDEN_HTTP_WORKERS",
+         dict(type=int, default=1, metavar="N",
+              help="HTTP frontend processes sharing the API port via "
+                   "SO_REUSEPORT, forwarding to the evaluation process "
+                   "over a unix socket (1 = serve in-process); each worker "
+                   "runs the --frontend this process runs, and none is "
+                   "started with TLS")),
+        ("--worker-respawn-giveup", "KUBEWARDEN_WORKER_RESPAWN_GIVEUP",
+         dict(type=int, default=DEFAULT_WORKER_RESPAWN_GIVEUP, metavar="N",
+              help="Prefork respawn breaker: a frontend worker slot that "
+                   "crash-loops N consecutive times within the crash "
+                   "window stops respawning (exponential backoff applies "
+                   "before the cap); the remaining processes keep serving "
+                   "and /readiness reports the degraded slot honestly")),
         ("--policy-reload-mode", "KUBEWARDEN_POLICY_RELOAD_MODE",
          dict(default="auto", metavar="MODE", choices=list(RELOAD_MODES),
               help="Zero-downtime policy hot reload (epoch-based, "
@@ -438,6 +487,9 @@ def build_cli() -> argparse.ArgumentParser:
                 kwargs["default"] = (value or "").lower() in (
                     "1", "true", "yes", "on"
                 )
+            elif kwargs.get("action") == "append":
+                if value is not None:
+                    kwargs["default"] = value.split(",")
             elif value is not None:
                 kwargs["default"] = kwargs.get("type", str)(value)
             if kwargs.get("help") is not argparse.SUPPRESS:
@@ -449,6 +501,7 @@ def build_cli() -> argparse.ArgumentParser:
 def validate_args(args: argparse.Namespace) -> None:
     """The JAX package's checks (``Config.validate``) of this package's
     flags; raises ValueError with its text."""
+    tls_config_of(args).validate()
     if args.workers is not None and args.workers < 1:
         raise ValueError("--workers must be >= 1")
     if args.max_batch_size < 1:
@@ -457,6 +510,8 @@ def validate_args(args: argparse.Namespace) -> None:
         0 <= args.readiness_probe_port <= 65535
     ):
         raise ValueError("ports must be in [0, 65535]")
+    if args.http_workers < 1:
+        raise ValueError("--http-workers must be >= 1")
     if args.breaker_failure_threshold < 1:
         raise ValueError("--breaker-failure-threshold must be >= 1")
     if args.breaker_window_seconds <= 0:
@@ -467,12 +522,23 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--reload-canary-requests must be >= 0")
     if args.selfheal_interval_seconds < 0:
         raise ValueError("--selfheal-interval-seconds must be >= 0")
+    if args.worker_respawn_giveup < 1:
+        raise ValueError("--worker-respawn-giveup must be >= 1")
     if args.native_idle_timeout_seconds < 0:
         raise ValueError("--native-idle-timeout-seconds must be >= 0")
     if args.native_read_timeout_seconds < 0:
         raise ValueError("--native-read-timeout-seconds must be >= 0")
     if args.native_max_connections < 0:
         raise ValueError("--native-max-connections must be >= 0")
+    if args.native_tls not in NATIVE_TLS_MODES:
+        raise ValueError(
+            f"invalid native TLS mode {args.native_tls!r} "
+            "(expected auto or off)"
+        )
+    if args.native_tls_handshake_timeout_seconds < 0:
+        raise ValueError(
+            "--native-tls-handshake-timeout-seconds must be >= 0"
+        )
     if not (0.0 <= args.reload_divergence_threshold <= 1.0):
         raise ValueError("--reload-divergence-threshold must be in [0, 1]")
     if args.serving_shards < 1:
@@ -508,6 +574,14 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--audit-matrix-spill-seconds must be > 0")
     if args.audit_matrix_whatif and not args.audit_matrix:
         raise ValueError("--audit-matrix-whatif requires --audit-matrix")
+
+
+def tls_config_of(args: argparse.Namespace) -> TlsConfig:
+    return TlsConfig(
+        cert_file=args.cert_file,
+        key_file=args.key_file,
+        client_ca_file=tuple(args.client_ca_file or ()),
+    )
 
 
 def server_from_args(args: argparse.Namespace) -> PolicyServer:
@@ -565,6 +639,15 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         audit_matrix=args.audit_matrix,
         audit_stream_max_clients=args.audit_stream_max_clients,
         audit_matrix_whatif=args.audit_matrix_whatif,
+        tls_config=tls_config_of(args),
+        native_tls=args.native_tls,
+        native_tls_handshake_timeout_seconds=(
+            args.native_tls_handshake_timeout_seconds
+        ),
+        http_workers=args.http_workers,
+        worker_respawn_giveup=args.worker_respawn_giveup,
+        log_level=args.log_level,
+        log_fmt=args.log_fmt,
     )
 
 

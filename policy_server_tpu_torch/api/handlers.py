@@ -68,31 +68,34 @@ import hmac
 import json
 import select
 import socket
-from http.server import BaseHTTPRequestHandler
 from typing import Any
 from urllib.parse import parse_qs, unquote
 
 from policy_server_tpu_torch.api import profiling
 from policy_server_tpu_torch.api.api_error import (
+    ShedError,
     api_error_body,
     shed_answer,
     something_went_wrong,
 )
+from policy_server_tpu_torch.api.http_common import (
+    JSON_CONTENT_TYPE as _JSON,
+    TEXT_CONTENT_TYPE as _TEXT,
+    BodyError,
+    JsonHandler,
+    parse_admission_review_bytes,
+    parse_raw_review_bytes,
+    span_fields_from_admission as _span_fields_from_admission,
+)
 from policy_server_tpu_torch.api.service import RequestOrigin
 from policy_server_tpu_torch.api.state import ApiServerState, readiness
-from policy_server_tpu_torch.evaluation.errors import (
-    EvaluationError,
-    PolicyNotFoundError,
-)
+from policy_server_tpu_torch.evaluation.errors import PolicyNotFoundError
 from policy_server_tpu_torch.models import (
-    AdmissionReviewRequest,
     AdmissionReviewResponse,
-    RawReviewRequest,
     RawReviewResponse,
     ValidateRequest,
 )
 from policy_server_tpu_torch.models.admission import FragVerdict
-from policy_server_tpu_torch.runtime.batcher import ShedError
 from policy_server_tpu_torch.telemetry import default_registry, flightrec
 from policy_server_tpu_torch.telemetry.tracing import logger, span
 from policy_server_tpu_torch.tenancy import lookup_tenant, unknown_tenant_message
@@ -102,63 +105,11 @@ __all__ = [
     "ReadinessHandler",
     "admin_gate",
     "evaluate_body",
+    "evaluation_answer",
     "lifecycle_action",
     "policies_reload",
     "readiness",
 ]
-
-MAX_BODY_BYTES = 8 * 1024**2
-
-
-class BodyError(Exception):
-    """Malformed request body; ``message`` carries the 422 text."""
-
-    def __init__(self, message: str):
-        super().__init__(message)
-        self.message = message
-
-
-def parse_admission_review_bytes(body: bytes) -> AdmissionReviewRequest:
-    try:
-        return AdmissionReviewRequest.from_dict(json.loads(body))
-    except (json.JSONDecodeError, UnicodeDecodeError) as e:
-        raise BodyError(f"Failed to parse the request body as JSON: {e}") from e
-    except (KeyError, TypeError, ValueError, AttributeError) as e:
-        raise BodyError(f"Failed to deserialize the JSON body: {e}") from e
-
-
-def parse_raw_review_bytes(body: bytes) -> RawReviewRequest:
-    try:
-        return RawReviewRequest.from_dict(json.loads(body))
-    except (json.JSONDecodeError, UnicodeDecodeError) as e:
-        raise BodyError(f"Failed to parse the request body as JSON: {e}") from e
-    except (KeyError, TypeError, ValueError) as e:
-        raise BodyError(f"Failed to deserialize the JSON body: {e}") from e
-
-
-def _span_fields_from_admission(review: AdmissionReviewRequest) -> dict:
-    """The request's identifying fields for its span."""
-    req = review.request
-    fields = {
-        "request_uid": req.uid,
-        "name": req.name,
-        "namespace": req.namespace,
-        "operation": req.operation,
-        "subresource": req.sub_resource,
-    }
-    if req.kind:
-        fields.update(
-            kind_group=req.kind.group, kind_version=req.kind.version,
-            kind=req.kind.kind,
-        )
-    if req.resource:
-        fields.update(
-            resource_group=req.resource.group,
-            resource_version=req.resource.version,
-            resource=req.resource.resource,
-        )
-    return {k: v for k, v in fields.items() if v not in (None, "")}
-
 
 def _record_response(fields: dict, response: Any) -> None:
     """The verdict's fields on the request span."""
@@ -172,11 +123,41 @@ def _record_response(fields: dict, response: Any) -> None:
 
 
 # evaluation route → (span name, origin)
-_EVALUATION_ROUTES = {
+EVALUATION_ROUTES = {
     "validate": ("validation", RequestOrigin.VALIDATE),
     "validate_raw": ("validation_raw", RequestOrigin.VALIDATE),
     "audit": ("audit", RequestOrigin.AUDIT),
 }
+
+
+def evaluation_answer(
+    kind: str, get_result: Any, span_fields: dict | None = None
+) -> tuple[int, bytes, dict[str, str] | None]:
+    """An evaluation's answer → (status, response body, headers):
+    ``get_result()`` returns the batcher's result or raises, and its error
+    maps as in the module docstring. The headers are a shed or fenced
+    answer's Retry-After, else None. The verdict goes on ``span_fields``
+    when given."""
+    try:
+        result = get_result()
+    except ShedError as e:
+        status, retry, body = shed_answer(e)
+        return status, body, {"Retry-After": str(retry)}
+    except PolicyNotFoundError as e:
+        return 404, api_error_body(404, str(e)), None
+    except Exception as e:  # noqa: BLE001 — keep the JSON error contract
+        logger.error("Evaluation error: %s", e)
+        return *something_went_wrong(), None
+    if type(result) is FragVerdict:
+        result = result.to_response()
+    if span_fields is not None:
+        _record_response(span_fields, result)
+    envelope = (
+        RawReviewResponse(result)
+        if kind == "validate_raw"
+        else AdmissionReviewResponse(result)
+    )
+    return 200, json.dumps(envelope.to_dict()).encode(), None
 
 
 def evaluate_body(
@@ -185,7 +166,7 @@ def evaluate_body(
     """One POST body → (status, response body, headers). ``kind`` is
     ``validate``, ``validate_raw`` or ``audit``. The headers are a shed or
     fenced answer's Retry-After, else None."""
-    span_name, origin = _EVALUATION_ROUTES[kind]
+    span_name, origin = EVALUATION_ROUTES[kind]
     try:
         if kind == "validate_raw":
             raw = parse_raw_review_bytes(body)
@@ -200,28 +181,11 @@ def evaluate_body(
     with span(
         span_name, host=hostname, policy_id=policy_id, **fields,
     ) as span_fields:
-        try:
-            result = batcher.submit(policy_id, request, origin).result()
-        except ShedError as e:
-            status, retry, body = shed_answer(e)
-            return status, body, {"Retry-After": str(retry)}
-        except PolicyNotFoundError as e:
-            return 404, api_error_body(404, str(e)), None
-        except EvaluationError as e:
-            logger.error("Evaluation error: %s", e)
-            return *something_went_wrong(), None
-        except Exception as e:  # noqa: BLE001 — keep the JSON error contract
-            logger.error("Evaluation error: %s", e)
-            return *something_went_wrong(), None
-        if type(result) is FragVerdict:
-            result = result.to_response()
-        _record_response(span_fields, result)
-    envelope = (
-        RawReviewResponse(result)
-        if kind == "validate_raw"
-        else AdmissionReviewResponse(result)
-    )
-    return 200, json.dumps(envelope.to_dict()).encode(), None
+        return evaluation_answer(
+            kind,
+            lambda: batcher.submit(policy_id, request, origin).result(),
+            span_fields,
+        )
 
 
 def _pprof_cpu(query: str) -> tuple[int, bytes, str]:
@@ -348,42 +312,12 @@ def _timeline() -> tuple[int, bytes]:
     return 200, rec.chrome_trace_json()
 
 
-_JSON = "application/json; charset=utf-8"
-_TEXT = "text/plain; charset=utf-8"
-
-
-class _Handler(BaseHTTPRequestHandler):
+class _Handler(JsonHandler):
     """Shared plumbing; ``self.server.state`` is the ApiServerState."""
-
-    protocol_version = "HTTP/1.1"
-    server_version = "policy-server-torch"
 
     @property
     def state(self) -> ApiServerState:
         return self.server.state  # type: ignore[attr-defined]
-
-    def log_message(self, format: str, *args: Any) -> None:  # noqa: A002
-        logger.debug("%s - %s", self.address_string(), format % args)
-
-    def _send(
-        self, status: int, body: bytes, content_type: str,
-        headers: dict[str, str] | None = None,
-    ) -> None:
-        self.send_response(status)
-        self.send_header("Content-Type", content_type)
-        self.send_header("Content-Length", str(len(body)))
-        for name, value in (headers or {}).items():
-            self.send_header(name, value)
-        self.end_headers()
-        self.wfile.write(body)
-
-    def _send_json(
-        self, status: int, body: bytes, headers: dict[str, str] | None = None
-    ) -> None:
-        self._send(status, body, _JSON, headers)
-
-    def _not_found(self) -> None:
-        self._send_json(404, api_error_body(404, "Not Found"))
 
     def _audit_get(self, path: str, query: str) -> bool:
         """Answer the audit GET routes → False for any other path."""
@@ -500,16 +434,11 @@ class ApiHandler(_Handler):
 
     def do_POST(self) -> None:  # noqa: N802
         parts = self.path.split("?", 1)[0].strip("/").split("/")
-        length = int(self.headers.get("Content-Length") or 0)
-        if length > MAX_BODY_BYTES:
-            self.close_connection = True
-            self._send_json(
-                413, api_error_body(413, "request body too large")
-            )
+        body = self._read_body()
+        if body is None:
             return
-        body = self.rfile.read(length)
         if (
-            parts[0] not in _EVALUATION_ROUTES
+            parts[0] not in EVALUATION_ROUTES
             or len(parts) not in (2, 3)
             or not all(parts)
         ):
@@ -547,12 +476,8 @@ class ReadinessHandler(_Handler):
 
     def do_POST(self) -> None:  # noqa: N802 — http.server's hook name
         path = self.path.partition("?")[0]
-        length = int(self.headers.get("Content-Length") or 0)
-        if length > MAX_BODY_BYTES:
-            self.close_connection = True
-            self._send_json(413, api_error_body(413, "request body too large"))
+        if self._read_body() is None:
             return
-        self.rfile.read(length)
         authorization = self.headers.get("Authorization", "")
         if path == "/policies/reload":
             self._send_json(*policies_reload(self.state, authorization))

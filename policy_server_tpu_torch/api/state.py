@@ -78,6 +78,12 @@ class ApiServerState:
     audit_matrix: Any = None
     # concurrent GET /audit/stream clients; past it a new one gets 503
     audit_stream_max_clients: int = 64
+    # the certs.ReloadableTlsContext with --cert-file (the expiry gauge and
+    # the reload counters read it, whichever frontend terminates TLS)
+    tls_reloadable: Any = None
+    # the native_frontend.NativeTlsManager when TLS terminates on the
+    # native loops (the generations counter and the termination gauge)
+    native_tls: Any = None
 
     def _supervisor_note(self, body: str) -> str:
         """A 200 body names the frontend worker slots that gave up

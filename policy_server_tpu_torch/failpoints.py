@@ -52,6 +52,13 @@ Sites instrumented (grep for ``failpoints.fire``):
 ``audit.sweep``     head of every audit sweep (audit/scanner.py) —
                     ``raise`` aborts the sweep: its rows stay dirty, the
                     error is counted and the next trigger retries
+``certs.reload``    TLS identity reload (certs.py) — ``raise`` stands for
+                    corrupt cert material mid-rotation: the last good
+                    identity keeps serving and the failure is counted
+``tls.handshake``   native TLS accept path (runtime/native_frontend.py
+                    ``NativeTlsManager``, polled every 0.25 s) — ``raise``
+                    refuses every new handshake until it is disarmed;
+                    established connections are untouched
 ==================  =====================================================
 
 Every fire is counted (``fired_count(site)``) so a test can check that an

@@ -108,6 +108,7 @@ from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Any
 
 from policy_server_tpu_torch import failpoints
+from policy_server_tpu_torch.api.api_error import FencedError, ShedError
 from policy_server_tpu_torch.api import service
 from policy_server_tpu_torch.api.service import (
     RequestOrigin,
@@ -146,30 +147,6 @@ _AUDIT_CLOSED = "batcher shutting down; audit lane closed"
 
 # pipeline workers: consecutive batches overlap across them
 PIPELINE_WORKERS = 4
-
-
-class ShedError(Exception):
-    """Raised (or set on a row's Future) at admission when the row cannot
-    be served within its deadline: the queue's estimated wait exceeds the
-    budget, or the tenant's quota is spent. The HTTP layer answers
-    ``http_status`` with ``Retry-After: ceil(retry_after_seconds)``."""
-
-    http_status = 429
-    message = "policy server overloaded; retry later"
-
-    def __init__(self, retry_after_seconds: float):
-        super().__init__(self.message)
-        self.retry_after_seconds = max(0.001, retry_after_seconds)
-
-
-class FencedError(ShedError):
-    """The answer for a row a serving shard can no longer serve: its
-    dispatch loop died or wedged and no healthy sibling had room. The row
-    was never dispatched, so a retry is safe; a 503, so the overload (429)
-    counts never absorb a fence."""
-
-    http_status = 503
-    message = "serving shard fenced; retry later"
 
 
 class _Pending:

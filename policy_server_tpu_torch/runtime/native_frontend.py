@@ -19,9 +19,18 @@ Build: compiled at first use with ``g++ -O2 -shared -fPIC -std=c++17
 -pthread ... -ldl`` into ``build/torch_kernels/torch_httpfront-<abi>.so``
 beside the package, and reused while it is newer than the source. A failed
 build or load raises with g++'s output: under ``--frontend native`` there
-is no fallback to the standard-library frontend. The TLS code in the
-source is compiled (it resolves libssl with ``dlopen`` at run time) but
-not bound here.
+is no fallback to the standard-library frontend.
+
+TLS: the library resolves libssl with ``dlopen`` at run time
+(``tls_available``); :class:`NativeTlsManager` builds SSL_CTX generations
+from ``certs.py``'s last good snapshots, swaps them on every rotation and
+drives the ``tls.handshake`` failpoint. The handshakes run on the event
+loop without the GIL, with their own counters in ``stats()``.
+
+Prefork: a worker process (``runtime/frontend.py``) owns its own native
+loop on the shared API port (``make_listen_socket(reuse_port=True)``) and
+forwards its records over the evaluation bridge (:class:`BridgeSink`).
+Nothing here imports torch at import time, so a worker boots without it.
 """
 
 from __future__ import annotations
@@ -43,10 +52,14 @@ from typing import Any
 
 from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.api.api_error import api_error_body as _api_error_body
-from policy_server_tpu_torch.api.api_error import shed_answer
-from policy_server_tpu_torch.api.handlers import MAX_BODY_BYTES, ApiHandler
+from policy_server_tpu_torch.api.api_error import ShedError, shed_answer
+from policy_server_tpu_torch.api.http_common import (
+    MAX_BODY_BYTES,
+    BodyError,
+    JsonHandler,
+    parse_admission_review_bytes,
+)
 from policy_server_tpu_torch.models.admission import FragVerdict
-from policy_server_tpu_torch.runtime.batcher import ShedError
 from policy_server_tpu_torch.telemetry import flightrec
 from policy_server_tpu_torch.telemetry.tracing import logger
 
@@ -208,6 +221,25 @@ def build_library(force: bool = False) -> FrontendLibrary:
         pylib.httpfront_stats.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
         ]
+        # TLS termination: the library resolves libssl with dlopen at run
+        # time, so these entry points exist whether or not libssl loads
+        # (tls_available says which)
+        lib.httpfront_tls_available.restype = ctypes.c_int
+        lib.httpfront_tls_error.restype = ctypes.c_char_p
+        lib.httpfront_ktls_supported.restype = ctypes.c_int
+        lib.httpfront_tls_ctx_create.restype = ctypes.c_void_p
+        lib.httpfront_tls_ctx_create.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+        ]
+        lib.httpfront_tls_ctx_free.argtypes = [ctypes.c_void_p]
+        lib.httpfront_set_tls.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.httpfront_tls_configure.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.httpfront_tls_fail_handshakes.argtypes = [
+            ctypes.c_void_p, ctypes.c_long,
+        ]
         _library = FrontendLibrary(lib, pylib, path, seconds)
         return _library
 
@@ -223,6 +255,44 @@ def native_available() -> bool:
     except (RuntimeError, OSError):
         return False
     return True
+
+
+def tls_available() -> bool:
+    """True when the library's run-time ``dlopen`` of libssl and libcrypto
+    resolved every symbol it needs. Raises when the library does not
+    build or load."""
+    return bool(_load().lib.httpfront_tls_available())
+
+
+def tls_error() -> str:
+    """Why native TLS is unavailable, or the last context build's error."""
+    return (_load().lib.httpfront_tls_error() or b"").decode("utf-8", "replace")
+
+
+def ktls_supported() -> bool:
+    """Whether the loaded OpenSSL could hand records to kernel TLS after the
+    handshake (reported, never acted on)."""
+    return bool(_load().lib.httpfront_ktls_supported())
+
+
+def tls_ctx_create(
+    cert_pem: bytes, key_pem: bytes, ca_pem: bytes | None = None
+) -> int:
+    """One native SSL_CTX generation from PEM bytes (``ca_pem`` turns on
+    client-certificate verification, as ``ssl.CERT_REQUIRED`` does) → an
+    opaque handle. Raises with the native error text on failure."""
+    handle = _load().lib.httpfront_tls_ctx_create(
+        cert_pem, len(cert_pem), key_pem, len(key_pem),
+        ca_pem, len(ca_pem) if ca_pem else 0,
+    )
+    if not handle:
+        raise RuntimeError(f"native TLS context build failed: {tls_error()}")
+    return handle
+
+
+def tls_ctx_free(handle: int) -> None:
+    if handle:
+        _load().lib.httpfront_tls_ctx_free(handle)
 
 
 def render_verdict_bytes(record: bytes) -> bytes | None:
@@ -244,16 +314,22 @@ def server_header() -> str:
     """The Server header the standard-library frontend sends
     (``BaseHTTPRequestHandler.version_string()`` of the API handler); the
     native frontend sends the same string."""
-    return f"{ApiHandler.server_version} {ApiHandler.sys_version}"
+    return f"{JsonHandler.server_version} {JsonHandler.sys_version}"
 
 
-def make_listen_socket(addr: str, port: int, backlog: int = 1024) -> socket.socket:
-    """A bound, listening, non-blocking socket. No SO_REUSEPORT: with no
-    prefork workers to share the port, a second listener on it (another
-    server, or an old one still draining) must fail to bind."""
+def make_listen_socket(
+    addr: str, port: int, backlog: int = 1024, reuse_port: bool = False
+) -> socket.socket:
+    """A bound, listening, non-blocking socket. SO_REUSEPORT only with
+    ``reuse_port`` (prefork workers share the API port, and the kernel
+    spreads the accepted connections over them): otherwise a second
+    listener on the port (another server, or an old one still draining)
+    must fail to bind."""
     s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     try:
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if reuse_port:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         s.bind((addr, port))
         s.listen(backlog)
         s.setblocking(False)
@@ -266,7 +342,7 @@ def make_listen_socket(addr: str, port: int, backlog: int = 1024) -> socket.sock
 class NativeFrontend:
     """Owns one native httpfront instance: the listen socket, its event
     loop thread, the drainer thread, and the completion calls. Bodies over
-    ``api.handlers.MAX_BODY_BYTES`` answer 413, as on the standard-library
+    ``api.http_common.MAX_BODY_BYTES`` answer 413, as on the standard-library
     frontend. The sink's ``handle_burst(frontend, burst)`` takes each
     drained burst of records."""
 
@@ -404,6 +480,36 @@ class NativeFrontend:
             self._sock.close()
         except OSError:
             pass
+
+    # -- TLS termination ----------------------------------------------------
+
+    def set_tls(self, ctx_handle: int | None) -> None:
+        """The SSL_CTX generation new connections shake hands under (the
+        native side takes its own reference; the caller frees its handle
+        with ``tls_ctx_free``). Established connections keep the generation
+        they pinned at accept. None turns TLS off for new connections."""
+        with self._lock:
+            if self._closed or not self._handle:
+                return
+            self._lib.httpfront_set_tls(self._handle, ctx_handle or None)
+
+    def configure_tls(self, handshake_timeout_ms: int) -> None:
+        """The handshake's deadline, from accept, never refreshed by
+        arriving bytes (the TLS-layer slowloris defense; 0 disables)."""
+        with self._lock:
+            if self._closed or not self._handle:
+                return
+            self._lib.httpfront_tls_configure(
+                self._handle, int(handshake_timeout_ms)
+            )
+
+    def fail_tls_handshakes(self, n: int) -> None:
+        """The ``tls.handshake`` failpoint's switch: fail the next ``n``
+        handshakes (n > 0), every one (-1), or none (0)."""
+        with self._lock:
+            if self._closed or not self._handle:
+                return
+            self._lib.httpfront_tls_fail_handshakes(self._handle, int(n))
 
     # -- self-heal (supervision.SelfHealWatchdog) ---------------------------
 
@@ -594,6 +700,126 @@ class NativeFrontend:
                 raise
 
 
+class NativeTlsManager:
+    """TLS termination on the native loops, fed by ``certs.py``.
+
+    * builds SSL_CTX generations from the ``ReloadableTlsContext``'s last
+      good snapshots (the bytes the standard-library contexts serve, never
+      files mid-rotation) and installs each on the frontend;
+    * a reload listener installs a new generation after every successful
+      rotation (SIGHUP or the digest poll): new connections shake hands
+      under it while established ones drain on the one they pinned; a
+      failed rebuild keeps the previous generation serving and is counted;
+    * a poll thread fires the ``tls.handshake`` failpoint every 0.25 s and
+      arms or disarms the native refuse-every-handshake switch with it.
+    """
+
+    HANDSHAKE_TIMEOUT_MS = 10_000
+    _FAILPOINT_POLL_SECONDS = 0.25
+
+    def __init__(
+        self,
+        frontend: NativeFrontend,
+        reloadable: Any,
+        *,
+        handshake_timeout_ms: int | None = None,
+    ):
+        self._frontend = frontend
+        self._reloadable = reloadable
+        self._lock = threading.Lock()
+        self._ctx_handle: int | None = None  # guarded-by: _lock
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._fail_armed = False
+        self.generations = 0  # guarded-by: _lock
+        self.failed_swaps = 0  # guarded-by: _lock
+        frontend.configure_tls(
+            self.HANDSHAKE_TIMEOUT_MS
+            if handshake_timeout_ms is None
+            else int(handshake_timeout_ms)
+        )
+        self._install_current()  # raises when the identity will not build
+        reloadable.add_reload_listener(self._on_reload)
+        self._thread = threading.Thread(
+            target=self._failpoint_loop, name="native-tls-failpoints",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def _install_current(self) -> None:
+        cert_pem, key_pem = self._reloadable.identity_snapshot()
+        ca = self._reloadable.client_ca_snapshot()
+        handle = tls_ctx_create(cert_pem, key_pem, ca.encode() if ca else None)
+        self._frontend.set_tls(handle)
+        with self._lock:
+            old, self._ctx_handle = self._ctx_handle, handle
+            self.generations += 1
+        if old:
+            tls_ctx_free(old)
+
+    def _on_reload(self) -> None:
+        if self._stop.is_set():
+            return  # the loops are gone: nothing to install on
+        try:
+            self._install_current()
+            logger.info(
+                "native TLS generation rotated (generation %d): new "
+                "connections handshake under the new identity, "
+                "established connections drain on the old one",
+                self.generations,
+            )
+        except Exception as e:  # noqa: BLE001 — keep the last good serving
+            with self._lock:
+                self.failed_swaps += 1
+            logger.error(
+                "native TLS generation rebuild failed; the previous "
+                "identity keeps serving: %s", e,
+            )
+
+    def _failpoint_loop(self) -> None:
+        while not self._stop.wait(self._FAILPOINT_POLL_SECONDS):
+            self.poll_failpoint_once()
+
+    def poll_failpoint_once(self) -> None:
+        """One ``tls.handshake`` evaluation (the loop's body, and the entry
+        tests drive): a raising site refuses every new handshake until it
+        is disarmed."""
+        try:
+            failpoints.fire("tls.handshake")
+            armed = False
+        except Exception:  # noqa: BLE001 — any raise means refuse
+            armed = True
+        if armed != self._fail_armed:
+            self._fail_armed = armed
+            self._frontend.fail_tls_handshakes(-1 if armed else 0)
+
+    def snapshot(self) -> dict:
+        """Generations, failed swaps, the reload counters, the identity's
+        notAfter and the kernel-TLS capability."""
+        reloads, reload_failures = self._reloadable.counters()
+        with self._lock:
+            generations = self.generations
+            failed_swaps = self.failed_swaps
+        return {
+            "generations": generations,
+            "failed_swaps": failed_swaps,
+            "reloads": reloads,
+            "reload_failures": reload_failures,
+            "cert_expiry_epoch": self._reloadable.identity_not_after(),
+            "ktls": ktls_supported(),
+        }
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        with self._lock:
+            handle, self._ctx_handle = self._ctx_handle, None
+        if handle:
+            tls_ctx_free(handle)
+
+
 # -- native response assembly: the one packing path --------------------------
 # Fields of AdmissionResponse / ValidationStatus the C++ emitter renders,
 # and the Python-only rest (rendered by json.dumps here).
@@ -771,6 +997,25 @@ def _python_body(r: Any, raw_shape: bool) -> bytes:
     return json.dumps(env.to_dict()).encode()
 
 
+def route_policy(state: Any, policy_id: str):
+    """A bare id → the server's batcher; a two-segment id ("tenant/policy",
+    passed through verbatim by the C++ router and the bridge) → that
+    tenant's batcher (``tenancy.resolve_tenant_batcher``), or ``(None,
+    policy, 404 body)`` with the unknown-tenant text every frontend shares.
+    Per record of every burst, so the common case is one substring test."""
+    if "/" not in policy_id:
+        return state.batcher, policy_id, None
+    from policy_server_tpu_torch.tenancy import (
+        resolve_tenant_batcher,
+        unknown_tenant_message,
+    )
+
+    batcher, pid, unknown = resolve_tenant_batcher(state, policy_id)
+    if batcher is None:
+        return None, pid, _api_error_body(404, unknown_tenant_message(unknown))
+    return batcher, pid, None
+
+
 class BatcherSink:
     """Parsed records feed the MicroBatcher array-at-a-time (one
     ``submit_many`` per poll burst); verdicts come back batch-granular
@@ -783,27 +1028,6 @@ class BatcherSink:
         self.state = state
         # a token is the completion route (frontend, req_id, raw_shape):
         # the frontend rides in the token, not on the sink
-
-    def _route(self, policy_id: str):
-        """A bare id → the server's batcher; a two-segment id
-        ("tenant/policy", passed through verbatim by the C++ router) →
-        that tenant's batcher (``tenancy.resolve_tenant_batcher``), or
-        ``(None, policy, 404 body)`` with the unknown-tenant text both
-        frontends share. Per record of every burst, so the common case is
-        one substring test."""
-        if "/" not in policy_id:
-            return self.state.batcher, policy_id, None
-        from policy_server_tpu_torch.tenancy import (
-            resolve_tenant_batcher,
-            unknown_tenant_message,
-        )
-
-        batcher, pid, unknown = resolve_tenant_batcher(self.state, policy_id)
-        if batcher is None:
-            return None, pid, _api_error_body(
-                404, unknown_tenant_message(unknown)
-            )
-        return batcher, pid, None
 
     def handle_burst(self, frontend: NativeFrontend, burst: list[tuple]) -> None:
         """One poll burst → at most one submit_many per (tenant batcher,
@@ -821,7 +1045,7 @@ class BatcherSink:
             _tp, _tf, _tpr, _tpu,
         ) in burst:
             if kind in (K_VALIDATE, K_AUDIT):
-                batcher, pid, not_found = self._route(policy_id)
+                batcher, pid, not_found = route_policy(self.state, policy_id)
                 if batcher is None:
                     frontend.complete(req_id, 404, not_found)
                     continue
@@ -875,11 +1099,6 @@ class BatcherSink:
             # the native parser declined (a float, a duplicate key, bad
             # syntax, ...): Python is the parse oracle, so 422 bodies are
             # the standard-library frontend's
-            from policy_server_tpu_torch.api.handlers import (
-                BodyError,
-                parse_admission_review_bytes,
-            )
-
             try:
                 review = parse_admission_review_bytes(payload)
             except BodyError as e:
@@ -917,7 +1136,7 @@ class BatcherSink:
         self._submit(frontend, req_id, policy_id, request, origin, raw_shape)
 
     def _submit(self, frontend, req_id, policy_id, request, origin, raw_shape) -> None:
-        batcher, policy_id, not_found = self._route(policy_id)
+        batcher, policy_id, not_found = route_policy(self.state, policy_id)
         if batcher is None:
             frontend.complete(req_id, 404, not_found)
             return
@@ -1035,3 +1254,83 @@ def _deliver(frontend: NativeFrontend, req_id: int, raw_shape: bool, fut) -> Non
             )
         except Exception:  # noqa: BLE001 — frontend gone
             pass
+
+
+class BridgeSink:
+    """A prefork worker's sink: the worker owns a native event loop and
+    forwards each drained record over the evaluation bridge
+    (``runtime/frontend.py``) as the JAX package's ``BridgeSink`` does:
+    parsed records as parsed frames, fallback records parsed here first
+    (their 422s never cross the bridge), raw records as they came. The
+    answer frame completes the request from the bridge client's reader
+    thread; a closed bridge answers 503, any other failure 500."""
+
+    def __init__(self, bridge: Any):
+        self.bridge = bridge
+
+    def handle_burst(self, frontend: NativeFrontend, burst: list[tuple]) -> None:
+        for rec in burst:
+            req_id = rec[0]
+            try:
+                fut = self._forward(frontend, *rec[:8])
+            except Exception as e:  # noqa: BLE001 — answer, never hang
+                fut = None
+                self._complete(frontend, req_id, None, e)
+            if fut is not None:
+                fut.add_done_callback(
+                    lambda f, req_id=req_id: self._complete(
+                        frontend, req_id, f, None
+                    )
+                )
+
+    def _forward(
+        self, frontend, req_id, kind, policy_id, uid, ns, op, gvk, payload
+    ):
+        """One record → the bridge's Future, or None when answered here."""
+        from policy_server_tpu_torch.runtime import frontend as fr
+
+        if kind in (K_VALIDATE, K_AUDIT):
+            header = json.dumps(
+                {"uid": uid, "namespace": ns, "operation": op,
+                 "kind": gvk or None}
+            ).encode()
+            return self.bridge.submit_parsed(
+                fr.ORIGIN_AUDIT_PARSED if kind == K_AUDIT
+                else fr.ORIGIN_VALIDATE_PARSED,
+                policy_id, header, payload,
+            )
+        if kind in (K_VALIDATE_FB, K_AUDIT_FB):
+            try:
+                review = parse_admission_review_bytes(payload)
+            except BodyError as e:
+                frontend.complete(req_id, 422, _api_error_body(422, e.message))
+                return None
+            adm = review.request
+            return self.bridge.submit_parsed(
+                fr.ORIGIN_AUDIT_PARSED if kind == K_AUDIT_FB
+                else fr.ORIGIN_VALIDATE_PARSED,
+                policy_id, fr.admission_header(adm), fr.canonical_payload(adm),
+            )
+        return self.bridge.submit(fr.ORIGIN_RAW, policy_id, payload)
+
+    @staticmethod
+    def _complete(frontend, req_id: int, fut, exc) -> None:
+        from policy_server_tpu_torch.runtime import frontend as fr
+
+        try:
+            if fut is not None:
+                exc = fut.exception()
+            if exc is None:
+                status, body = fut.result()
+                headers = fr._shed_headers(status, body)
+                retry = int(headers["Retry-After"]) if headers else 0
+                frontend.complete(req_id, status, body, retry)
+            elif isinstance(exc, ConnectionError):
+                frontend.complete(req_id, 503, fr.UNAVAILABLE_BODY)
+            else:
+                logger.error("bridge forward failed: %s", exc)
+                frontend.complete(
+                    req_id, 500, _api_error_body(500, "Something went wrong")
+                )
+        except Exception as e:  # noqa: BLE001 — frontend gone
+            logger.error("bridge answer failed: %s", e)

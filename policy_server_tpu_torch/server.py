@@ -54,10 +54,35 @@ matrix and watch family is on /metrics at every setting, with zeros for
 what is off.
 
 ``stop()`` follows the JAX package's order: the watchdog, then the native
-frontend stops accepting and the audit streams end, then the audit scanner,
+frontend stops accepting, the worker supervisor stops, the workers are
+terminated (killed after 5 s), the bridge closes and its socket and
+directory go, the audit streams end, then the audit scanner,
 then the named tenants' epochs, then every epoch of the default tenant:
 each batcher answers what it holds (503 for rows not yet in a batch) and
-its environments close, then the native frontend flushes and frees.
+its environments close, then the native TLS manager stops and the native
+frontend flushes and frees, and the certificate watcher ends.
+
+``tls_config`` (``--cert-file``, ``--key-file``, ``--client-ca-file``)
+serves the API port over HTTPS, with mTLS when client CAs are given
+(``certs.py``): the identity reloads when both files change on disk or on
+SIGHUP, and the last good one keeps serving when a reload fails. The
+standard-library frontend wraps each accepted connection and shakes hands
+on the connection's own thread (a silent client never stalls the accept
+loop); ``--frontend native`` terminates TLS on its C++ loops
+(``NativeTlsManager``), and a libssl that does not load there raises at
+start: there is no fallback to another frontend. ``native_tls="off"``
+chooses the standard-library terminator under ``--frontend native``, as
+the JAX package's help text says. The readiness port stays plaintext.
+
+``http_workers`` above 1 (``--http-workers``) adds that many minus one
+worker processes (``runtime/frontend.py``) on the API port, which then
+carries ``SO_REUSEPORT``: they frame and parse requests and forward them
+over the evaluation bridge, a unix socket in a private 0700 directory. A
+supervisor thread respawns a dead worker every 2 s, backs a crash-looping
+slot off exponentially and gives it up after ``worker_respawn_giveup``
+fast deaths (counted on /metrics and named by /readiness). With TLS the
+workers are not started (they would each need the identity): the server
+serves in-process, with the JAX package's warning.
 
 ``frontend="native"`` (``--frontend native``) serves the API port's
 evaluation POSTs (``/validate``, ``/validate_raw``, ``/audit``) from the
@@ -72,12 +97,19 @@ the standard-library frontend.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
 import os
+import shutil
 import socket
+import ssl
+import subprocess
+import sys
+import tempfile
 import threading
+import time
 from http.server import ThreadingHTTPServer
 from typing import Any, Iterator, Mapping
 
@@ -92,6 +124,10 @@ from policy_server_tpu_torch.audit import (
 )
 from policy_server_tpu_torch.api.handlers import ApiHandler, ReadinessHandler
 from policy_server_tpu_torch.api.state import ApiServerState
+from policy_server_tpu_torch.certs import (
+    TlsConfig,
+    create_tls_config_and_watch_certificate_changes,
+)
 from policy_server_tpu_torch.evaluation.environment import (
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
@@ -99,6 +135,7 @@ from policy_server_tpu_torch.evaluation.environment import (
 from policy_server_tpu_torch.lifecycle import PolicyLifecycleManager, ShadowRecorder
 from policy_server_tpu_torch.models.policy import parse_policies
 from policy_server_tpu_torch.runtime import native_frontend as nf
+from policy_server_tpu_torch.runtime.frontend import EvaluationBridge
 from policy_server_tpu_torch.supervision import SelfHealWatchdog, SupervisorStats
 from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_BATCH_TIMEOUT_MS,
@@ -139,6 +176,14 @@ DEFAULT_AUDIT_INTERVAL_SECONDS = 30.0
 DEFAULT_AUDIT_BATCH_SIZE = 256
 DEFAULT_AUDIT_MAX_SNAPSHOT_BYTES = 64 * 1024 * 1024
 DEFAULT_AUDIT_STREAM_MAX_CLIENTS = 64
+NATIVE_TLS_MODES = ("auto", "off")
+DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS = (
+    nf.NativeTlsManager.HANDSHAKE_TIMEOUT_MS / 1000
+)
+DEFAULT_WORKER_RESPAWN_GIVEUP = 5
+# the standard-library terminator's handshake deadline: asyncio's default
+# ``ssl_handshake_timeout``, which the JAX package's aiohttp terminator uses
+STDLIB_TLS_HANDSHAKE_TIMEOUT_SECONDS = 60.0
 
 logger = logging.getLogger("kubewarden-policy-server")
 
@@ -151,13 +196,39 @@ class _HttpServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
     def __init__(
-        self, addr: tuple[str, int], handler: type, state: ApiServerState
+        self, addr: tuple[str, int], handler: type, state: ApiServerState,
+        tls_context: ssl.SSLContext | None = None, reuse_port: bool = False,
     ) -> None:
         self.state = state
         # set by PolicyServer.stop(): long-lived handlers (the audit
         # stream) end within their poll interval
         self.closing = threading.Event()
+        self.tls_context = tls_context
+        # SO_REUSEPORT only where prefork workers share the port
+        self.allow_reuse_port = reuse_port
         super().__init__(addr, handler)
+
+    def get_request(self):
+        sock, addr = super().get_request()
+        if self.tls_context is not None:
+            # the accept thread only wraps: the handshake happens on the
+            # connection's own thread (finish_request), so one silent
+            # client cannot stall every accept
+            sock = self.tls_context.wrap_socket(
+                sock, server_side=True, do_handshake_on_connect=False
+            )
+        return sock, addr
+
+    def finish_request(self, request, client_address) -> None:
+        if self.tls_context is not None:
+            try:
+                request.settimeout(STDLIB_TLS_HANDSHAKE_TIMEOUT_SECONDS)
+                request.do_handshake()
+                request.settimeout(None)
+            except OSError as e:  # ssl.SSLError and timeouts included
+                logger.debug("TLS handshake failed: %s", e)
+                return  # shutdown_request closes the socket
+        super().finish_request(request, client_address)
 
 
 def _admission_of(spec: TenantSpec) -> TenantAdmission | None:
@@ -240,6 +311,7 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
            "Connections answered an in-band 503 because the native "
            "frontend's connection cap was reached",
            n.get("conn_cap_rejections", 0))
+    yield from _tls_families(state, n)
     yield (names.BULK_SUBMITS, "counter",
            "submit_many bursts admitted (one queue-lock acquisition each)",
            b["bulk_submits"])
@@ -404,6 +476,56 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
         ],
         ("trace_id", "policy_id", "slowest_phase"),
     )
+
+
+def _tls_families(state: ApiServerState, n: dict) -> Iterator[tuple]:
+    """The TLS families, under the JAX package's names and help texts. The
+    expiry gauge and the reload counters read ``certs.py`` whichever
+    frontend terminates TLS; the handshake counters are the native loops'
+    (zero under the standard-library terminator and plaintext)."""
+    reloadable = state.tls_reloadable
+    manager = state.native_tls
+    expiry = reloadable.identity_not_after() if reloadable is not None else None
+    reloads, reload_failures = (
+        reloadable.counters() if reloadable is not None else (0, 0)
+    )
+    yield (names.TLS_CERT_EXPIRY_SECONDS, "gauge",
+           "Seconds until the serving TLS identity's notAfter (negative = "
+           "expired; 0 when TLS is off or the leaf is undecodable)",
+           (expiry - time.time()) if expiry is not None else 0)
+    yield (names.TLS_HANDSHAKES_OK, "counter",
+           "TLS handshakes completed by the native frontend",
+           n.get("tls_handshakes_ok", 0))
+    yield (names.TLS_HANDSHAKES_FAILED, "counter",
+           "Native TLS handshakes that failed hard (bad record, mTLS "
+           "client-CA rejection, injected tls.handshake faults)",
+           n.get("tls_handshakes_failed", 0))
+    yield (names.TLS_HANDSHAKE_TIMEOUTS, "counter",
+           "Native TLS handshakes reaped by the arrival timeout (byte drips "
+           "never refresh it — the TLS-layer slowloris defense)",
+           n.get("tls_handshake_timeouts", 0))
+    yield (names.TLS_HANDSHAKE_DISCONNECTS, "counter",
+           "Connections that disconnected mid-handshake before the native "
+           "TLS handshake completed", n.get("tls_handshake_disconnects", 0))
+    yield (names.TLS_CLEAN_CLOSES, "counter",
+           "Native TLS connections closed with a close_notify alert "
+           "(in-band rejections included — no truncation-looking RSTs for "
+           "well-behaved clients)", n.get("tls_clean_closes", 0))
+    yield (names.TLS_GENERATIONS, "counter",
+           "SSL_CTX generations installed on the native loops (boot + each "
+           "successful hot-rotation; established connections drain on the "
+           "generation they pinned)",
+           manager.snapshot()["generations"] if manager is not None else 0)
+    yield (names.TLS_RELOADS, "counter",
+           "TLS identity/client-CA hot reloads applied by certs.py (SIGHUP "
+           "or digest-watch rotation)", reloads)
+    yield (names.TLS_RELOAD_FAILURES, "counter",
+           "TLS reload attempts that failed validation; the last-good "
+           "identity kept serving each time", reload_failures)
+    yield (names.TLS_NATIVE_TERMINATION, "gauge",
+           "1 when TLS terminates on the native epoll loops, 0 under the "
+           "aiohttp terminator or plaintext",
+           1 if manager is not None else 0)
 
 
 def _tenant_families(state: ApiServerState) -> Iterator[tuple]:
@@ -650,9 +772,28 @@ class PolicyServer:
         audit_matrix: bool = False,
         audit_stream_max_clients: int = DEFAULT_AUDIT_STREAM_MAX_CLIENTS,
         audit_matrix_whatif: bool = False,
+        tls_config: TlsConfig | None = None,
+        native_tls: str = "auto",
+        native_tls_handshake_timeout_seconds: float = (
+            DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS
+        ),
+        http_workers: int = 1,
+        worker_respawn_giveup: int = DEFAULT_WORKER_RESPAWN_GIVEUP,
+        log_level: str = "info",
+        log_fmt: str = "text",
     ) -> None:
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
+        if native_tls not in NATIVE_TLS_MODES:
+            raise ValueError(
+                f"invalid native TLS mode {native_tls!r} (expected auto or off)"
+            )
+        if http_workers < 1:
+            raise ValueError("--http-workers must be >= 1")
+        if worker_respawn_giveup < 1:
+            raise ValueError("--worker-respawn-giveup must be >= 1")
+        tls_config = tls_config or TlsConfig()
+        tls_config.validate()
         if audit_mode not in AUDIT_MODES:
             raise ValueError(
                 f"invalid audit mode {audit_mode!r} "
@@ -686,6 +827,14 @@ class PolicyServer:
         flightrec.install(self._recorder)
         if enable_pprof:
             profiling.activate_memory_profiling()
+            if http_workers > 1:
+                logger.warning(
+                    "--enable-pprof with --http-workers: the pprof routes "
+                    "are served by the main process only; a fraction of "
+                    "connections on the shared port land on workers and "
+                    "404 — hit the endpoint repeatedly or set "
+                    "--http-workers 1 when profiling"
+                )
         reload_enabled = policy_reload_mode != "off"
         # the canary's replay ring: every epoch's batcher feeds the same
         # one, so a reload replays the traffic the serving epoch saw
@@ -822,6 +971,18 @@ class PolicyServer:
         )
         self.lifecycle: PolicyLifecycleManager | None = None
         self._httpd: _HttpServer | None = None
+        self._tls_context: ssl.SSLContext | None = None
+        # the prefork workers (started by start(); see _start_workers)
+        self._http_workers = http_workers
+        self._worker_respawn_giveup = worker_respawn_giveup
+        self._worker_args = (host, socket.gethostname(), log_level, log_fmt)
+        self._worker_procs: list = []
+        self._worker_cmd: list[str] = []
+        self._worker_stop = threading.Event()
+        self._worker_supervisor: threading.Thread | None = None
+        self._bridge: EvaluationBridge | None = None
+        self._bridge_dir: str | None = None
+        self._bridge_socket: str | None = None
         manager = None
         try:
             if warmup:
@@ -858,13 +1019,40 @@ class PolicyServer:
                         reload_canary_requests, reload_divergence_threshold,
                         warmup,
                     ))
+            if tls_config.enabled:
+                self._tls_context = (
+                    create_tls_config_and_watch_certificate_changes(tls_config)
+                )
+                # the expiry and reload counters read it, whichever
+                # frontend terminates TLS
+                self.state.tls_reloadable = self._tls_context._reloadable
+            prefork = http_workers > 1 and self._tls_context is None
+            if http_workers > 1 and self._tls_context is not None:
+                logger.warning(
+                    "--http-workers is not supported with TLS yet (workers "
+                    "would each need the cert material); serving in-process"
+                )
+            native = frontend == "native"
+            if native and self._tls_context is not None and native_tls == "off":
+                logger.warning(
+                    "--native-tls off with --frontend native: TLS "
+                    "terminates on the standard-library frontend (the "
+                    "native loops cannot share its port); serving with "
+                    "the Python frontend"
+                )
+                native = False
+            self._frontend_choice = "native" if native else "python"
             # the API port first (its native library and poll buffer too,
             # before the collection below), the readiness port once it is
             # bound
-            if frontend == "native":
+            if native:
                 self._bind_native_frontend(
                     host, port, native_idle_timeout_seconds,
                     native_read_timeout_seconds, native_max_connections,
+                    reuse_port=prefork,
+                    handshake_timeout_seconds=(
+                        native_tls_handshake_timeout_seconds
+                    ),
                 )
                 if enable_pprof:
                     logger.warning(
@@ -873,7 +1061,11 @@ class PolicyServer:
                         "pprof endpoints need --frontend python"
                     )
             else:
-                self._httpd = _HttpServer((host, port), ApiHandler, self.state)
+                self._httpd = _HttpServer(
+                    (host, port), ApiHandler, self.state,
+                    tls_context=self._tls_context, reuse_port=prefork,
+                )
+            self._prefork = prefork
             # collect the build's and the warmup's garbage (and any the
             # caller left) before serving: left to the first full
             # collection under traffic, the finalizers of freed device and
@@ -887,6 +1079,7 @@ class PolicyServer:
             if manager is not None:
                 manager.shutdown()
             self._close_api()
+            self._stop_tls_watch()
             batcher.shutdown()
             env.close()
             if flightrec.recorder() is self._recorder:
@@ -1021,12 +1214,16 @@ class PolicyServer:
 
     def _bind_native_frontend(
         self, host: str, port: int, idle_s: float, read_s: float,
-        max_connections: int,
+        max_connections: int, reuse_port: bool,
+        handshake_timeout_seconds: float,
     ) -> None:
         """The native frontend on the API port, built and bound but not
-        started (``state.native_frontend``). Raises when the library does
-        not build or load or the port does not bind."""
-        sock = nf.make_listen_socket(host, port)
+        started (``state.native_frontend``), terminating TLS on its loops
+        when the server has a TLS context (``state.native_tls``). Raises
+        when the library does not build or load, the port does not bind or,
+        with TLS, libssl does not load: no other frontend takes over."""
+        sock = nf.make_listen_socket(host, port, reuse_port=reuse_port)
+        front = None
         try:
             front = nf.NativeFrontend(
                 sock, nf.BatcherSink(self.state),
@@ -1034,20 +1231,66 @@ class PolicyServer:
                 read_timeout_ms=int(read_s * 1000),
                 max_connections=max_connections,
             )
+            if self._tls_context is not None:
+                if not nf.tls_available():
+                    raise RuntimeError(
+                        f"native TLS unavailable ({nf.tls_error()}): "
+                        "--frontend native cannot terminate TLS here "
+                        "(--native-tls off terminates it on the "
+                        "standard-library frontend)"
+                    )
+                reloadable = getattr(self._tls_context, "_reloadable", None)
+                if reloadable is None:
+                    raise RuntimeError(
+                        "TLS context carries no reloadable identity"
+                    )
+                self.state.native_tls = nf.NativeTlsManager(
+                    front, reloadable,
+                    handshake_timeout_ms=int(handshake_timeout_seconds * 1000),
+                )
         except BaseException:
-            sock.close()
+            if front is not None:
+                front.shutdown(timeout=0)  # closes the socket too
+            else:
+                sock.close()
             raise
         self._native_port = sock.getsockname()[1]
         self.state.native_frontend = front
 
     def _close_api(self) -> None:
         """Free the API port's frontend (the native one waits for its
-        in-flight completions, stops its loops and joins its drainer)."""
+        in-flight completions, stops its loops and joins its drainer; its
+        TLS manager stops first, so nothing touches a handle mid-free)."""
+        if self.state.native_tls is not None:
+            self.state.native_tls.stop()
+            self.state.native_tls = None
         if self.native_frontend is not None:
             self.native_frontend.shutdown()
             self.state.native_frontend = None
         elif self._httpd is not None:
             self._httpd.server_close()
+
+    def _stop_tls_watch(self) -> None:
+        if self.state.tls_reloadable is not None:
+            self.state.tls_reloadable.stop()
+
+    @property
+    def tls_context(self) -> ssl.SSLContext | None:
+        """The API port's TLS context (its ``_reloadable`` is the
+        ``certs.ReloadableTlsContext``), or None for plaintext."""
+        return self._tls_context
+
+    @property
+    def bridge(self) -> EvaluationBridge | None:
+        """The evaluation bridge under ``--http-workers`` > 1, once
+        started."""
+        return self._bridge
+
+    @property
+    def worker_procs(self) -> list:
+        """The worker slots: a live ``Popen``, a ``_PendingRespawn`` while a
+        respawn waits out its backoff, or None for a slot given up."""
+        return self._worker_procs
 
     @property
     def native_frontend(self) -> Any:
@@ -1056,7 +1299,7 @@ class PolicyServer:
 
     @property
     def frontend(self) -> str:
-        return "python" if self._httpd is not None else "native"
+        return self._frontend_choice
 
     @property
     def port(self) -> int:
@@ -1086,12 +1329,14 @@ class PolicyServer:
 
     def start(self) -> None:
         """Serve both ports in the background (the native frontend on its
-        own threads), with the self-heal watchdog and the audit scanner."""
+        own threads), with the self-heal watchdog, the audit scanner and,
+        under ``--http-workers``, the prefork workers."""
         self._start_selfheal()
         if self.native_frontend is not None:
             self.native_frontend.start()
         else:
             self._serve_in_background(self._httpd, "http")
+        self._start_workers()
         self._serve_in_background(self._readiness, "readiness")
 
     def serve_forever(self) -> None:
@@ -1101,15 +1346,167 @@ class PolicyServer:
         self._start_selfheal()
         if self.native_frontend is not None:
             self.native_frontend.start()
+            self._start_workers()
             self._readiness.serve_forever()
             return
+        self._start_workers()
         self._serve_in_background(self._readiness, "readiness")
         self._httpd.serve_forever()
 
+    # -- the prefork workers ------------------------------------------------
+
+    _WORKER_RESPAWN_INTERVAL_SECONDS = 2.0
+    # a worker that dies within the crash window of its spawn is a
+    # crash-loop death: it is respawned after an exponential backoff, and
+    # its slot is given up after --worker-respawn-giveup such deaths in a
+    # row (a worker that cannot boot would otherwise respawn forever)
+    _WORKER_CRASH_WINDOW_SECONDS = 5.0
+    _WORKER_BACKOFF_BASE_SECONDS = 0.5
+    _WORKER_BACKOFF_CAP_SECONDS = 30.0
+
+    def _start_workers(self) -> None:
+        """The evaluation bridge on a unix socket in a private 0700
+        directory (a shared /tmp path would let any local user squat the
+        name or reach the bridge past the API port's TLS), then the
+        ``http_workers - 1`` worker processes on the API port, and their
+        supervisor."""
+        if not self._prefork or self._bridge is not None:
+            return
+        self._bridge_dir = tempfile.mkdtemp(prefix="policy-server-bridge-")
+        os.chmod(self._bridge_dir, 0o700)
+        self._bridge_socket = os.path.join(self._bridge_dir, "bridge.sock")
+        self._bridge = EvaluationBridge(self.state, self._bridge_socket).start()
+        host, hostname, log_level, log_fmt = self._worker_args
+        self._worker_cmd = [
+            sys.executable, "-m", "policy_server_tpu_torch.runtime.frontend",
+            "--socket", self._bridge_socket,
+            "--addr", host,
+            "--port", str(self.port),
+            "--hostname", hostname,
+            "--log-level", log_level,
+            # workers log; spans stay in this process
+            "--log-fmt", log_fmt if log_fmt != "otlp" else "json",
+            "--frontend", self.frontend,
+        ]
+        for _ in range(self._http_workers - 1):
+            self._worker_procs.append(subprocess.Popen(self._worker_cmd))
+        logger.info(
+            "prefork HTTP frontend started",
+            extra={"span_fields": {
+                "workers": self._http_workers, "bridge": self._bridge_socket,
+            }},
+        )
+        self._worker_supervisor = threading.Thread(
+            target=self._supervise_workers, name="worker-supervisor",
+            daemon=True,
+        )
+        self._worker_supervisor.start()
+
+    def _supervise_workers(self) -> None:
+        """Respawn dead workers every 2 s (a dead one otherwise shrinks
+        the port's accept pool until restart), with the crash-loop backoff
+        and the give-up breaker (``SupervisorStats`` counts both)."""
+        giveup = self._worker_respawn_giveup
+        supervisor = self.state.supervisor
+        n = len(self._worker_procs)
+        spawned_at = [time.monotonic()] * n
+        fast_deaths = [0] * n
+        respawn_at = [0.0] * n
+        while not self._worker_stop.wait(self._WORKER_RESPAWN_INTERVAL_SECONDS):
+            now = time.monotonic()
+            procs = self._worker_procs
+            for i, proc in enumerate(list(procs)):
+                if (
+                    proc is None
+                    or isinstance(proc, _PendingRespawn)
+                    or proc.poll() is None
+                ):
+                    continue
+                lifetime = now - spawned_at[i]
+                if lifetime < self._WORKER_CRASH_WINDOW_SECONDS:
+                    fast_deaths[i] += 1
+                else:
+                    fast_deaths[i] = 0
+                if fast_deaths[i] >= giveup:
+                    logger.error(
+                        "frontend worker slot %d crash-looped %d times "
+                        "within %.1fs of spawn (rc=%s); giving up on the "
+                        "slot — the remaining processes keep serving",
+                        i, fast_deaths[i], self._WORKER_CRASH_WINDOW_SECONDS,
+                        proc.returncode,
+                    )
+                    procs[i] = None
+                    supervisor.count_slot_given_up()
+                    continue
+                backoff = 0.0
+                if fast_deaths[i]:
+                    backoff = min(
+                        self._WORKER_BACKOFF_CAP_SECONDS,
+                        self._WORKER_BACKOFF_BASE_SECONDS
+                        * 2 ** (fast_deaths[i] - 1),
+                    )
+                respawn_at[i] = now + backoff
+                logger.warning(
+                    "frontend worker died (rc=%s, lived %.1fs); respawning "
+                    "in %.1fs (consecutive fast deaths: %d)",
+                    proc.returncode, lifetime, backoff, fast_deaths[i],
+                )
+                procs[i] = _PendingRespawn(proc.returncode)
+                supervisor.count_respawn(backoff)
+            for i, proc in enumerate(list(procs)):
+                if (
+                    isinstance(proc, _PendingRespawn)
+                    and now >= respawn_at[i]
+                    and not self._worker_stop.is_set()
+                ):
+                    procs[i] = subprocess.Popen(self._worker_cmd)
+                    spawned_at[i] = time.monotonic()
+
+    def _stop_workers(self) -> None:
+        """The supervisor, then the workers (SIGTERM, SIGKILL after 5 s),
+        the bridge, its socket and its directory."""
+        self._worker_stop.set()
+        if self._worker_supervisor is not None:
+            self._worker_supervisor.join(timeout=10)
+            self._worker_supervisor = None
+        live = [
+            p for p in self._worker_procs
+            if p is not None and not isinstance(p, _PendingRespawn)
+        ]
+        for proc in live:
+            with contextlib.suppress(ProcessLookupError):
+                proc.terminate()
+        for proc in live:
+            try:
+                proc.wait(5)
+            except subprocess.TimeoutExpired:
+                # no orphan may keep a share of the port
+                with contextlib.suppress(ProcessLookupError):
+                    proc.kill()
+                proc.wait(5)
+        self._worker_procs.clear()
+        if self._bridge is not None:
+            self._bridge.stop()
+            self._bridge = None
+        if self._bridge_socket:
+            with contextlib.suppress(OSError):
+                os.unlink(self._bridge_socket)
+            self._bridge_socket = None
+        if self._bridge_dir:
+            shutil.rmtree(self._bridge_dir, ignore_errors=True)
+            self._bridge_dir = None
+
     def reload_signal(self) -> None:
-        """SIGHUP: start a background policy reload, of every tenant under
-        ``--tenants`` (the work runs on daemon threads, so this is safe in
-        a signal handler)."""
+        """SIGHUP: reload the TLS identity and client CAs
+        (``reload_now``, whatever the change detector says) and start a
+        background policy reload, of every tenant under ``--tenants``. Each
+        keeps its last good state on a failure, and the work runs on daemon
+        threads, so this is safe in a signal handler."""
+        if self.state.tls_reloadable is not None:
+            threading.Thread(
+                target=self.state.tls_reloadable.reload_now,
+                name="sighup-cert-reload", daemon=True,
+            ).start()
         if self.state.tenants is not None:
             self.state.tenants.reload_all("sighup")
         elif self.lifecycle is not None:
@@ -1125,6 +1522,7 @@ class PolicyServer:
             # stop accepting; in-flight requests are answered below once
             # the batcher's shutdown has delivered them
             self.native_frontend.stop_accepting()
+        self._stop_workers()
         for httpd in (self._httpd, self._readiness):
             if httpd is not None:
                 httpd.closing.set()  # the audit streams end
@@ -1146,6 +1544,16 @@ class PolicyServer:
             self.batcher.shutdown()
             self.env.close()
         self._close_api()
+        self._stop_tls_watch()
         self._readiness.server_close()
         if self._recorder is not None and flightrec.recorder() is self._recorder:
             flightrec.install(None)
+
+
+class _PendingRespawn:
+    """A worker slot whose respawn waits out its backoff."""
+
+    __slots__ = ("returncode",)
+
+    def __init__(self, returncode: int | None):
+        self.returncode = returncode

@@ -2,10 +2,11 @@
 
 * :class:`SupervisorStats` — the locked counters behind the
   ``policy_server_worker_respawn*``, ``policy_server_worker_slots_given_up``
-  and ``policy_server_selfheal_*`` /metrics families. The prefork worker
-  supervisor that feeds the respawn counters is not part of this package,
-  so they stay 0 (as the JAX package's do without ``--http-workers``); the
-  watchdog below feeds the revive counters.
+  and ``policy_server_selfheal_*`` /metrics families. The server's prefork
+  worker supervisor (``server.PolicyServer._supervise_workers``, under
+  ``--http-workers`` > 1) feeds the respawn and give-up counters, which
+  stay 0 without workers, as the JAX package's do; the watchdog below
+  feeds the revive counters. ``/readiness`` names the given-up slots.
 
 * :class:`SelfHealWatchdog` — a daemon thread that checks, every
   ``interval_seconds``, that the threads a request depends on are alive:

@@ -77,6 +77,19 @@ WORKER_RESPAWN_BACKOFF_SECONDS = (
 WORKER_SLOTS_GIVEN_UP = "policy_server_worker_slots_given_up"
 SELFHEAL_BATCHER_REVIVES = "policy_server_selfheal_batcher_revives"
 SELFHEAL_FRONTEND_REVIVES = "policy_server_selfheal_frontend_revives"
+# TLS termination (certs.py, runtime/native_frontend.NativeTlsManager): the
+# identity's expiry, the native loops' handshake outcomes (zero under the
+# standard-library terminator and plaintext), and the rotation counters
+TLS_CERT_EXPIRY_SECONDS = "policy_server_tls_cert_expiry_seconds"
+TLS_HANDSHAKES_OK = "policy_server_tls_handshakes_ok"
+TLS_HANDSHAKES_FAILED = "policy_server_tls_handshakes_failed"
+TLS_HANDSHAKE_TIMEOUTS = "policy_server_tls_handshake_timeouts"
+TLS_HANDSHAKE_DISCONNECTS = "policy_server_tls_handshake_disconnects"
+TLS_CLEAN_CLOSES = "policy_server_tls_clean_closes"
+TLS_GENERATIONS = "policy_server_tls_generations"
+TLS_RELOADS = "policy_server_tls_reloads"
+TLS_RELOAD_FAILURES = "policy_server_tls_reload_failures"
+TLS_NATIVE_TERMINATION = "policy_server_tls_native_termination"
 AUDIT_ROWS_SCANNED = "policy_server_audit_rows_scanned"
 AUDIT_BATCHES_DISPATCHED = "policy_server_audit_batches_dispatched"
 AUDIT_PREEMPTIONS = "policy_server_audit_preemptions"

@@ -184,6 +184,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.api.profiling",
             "policy_server_tpu_torch.api.state",
             "policy_server_tpu_torch.api.api_error",
+            "policy_server_tpu_torch.api.http_common",
+            "policy_server_tpu_torch.certs",
             "policy_server_tpu_torch.runtime.native_frontend",
             "policy_server_tpu_torch.runtime.frontend",
             "policy_server_tpu_torch.supervision",
@@ -217,6 +219,34 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "policy_server_tpu_torch.server" in imported
     assert "policy_server_tpu_torch.runtime.shards" in imported
     assert not {n for n in imported if n.split(".")[0] in _NOT_ON_THE_CARD}
+
+
+def test_prefork_worker_imports_no_torch_jax_or_what_the_card_lacks():
+    """A prefork worker never touches the card and boots in milliseconds:
+    its module, with the native frontend it owns under ``--frontend
+    native`` and the TLS module, imports neither torch nor JAX, the JAX
+    package, aiohttp or PyYAML, in a fresh interpreter."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import policy_server_tpu_torch.runtime.frontend as fr
+        import policy_server_tpu_torch.runtime.native_frontend
+        import policy_server_tpu_torch.certs
+        assert callable(fr.main)
+        bad = sorted(
+            n for n in sys.modules
+            if n.split(".")[0] in ("torch", "jax", "jaxlib",
+                                   "policy_server_tpu", "aiohttp", "yaml")
+        )
+        print(bad)
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_native_frontend_builds_the_ports_source_only(tmp_path, monkeypatch):

@@ -472,9 +472,15 @@ def test_request_reload_coalesces():
 
 
 def _write(path, specs: dict) -> None:
+    """Replace the file in one step, as a ConfigMap update does: the
+    watchers poll every 0.05 s here and must never read half a file."""
+    import os
+
     import yaml
 
-    path.write_text(yaml.safe_dump(specs))
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(yaml.safe_dump(specs))
+    os.replace(tmp, path)
 
 
 def test_policies_file_watch_triggers_reload(tmp_path, monkeypatch):

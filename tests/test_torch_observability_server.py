@@ -416,3 +416,136 @@ def test_main_serves_validate_readiness_and_metrics(tmp_path):
         proc.terminate()
         proc.wait(30)
         proc.stderr.close()
+
+
+# -- the TLS and prefork-worker families -----------------------------------------
+
+TLS_WORKER_FAMILIES = tuple(
+    getattr(metrics, k) for k in dir(metrics) if k.startswith("TLS_")
+) + (
+    metrics.WORKER_RESPAWNS,
+    metrics.WORKER_RESPAWN_BACKOFF_SECONDS,
+    metrics.WORKER_SLOTS_GIVEN_UP,
+)
+
+
+def _families(port: int, names=TLS_WORKER_FAMILIES) -> dict:
+    from prometheus_client.parser import text_string_to_metric_families
+
+    text = _get(port, "/metrics")[1].decode()
+    want = {n.removesuffix("_total") for n in names}
+    return {
+        fam.name: (fam.type, fam.documentation,
+                   [(s.name, s.value) for s in fam.samples])
+        for fam in text_string_to_metric_families(text)
+        if fam.name in want
+    }
+
+
+def _tls_traffic(port: int, ctx, n: int) -> list[int]:
+    """``n`` requests, each on its own TLS connection → the statuses."""
+    import socket
+
+    body = json.dumps(_pod_doc(False)).encode()
+    out = []
+    for _ in range(n):
+        s = ctx.wrap_socket(socket.create_connection(("127.0.0.1", port), timeout=30))
+        s.sendall(
+            b"POST /validate/pod-privileged HTTP/1.1\r\nHost: t\r\n"
+            b"Content-Length: %d\r\nConnection: close\r\n\r\n%s" % (len(body), body)
+        )
+        data = b""
+        while chunk := s.recv(65536):
+            data += chunk
+        s.close()
+        out.append(int(data.split(b" ", 2)[1]))
+    return out
+
+
+def _pod_doc(privileged: bool) -> dict:
+    from torch_port_support import pod_doc
+
+    return pod_doc(privileged=privileged)
+
+
+def test_default_flags_carry_the_jax_tls_and_worker_families():
+    """The ten TLS families and the three worker families, under the JAX
+    package's names, types and help texts, with zeros at the default flags
+    (plaintext, one HTTP process)."""
+    from torch_port_support import JaxServer
+
+    assert len(TLS_WORKER_FAMILIES) == 13
+    jax = JaxServer(SPECS, enable_metrics=True)
+    port = None
+    try:
+        port = PolicyServer(_policies(), port=0, readiness_probe_port=0,
+                            device="cpu", enable_metrics=True)
+        port.start()
+        want = _families(jax.readiness_port)
+        got = _families(port.readiness_port)
+    finally:
+        if port is not None:
+            port.stop()
+        jax.stop()
+    assert len(got) == 13
+    assert got == want
+    assert all(v == 0 for _t, _d, samples in got.values() for _n, v in samples)
+
+
+def test_tls_families_under_native_mtls_equal_the_jax_packages(tmp_path):
+    """After the same mTLS traffic on both packages' native terminators:
+    handshakes equal the connections opened, one generation, native
+    termination 1; a cert-less client counts once in the failures; the
+    expiry gauge is the identity's notAfter (the same certificate on both,
+    read a moment apart)."""
+    from policy_server_tpu.config.config import TlsConfig as JTlsConfig
+    from policy_server_tpu.runtime import native_frontend as jnf
+    from policy_server_tpu_torch.certs import TlsConfig
+    from policy_server_tpu_torch.runtime import native_frontend as nf
+    from torch_port_support import JaxServer, client_context, tls_material
+
+    m = tls_material(tmp_path)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(nf, "server_header", jnf.server_header)
+    jax = JaxServer(SPECS, frontend="native", enable_metrics=True,
+                    tls_config=JTlsConfig(cert_file=m["cert"], key_file=m["key"],
+                                          client_ca_file=(m["ca"],)))
+    port = None
+    out = {}
+    try:
+        port = PolicyServer(
+            _policies(), port=0, readiness_probe_port=0, device="cpu",
+            enable_metrics=True, frontend="native",
+            tls_config=TlsConfig(cert_file=m["cert"], key_file=m["key"],
+                                 client_ca_file=(m["ca"],)),
+        )
+        port.start()
+        good = client_context(m["good_cert"], m["good_key"])
+        for name, api, ready in (
+            ("jax", jax.port, jax.readiness_port),
+            ("port", port.port, port.readiness_port),
+        ):
+            statuses = _tls_traffic(api, good, 6)
+            try:  # refused at the handshake: an alert, or a bare close
+                refused = not _tls_traffic(api, client_context(), 1)
+            except (OSError, IndexError):
+                refused = True
+            assert refused
+            time.sleep(0.3)
+            out[name] = (statuses, _families(ready))
+    finally:
+        if port is not None:
+            port.stop()
+        jax.stop()
+        mp.undo()
+    expiry = "policy_server_tls_cert_expiry_seconds"
+    (jt, jd, [(jn, jv)]) = out["jax"][1].pop(expiry)
+    (pt, pd, [(pn, pv)]) = out["port"][1].pop(expiry)
+    assert (pt, pd, pn) == (jt, jd, jn) and abs(pv - jv) < 30 and pv > 80000
+    assert out["port"] == out["jax"]
+    fams = out["port"][1]
+    assert out["port"][0] == [200] * 6
+    assert fams["policy_server_tls_handshakes_ok"][2][0][1] == 6
+    assert fams["policy_server_tls_handshakes_failed"][2][0][1] == 1
+    assert fams["policy_server_tls_native_termination"][2][0][1] == 1
+    assert fams["policy_server_tls_generations"][2][0][1] == 1

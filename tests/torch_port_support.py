@@ -300,3 +300,170 @@ def result_view(results) -> list:
     return [
         repr(r) if isinstance(r, Exception) else r.to_dict() for r in results
     ]
+
+
+# -- TLS material and a JAX server in a thread ---------------------------------
+
+
+def make_cert(cn: str, issuer=None, is_ca: bool = False, days: int = 1):
+    """(key, certificate) made with ``cryptography``: self-signed, or signed
+    by ``issuer`` = (key, certificate). Each call has a new random
+    serial."""
+    import datetime
+    import ipaddress
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import NameOID
+
+    key = ec.generate_private_key(ec.SECP256R1())
+    subject = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, cn)])
+    issuer_key, issuer_cert = issuer if issuer is not None else (key, None)
+    now = datetime.datetime.now(datetime.timezone.utc).replace(microsecond=0)
+    cert = (
+        x509.CertificateBuilder()
+        .subject_name(subject)
+        .issuer_name(issuer_cert.subject if issuer_cert is not None else subject)
+        .public_key(key.public_key())
+        .serial_number(x509.random_serial_number())
+        .not_valid_before(now - datetime.timedelta(minutes=5))
+        .not_valid_after(now + datetime.timedelta(days=days))
+        .add_extension(
+            x509.BasicConstraints(ca=is_ca, path_length=None), critical=True
+        )
+        .add_extension(
+            x509.SubjectAlternativeName([
+                x509.DNSName("localhost"),
+                x509.IPAddress(ipaddress.ip_address("127.0.0.1")),
+            ]),
+            critical=False,
+        )
+        .sign(issuer_key, hashes.SHA256())
+    )
+    return key, cert
+
+
+def cert_pem(cert) -> bytes:
+    from cryptography.hazmat.primitives import serialization
+
+    return cert.public_bytes(serialization.Encoding.PEM)
+
+
+def key_pem(key) -> bytes:
+    from cryptography.hazmat.primitives import serialization
+
+    return key.private_bytes(
+        serialization.Encoding.PEM,
+        serialization.PrivateFormat.PKCS8,
+        serialization.NoEncryption(),
+    )
+
+
+def write_identity(directory, stem: str, key, cert) -> tuple[str, str]:
+    """Write ``stem.crt`` and ``stem.key`` → their paths."""
+    cert_path = directory / f"{stem}.crt"
+    key_path = directory / f"{stem}.key"
+    cert_path.write_bytes(cert_pem(cert))
+    key_path.write_bytes(key_pem(key))
+    return str(cert_path), str(key_path)
+
+
+def tls_material(directory) -> dict:
+    """A server identity, a client CA with a client it issued, and a
+    client issued by another CA, written under ``directory``."""
+    server = make_cert("original")
+    ca = make_cert("client-ca", is_ca=True)
+    good = make_cert("good-client", issuer=ca)
+    other_ca = make_cert("other-ca", is_ca=True)
+    bad = make_cert("bad-client", issuer=other_ca)
+    out = {}
+    out["cert"], out["key"] = write_identity(directory, "server", *server)
+    out["good_cert"], out["good_key"] = write_identity(directory, "good", *good)
+    out["bad_cert"], out["bad_key"] = write_identity(directory, "bad", *bad)
+    ca_path = directory / "ca.crt"
+    ca_path.write_bytes(cert_pem(ca[1]))
+    out["ca"] = str(ca_path)
+    out["serial"] = server[1].serial_number
+    return out
+
+
+def client_context(certfile=None, keyfile=None):
+    """A TLS client context that trusts any server (the tests compare what
+    is served, not who serves it), presenting a client certificate when
+    given one."""
+    import ssl
+
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    if certfile:
+        ctx.load_cert_chain(certfile, keyfile)
+    return ctx
+
+
+def peer_serial(sock) -> int:
+    """The serial number of the certificate a TLS socket's server sent."""
+    from cryptography import x509
+
+    return x509.load_der_x509_certificate(
+        sock.getpeercert(binary_form=True)
+    ).serial_number
+
+
+class JaxServer:
+    """The JAX package's PolicyServer, built from ``Config(**config)`` with
+    ``specs``, inside a private event-loop thread (``run`` schedules a
+    coroutine there)."""
+
+    def __init__(self, specs: dict, **config) -> None:
+        import asyncio
+        import threading
+
+        from policy_server_tpu.config.config import Config, TlsConfig
+        from policy_server_tpu.server import PolicyServer as JaxPolicyServer
+
+        config.setdefault("tls_config", TlsConfig())
+        self.server = JaxPolicyServer.new_from_config(Config(
+            addr="127.0.0.1", port=0, readiness_probe_port=0,
+            policies={k: parse_policy_entry(k, v) for k, v in specs.items()},
+            **dict(dict(max_batch_size=8, batch_timeout_ms=1.0), **config),
+        ))
+        self.loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        def run() -> None:
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.server.start())
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        assert started.wait(timeout=120), "JAX server failed to start"
+
+    @property
+    def port(self) -> int:
+        return self.server.api_port
+
+    @property
+    def readiness_port(self) -> int:
+        return self.server.readiness_port
+
+    def run(self, coro, timeout: float = 60):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def stop(self) -> None:
+        async def shutdown():
+            await self.server.stop()
+            self.loop.stop()
+
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(shutdown(), self.loop)
+        self.thread.join(timeout=30)
+        rel = getattr(self.server.tls_context, "_reloadable", None)
+        if rel is not None:
+            rel.stop()
