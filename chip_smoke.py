@@ -208,13 +208,39 @@ card's name and power limit:
    Rates (req/s, p50, p99) of every wave, beside phase 7's plaintext
    native kernel-only run.
 
+12. host-executed policies — the native wasm core (g++ of
+   ``policy_server_tpu_torch/csrc/wasmint.cpp`` in phase 1) on each ABI's
+   fixture (``tests/torch_wasm_fixtures.py``: waPC, OPA/Gatekeeper with
+   host builtins, WASI) over 256 firehose requests: its verdicts equal
+   the interpreter's (``PSTPU_NO_NATIVE_WASM=1``), µs per evaluation for
+   each engine and the engine counts. The lowered CEL programs (a
+   variable, ``all``, ``exists_one``, the CEL tests' corpus) on K1 against
+   its plain version at B = 51, 128 and 1,024, both buckets, narrow and
+   transport, tolerance 0, timed beside phase 2's flagship program. Then
+   the flagship set plus seven host-executed entries (39 ids: a lowered
+   CEL policy under ``builtin://cel-policy`` and under its upstream
+   ``registry://`` reference, a host-interpreted CEL policy, waPC, OPA and
+   WASI policies, and the group ``wasm-guard = wasmpriv() && ns()``)
+   through ``PolicyServer(module_resolver=...)`` under ``--frontend
+   native``: phase 3's 1,024 reviews over all 39 ids and a flagship-only
+   wave of the same shape, at the default flags and kernel-only (every
+   micro-batch holding a device-routed row launches K1), then a replay
+   with the verdict cache on (the wasm engine runs again, only batches
+   with ``wasm-guard`` rows launch K1); every body the port's oracle's
+   over the same modules, the /metrics counts exact, the host evaluators'
+   time beside the flight recorder's attribution. Last, a spinning guest
+   under ``--policy-timeout 0.2``: its rows answer "execution deadline
+   exceeded" 500, flagship rows sent alone answer normally, rows batched
+   with (or queued behind) a spinning one answer the same deadline body
+   (counted), and the breaker does not trip.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
 
 ``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH
 [tolerate-close] [tls | tls=CERT,KEY]`` is the load generator of phases 7
-to 11: it needs neither torch nor the package (``tolerate-close``: a
+to 12: it needs neither torch nor the package (``tolerate-close``: a
 connection the server closes leaves its unanswered requests empty instead
 of failing the run; ``tls``: HTTPS, with a client certificate for mTLS).
 ``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
@@ -4001,6 +4027,768 @@ def print_tls_prefork_phase(r: dict, card: str) -> None:
         )
 
 
+# -- phase 12: host-executed policies ----------------------------------------
+
+WASM_ENGINE_PAYLOADS = 256
+CEL_BATCHES = (51, 128, 1024)
+WASM_DEADLINE_TIMEOUT = 0.2
+# a spinning row holds its pipeline worker for the whole budget after the
+# watchdog answered it, so the spinning waves are small, and the next wave
+# waits until every spinning row's budget has run out
+WASM_DEADLINE_SPIN = 16
+WASM_DEADLINE_OTHER = 256
+# the deadline waves keep at most 64 rows in flight, so their batches stay
+# at or under the default host fast-path threshold (64), as small batches
+# at the default flags do
+WASM_DEADLINE_CONNS = 8
+WASM_DEADLINE_DEPTH = 8
+WASM_DEADLINE_MESSAGE = "execution deadline exceeded"
+# the guest's own budget in the in-band wave, below the watchdog's: at
+# equal budgets the watchdog (whose deadline runs from admission) answers
+# a spinning row first, with the same body
+WASM_DEADLINE_IN_BAND = 0.05
+
+# the CEL policy that lowers onto K1: a variable, a bound on replicas, an
+# all() and an exists_one() over the containers
+CEL_LOWERED_SETTINGS = {
+    "variables": [{"name": "cs", "expression": "object.spec.containers"}],
+    "validations": [
+        {"expression": "!has(object.spec.replicas) || object.spec.replicas <= 5",
+         "message": "at most 5 replicas"},
+        {"expression": "variables.cs.all(c, !c.image.startsWith('ghcr.io/'))",
+         "message": "no ghcr.io images"},
+        {"expression": "variables.cs.exists_one(c, c.image.startsWith('docker.io/'))",
+         "message": "exactly one docker.io image"},
+    ],
+}
+# arithmetic, a ternary and size(): outside the lowerable subset, served by
+# the host CEL interpreter
+CEL_HOST_SETTINGS = {"validations": [{
+    "expression": (
+        "has(object.spec.replicas) ? object.spec.replicas * 2 <= 10 "
+        ": size(object.spec.containers) <= 3"
+    ),
+    "message": "too many containers",
+    "messageExpression": "'too many containers: ' + string(size(object.spec.containers))",
+}]}
+# more lowerable expressions for the K1 hold (the corpus of the CEL tests)
+CEL_CORPUS = [
+    "object.spec.containers.all(c, !(c.securityContext.privileged == true))",
+    "request.operation in ['CREATE', 'UPDATE']",
+    "object.metadata.name.startsWith('pod-1')",
+    "object.metadata.name.matches('^pod-[0-9]+$')",
+    "object.spec.containers.exists(c, c.image.contains('nginx'))",
+    "!(request.operation == 'DELETE')",
+]
+
+
+def wasm_fixture_modules() -> dict:
+    """URL → module for the phase's wasm fixtures, each loaded through
+    ``fetch.load_artifact`` from a file under ``build/chip_smoke_wasm/``."""
+    import torch_wasm_fixtures as fixtures
+
+    from policy_server_tpu_torch.evaluation.wasm_policy import WasmPolicyModule
+    from policy_server_tpu_torch.fetch import load_artifact
+    from policy_server_tpu_torch.wasm.wat import assemble
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_wasm")
+    os.makedirs(work_dir, exist_ok=True)
+    out = {}
+    for name, data in (
+        ("priv.wasm", fixtures.wapc_privileged_wasm()),
+        ("opa.wasm", fixtures.builtin_oracle_wasm()),
+        ("wasi.wasm", fixtures.wasi_policy_wasm()),
+    ):
+        path = os.path.join(work_dir, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        out[f"file:///{name}"] = load_artifact(path)
+    out["file:///spin.wasm"] = WasmPolicyModule(
+        assemble(fixtures.SPIN_ON_VALIDATE_WAPC), name="spin", digest="spin",
+        fuel=None,
+    )
+    return out
+
+
+def module_resolver_of(modules: dict):
+    from policy_server_tpu_torch.policies import resolve_builtin
+
+    def resolve(url: str):
+        if url in modules:
+            return modules[url]
+        builtin = resolve_builtin(url)
+        if builtin is None:
+            fail(f"phase12: no module for {url}")
+        return builtin
+
+    return resolve
+
+
+def wasm_set_specs() -> dict:
+    """The flagship set and the seven host-executed entries: 39 ids."""
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    specs = flagship_policy_specs()
+    specs.update({
+        "cel-lowered": {"module": "builtin://cel-policy",
+                        "settings": CEL_LOWERED_SETTINGS},
+        "cel-upstream": {
+            "module": "registry://ghcr.io/kubewarden/policies/cel-policy:v1.0.0",
+            "settings": CEL_LOWERED_SETTINGS,
+        },
+        "cel-host": {"module": "builtin://cel-policy", "settings": CEL_HOST_SETTINGS},
+        "wasm-priv": {"module": "file:///priv.wasm"},
+        "opa-gk": {"module": "file:///opa.wasm"},
+        "wasi-priv": {"module": "file:///wasi.wasm"},
+        "wasm-guard": {
+            "expression": "wasmpriv() && ns()",
+            "message": "the wasm guard rejected the pod",
+            "policies": {
+                "wasmpriv": {"module": "file:///priv.wasm"},
+                "ns": {"module": "builtin://namespace-validate",
+                       "settings": {"denied_namespaces": ["kube-system"]}},
+            },
+        },
+    })
+    if len(specs) != 39:
+        fail(f"phase12: the set has {len(specs)} ids, not 39")
+    return specs
+
+
+class EngineTimes:
+    """Seconds spent in the host evaluators of the wasm and host-CEL
+    policies (their programs' ``host_evaluator``, wrapped at build) and
+    the evaluations counted, for the flight recorder's attribution."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.ns = 0
+        self.calls = 0
+
+    def wrap_module(self, module) -> None:
+        real_build = module.build
+
+        def build(settings):
+            program = real_build(settings)
+            he = program.host_evaluator
+            if he is not None:
+                def timed(payload, _he=he):
+                    t0 = time.perf_counter_ns()
+                    try:
+                        return _he(payload)
+                    finally:
+                        with self.lock:
+                            self.ns += time.perf_counter_ns() - t0
+                            self.calls += 1
+
+                import dataclasses
+
+                program = dataclasses.replace(program, host_evaluator=timed)
+            return program
+
+        module.build = build
+
+    def snapshot(self) -> tuple[int, int]:
+        with self.lock:
+            return self.ns, self.calls
+
+
+def engines_phase(card: str) -> dict:
+    """Each ABI's fixture on the firehose's requests: the native core's
+    verdicts against the interpreter's (``PSTPU_NO_NATIVE_WASM=1``), µs
+    per evaluation for each engine and the engine counts."""
+    import torch_wasm_fixtures as fixtures
+
+    from policy_server_tpu_torch.policies.flagship import synthetic_firehose
+    from policy_server_tpu_torch.wasm import native_exec
+    from policy_server_tpu_torch.wasm.opa import OpaPolicy, gatekeeper_validate
+    from policy_server_tpu_torch.wasm.wapc import KubewardenWapcPolicy
+    from policy_server_tpu_torch.wasm.wasi import WasiPolicy
+
+    requests = [
+        copy.deepcopy(d["request"])
+        for d in synthetic_firehose(WASM_ENGINE_PAYLOADS, seed=12)
+    ]
+    wapc = KubewardenWapcPolicy(fixtures.wapc_privileged_wasm())
+    opa = OpaPolicy(fixtures.builtin_oracle_wasm())
+    wasi = WasiPolicy(fixtures.wasi_policy_wasm())
+    hosts = {
+        "waPC": lambda r: wapc.validate(r, {}),
+        "OPA/Gatekeeper": lambda r: gatekeeper_validate(opa, r),
+        "WASI": lambda r: wasi.validate(r, {}),
+    }
+    out = {}
+    for abi, fn in hosts.items():
+        row = {}
+        verdicts = {}
+        for engine in ("native", "interp"):
+            if engine == "interp":
+                os.environ["PSTPU_NO_NATIVE_WASM"] = "1"
+            try:
+                c0 = native_exec.engine_counts()
+                t0 = time.perf_counter()
+                verdicts[engine] = [fn(r) for r in requests]
+                dt = time.perf_counter() - t0
+                c1 = native_exec.engine_counts()
+            finally:
+                os.environ.pop("PSTPU_NO_NATIVE_WASM", None)
+            row[f"{engine}_us"] = dt / len(requests) * 1e6
+            row[f"{engine}_instances"] = {k: c1[k] - c0[k] for k in c1}
+        if verdicts["native"] != verdicts["interp"]:
+            bad = sum(a != b for a, b in zip(verdicts["native"], verdicts["interp"]))
+            fail(f"phase12 {abi}: the native core disagrees with the interpreter on {bad} of {len(requests)} requests")
+        if row["native_instances"]["native"] != len(requests) or row["native_instances"]["interp"]:
+            fail(f"phase12 {abi}: the native run's engine counts are {row['native_instances']}")
+        if row["interp_instances"]["interp"] != len(requests) or row["interp_instances"]["native"]:
+            fail(f"phase12 {abi}: the interpreter run's engine counts are {row['interp_instances']}")
+        rejected = sum(
+            1 for v in verdicts["native"]
+            if (v[0] if isinstance(v, tuple) else v.get("accepted")) is False
+        )
+        if not 0 < rejected < len(requests):
+            fail(f"phase12 {abi}: {rejected} of {len(requests)} rejected: a vacuous run")
+        row["rejected"] = rejected
+        out[abi] = row
+        print(
+            f"phase12 engines {abi}: {len(requests)} firehose requests, native "
+            f"core == interpreter (0 differing verdicts, {rejected} rejected); "
+            f"native {row['native_us']:.1f} us/evaluation, interpreter "
+            f"{row['interp_us']:.1f} us/evaluation; instances "
+            f"{json.dumps(row['native_instances'])} then "
+            f"{json.dumps(row['interp_instances'])} [{card}]"
+        )
+    return out
+
+
+def cel_k1_phase(flagship_rows: list, card: str) -> dict:
+    """The set's lowered CEL programs on the card against their plain
+    version at B = 51, 128 and 1,024, both buckets, narrow and transport
+    forms, tolerance 0; kernel and device times beside the flagship
+    program's from phase 2 (the same call)."""
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import synthetic_firehose
+
+    specs = {
+        "cel-lowered": {"module": "builtin://cel-policy", "settings": CEL_LOWERED_SETTINGS},
+        "cel-upstream": {
+            "module": "registry://ghcr.io/kubewarden/policies/cel-policy:v1.0.0",
+            "settings": CEL_LOWERED_SETTINGS,
+        },
+        **{
+            f"cel-c{i}": {"module": "builtin://cel-policy", "settings": {
+                "validations": [{"expression": e, "message": f"corpus {i}"}]}}
+            for i, e in enumerate(CEL_CORPUS)
+        },
+    }
+    probe0 = ck.launch_counts()["probe"]
+    env = EvaluationEnvironmentBuilder(device="cuda").build(parse_policies(specs))
+    probe = ck.launch_counts()["probe"] - probe0
+    for pid in specs:
+        bp = env._bound[pid]
+        if bp.precompiled.program.host_evaluator is not None:
+            fail(f"phase12: {pid} did not lower onto the device program")
+    docs = synthetic_firehose(max(CEL_BATCHES), seed=13)
+    flag = {(r["bucket"], r["batch"], r["form"]): r for r in flagship_rows}
+    rows = []
+    err = 0
+    for idx, schema in enumerate(env.schemas):
+        encs = []
+        for d in docs:
+            d = widen(d) if idx == 1 else d
+            payload = AdmissionReviewRequest.from_dict(d).request.to_dict()
+            got_idx, enc = env.encode_bucketed(payload)
+            if got_idx == idx:
+                encs.append(enc)
+        if len(encs) < max(CEL_BATCHES) // 2:
+            fail(f"phase12: {len(encs)} reviews fit bucket {idx}")
+        for batch in CEL_BATCHES:
+            chosen = [encs[i % len(encs)] for i in range(batch)]
+            wide = schema.pack(schema.stack(chosen, batch_size=batch))
+            for narrow in (True, False):
+                buf = schema.to_transport(
+                    wide, vocab_size=len(env.table) if narrow else None
+                )["__packed__"]
+                program = env.program_for(idx, True, narrow)
+                dev = torch.from_numpy(buf).to("cuda")
+                want_a, want_r = ck.policy_matrix_plain(dev, program)
+                got_a, got_r = ck.policy_matrix(dev, program)
+                torch.cuda.synchronize()
+                if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
+                    bad = int((got_a != want_a).sum() + (got_r != want_r).sum())
+                    fail(
+                        f"phase12: policy_matrix disagrees with its plain version "
+                        f"on the CEL programs: bucket {idx} B={batch} "
+                        f"narrow={narrow}: {bad} cells"
+                    )
+                e = int((got_r - want_r).abs().max()) + int(
+                    (got_a.to(torch.int32) - want_a.to(torch.int32)).abs().max()
+                )
+                err = max(err, e)
+                cols = [program.column_of[p] for p in specs]
+                if bool(want_a[:, cols].all()) or not bool(want_a[:, cols].any()):
+                    fail(f"phase12: a vacuous CEL batch (bucket {idx} B={batch})")
+                form = "narrow" if narrow else "transport"
+                ms = time_cuda(lambda: ck.policy_matrix(dev, program), 20)
+                device_ms = graph_ms(lambda: ck.policy_matrix(dev, program))
+                plain_ms = time_cuda(
+                    lambda: ck.policy_matrix_plain(dev, program), 2, warmup=1
+                )
+                nbytes = buf.nbytes + batch * program.out_cols * 5
+                ops = batch * program.element_ops_per_row()
+                fl = flag.get((idx, batch, form), {})
+                row = {
+                    "bucket": idx, "batch": batch, "form": form,
+                    "width": int(buf.shape[1]), "ms": ms, "device_ms": device_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S) * 1e3,
+                    "part_instructions": program.part_lengths,
+                    "flagship_ms": fl.get("ms"), "flagship_device_ms": fl.get("device_ms"),
+                    "max_abs_err": e, "card": card,
+                }
+                rows.append(row)
+                print(f"phase12 CEL programs on policy_matrix exact: {json.dumps(row)}")
+    env.close()
+    return {"rows": rows, "err": err, "probe": probe}
+
+
+def wasm_server_run(
+    label: str, specs: dict, modules: dict, waves: list, oracle, card: str,
+    engine_times: EngineTimes, check_batches: bool, **flags,
+) -> dict:
+    """The port's server with ``module_resolver=`` and ``--frontend
+    native`` on the card; each wave of (policy id, body) pairs sent by the
+    phase 7 client, every body equal to ``oracle``'s (the port's host
+    oracle over the same modules). Per wave: K1 launches, engine
+    instances and host-evaluator time, batches, rate and latency, the
+    /metrics counts and the flight recorder's attribution. With
+    ``check_batches``, every micro-batch that holds a row routed to the
+    device must launch K1 (the environment's ``validate_batch_begin`` is
+    wrapped to see each batch's rows and dispatched chunks)."""
+    import torch
+
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.server import PolicyServer
+    from policy_server_tpu_torch.telemetry import flightrec
+    from policy_server_tpu_torch.wasm import native_exec
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_wasm")
+    ck.reset_launch_counts()
+    server = PolicyServer(
+        parse_policies(specs), host="127.0.0.1", port=0,
+        readiness_probe_port=0, device="cuda", enable_metrics=True,
+        frontend="native", module_resolver=module_resolver_of(modules), **flags,
+    )
+    results = []
+    try:
+        torch.cuda.synchronize()
+        build_counts = ck.launch_counts()
+        server.start()
+        env = server.env
+        batch_log: list = []
+        if check_batches:
+            # per pipeline worker: a batch's encode and enqueue run on the
+            # thread that began it, so thread-local counts are its own
+            mine = threading.local()
+            real_begin = env.validate_batch_begin
+            real_enqueue = env._enqueue_features
+
+            def enqueue(features):
+                mine.chunks += 1
+                return real_enqueue(features)
+
+            def begin(items, run_hooks=True):
+                device_rows = bits_rows = 0
+                for pid, _req in items:
+                    target = env._fast_target(pid)
+                    if not env._host_executed(target):
+                        device_rows += 1
+                    if getattr(target, "name", None) in env._groups_with_wasm:
+                        bits_rows += 1
+                mine.chunks = 0
+                handle = real_begin(items, run_hooks)
+                batch_log.append((
+                    len(items), device_rows, bits_rows, mine.chunks,
+                    sorted({pid for pid, _r in items}),
+                ))
+                return handle
+
+            env._enqueue_features = enqueue
+            env.validate_batch_begin = begin
+        rp = server.readiness_port
+        rec = flightrec.recorder()
+        for w, wave in enumerate(waves):
+            name = wave["name"]
+            items = wave["items"]
+            want = [oracle_body(oracle, pid, body) for pid, body in items]
+            want_rejected = sum(
+                not oracle.validate(pid, request_of(body)).allowed
+                for pid, body in items
+            )
+            torch.cuda.synchronize()
+            k0 = ck.launch_counts()
+            e0 = native_exec.engine_counts()
+            t_ns0, t_calls0 = engine_times.snapshot()
+            b0 = server.batcher.stats_snapshot()
+            evals0 = evaluation_counts(rp)
+            native0 = metric_value(rp, "policy_server_native_http_requests_total")
+            cursor = rec.events_recorded() if rec is not None else 0
+            n_log = len(batch_log)
+            t0 = time.perf_counter()
+            got = client_wave(server.port, items, f"phase12-{label}-{w}")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+            k1 = ck.launch_counts()
+            e1 = native_exec.engine_counts()
+            t_ns1, t_calls1 = engine_times.snapshot()
+            b1 = server.batcher.stats_snapshot()
+            evals1 = evaluation_counts(rp)
+            native1 = metric_value(rp, "policy_server_native_http_requests_total")
+            mismatches = [
+                (i, r[0], (r[2] or "")[:300], want[i][:300])
+                for i, r in enumerate(got)
+                if r is None or r[0] != 200 or r[2].encode("latin-1") != want[i]
+            ]
+            for i, st, body, wbody in mismatches[:3]:
+                print(f"phase12 mismatch ({label}, wave {name}) request {i}: status {st} body {body!r} oracle {wbody!r}")
+            if mismatches:
+                fail(f"phase12: {len(mismatches)} of {len(items)} bodies differ from the oracle ({label}, wave {name})")
+            lat = sorted(r[1] for r in got)
+            batches = b1["batches_dispatched"] - b0["batches_dispatched"]
+            host_batches = b1["host_fastpath_batches"] - b0["host_fastpath_batches"]
+            att = rec.attribution(since=cursor) if rec is not None else None
+            engine_s = (t_ns1 - t_ns0) / 1e9
+            row = {
+                "label": label, "wave": name, "requests": len(items),
+                "req_s": len(items) / wall, "wall": wall,
+                "p50": lat[len(lat) // 2],
+                "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                "batches": batches, "host_batches": host_batches,
+                "k1_launches": k1["policy_matrix"] - k0["policy_matrix"],
+                "instances": {k: e1[k] - e0[k] for k in e1},
+                "host_evaluations": t_calls1 - t_calls0,
+                "host_evaluator_s": engine_s,
+                "evaluations": evals1[0] - evals0[0],
+                "evaluations_rejected": evals1[1] - evals0[1],
+                "native_requests": native1 - native0,
+                "oracle_rejected": want_rejected,
+                "batch_log": batch_log[n_log:],
+            }
+            if att is not None:
+                per_row = att["phase_us_per_row"]
+                rows = max(1, att["rows"])
+                row["attribution"] = {
+                    "wall_us_per_row": att["wall_us_per_row"],
+                    "phase_us_per_row": per_row,
+                    "residual_us_per_row": att["residual_us_per_row"],
+                }
+                row["host_evaluator_us_per_row"] = engine_s * 1e6 / rows
+                # of the batch wall, and of prepare: on the device path the
+                # host evaluators run inside it (standalone wasm answers,
+                # the wasm group members' bits); the host fast path stamps
+                # no phase of its own
+                row["host_evaluator_share"] = {
+                    p: (engine_s * 1e6 / rows) / v
+                    for p, v in (("wall", att["wall_us_per_row"]),
+                                 ("prepare", per_row.get("prepare")))
+                    if v
+                }
+            if row["native_requests"] != len(items) or row["evaluations"] != len(items):
+                fail(f"phase12: /metrics counted {row['native_requests']} native requests and {row['evaluations']} evaluations for {len(items)} ({label}, wave {name})")
+            if row["evaluations_rejected"] != want_rejected:
+                fail(f"phase12: /metrics counted {row['evaluations_rejected']} rejections, the oracle {want_rejected} ({label}, wave {name})")
+            if check_batches and not row["batch_log"]:
+                fail(f"phase12: no micro-batch reached the device ({label}, wave {name}): {batches} batches, {host_batches} host-routed")
+            if check_batches and not flags.get("verdict_cache_size", 1):
+                missing = [b for b in row["batch_log"] if b[1] and b[3] < 1]
+                if missing:
+                    fail(f"phase12: {len(missing)} micro-batches with device-routed rows launched no policy_matrix ({label}, wave {name}): {missing[:5]}")
+            results.append(row)
+            print(
+                f"phase12 server ({label}) wave {name}: {len(items)} requests, "
+                f"0 bodies differ from the oracle; {row['req_s']:.1f} req/s "
+                f"p50 {row['p50']:.3f} ms p99 {row['p99']:.3f} ms; {batches} "
+                f"micro-batches ({host_batches} host-routed); policy_matrix "
+                f"launches {row['k1_launches']}; engine instances "
+                f"{json.dumps(row['instances'])}, host evaluations "
+                f"{row['host_evaluations']} in {engine_s:.4f} s; /metrics "
+                f"native +{row['native_requests']:.0f} evaluations "
+                f"+{row['evaluations']:.0f} rejected "
+                f"+{row['evaluations_rejected']:.0f} (oracle {want_rejected}); "
+                f"attribution {json.dumps(row.get('attribution'))}, host "
+                f"evaluator share {json.dumps(row.get('host_evaluator_share'))} "
+                f"[{card}]"
+            )
+        breaker = server.env.breaker_stats
+        if server.env.device_errors or breaker["trips"]:
+            fail(f"phase12: device errors or breaker trips ({label}): {breaker}")
+        if server.batcher.deadline_rejections:
+            fail(f"phase12: {server.batcher.deadline_rejections} deadline rejections ({label})")
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    return {"waves": results, "build": build_counts, "launches": ck.launch_counts()}
+
+
+def deadline_phase(modules: dict, work_docs: list, card: str) -> dict:
+    """The spin-loop module under ``--policy-timeout 0.2`` beside the
+    flagship set: a wave of spinning rows alone, one of flagship rows
+    alone, then both at once, and last the spinning rows one at a time
+    with the guest's budget cut below the watchdog's. Every spinning row
+    answers "execution deadline exceeded" 500; every flagship row sent
+    alone answers its oracle's body; in the mixed wave a flagship row
+    batched with a spinning one, or queued behind one past its deadline,
+    answers the same deadline body from the batcher's watchdog (which runs
+    from admission, as in the JAX package), counted, and no more flagship
+    rows answer it than the watchdog answered. In the last wave the
+    guest's own wall-clock cut answers every row and the watchdog none;
+    no breaker trip."""
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+    from policy_server_tpu_torch.server import PolicyServer
+
+    specs = flagship_policy_specs()
+    specs["spin"] = {"module": "file:///spin.wasm"}
+    resolver = module_resolver_of(modules)
+    probe0 = ck.launch_counts()["probe"]
+    server = PolicyServer(
+        parse_policies(specs), host="127.0.0.1", port=0,
+        readiness_probe_port=0, device="cuda", frontend="native",
+        module_resolver=resolver, policy_timeout=WASM_DEADLINE_TIMEOUT,
+    )
+    flagship = EvaluationEnvironmentBuilder(backend="oracle").build(
+        parse_policies(flagship_policy_specs())
+    )
+    out = {"probe": ck.launch_counts()["probe"] - probe0}
+    try:
+        if modules["file:///spin.wasm"].wall_clock_budget != WASM_DEADLINE_TIMEOUT:
+            fail("phase12: the server did not give the wasm module its policy timeout")
+        server.start()
+        spin = [("spin", body) for _pid, body in wave_of(work_docs, WASM_DEADLINE_SPIN, "spin")]
+        other = wave_of(work_docs[WASM_DEADLINE_SPIN:], WASM_DEADLINE_OTHER, "other")
+        mixed_spin = [("spin", body) for _pid, body in wave_of(work_docs, WASM_DEADLINE_SPIN, "mixed-spin")]
+        mixed_other = wave_of(work_docs[WASM_DEADLINE_SPIN:], WASM_DEADLINE_OTHER, "mixed-other")
+        mixed = [x for pair in zip(mixed_other[::4], mixed_spin) for x in pair]
+        mixed += [x for i, x in enumerate(mixed_other) if i % 4]
+        in_band = [("spin", body) for _pid, body in wave_of(work_docs, WASM_DEADLINE_SPIN, "in-band")]
+        for name, wave in (("spin alone", spin), ("flagship alone", other),
+                           ("both", mixed), ("spin in-band", in_band)):
+            if name != "spin alone":
+                # the spinning rows' abandoned evaluations end within their
+                # budget each, one after another on a worker at worst
+                time.sleep(WASM_DEADLINE_SPIN * WASM_DEADLINE_TIMEOUT)
+            sequential = name == "spin in-band"
+            if sequential:
+                modules["file:///spin.wasm"].wall_clock_budget = WASM_DEADLINE_IN_BAND
+            watchdog0 = server.batcher.deadline_rejections
+            t0 = time.perf_counter()
+            got = finish_client(*start_client(
+                server.port, wave, f"phase12-deadline-{len(out)}",
+                conns=1 if sequential else WASM_DEADLINE_CONNS,
+                depth=1 if sequential else WASM_DEADLINE_DEPTH,
+                work_dir=os.path.join(REPO, "build", "chip_smoke_wasm"),
+            ), name)
+            wall = time.perf_counter() - t0
+            watchdog = server.batcher.deadline_rejections - watchdog0
+            spin_ok = deadline_others = normal = 0
+            for (pid, body), r in zip(wave, got):
+                deadline_body = in_band_body(body, WASM_DEADLINE_MESSAGE, 500)
+                if r is None or r[0] != 200:
+                    fail(f"phase12 deadline ({name}): status {None if r is None else r[0]} for {pid}")
+                answer = r[2].encode("latin-1")
+                if pid == "spin":
+                    if answer != deadline_body:
+                        fail(f"phase12 deadline ({name}): a spinning row answered {answer[:200]!r}")
+                    spin_ok += 1
+                elif answer == oracle_body(flagship, pid, body):
+                    normal += 1
+                elif answer == deadline_body and name == "both":
+                    deadline_others += 1
+                else:
+                    fail(f"phase12 deadline ({name}): {pid} answered {answer[:200]!r}")
+            if deadline_others > watchdog:
+                fail(f"phase12 deadline ({name}): {deadline_others} flagship rows "
+                     f"answered the deadline body, the watchdog answered {watchdog}")
+            if sequential and watchdog:
+                fail(f"phase12 deadline ({name}): the watchdog answered {watchdog} "
+                     f"spinning rows under a guest budget of {WASM_DEADLINE_IN_BAND} s")
+            lat = sorted(r[1] for r in got)
+            out[name] = {
+                "requests": len(wave), "spin_deadline": spin_ok,
+                "answered_normally": normal, "others_deadline": deadline_others,
+                "watchdog": watchdog, "in_band": spin_ok + deadline_others - watchdog,
+                "wall": wall, "p50": lat[len(lat) // 2], "max_ms": lat[-1],
+            }
+            budget = WASM_DEADLINE_IN_BAND if sequential else WASM_DEADLINE_TIMEOUT
+            print(
+                f"phase12 deadline --policy-timeout {WASM_DEADLINE_TIMEOUT}, guest "
+                f"budget {budget} s ({name}): "
+                f"{len(wave)} requests, {spin_ok} spinning rows answered "
+                f"\"{WASM_DEADLINE_MESSAGE}\" 500, {normal} answered as the "
+                f"oracle, {deadline_others} batched with or queued behind a "
+                f"spinning row answered the deadline body; deadline bodies from "
+                f"the watchdog {watchdog}, in-band {out[name]['in_band']}; "
+                f"p50 {out[name]['p50']:.3f} ms, slowest "
+                f"{lat[-1]:.3f} ms, wall {wall:.2f} s [{card}]"
+            )
+        if out["flagship alone"]["answered_normally"] != len(other):
+            fail("phase12 deadline: a flagship row sent alone did not answer normally")
+        b = server.batcher.stats_snapshot()
+        breaker = server.env.breaker_stats
+        out["breaker"] = breaker
+        out["host_batches"] = b["host_fastpath_batches"]
+        out["batches"] = b["batches_dispatched"]
+        out["deadline_rejections"] = server.batcher.deadline_rejections
+        if breaker["trips"]:
+            fail(f"phase12 deadline: the breaker tripped: {breaker}")
+        print(
+            f"phase12 deadline: breaker trips {breaker['trips']}, "
+            f"{out['batches']} micro-batches ({out['host_batches']} on the "
+            f"host fast path), watchdog answers "
+            f"{out['deadline_rejections']} [{card}]"
+        )
+    finally:
+        server.stop()
+    return out
+
+
+def wasm_phase(work_docs: list, k1_rows: list, card: str) -> dict:
+    """Phase 12: the native wasm core's verdicts against the interpreter's
+    per ABI, the lowered CEL programs on K1, the 39-policy set at full
+    width through the native server (default flags, kernel-only, and a
+    replay with the verdict cache on), and the wall-clock deadline."""
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.policies import resolve_builtin
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    r = {"engines": engines_phase(card)}
+    t = time.perf_counter()
+    r["cel"] = cel_k1_phase(k1_rows, card)
+    r["cel_wall"] = time.perf_counter() - t
+
+    modules = wasm_fixture_modules()
+    times = EngineTimes()
+    for m in list(modules.values()) + [resolve_builtin("builtin://cel-policy")]:
+        times.wrap_module(m)
+    specs = wasm_set_specs()
+    ids = sorted(specs)
+    flagship_ids = sorted(flagship_policy_specs())
+    oracle = EvaluationEnvironmentBuilder(
+        backend="oracle", module_resolver=module_resolver_of(modules)
+    ).build(parse_policies(specs))
+    docs = [d for _pid, d in work_docs]
+
+    def wave(name: str, pids: list, tag: str) -> dict:
+        items = []
+        for i, d in enumerate(docs):
+            d = copy.deepcopy(d)
+            d["request"]["uid"] = f"{d['request']['uid']}-{tag}"
+            items.append((pids[i % len(pids)], json.dumps(d).encode()))
+        return {"name": name, "items": items}
+
+    mixed = wave("39 ids", ids, "w12")
+    flagship_only = wave("32 flagship ids", flagship_ids, "f12")
+    kernel_only = dict(
+        host_fastpath_threshold=0, verdict_cache_size=0, latency_budget_ms=0
+    )
+    r["default"] = wasm_server_run(
+        "default flags", specs, modules, [mixed, flagship_only], oracle, card,
+        times, check_batches=False,
+    )
+    r["kernel"] = wasm_server_run(
+        "--host-fastpath-threshold 0 --verdict-cache-size 0 --latency-budget-ms 0",
+        specs, modules, [mixed, flagship_only], oracle, card, times,
+        check_batches=True, **kernel_only,
+    )
+    # the replay: the verdict cache on, every batch on the device path
+    replay = dict(host_fastpath_threshold=0, latency_budget_ms=0)
+    again = {"name": "39 ids again", "items": mixed["items"]}
+    r["replay"] = wasm_server_run(
+        "--host-fastpath-threshold 0 --latency-budget-ms 0 (cache on), replay",
+        specs, modules, [mixed, again], oracle, card, times,
+        check_batches=True, **replay,
+    )
+    first, second = r["replay"]["waves"]
+    wasm_rows = sum(
+        1 for pid, _b in mixed["items"]
+        if pid in ("wasm-priv", "opa-gk", "wasi-priv", "wasm-guard")
+    )
+    if second["instances"] != first["instances"] or sum(second["instances"].values()) < wasm_rows:
+        fail(f"phase12 replay: the wasm engine ran {second['instances']} instances, the first pass {first['instances']} ({wasm_rows} wasm rows)")
+    if second["host_evaluations"] != first["host_evaluations"]:
+        fail("phase12 replay: the host evaluators did not run again for every wasm row")
+    # every replay dispatch carries wasm-guard rows (their bits are never
+    # cached); the cached IR rows launch nothing
+    launched = [b for b in second["batch_log"] if b[3]]
+    ir_only = [b for b in launched if not b[2]]
+    if ir_only:
+        fail(f"phase12 replay: {len(ir_only)} batches launched policy_matrix without a wasm-guard row (rows, device rows, guard rows, chunks, ids): {ir_only[:5]}")
+    bits_batches = len(launched)
+    print(
+        f"phase12 replay: the wasm engine re-ran ({json.dumps(second['instances'])} "
+        f"instances, {second['host_evaluations']} host evaluations, as the "
+        f"first pass); policy_matrix launches {second['k1_launches']} against "
+        f"{first['k1_launches']} on the first pass, in {bits_batches} batches "
+        f"(those with wasm-guard rows, whose bits are never cached) [{card}]"
+    )
+    r["replay_k1"] = (first["k1_launches"], second["k1_launches"])
+    t = time.perf_counter()
+    r["deadline"] = deadline_phase(modules, work_docs, card)
+    r["deadline_wall"] = time.perf_counter() - t
+    r["k1_launches"] = {
+        name: sum(w["k1_launches"] for w in r[name]["waves"])
+        for name in ("default", "kernel", "replay")
+    }
+    r["probe"] = (
+        sum(r[name]["launches"]["probe"] for name in ("default", "kernel", "replay"))
+        + r["cel"]["probe"] + r["deadline"]["probe"]
+    )
+    return r
+
+
+def print_wasm_phase(r: dict, card: str) -> None:
+    rows = {w["wave"]: w for w in r["kernel"]["waves"]}
+    mixed, flag = rows["39 ids"], rows["32 flagship ids"]
+    print(
+        "phase12 summary: "
+        + json.dumps({
+            "engines_us": {abi: {"native": round(v["native_us"], 2),
+                                 "interp": round(v["interp_us"], 2)}
+                           for abi, v in r["engines"].items()},
+            "kernel_only_rate_vs_flagship": mixed["req_s"] / flag["req_s"],
+            "kernel_only_p99_ms": {"39 ids": mixed["p99"], "flagship": flag["p99"]},
+            "default_rate_vs_flagship": (
+                r["default"]["waves"][0]["req_s"] / r["default"]["waves"][1]["req_s"]
+            ),
+            "cel_k1_device_ms": {
+                f"b{row['bucket']} {row['form']} B={row['batch']}":
+                    [round(row["device_ms"], 5), row["flagship_device_ms"]]
+                for row in r["cel"]["rows"]
+            },
+            "k1_launches": r["k1_launches"],
+            "replay_k1": r["replay_k1"],
+            "deadline": {k: v for k, v in r["deadline"].items()
+                         if k not in ("breaker", "probe")},
+        })
+        + f" [{card}]"
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -4028,6 +4816,7 @@ def main() -> int:
     from policy_server_tpu_torch.runtime.batcher import (
         DEFAULT_HOST_FASTPATH_THRESHOLD,
     )
+    from policy_server_tpu_torch.wasm import native_exec
 
     import torch_tape_coverage as tape_coverage
 
@@ -4042,8 +4831,9 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()} [{card}]"
     )
-    # the three builds run side by side: g++ of the encoder and of the
-    # HTTP frontend on threads while nvcc compiles the kernel library
+    # the four builds run side by side: g++ of the encoder, of the HTTP
+    # frontend and of the native wasm core on threads while nvcc compiles
+    # the kernel library
     t_phase = time.perf_counter()
     builds: dict = {}
 
@@ -4058,6 +4848,7 @@ def main() -> int:
         for name, fn in (
             ("encoder", fastenc.build_library),
             ("frontend", native_frontend.build_library),
+            ("wasm core", native_exec.build_library),
         )
     ]
     for t in build_threads:
@@ -4073,6 +4864,11 @@ def main() -> int:
     print(
         f"phase1 g++ build of the HTTP frontend {front_build.build_seconds:.3f} "
         f"s -> {front_build.path.name} [{card}]"
+    )
+    print(
+        f"phase1 g++ build of the native wasm core "
+        f"{native_exec.build_seconds:.3f} s -> "
+        f"{native_exec.library_path().name} [{card}]"
     )
     ptxas = [
         line.strip() for line in lib.build_log.splitlines()
@@ -4486,6 +5282,12 @@ def main() -> int:
     print_tls_prefork_phase(r11, card)
     print(f"phase11 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 12: host-executed policies on the card ------------------------
+    t_phase = time.perf_counter()
+    r12 = wasm_phase(work_docs, k1_rows, card)
+    print_wasm_phase(r12, card)
+    print(f"phase12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -4541,6 +5343,12 @@ def main() -> int:
                     "after the warmup": row["launches"]["serving_launches"]
                     for (fe, w), row in r11["P"].items()
                 },
+                **{
+                    f"phase12 39-policy set with wasm and CEL, native, "
+                    f"{run['waves'][0]['label']}, wave {w['wave']}": w["k1_launches"]
+                    for run in (r12["default"], r12["kernel"], r12["replay"])
+                    for w in run["waves"]
+                },
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -4553,8 +5361,12 @@ def main() -> int:
                 {"warmup": c["k1_warmup"], "canary": c["k1_canary"]}
                 for c in r8["candidates"]
             ],
-            "max_abs_err": max(k1_err, r8["k1_err"], r9["k1_err"], r10["k1_err"]),
+            "max_abs_err": max(
+                k1_err, r8["k1_err"], r9["k1_err"], r10["k1_err"], r12["cel"]["err"]
+            ),
             "max_abs_err_by_program": {
+                "phase12 lowered CEL programs, B in "
+                f"{CEL_BATCHES}, both buckets and forms": r12["cel"]["err"],
                 "phase2 flagship set": k1_err,
                 "phase8 changed set (team-a in phase 9)": r8["k1_err"],
                 "phase9 team-b set": r9["k1_err"],
@@ -4594,6 +5406,8 @@ def main() -> int:
                 "candidate's build)": r10["launches"]["probe"],
                 "phase11 TLS and prefork servers (one build each)":
                     r11["launches"]["probe"],
+                "phase12 wasm set servers, the deadline server and the "
+                "CEL hold (one build each)": r12["probe"],
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,

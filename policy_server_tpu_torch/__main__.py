@@ -472,12 +472,31 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
     ]
 
 
+def long_version() -> str:
+    """``--long-version`` banner: the version, the predicate-IR op registry
+    and the OPA builtins the wasm host implements."""
+    from policy_server_tpu_torch.ops.ir import registered_op_names
+    from policy_server_tpu_torch.wasm.builtins import get_builtins
+
+    ops = "\n".join(f"  - {name}" for name in registered_op_names())
+    builtins = "\n".join(f"  - {name}" for name in sorted(get_builtins()))
+    return (
+        f"{PROG} {__version__}\npredicate IR ops:\n{ops}\n\n"
+        f"Open Policy Agent/Gatekeeper implemented builtins:\n{builtins}"
+    )
+
+
 def build_cli() -> argparse.ArgumentParser:
     """The parser; a flag's environment variable, when set, replaces its
     default."""
     parser = argparse.ArgumentParser(prog=PROG)
     parser.add_argument(
         "--version", action="version", version=f"{PROG} {__version__}"
+    )
+    parser.add_argument(
+        "--long-version",
+        action="store_true",
+        help="Print version information and the predicate-IR op registry",
     )
     for flag, env, kwargs in _flag_specs():
         kwargs = dict(kwargs)
@@ -662,6 +681,9 @@ def install_reload_signal(server: PolicyServer) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_cli().parse_args(argv)
+    if args.long_version:
+        print(long_version())
+        return 0
     log = setup_tracing(args.log_level, args.log_fmt, args.log_no_color)
     server = server_from_args(args)
     install_reload_signal(server)

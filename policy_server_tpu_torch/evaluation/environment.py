@@ -40,6 +40,15 @@ path stamps ``prepare``, ``blob_dedup``, ``encode``, ``bookkeeping``,
 wait on the step's CUDA event), each under the batcher's batch id; the
 host fast path stamps nothing of its own.
 
+Host-executed policies (a program with a ``host_evaluator``: wasm
+modules, CEL that does not lower) never reach the device on their own:
+every path answers them from the host evaluator, and they are never
+cached. A policy group with such members evaluates them on the host when
+its rows are prepared; their verdict bits ride to the card behind the
+batch's rows (``WASM_BITS_KEY``, one page-locked copy) and the combine
+reads them there. ``module_resolver`` (the builder's) maps module URLs to
+modules; the default knows builtins only.
+
 Backends: ``torch`` (the device path; ``device="cpu"`` runs the kernels'
 plain PyTorch versions, and the fetch is immediate) and ``oracle`` (the
 host interpreter).
@@ -70,6 +79,7 @@ import numpy as np
 import torch
 
 from policy_server_tpu_torch import failpoints
+from policy_server_tpu_torch.context import CONTEXT_KEY
 from policy_server_tpu_torch.evaluation import groups as groups_mod
 from policy_server_tpu_torch.evaluation import oracle as oracle_mod
 from policy_server_tpu_torch.evaluation.errors import (
@@ -129,8 +139,15 @@ logger = logging.getLogger("kubewarden-policy-server")
 
 GROUP_MUTATION_MESSAGE = "mutation is not allowed inside of policy group"
 
-# payload key under which program context providers' output is merged
-CONTEXT_KEY = "__context__"
+
+# wasm_wall_clock_budget's "not given" sentinel, distinct from None: None
+# DISABLES the wasm wall-clock budget
+_BUDGET_UNSET = object()
+
+# Device input carrying the host-computed verdict bits of wasm group
+# members, shape (batch, n_wasm_members) bool: how host-executed policies
+# join the device group combine
+WASM_BITS_KEY = "__wasm_bits__"
 
 # element-axis caps of the small schema bucket (the large bucket uses the
 # codec's defaults, 64 and 32); the JAX package's defaults
@@ -318,12 +335,12 @@ class BoundGroup:
     members: dict[str, BoundPolicy] = field(default_factory=dict)
 
 
-def resolve_module(url: str) -> PolicyModule:
+def default_module_resolver(url: str) -> PolicyModule:
     builtin = resolve_builtin(url)
     if builtin is None:
         raise BootstrapFailure(
-            f"module {url!r} is not a builtin (only builtin:// modules are "
-            "served by this package)"
+            f"module {url!r} is not a builtin and no fetcher was configured "
+            "(use PolicyServer bootstrap, or builtin:// modules)"
         )
     return builtin
 
@@ -333,7 +350,13 @@ class EvaluationEnvironmentBuilder:
 
     ``device`` defaults to the card; with no card the builder raises
     unless the caller asks for ``device="cpu"``. The ``oracle`` backend
-    needs no device."""
+    needs no device.
+
+    ``module_resolver`` maps a module URL to a policy module; the default
+    resolves builtins and raises ``BootstrapFailure`` for anything else
+    (``fetch.load_artifact`` makes a module of a ``.wasm`` file's bytes).
+    ``wasm_wall_clock_budget``, when given, is set on every module that
+    has a ``wall_clock_budget`` (None disables it)."""
 
     def __init__(
         self,
@@ -344,6 +367,8 @@ class EvaluationEnvironmentBuilder:
         predicate_opt: bool = True,
         verdict_cache_size: int = DEFAULT_VERDICT_CACHE_SIZE,
         breaker_config: Mapping[str, Any] | None = None,
+        module_resolver: Callable[[str], PolicyModule] | None = None,
+        wasm_wall_clock_budget: float | None | object = _BUDGET_UNSET,
     ) -> None:
         if backend not in ("torch", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -354,6 +379,8 @@ class EvaluationEnvironmentBuilder:
         self.predicate_opt = predicate_opt
         self.verdict_cache_size = verdict_cache_size
         self.breaker_config = breaker_config
+        self.module_resolver = module_resolver or default_module_resolver
+        self.wasm_wall_clock_budget = wasm_wall_clock_budget
 
     def build(
         self, policies: Mapping[str, PolicyOrPolicyGroup]
@@ -370,18 +397,17 @@ class EvaluationEnvironmentBuilder:
             policy_mode: PolicyMode,
             allowed_to_mutate: bool,
         ) -> BoundPolicy:
-            module = resolve_module(module_url)
+            module = self.module_resolver(module_url)
+            if self.wasm_wall_clock_budget is not _BUDGET_UNSET and hasattr(
+                module, "wall_clock_budget"
+            ):
+                module.wall_clock_budget = self.wasm_wall_clock_budget
             validation = module.validate_settings(dict(settings or {}))
             if not validation.valid:
                 raise PolicyInitializationError(
                     pid, f"Policy settings are invalid: {validation.message or ''}"
                 )
             pre = cache.get_or_build(module, settings or {})
-            if pre.program.host_evaluator is not None:
-                raise BootstrapFailure(
-                    f"policy {pid!r}: host-executed policies are not served "
-                    "by this package"
-                )
             return BoundPolicy(
                 policy_id=pid,
                 module_url=module_url,
@@ -414,6 +440,9 @@ class EvaluationEnvironmentBuilder:
                         message=entry.message,
                         policy_mode=entry.policy_mode,
                     )
+                    # wasm members are served: their verdicts are computed
+                    # on the host and join the device group combine as
+                    # input bits (WASM_BITS_KEY)
                     for member_name, member in entry.policies.items():
                         group.members[member_name] = bootstrap_policy(
                             f"{name}/{member_name}",
@@ -562,12 +591,38 @@ class EvaluationEnvironment:
                     f"g:{name}:eval:{m}",
                     f"p:{bp.policy_id}:allowed",
                     f"p:{bp.policy_id}:rule",
+                    f"wm:{bp.policy_id}:mutated",
+                    f"wm:{bp.policy_id}:msg",
+                    bp.precompiled.program.host_evaluator is not None,
                     bp.precompiled.program.mutator,
                 )
                 for m, bp in group.members.items()
             ]
-            risky = [e for e in members if e[5] is not None]
+            # members that could trip the group-mutation ban: a mutator or
+            # a wasm evaluator
+            risky = [e for e in members if e[7] or e[8] is not None]
             self._group_mat[name] = (f"g:{name}:allowed", members, risky)
+        # Host-executed (wasm) group members: their verdict bits reach the
+        # device combine as the WASM_BITS_KEY input, one column per member
+        # in this order. Standalone wasm policies are not listed: they
+        # bypass the device (_host_executed).
+        self._wasm_member_order = [
+            bp.policy_id
+            for g in groups.values()
+            for bp in g.members.values()
+            if bp.precompiled.program.host_evaluator is not None
+        ]
+        self._wasm_member_col = {
+            pid: j for j, pid in enumerate(self._wasm_member_order)
+        }
+        self._groups_with_wasm = {
+            g.name
+            for g in groups.values()
+            if any(
+                bp.precompiled.program.host_evaluator is not None
+                for bp in g.members.values()
+            )
+        }
         # the device path's breaker: dispatch and fetch faults, and the
         # batcher's watchdog abandonments (record_dispatch_failure), trip
         # it; while open, batches short-circuit to the host oracle
@@ -910,17 +965,27 @@ class EvaluationEnvironment:
 
     def _cacheable(self, target: "BoundPolicy | BoundGroup") -> bool:
         """Whether a target's verdict is a pure function of its payload
-        blob: every target this package serves (host-executed policies,
-        whose verdicts depend on a wall-clock budget, are refused at
-        build)."""
-        return True
+        blob. Wasm-involving targets are not: a wasm wall-clock deadline
+        makes their verdict time-dependent."""
+        if isinstance(target, BoundGroup):
+            return target.name not in self._groups_with_wasm
+        return target.precompiled.program.host_evaluator is None
+
+    @staticmethod
+    def _host_executed(target: "BoundPolicy | BoundGroup") -> bool:
+        """True when the target's verdict comes from host-side wasm
+        execution (evaluation/wasm_policy.py), bypassing the device."""
+        return (
+            not isinstance(target, BoundGroup)
+            and target.precompiled.program.host_evaluator is not None
+        )
 
     def _frag_eligible(self, target: "BoundPolicy | BoundGroup") -> bool:
         """True when a cached output row's RESPONSE is a pure function of
         (target, row) plus the request uid, and the service layer's
         constraints are provably the identity on it: protect mode, no
-        mutator in the target, every reachable rule message static.
-        Memoized per target."""
+        mutator and no wasm in the target, every reachable rule message
+        static. Memoized per target."""
         hit = self._frag_eligible_memo.get(id(target))
         if hit is not None:
             return hit
@@ -943,6 +1008,7 @@ class EvaluationEnvironment:
                 ok = (
                     target.eval_settings.policy_mode is PolicyMode.PROTECT
                     and prog.mutator is None
+                    and prog.host_evaluator is None
                     and all(isinstance(r.message, str) for r in prog.rules)
                 )
         self._frag_eligible_memo[id(target)] = ok
@@ -1133,11 +1199,15 @@ class EvaluationEnvironment:
         a_mat: torch.Tensor,
         r_mat: torch.Tensor,
         column_of: Mapping[str, int],
+        wasm_bits: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Policy verdict matrix → the one packed output tensor
         ``(B, P + P + G + G*Mmax)``: policy verdicts, rule indices, group
         verdicts and group member-evaluated masks, uint8 when every rule
-        index fits a byte (-1 wraps to 255)."""
+        index fits a byte (-1 wraps to 255). ``wasm_bits`` (B, n_wasm),
+        on the same device, are the wasm group members' host verdicts:
+        they replace those members' columns (rule index 0) before the
+        group combine reads them."""
         batch = a_mat.shape[0]
         device = a_mat.device
         key = (device, tuple(column_of[p] for p in self._policy_order))
@@ -1148,6 +1218,21 @@ class EvaluationEnvironment:
             )
         p_allowed = a_mat.index_select(1, cols)
         p_rule = r_mat.index_select(1, cols)
+        if self._wasm_member_order:
+            wkey = (device, "wasm")
+            wcols = self._combine_cols.get(wkey)
+            if wcols is None:
+                wcols = self._combine_cols[wkey] = torch.tensor(
+                    [self._policy_index[p] for p in self._wasm_member_order],
+                    dtype=torch.long, device=device,
+                )
+            if wasm_bits is None:
+                wasm_bits = torch.zeros(
+                    (batch, len(self._wasm_member_order)),
+                    dtype=torch.bool, device=device,
+                )
+            p_allowed = p_allowed.index_copy(1, wcols, wasm_bits.to(torch.bool))
+            p_rule = p_rule.index_fill(1, wcols, 0)
         g_allowed_cols = []
         g_eval_cols = []
         for name in self._group_order:
@@ -1218,34 +1303,65 @@ class EvaluationEnvironment:
                 out[f"g:{name}:eval:{mname}"] = g_eval[..., gi, mi]
         return out
 
-    def enqueue_packed(self, buf: np.ndarray) -> InflightStep:
+    def enqueue_packed(
+        self, buf: np.ndarray, wasm_bits: np.ndarray | None = None
+    ) -> InflightStep:
         """Start the device step of one packed ``uint8`` batch (any of the
         three forms): the copy to the card from a page-locked buffer, one
         ``policy_matrix`` launch, the combine, and the copy back into a
         page-locked buffer, all queued on the card's current stream, then
-        a CUDA event. Returns without waiting; ``InflightStep.wait`` is the
-        fetch. On the CPU the step runs at once."""
+        a CUDA event. ``wasm_bits`` (B, n_wasm) bool, the wasm group
+        members' host verdicts, ride in the same page-locked copy behind
+        the rows (all False when not given). Returns without waiting;
+        ``InflightStep.wait`` is the fetch. On the CPU the step runs at
+        once."""
         self._enter()
         try:
-            return self._enqueue_open(buf)
+            return self._enqueue_open(buf, wasm_bits)
         finally:
             self._leave()
 
-    def _enqueue_open(self, buf: np.ndarray) -> InflightStep:
+    def _enqueue_open(
+        self, buf: np.ndarray, wasm_bits: np.ndarray | None = None
+    ) -> InflightStep:
         idx, _layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
         program = self.program_for(idx, transport, narrow)
+        n_wasm = len(self._wasm_member_order)
+        if n_wasm and wasm_bits is None:
+            wasm_bits = np.zeros((buf.shape[0], n_wasm), np.bool_)
         if self.device.type != "cuda":
             dev_buf = torch.from_numpy(np.ascontiguousarray(buf))
             a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
-            out = self._combine_outputs(a_mat, r_mat, program.column_of)
+            out = self._combine_outputs(
+                a_mat, r_mat, program.column_of,
+                None if not n_wasm else torch.from_numpy(
+                    np.ascontiguousarray(wasm_bits, dtype=np.bool_)
+                ),
+            )
             return InflightStep(ready=out.numpy())
         pool = self._pinned
-        host_in = pool.take(tuple(buf.shape), torch.uint8)
-        host_in.numpy()[...] = buf
+        n_rows = buf.size
+        if n_wasm:
+            # one page-locked buffer, one copy: the rows, then the bits
+            host_in = pool.take((n_rows + wasm_bits.size,), torch.uint8)
+            flat = host_in.numpy()
+            flat[:n_rows] = buf.reshape(-1)
+            flat[n_rows:] = wasm_bits.reshape(-1)
+        else:
+            host_in = pool.take(tuple(buf.shape), torch.uint8)
+            host_in.numpy()[...] = buf
         with torch.cuda.device(self.device):
-            dev_buf = host_in.to(self.device, non_blocking=True)
+            dev_in = host_in.to(self.device, non_blocking=True)
+            dev_bits = None
+            if n_wasm:
+                dev_buf = dev_in[:n_rows].view(buf.shape)
+                dev_bits = dev_in[n_rows:].view(wasm_bits.shape)
+            else:
+                dev_buf = dev_in
             a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
-            out = self._combine_outputs(a_mat, r_mat, program.column_of)
+            out = self._combine_outputs(
+                a_mat, r_mat, program.column_of, dev_bits
+            )
             host_out = pool.take(tuple(out.shape), out.dtype)
             host_out.copy_(out, non_blocking=True)
             stream = torch.cuda.current_stream()
@@ -1263,7 +1379,10 @@ class EvaluationEnvironment:
     def _enqueue_features(self, features: Mapping[str, Any]) -> InflightStep:
         """An encoded (wide packed) batch, narrowed to its transport form
         and enqueued."""
-        return self.enqueue_packed(np.asarray(self._transport(features)[PACKED_KEY]))
+        return self.enqueue_packed(
+            np.asarray(self._transport(features)[PACKED_KEY]),
+            features.get(WASM_BITS_KEY),
+        )
 
     def _device_call(self, fn: Callable, *args: Any) -> Any:
         """Run the enqueue half of a device step; a raise is reported
@@ -1369,7 +1488,9 @@ class EvaluationEnvironment:
         bucket, so the first request pays no first-launch costs."""
         for schema in self.schemas:
             for b in sorted({bucket_size(n) for n in batch_sizes}):
-                self.run_batch(schema.empty_batch_packed(b))
+                batch = schema.empty_batch_packed(b)
+                self._add_wasm_bits(batch, b)
+                self.run_batch(batch)
 
     def encode_bucketed(self, payload: Any) -> tuple[int, dict[str, np.ndarray]]:
         """Encode with the Python trie (the native encoder's plain version)
@@ -1397,11 +1518,108 @@ class EvaluationEnvironment:
         for hook in pre_eval_hooks_of(target):
             hook(payload)
 
-    def _oracle_outputs(self, payload: Any) -> dict[str, Any]:
+    # -- wasm group members (host verdicts as device inputs) ---------------
+
+    @staticmethod
+    def _wasm_verdict_triple(verdict: Mapping[str, Any]) -> tuple[bool, Any, bool]:
+        """Host-evaluator verdict dict → (allowed, message, would_mutate);
+        the single decode point for every path that reads wasm member
+        verdicts."""
+        return (
+            bool(verdict.get("accepted")),
+            verdict.get("message"),
+            verdict.get("mutated_object") is not None,
+        )
+
+    def _wasm_member_outputs(
+        self, bp: BoundPolicy, payload: Any, out: dict[str, Any]
+    ) -> bool:
+        """Evaluate one wasm member host-side and write its output keys
+        (both oracle paths); returns the allowed bit."""
+        verdict = bp.precompiled.program.host_evaluator(payload)
+        allowed, msg, mutated = self._wasm_verdict_triple(verdict)
+        out[f"p:{bp.policy_id}:allowed"] = allowed
+        out[f"p:{bp.policy_id}:rule"] = -1
+        out[f"wm:{bp.policy_id}:msg"] = msg
+        out[f"wm:{bp.policy_id}:mutated"] = mutated
+        return allowed
+
+    def _eval_wasm_members(
+        self, target: "BoundPolicy | BoundGroup", payload: Any
+    ) -> dict[str, tuple[bool, Any, bool]]:
+        """Host-evaluate a group target's wasm members on one payload →
+        {member pid: (allowed, message, would_mutate)}. Members the group
+        expression never references are skipped: their verdicts are
+        masked out anyway. Host evaluators never raise (wasm errors map
+        to in-band rejections, evaluation/wasm_policy.py)."""
+        if not isinstance(target, BoundGroup) or (
+            target.name not in self._groups_with_wasm
+        ):
+            return {}
+        referenced = groups_mod.referenced_members(target.ast)
+        out: dict[str, tuple[bool, Any, bool]] = {}
+        for member_name, bp in target.members.items():
+            he = bp.precompiled.program.host_evaluator
+            if he is None or member_name not in referenced:
+                continue
+            out[bp.policy_id] = self._wasm_verdict_triple(he(payload))
+        return out
+
+    def _add_wasm_bits(
+        self,
+        batch_features: dict,
+        bucket: int,
+        row_infos: "list[tuple[int, dict]] | None" = None,
+    ) -> dict[str, list]:
+        """Attach the WASM_BITS_KEY device input for a batch and return
+        the host-side stash (per-row member messages and mutation flags)
+        to merge into the outputs dict. ``row_infos``: (row, info) pairs
+        from _eval_wasm_members. A no-op returning {} when no wasm members
+        are loaded."""
+        if not self._wasm_member_order:
+            return {}
+        bits = np.zeros((bucket, len(self._wasm_member_order)), np.bool_)
+        stash: dict[str, list] = {}
+        for row, info in row_infos or []:
+            for pid, (allowed, msg, mutated) in info.items():
+                bits[row, self._wasm_member_col[pid]] = allowed
+                stash.setdefault(f"wm:{pid}:msg", [None] * bucket)[row] = msg
+                stash.setdefault(f"wm:{pid}:mutated", [False] * bucket)[
+                    row
+                ] = mutated
+        batch_features[WASM_BITS_KEY] = bits
+        return stash
+
+    def _oracle_outputs(
+        self, payload: Any, target: "BoundPolicy | BoundGroup | None" = None
+    ) -> dict[str, Any]:
         """Host-interpreter evaluation of every policy and group (scalar
-        outputs, the same keys as the device path)."""
+        outputs, the same keys as the device path). The wasm engine runs
+        ONLY for the members the target's materializer reads (referenced
+        members of the target group); every other wasm entry is inert."""
+        needed: set[str] = set()
+        if (
+            isinstance(target, BoundGroup)
+            and target.name in self._groups_with_wasm
+        ):
+            referenced = groups_mod.referenced_members(target.ast)
+            needed = {
+                bp.policy_id
+                for m, bp in target.members.items()
+                if m in referenced
+                and bp.precompiled.program.host_evaluator is not None
+            }
         out: dict[str, Any] = {}
         for pid, bp in self._bound.items():
+            if bp.precompiled.program.host_evaluator is not None:
+                if pid in needed:
+                    self._wasm_member_outputs(bp, payload, out)
+                else:
+                    # unread (standalone wasm routes via _host_executed;
+                    # other groups' members are not this target's)
+                    out[f"p:{pid}:allowed"] = False
+                    out[f"p:{pid}:rule"] = -1
+                continue
             allowed, rule_idx = oracle_mod.evaluate_program(
                 bp.precompiled.program, payload
             )
@@ -1429,7 +1647,21 @@ class EvaluationEnvironment:
         out: dict[str, Any] = {}
         if isinstance(target, BoundGroup):
             member_allowed: dict[str, bool] = {}
+            referenced = groups_mod.referenced_members(target.ast)
             for m, bp in target.members.items():
+                if bp.precompiled.program.host_evaluator is not None:
+                    if m in referenced:
+                        member_allowed[m] = self._wasm_member_outputs(
+                            bp, payload, out
+                        )
+                    else:
+                        # unreferenced wasm member: masked out, so the
+                        # engine is skipped and the verdict is inert (the
+                        # materializer indexes every member's keys)
+                        out[f"p:{bp.policy_id}:allowed"] = False
+                        out[f"p:{bp.policy_id}:rule"] = -1
+                        member_allowed[m] = False
+                    continue
                 allowed, rule_idx = oracle_mod.evaluate_program(
                     bp.precompiled.program, payload
                 )
@@ -1503,8 +1735,15 @@ class EvaluationEnvironment:
                     self._run_pre_eval_hooks(target, payload)
                     # rebuild: providers must observe hook results
                     payload = self.payload_for(target, request)
+                if self._host_executed(target):
+                    results.append(
+                        self._materialize_single(target, request.uid(), payload, {})
+                    )
+                    continue
                 results.append(
-                    self._materialize(target, request, self._oracle_outputs(payload))
+                    self._materialize(
+                        target, request, self._oracle_outputs(payload, target)
+                    )
                 )
             except Exception as e:  # noqa: BLE001 — per-item error channel
                 results.append(e)
@@ -1529,6 +1768,11 @@ class EvaluationEnvironment:
                 if run_hooks and self._hooks_of(target):
                     self._run_pre_eval_hooks(target, payload)
                     payload = self.payload_for(target, request)
+                if self._host_executed(target):
+                    results[i] = self._materialize_single(
+                        target, request.uid(), payload, {}
+                    )
+                    continue
                 key = bkey = None
                 if self._verdict_cache is not None and self._cacheable(target):
                     blob = self._blob_of(target, request, payload)
@@ -1573,11 +1817,14 @@ class EvaluationEnvironment:
         and the rest go through one native encode per schema bucket
         (``_native_schema_pass``); rows that overflow a bucket cascade to
         the next, rows beyond the widest to the host oracle.
-        ``defer_sink``: see validate_batch_begin."""
+        ``defer_sink``: see validate_batch_begin. ``wasm_infos`` holds the
+        wasm member verdicts of the rows whose group has wasm members
+        (``_eval_wasm_members``)."""
         results: list[AdmissionResponse | Exception | None] = [None] * len(items)
         targets: list[Any] = [None] * len(items)
         blobs: list[bytes | None] = [None] * len(items)
         pending: list[int] = []
+        wasm_infos: dict[int, dict] = {}
         uniform_tid: int | None = None
         uniform_target = True
         # the target-resolution and payload-blob loop is the recorder's
@@ -1590,6 +1837,24 @@ class EvaluationEnvironment:
                 targets[i] = target
                 if run_hooks and self._hooks_of(target):
                     self._run_pre_eval_hooks(
+                        target, self.payload_for(target, request)
+                    )
+                if self._host_executed(target):
+                    # wasm-backed rows never enter the device batch
+                    results[i] = self._materialize_single(
+                        target,
+                        request.uid(),
+                        self.payload_for(target, request),
+                        {},
+                    )
+                    continue
+                if (
+                    isinstance(target, BoundGroup)
+                    and target.name in self._groups_with_wasm
+                ):
+                    # groups with wasm members: the wasm engine runs NOW
+                    # on the host; the bits join the device batch
+                    wasm_infos[i] = self._eval_wasm_members(
                         target, self.payload_for(target, request)
                     )
                 blobs[i] = self._payload_blob(target, request)
@@ -1651,7 +1916,7 @@ class EvaluationEnvironment:
             if not pending:
                 break
             pending = self._native_schema_pass(
-                schema, items, targets, results, pending,
+                schema, items, targets, results, pending, wasm_infos,
                 blobs=blobs, uniform_target=uniform_target,
                 defer_sink=defer_sink,
             )
@@ -1662,7 +1927,9 @@ class EvaluationEnvironment:
             request = items[i][1]
             results[i] = self._materialize(
                 targets[i], request,
-                self._oracle_outputs(self.payload_for(targets[i], request)),
+                self._oracle_outputs(
+                    self.payload_for(targets[i], request), targets[i]
+                ),
             )
         return results  # type: ignore[return-value]
 
@@ -1714,7 +1981,8 @@ class EvaluationEnvironment:
         targets: list[Any],
         results: list[AdmissionResponse | Exception | None],
         pending: list[int],
-        blobs: list[bytes | None],
+        wasm_infos: dict[int, dict] | None = None,
+        blobs: list[bytes | None] | None = None,
         uniform_target: bool = False,
         defer_sink: list | None = None,
     ) -> list[int]:
@@ -1731,7 +1999,9 @@ class EvaluationEnvironment:
         tier pays one locked batch call per chunk. With ``defer_sink`` set
         the materialize closures are appended instead of run, so
         validate_batch_finish can wait for the device on another call than
-        the one that encodes."""
+        the one that encodes. Rows carrying wasm member bits are not a
+        pure function of their bytes: they are never deduped or cached,
+        and take the first slots of a compacted dispatch."""
         chunk_size = min(bucket_size(len(pending)), self.max_dispatch_batch)
         chunks = [
             pending[c : c + chunk_size]
@@ -1742,8 +2012,8 @@ class EvaluationEnvironment:
         rec = flightrec.recorder()
         bid = flightrec.current_batch() if rec is not None else -1
         overflowed: list[int] = []
-        # (in-flight step, slot rows, row-tier insertions, blob-tier
-        # insertions) per chunk
+        # (in-flight step, slot rows, wasm stash, row-tier insertions,
+        # blob-tier insertions) per chunk
         drains: list[tuple] = []
         cache = self._verdict_cache
         bcache = self._blob_cache
@@ -1761,12 +2031,13 @@ class EvaluationEnvironment:
             return bl, out, t0, t1
 
         def materialize(entry) -> None:
-            step, slot_rows, lru_inserts, blob_inserts = entry
+            step, slot_rows, stash, lru_inserts, blob_inserts = entry
             t0 = time.perf_counter_ns()
             raw = self._device_fetch(step, len(slot_rows), bid)
             t1 = time.perf_counter_ns()
             self._profile_add(dispatch_wait_ns=t1 - t0)
             outputs = self._unpack(raw)
+            outputs.update(stash)
             if lru_inserts or blob_inserts:
                 row_of_slot: dict[int, dict] = {}
 
@@ -1828,6 +2099,11 @@ class EvaluationEnvironment:
                 slot_rows = [
                     (pos, i) for pos, i in enumerate(chunk) if ok_mask[pos]
                 ]
+                wasm_rows = [
+                    (pos, wasm_infos[i])
+                    for pos, i in enumerate(chunk)
+                    if wasm_infos and i in wasm_infos
+                ]
                 if not slot_rows:
                     continue
                 n_dispatched = len(slot_rows)
@@ -1835,7 +2111,26 @@ class EvaluationEnvironment:
                 t_book = time.perf_counter_ns()
                 packed = features[PACKED_KEY]
                 item_arr = np.asarray(chunk, dtype=np.intp)
-                dedup_pos = np.flatnonzero(ok_mask)
+                if wasm_infos:
+                    # wasm verdict bits ride beside the row: not a pure
+                    # function of the row bytes, never deduped or cached
+                    wasm_pos = [
+                        pos
+                        for pos, i in enumerate(chunk)
+                        if i in wasm_infos and ok_mask[pos]
+                    ]
+                    wset = set(wasm_pos)
+                    dedup_pos = np.asarray(
+                        [
+                            int(p)
+                            for p in np.flatnonzero(ok_mask)
+                            if int(p) not in wset
+                        ],
+                        dtype=np.intp,
+                    )
+                else:
+                    wasm_pos = []
+                    dedup_pos = np.flatnonzero(ok_mask)
                 slot_rows = []
                 n_d = int(dedup_pos.size)
                 keep_uncompacted = False
@@ -1958,14 +2253,17 @@ class EvaluationEnvironment:
                                 self._batch_dedup_hits += dup_hits
                         keep_rows = miss_rows[miss_first]
                         keep_uncompacted = (
-                            all_ok and hit_rows.size == 0 and dup_hits == 0
+                            not wasm_pos
+                            and all_ok
+                            and hit_rows.size == 0
+                            and dup_hits == 0
                         )
                         if keep_uncompacted:
                             # nothing collapsed: ship the encoded buffer as
                             # is — slots are the encode positions
                             slots = dedup_pos[miss_rows]
                         else:
-                            slots = slot_inv
+                            slots = slot_inv + len(wasm_pos)
                         miss_items = item_arr[dedup_pos[miss_rows]]
                         slot_rows = list(zip(slots.tolist(), miss_items.tolist()))
                         # per-combo cache keys onto their dispatch slot
@@ -1976,18 +2274,26 @@ class EvaluationEnvironment:
                             if keep_uncompacted:
                                 slot = int(dedup_pos[int(combo_first[k])])
                             else:
-                                slot = int(np.searchsorted(uniq_miss, u))
+                                slot = int(
+                                    np.searchsorted(uniq_miss, u)
+                                ) + len(wasm_pos)
                             lru_inserts.setdefault(slot, set()).add(keys[k])
                         if bcache is not None:
                             # blob-to-row learning: ONE representative blob
                             # per dispatched slot (collapsed duplicates'
                             # blobs vary by uid and never recur)
                             for j, pos in enumerate(dedup_pos[keep_rows].tolist()):
-                                slot = pos if keep_uncompacted else j
+                                slot = pos if keep_uncompacted else j + len(wasm_pos)
                                 i = chunk[pos]
                                 blob_inserts.setdefault(slot, []).append(
                                     (self._cache_key_of(targets[i]), chunk_blobs[pos])
                                 )
+                wasm_rows = []
+                n_keep = len(wasm_pos) + int(keep_rows.size)
+                for j, pos in enumerate(wasm_pos):
+                    i = chunk[pos]
+                    wasm_rows.append((j, wasm_infos[i]))
+                    slot_rows.append((j, i))
                 # ns only: the blob-tier pre-pass already counted these rows
                 t_book_end = time.perf_counter_ns()
                 self._profile_add(bookkeeping_ns=t_book_end - t_book)
@@ -1998,18 +2304,26 @@ class EvaluationEnvironment:
                     )
                 if not slot_rows:
                     continue  # the whole chunk came from the caches
-                n_keep = int(keep_rows.size)
                 if not keep_uncompacted:
-                    # compact: only unique rows go to the card
+                    # compact: only unique rows (after the wasm rows) go to
+                    # the card
                     compact = np.zeros(
                         (bucket_size(n_keep), packed.shape[1]), packed.dtype
                     )
-                    compact[:n_keep] = rows_arr[keep_rows]
+                    if wasm_pos:
+                        compact[: len(wasm_pos)] = packed[
+                            np.asarray(wasm_pos, dtype=np.intp)
+                        ]
+                    if keep_rows.size:
+                        compact[len(wasm_pos) : n_keep] = rows_arr[keep_rows]
                     features = {PACKED_KEY: compact}
                 n_dispatched = n_keep
+            stash = self._add_wasm_bits(
+                features, features[PACKED_KEY].shape[0], wasm_rows
+            )
             step = self._device_call(self._enqueue_features, features)
             self._profile_add(dispatched_rows=n_dispatched, dispatched_chunks=1)
-            entry = (step, slot_rows, lru_inserts, blob_inserts)
+            entry = (step, slot_rows, stash, lru_inserts, blob_inserts)
             if defer_sink is not None:
                 defer_sink.append((materialize, entry))
                 continue
@@ -2038,9 +2352,36 @@ class EvaluationEnvironment:
         self,
         bp: BoundPolicy,
         uid: str,
-        payload_of: Callable[[], Any],
+        payload_fn: Any,  # zero-arg callable OR a pre-built payload value
         outputs: Mapping[str, Any],
     ) -> AdmissionResponse:
+        payload_of = payload_fn if callable(payload_fn) else (lambda: payload_fn)
+        host_eval = bp.precompiled.program.host_evaluator
+        if host_eval is not None:
+            # wasm-backed policy: the verdict comes from host-side wasm
+            # execution (evaluation/wasm_policy.py); device outputs are
+            # inert for these rows
+            verdict = host_eval(payload_of())
+            if bool(verdict.get("accepted")):
+                response = AdmissionResponse(uid=uid, allowed=True)
+                mutated = verdict.get("mutated_object")
+                if mutated is not None:
+                    # whole-object replacement patch (waPC mutation shape)
+                    response.patch = base64.b64encode(
+                        json.dumps(
+                            [{"op": "replace", "path": "", "value": mutated}]
+                        ).encode()
+                    ).decode()
+                    response.patch_type = JSON_PATCH
+                return response
+            return AdmissionResponse(
+                uid=uid,
+                allowed=False,
+                status=ValidationStatus(
+                    message=str(verdict.get("message") or "rejected by policy"),
+                    code=int(verdict.get("code") or 400),
+                ),
+            )
         allowed_key, rule_key = self._single_mat[bp.policy_id]
         if not bool(outputs[allowed_key]):
             rule = bp.precompiled.program.rules[int(outputs[rule_key])]
@@ -2067,19 +2408,28 @@ class EvaluationEnvironment:
         self,
         group: BoundGroup,
         uid: str,
-        payload_of: Callable[[], Any],
+        payload_fn: Any,  # zero-arg callable OR a pre-built payload value
         outputs: Mapping[str, Any],
     ) -> AdmissionResponse:
+        payload_of = payload_fn if callable(payload_fn) else (lambda: payload_fn)
         allowed_key, members, risky = self._group_mat[group.name]
         allowed = bool(outputs[allowed_key])
         # group-member mutation ban: an evaluated, allowed member that
-        # would mutate rejects the whole group
-        for _m, _bp, eval_key, allowed_key_m, _rule_key, mutator in risky:
+        # would mutate rejects the whole group; wasm members report
+        # would-mutate from their host verdict (wm:<pid>:mutated)
+        for (
+            _m, _bp, eval_key, allowed_key_m, _rule_key,
+            wm_mut_key, _wm_msg_key, is_wasm, mutator,
+        ) in risky:
             if not (
                 bool(outputs.get(eval_key, False)) and bool(outputs[allowed_key_m])
             ):
                 continue
-            if mutator(payload_of()):
+            if is_wasm:
+                would_mutate = bool(outputs.get(wm_mut_key, False))
+            else:
+                would_mutate = bool(mutator(payload_of()))
+            if would_mutate:
                 return AdmissionResponse(
                     uid=uid,
                     allowed=False,
@@ -2090,16 +2440,22 @@ class EvaluationEnvironment:
         if allowed:
             return AdmissionResponse(uid=uid, allowed=True)
         causes: list[StatusCause] = []
-        for member_name, bp, eval_key, allowed_key_m, rule_key, _mut in members:
+        for (
+            member_name, bp, eval_key, allowed_key_m, rule_key,
+            _wm_mut_key, wm_msg_key, is_wasm, _mutator,
+        ) in members:
             if bool(outputs.get(eval_key, False)) and not bool(
                 outputs[allowed_key_m]
             ):
-                rule = bp.precompiled.program.rules[int(outputs[rule_key])]
-                message = (
-                    rule.message
-                    if isinstance(rule.message, str)
-                    else rule.message(payload_of())
-                )
+                if is_wasm:
+                    message = outputs.get(wm_msg_key) or "rejected by policy"
+                else:
+                    rule = bp.precompiled.program.rules[int(outputs[rule_key])]
+                    message = (
+                        rule.message
+                        if isinstance(rule.message, str)
+                        else rule.message(payload_of())
+                    )
                 causes.append(
                     StatusCause(
                         field=f"spec.policies.{member_name}", message=message

@@ -32,6 +32,20 @@ for _policy in BUILTINS.values():
         _UPSTREAM_MAP[_ref] = _policy
 
 
+def _ensure_extra_builtins() -> None:
+    """Register builtins whose modules import policies.base — a top-level
+    import here would be circular (this package → library → them → back).
+    Idempotent; runs on first resolution."""
+    if "cel-policy" in BUILTINS:
+        return
+    from policy_server_tpu_torch.cel.policy import CelPolicy
+
+    policy = CelPolicy()
+    BUILTINS[policy.name] = policy
+    for ref in policy.upstream_equivalents:
+        _UPSTREAM_MAP[ref] = policy
+
+
 def _strip_scheme(url: str) -> str:
     for scheme in ("registry://", "https://", "http://", "oci://"):
         if url.startswith(scheme):
@@ -42,6 +56,7 @@ def _strip_scheme(url: str) -> str:
 def resolve_builtin(module_url: str) -> BuiltinPolicy | None:
     """Resolve a policies.yml ``module`` URL to a builtin policy, or None
     if it must be fetched."""
+    _ensure_extra_builtins()
     if module_url.startswith("builtin://"):
         name = module_url[len("builtin://"):]
         policy = BUILTINS.get(name)

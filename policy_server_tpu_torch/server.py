@@ -53,6 +53,14 @@ lifecycle's cluster what-if. Named tenants feed neither. Every audit,
 matrix and watch family is on /metrics at every setting, with zeros for
 what is off.
 
+``module_resolver`` (a module URL → policy module; ``fetch.load_artifact``
+makes one of a ``.wasm`` file's bytes) resolves every module of every
+environment the server builds; the default resolves builtins only and
+raises ``BootstrapFailure`` for any other URL (a per-policy
+initialization error under ``continue_on_errors``). Host-executed
+policies (wasm, and CEL that does not lower) get ``policy_timeout`` as
+their wall-clock budget.
+
 ``stop()`` follows the JAX package's order: the watchdog, then the native
 frontend stops accepting, the worker supervisor stops, the workers are
 terminated (killed after 5 s), the bridge closes and its socket and
@@ -111,7 +119,7 @@ import tempfile
 import threading
 import time
 from http.server import ThreadingHTTPServer
-from typing import Any, Iterator, Mapping
+from typing import Any, Callable, Iterator, Mapping
 
 from policy_server_tpu_torch import failpoints
 from policy_server_tpu_torch.api import profiling
@@ -781,6 +789,7 @@ class PolicyServer:
         worker_respawn_giveup: int = DEFAULT_WORKER_RESPAWN_GIVEUP,
         log_level: str = "info",
         log_fmt: str = "text",
+        module_resolver: Callable[[str], Any] | None = None,
     ) -> None:
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
@@ -844,6 +853,15 @@ class PolicyServer:
         )
         queue_capacity = (workers or default_workers()) * max_batch_size
 
+        # every environment (boot, reload candidate and its oracle referee,
+        # each tenant and each shard) resolves modules through the same
+        # resolver, and wasm guests get the policy timeout as their
+        # wall-clock budget (None under --disable-timeout-protection)
+        wasm_kwargs = dict(
+            module_resolver=module_resolver,
+            wasm_wall_clock_budget=policy_timeout,
+        )
+
         def build_environment(policy_set: Mapping[str, Any]) -> Any:
             return EvaluationEnvironmentBuilder(
                 device=device,
@@ -851,6 +869,7 @@ class PolicyServer:
                 always_accept_admission_reviews_on_namespace=(
                     always_accept_admission_reviews_on_namespace
                 ),
+                **wasm_kwargs,
                 verdict_cache_size=verdict_cache_size,
                 breaker_config=dict(
                     failure_threshold=breaker_failure_threshold,
@@ -867,6 +886,7 @@ class PolicyServer:
                 always_accept_admission_reviews_on_namespace=(
                     always_accept_admission_reviews_on_namespace
                 ),
+                **wasm_kwargs,
             ).build(dict(policy_set))
 
         # the tenants' shared dispatch scheduler and the default tenant's

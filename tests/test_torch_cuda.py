@@ -356,3 +356,73 @@ def test_closed_environments_return_device_memory_to_a_plateau():
         torch.cuda.synchronize()
         after.append(torch.cuda.memory_allocated())
     assert after[2] <= after[1], after
+
+
+@pytest.fixture(scope="module")
+def wasm_group_env(tmp_path_factory):
+    """The flagship set plus a group with a waPC wasm member
+    (``wasmpriv() && ns()``) and a standalone wasm policy, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import torch_wasm_fixtures as fixtures
+
+    from policy_server_tpu_torch.fetch import load_artifact
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.policies import resolve_builtin
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    path = tmp_path_factory.mktemp("wasm") / "priv.wasm"
+    path.write_bytes(fixtures.wapc_privileged_wasm())
+    module = load_artifact(path)
+    specs = flagship_policy_specs()
+    specs["guard"] = {
+        "expression": "wasmpriv() && ns()",
+        "message": "guard",
+        "policies": {
+            "wasmpriv": {"module": "file:///priv.wasm"},
+            "ns": {"module": "builtin://namespace-validate",
+                   "settings": {"denied_namespaces": ["kube-system"]}},
+        },
+    }
+    specs["wasm-priv"] = {"module": "file:///priv.wasm"}
+    return EvaluationEnvironmentBuilder(
+        device="cuda",
+        module_resolver=lambda url: module if url.endswith(".wasm") else resolve_builtin(url),
+    ).build(parse_policies(specs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", [0, 1])
+@pytest.mark.parametrize("batch", [1, 51, 128])
+def test_wasm_bits_ride_with_the_rows(wasm_group_env, idx, batch):
+    """The wasm members' bits go to the card in the rows' page-locked
+    copy, and the combine reads them there: the enqueue equals the
+    synchronous step given the same bits on the card, and a bit flips the
+    group's verdict."""
+    import numpy as np
+
+    env = wasm_group_env
+    assert len(env._wasm_member_order) == 1
+    buf = _batch(env, idx, batch, True)
+    bits = (np.arange(batch) % 2 == 0).reshape(batch, 1)
+    idx_, _lo, transport, narrow = env._layout_for_buffer(buf.shape[1])
+    program = env.program_for(idx_, transport, narrow)
+    a_mat, r_mat = ck.policy_matrix(torch.from_numpy(buf).cuda(), program)
+    want = env._combine_outputs(
+        a_mat, r_mat, program.column_of, torch.from_numpy(bits).cuda()
+    ).cpu().numpy()
+    step = env.enqueue_packed(buf, bits)
+    assert step.host_in.is_pinned()
+    assert step.host_in.numel() == buf.size + bits.size
+    got = step.wait()
+    assert (got == want).all()
+    out = env._unpack(got)
+    pid = env._wasm_member_order[0]
+    assert (out[f"p:{pid}:allowed"] == bits[:, 0]).all()
+    assert (out[f"p:{pid}:rule"] == 0).all()
+    ns_ok = out["p:guard/ns:allowed"]
+    assert (out["g:guard:allowed"] == (bits[:, 0] & ns_ok)).all()
+    assert out["g:guard:eval:wasmpriv"].all()
+    assert (out["g:guard:eval:ns"] == bits[:, 0]).all()
+    flipped = env._unpack(env.enqueue_packed(buf, ~bits).wait())
+    assert (flipped["g:guard:allowed"] == (~bits[:, 0] & ns_ok)).all()

@@ -153,19 +153,31 @@ _NOT_ON_THE_CARD = ("jax", "jaxlib", "policy_server_tpu", "prometheus_client",
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """No module of the port, nor ``chip_smoke.py``, imports JAX, the JAX
+    """No module of the port, nor ``chip_smoke.py``, nor the port's wasm
+    fixtures (``tests/torch_wasm_fixtures.py``), imports JAX, the JAX
     package, or what the card's machine lacks (prometheus_client,
-    aiohttp, PyYAML): imported in a fresh interpreter, and
+    aiohttp, PyYAML): imported in a fresh interpreter, with the native
+    wasm core built and a fixture assembled and run on it, and
     ``chip_smoke.py``'s import statements read from its source, lazy ones
     included."""
     code = textwrap.dedent(
         f"""
         import importlib, pkgutil, sys
+        sys.path.insert(0, "tests")
         import policy_server_tpu_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
         import policy_server_tpu_torch.__main__
         import chip_smoke
+        import torch_wasm_fixtures
+        from policy_server_tpu_torch.wasm import native_exec, wapc
+        native_exec.build_library()
+        out = wapc.KubewardenWapcPolicy(
+            torch_wasm_fixtures.wapc_privileged_wasm()
+        ).validate({{"object": {{}}}}, {{}})
+        assert out == {{"accepted": True}}, out
+        assert native_exec.engine_counts()["native"] == 1
+        policy_server_tpu_torch.__main__.long_version()
         bad = sorted(
             n for n in sys.modules
             if n.split(".")[0] in {_NOT_ON_THE_CARD!r}
@@ -197,6 +209,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.audit.reports",
             "policy_server_tpu_torch.audit.matrix",
             "policy_server_tpu_torch.audit.scanner",
+            "policy_server_tpu_torch.context",
+            "policy_server_tpu_torch.wasm.binary",
+            "policy_server_tpu_torch.wasm.interp",
+            "policy_server_tpu_torch.wasm.wat",
+            "policy_server_tpu_torch.wasm.native_exec",
+            "policy_server_tpu_torch.wasm.wapc",
+            "policy_server_tpu_torch.wasm.builtins",
+            "policy_server_tpu_torch.wasm.opa",
+            "policy_server_tpu_torch.wasm.wasi",
+            "policy_server_tpu_torch.wasm.capabilities",
+            "policy_server_tpu_torch.evaluation.wasm_policy",
+            "policy_server_tpu_torch.ops.serde",
+            "policy_server_tpu_torch.fetch.artifact",
+            "policy_server_tpu_torch.policies.wasm_oracle",
+            "policy_server_tpu_torch.cel.parser",
+            "policy_server_tpu_torch.cel.interp",
+            "policy_server_tpu_torch.cel.lower",
+            "policy_server_tpu_torch.cel.policy",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
@@ -278,6 +308,37 @@ def test_native_frontend_builds_the_ports_source_only(tmp_path, monkeypatch):
     root_csrc = os.path.join(REPO, "csrc")
     assert not any(a.startswith(root_csrc + os.sep) for a in cmd)
     assert "-ldl" in cmd and "-pthread" in cmd
+
+
+def test_native_wasm_core_builds_the_ports_source_only(tmp_path, monkeypatch):
+    """The native wasm core's g++ build reads the port's copy,
+    ``policy_server_tpu_torch/csrc/wasmint.cpp``, never the repository
+    root's ``csrc/``, and builds into ``build/torch_kernels/``."""
+    from policy_server_tpu_torch.wasm import native_exec
+
+    port_source = os.path.join(
+        REPO, "policy_server_tpu_torch", "csrc", "wasmint.cpp"
+    )
+    assert os.path.samefile(native_exec.SOURCE, port_source)
+    assert native_exec.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+    commands = []
+    real_run = subprocess.run
+
+    def recording_run(cmd, *args, **kwargs):
+        commands.append(list(cmd))
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(native_exec.subprocess, "run", recording_run)
+    monkeypatch.setattr(native_exec, "BUILD_DIR", tmp_path / "build" / "torch_kernels")
+    monkeypatch.setattr(native_exec, "_lib", None)
+    native_exec.build_library()
+    assert native_exec.build_seconds > 0
+    assert native_exec.library_path().parent == native_exec.BUILD_DIR
+    (cmd,) = commands
+    sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert sources == [str(native_exec.SOURCE)]
+    root_csrc = os.path.join(REPO, "csrc")
+    assert not any(a.startswith(root_csrc + os.sep) for a in cmd)
 
 
 def test_builder_without_a_device_raises_when_no_card(monkeypatch):
