@@ -234,13 +234,59 @@ card's name and power limit:
    with (or queued behind) a spinning one answer the same deadline body
    (counted), and the breaker does not trip.
 
+13. policy acquisition, cluster context and the audit watch feed —
+   servers built through the command line (``build/chip_smoke_fetch/``).
+   Wave F: the flagship policies whose programs ``serde`` carries (27 of
+   32; the signature policies, the mutating ones and the groups stay
+   builtins) written as ``.tpp.json`` artifacts, each signed with an
+   ed25519 key and with a keyless bundle of this script's own PKI (trust
+   root in ``--sigstore-cache-dir``), served a third each over
+   ``file://``, ``https://`` (an in-script HTTPS host whose CA is only in
+   ``sources.json``'s ``source_authorities``) and ``registry://`` (an
+   in-script OCI registry: the anonymous token flow, one repository
+   behind basic auth from ``--docker-config-json-path``, two whose blobs
+   answer 307 to a storage host that refuses ``Authorization``);
+   ``verification.json`` requires the key and the keyless identity on
+   every artifact. Each frontend boots it kernel-only (boot seconds split
+   into fetch, verify and the rest) and answers 1,024 reviews, every body
+   the host oracle's over the same artifacts, every device batch with a
+   K1 launch; K1 exact against its plain version on the fetched programs.
+   A tampered artifact fails the boot with ``VerificationError``; under
+   ``--continue-on-errors`` its id answers that error and the others
+   serve; ``fetch.http`` faults are retried 3 times (counted), then the
+   boot fails with the downloader's ``FetchError``. Wave R: 20 reloads
+   through ``POST /policies/reload`` (the file watch may add one of the
+   same file), one registry policy switched between tags ``:v1`` and
+   ``:v2`` (another policy's rules): after each, 128 kernel-only reviews
+   (a quarter to that policy) equal that set's oracle, and
+   ``memory_allocated`` and ``max_memory_reserved`` are printed (the
+   allocation after the last cycle within 1 MiB of the second's). Wave
+   C: a fake Kubernetes API over HTTPS (token and ``ca.crt`` in a
+   service-account directory; the client's address and directory set
+   in-process before the servers are built) listing 200 namespaces;
+   ``namespace-exists`` with ``contextAwareResources`` beside the
+   flagship set at the default flags and kernel-only, 1,024 reviews over
+   220 namespace names (half to namespace-exists), then 20 DELETED and 20
+   ADDED events, the seconds from the last event's send to the first
+   answer that reflects it, and a second wave: every body the oracle's
+   with the same snapshot, the default verdict cache on; K1 exact on
+   rows carrying 200 and 256 namespaces (B = 128, both buckets); at 257
+   namespaces every context row goes to the host and no K1 launches.
+   Wave W: ``--audit-mode interval --audit-watch
+   --audit-watch-resources v1/Pod`` against the fake API listing 8,192
+   pods, then 2,048 ADDED, MODIFIED and DELETED events with a 410 ERROR
+   between the halves: the feed and the watch families on /metrics count
+   exactly 2,048 events, 0 drops and 1 resync, every report row equals
+   the oracle's, and the seconds from an event's send to its report row
+   (p50, p99) and the audit lane's K1 launches are printed.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
 
 ``python3 chip_smoke.py --native-client PORT CORPUS OUT CONNS DEPTH
 [tolerate-close] [tls | tls=CERT,KEY]`` is the load generator of phases 7
-to 12: it needs neither torch nor the package (``tolerate-close``: a
+to 13: it needs neither torch nor the package (``tolerate-close``: a
 connection the server closes leaves its unanswered requests empty instead
 of failing the run; ``tls``: HTTPS, with a client certificate for mTLS).
 ``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
@@ -1619,10 +1665,14 @@ def join_retirements() -> None:
             t.join(60)
 
 
-def hold_set_against_plain(specs: dict, docs: list, card: str, label: str) -> int:
+def hold_set_against_plain(specs: dict, docs: list, card: str, label: str,
+                           timings: dict | None = None,
+                           **builder_kwargs) -> int:
     """A policy set's K1 programs on the card against their plain version
     at B = 128, both buckets, narrow form → max abs error. ``label`` names
-    the set in the messages."""
+    the set in the messages; ``timings``, when given, gets each bucket's
+    K1 device ms; ``builder_kwargs`` go to the environment's builder (a
+    module resolver for fetched artifacts)."""
     import torch
 
     from policy_server_tpu_torch.evaluation.environment import (
@@ -1632,7 +1682,9 @@ def hold_set_against_plain(specs: dict, docs: list, card: str, label: str) -> in
     from policy_server_tpu_torch.models.policy import parse_policies
     from policy_server_tpu_torch.ops import cuda_kernels as ck
 
-    env = EvaluationEnvironmentBuilder(device="cuda").build(parse_policies(specs))
+    env = EvaluationEnvironmentBuilder(device="cuda", **builder_kwargs).build(
+        parse_policies(specs)
+    )
     err = 0
     for idx, schema in enumerate(env.schemas):
         encs = []
@@ -1656,6 +1708,8 @@ def hold_set_against_plain(specs: dict, docs: list, card: str, label: str) -> in
         if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
             fail(f"{label}: policy_matrix disagrees with its plain version (bucket {idx})")
         err = max(err, int((got_r - want_r).abs().max()))
+        if timings is not None:
+            timings[idx] = graph_ms(lambda: ck.policy_matrix(dev, program))
     env.close()
     print(
         f"{label}: policy_matrix exact against its plain version "
@@ -2788,7 +2842,8 @@ def oracle_verdicts(oracle, rows: list, policy_ids: list, cache: dict) -> dict:
 
 
 def check_reports(label: str, rp: int, scanner, oracle, policy_ids: list,
-                  cache: dict, epoch: int, card: str) -> dict:
+                  cache: dict, epoch: int, card: str,
+                  phase: str = "phase10") -> dict:
     """GET /audit/reports on the readiness port, with no sweep running and
     nothing dirty: every (resource, policy) row's verdict equals the
     oracle's for the snapshot's row, the summary counts agree, and the
@@ -2847,7 +2902,7 @@ def check_reports(label: str, rp: int, scanner, oracle, policy_ids: list,
     if body["summary"] != summary:
         fail(f"{label}: summary {body['summary']} is not the oracle's {summary}")
     print(
-        f"phase10 {label}: GET /audit/reports {len(raw)} B, "
+        f"{phase} {label}: GET /audit/reports {len(raw)} B, "
         f"{summary['results']} rows of {summary['resources']} resources "
         f"equal the oracle's audit-origin verdicts (summary "
         f"{json.dumps(summary)}); If-None-Match -> 304; GET {get_s:.3f} s, "
@@ -4789,6 +4844,1015 @@ def print_wasm_phase(r: dict, card: str) -> None:
     )
 
 
+# -- phase 13: policy acquisition, cluster context and the audit watch feed -
+
+FETCH_WAVE = 1024
+FETCH_NEGATIVE_WAVE = 256
+FETCH_DIR = os.path.join(REPO, "build", "chip_smoke_fetch")
+RELOAD_TAG_CYCLES = 20
+RELOAD_TAG_WAVE = 128
+CONTEXT_NAMESPACES = 200
+CONTEXT_NAMES = 220
+CONTEXT_WAVE = 1024
+CONTEXT_EVENTS = 20
+CONTEXT_OVERFLOW = 257
+CONTEXT_OVERFLOW_WAVE = 256
+CONTEXT_HOLD_NAMESPACES = (200, 256)
+WATCH_OBJECTS = AUDIT_OBJECTS
+WATCH_EVENTS = 2048
+KEYLESS_SUBJECT = "release@example.com"
+KEYLESS_ISSUER = "https://issuer.example.com"
+KERNEL_ONLY_ARGS = [
+    "--host-fastpath-threshold", "0", "--verdict-cache-size", "0",
+    "--latency-budget-ms", "0",
+]
+NS_AWARE = [{"apiVersion": "v1", "kind": "Namespace"}]
+
+
+def carried_artifacts() -> dict:
+    """policy id → ``.tpp.json`` bytes of each flagship policy whose program
+    ``serde`` carries: no mutator, context provider, pre-eval hook or host
+    evaluator (the two signature policies, the mutating ones and the groups
+    stay builtins)."""
+    from policy_server_tpu_torch.fetch import dump_artifact
+    from policy_server_tpu_torch.policies import resolve_builtin
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    out = {}
+    for name, spec in flagship_policy_specs().items():
+        if "module" not in spec:
+            continue
+        program = resolve_builtin(spec["module"]).build(spec.get("settings") or {})
+        if (program.mutator or program.context_provider
+                or program.pre_eval_hook or program.host_evaluator):
+            continue
+        out[name] = json.dumps(
+            dump_artifact(name, list(program.rules)), sort_keys=True
+        ).encode()
+    return out
+
+
+class FetchRig:
+    """The acquisition set-up of phase 13 under ``build/chip_smoke_fetch``:
+    the carried flagship artifacts, each signed with an ed25519 key and a
+    keyless bundle of this script's own PKI (trust root in the sigstore
+    cache directory), a third each behind ``file://``, ``https://`` (an
+    in-script HTTPS host whose CA is only in ``sources.json``'s
+    ``source_authorities``) and ``registry://`` (an in-script OCI registry
+    with the anonymous token flow, one repository behind basic auth from
+    the docker config, two with blobs behind a 307 to a storage host that
+    refuses ``Authorization``); ``sources.json`` and ``verification.json``
+    (the public key and the keyless identity required on every
+    artifact)."""
+
+    def __init__(self) -> None:
+        import shutil
+
+        from cryptography.hazmat.primitives import serialization
+        from cryptography.hazmat.primitives.asymmetric import ec
+        from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+            Ed25519PrivateKey,
+        )
+
+        from policy_server_tpu_torch.fetch import keyless
+        from policy_server_tpu_torch.fetch.verify import (
+            SIGNATURE_PAYLOAD_TYPE,
+            make_signature_entry,
+        )
+        from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+        import torch_fetch_fixtures as fx
+
+        self.fx = fx
+        shutil.rmtree(FETCH_DIR, ignore_errors=True)
+        os.makedirs(FETCH_DIR)
+        key = Ed25519PrivateKey.generate()
+        self.priv = key.private_bytes(
+            serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+            serialization.NoEncryption(),
+        )
+        pub = key.public_key().public_bytes(
+            serialization.Encoding.PEM,
+            serialization.PublicFormat.SubjectPublicKeyInfo,
+        ).decode()
+        ca_cert, ca_key = keyless.make_test_ca()
+        rekor_key = ec.generate_private_key(ec.SECP256R1())
+        self.sigstore = os.path.join(FETCH_DIR, "sigstore")
+        os.makedirs(self.sigstore)
+        with open(os.path.join(self.sigstore, "trust_root.json"), "w") as f:
+            json.dump(keyless.make_test_trust_root_doc(ca_cert, rekor_key), f)
+
+        def sidecar(data: bytes) -> bytes:
+            return json.dumps({"signatures": [
+                make_signature_entry(self.priv, data, keyid="chip"),
+                keyless.make_keyless_entry(
+                    data, ca_cert, ca_key, rekor_key,
+                    subject=KEYLESS_SUBJECT, issuer_claim=KEYLESS_ISSUER,
+                    payload_type=SIGNATURE_PAYLOAD_TYPE,
+                ),
+            ]}).encode()
+
+        self.sidecar = sidecar
+        https_ca = fx.make_ca("chip-smoke-source-ca")
+        self.https = fx.FileHost(fx.server_context(
+            __import__("pathlib").Path(FETCH_DIR) / "https", https_ca
+        ))
+        self.registry = fx.Registry()
+        artifacts = carried_artifacts()
+        self.artifacts = artifacts
+        files = os.path.join(FETCH_DIR, "files")
+        os.makedirs(files)
+        specs = flagship_policy_specs()
+        self.where: dict = {}
+        registry_names = []
+        for i, (name, data) in enumerate(sorted(artifacts.items())):
+            signature = sidecar(data)
+            if i % 3 == 0:
+                path = os.path.join(files, f"{name}.tpp.json")
+                with open(path, "wb") as f:
+                    f.write(data)
+                with open(path + ".sig.json", "wb") as f:
+                    f.write(signature)
+                url = f"file://{path}"
+                self.where[name] = "file"
+            elif i % 3 == 1:
+                self.https.files[f"/{name}.tpp.json"] = data
+                self.https.files[f"/{name}.tpp.json.sig.json"] = signature
+                url = f"https://{self.https.netloc}/{name}.tpp.json"
+                self.where[name] = "https"
+            else:
+                self.registry.publish(f"fetched/{name}", "v1", data)
+                self.registry.sign(f"fetched/{name}", data, signature)
+                url = f"registry://{self.registry.netloc}/fetched/{name}:v1"
+                self.where[name] = "registry"
+                registry_names.append(name)
+            spec = {k: v for k, v in specs[name].items() if k != "settings"}
+            spec["module"] = url
+            specs[name] = spec
+        self.specs = specs
+        # one repository behind basic auth, two blobs behind a 307
+        self.basic_repo = f"fetched/{registry_names[0]}"
+        self.registry.basic_auth[self.basic_repo] = "chip:smoke-secret"
+        self.registry.redirect_repos.update(
+            f"fetched/{n}" for n in registry_names[1:3]
+        )
+        # the reload wave's policy: tag v2 serves another policy's rules
+        self.moving = registry_names[-1]
+        donor = "pod-privileged" if self.moving != "pod-privileged" else next(
+            n for n in sorted(artifacts) if n != self.moving
+        )
+        v2 = json.loads(artifacts[donor])
+        v2["metadata"]["name"] = self.moving
+        v2 = json.dumps(v2, sort_keys=True).encode()
+        self.registry.publish(f"fetched/{self.moving}", "v2", v2)
+        self.registry.sign(f"fetched/{self.moving}", v2, sidecar(v2))
+        self.docker_config = fx.docker_config(
+            __import__("pathlib").Path(FETCH_DIR) / "docker-config.json",
+            self.registry.netloc, "chip:smoke-secret",
+        )
+        self.sources_path = os.path.join(FETCH_DIR, "sources.json")
+        self.sources_doc = {
+            "insecure_sources": [self.registry.netloc],
+            "source_authorities": {
+                "127.0.0.1": [{"type": "Data", "data": fx.pem_of(https_ca[1])}],
+            },
+        }
+        with open(self.sources_path, "w") as f:
+            json.dump(self.sources_doc, f)
+        self.verification_path = os.path.join(FETCH_DIR, "verification.json")
+        self.verification_doc = {"apiVersion": "v1", "allOf": [
+            {"kind": "pubKey", "owner": "chip-smoke", "key": pub},
+            {"kind": "genericIssuer", "issuer": KEYLESS_ISSUER,
+             "subject": {"equal": KEYLESS_SUBJECT}},
+        ]}
+        with open(self.verification_path, "w") as f:
+            json.dump(self.verification_doc, f)
+
+    def tagged(self, tag: str) -> dict:
+        specs = copy.deepcopy(self.specs)
+        url = specs[self.moving]["module"]
+        specs[self.moving]["module"] = url.rsplit(":", 1)[0] + f":{tag}"
+        return specs
+
+    def write_policies(self, name: str, specs: dict) -> str:
+        path = os.path.join(FETCH_DIR, name)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(specs, f)
+        os.replace(tmp, path)
+        return path
+
+    def args(self, policies_path: str, download: str) -> list:
+        return [
+            "--policies", policies_path, "--addr", "127.0.0.1", "--port", "0",
+            "--readiness-probe-port", "0", "--enable-metrics",
+            "--sources-path", self.sources_path,
+            "--verification-path", self.verification_path,
+            "--sigstore-cache-dir", self.sigstore,
+            "--docker-config-json-path", str(self.docker_config),
+            "--policies-download-dir", os.path.join(FETCH_DIR, download),
+        ]
+
+    def oracle(self, specs: dict, download: str, **kw):
+        """The host oracle over the same artifacts, fetched and verified
+        through a resolver of its own."""
+        from policy_server_tpu_torch.config import (
+            read_sources_file,
+            read_verification_file,
+        )
+        from policy_server_tpu_torch.evaluation.environment import (
+            EvaluationEnvironmentBuilder,
+        )
+        from policy_server_tpu_torch.fetch import FetchConfig, make_module_resolver
+        from policy_server_tpu_torch.models.policy import parse_policies
+
+        resolver = make_module_resolver(FetchConfig(
+            sources=read_sources_file(self.sources_path),
+            verification_config=read_verification_file(self.verification_path),
+            docker_config_json_path=str(self.docker_config),
+            policies_download_dir=os.path.join(FETCH_DIR, download),
+            sigstore_cache_dir=self.sigstore,
+        ))
+        env = EvaluationEnvironmentBuilder(
+            backend="oracle", module_resolver=resolver, **kw
+        ).build(parse_policies(specs))
+        return env, resolver
+
+    def stop(self) -> None:
+        self.https.stop()
+        self.registry.stop()
+
+
+class BootClock:
+    """Seconds a boot spends fetching and verifying artifacts (the
+    downloader's ``fetch_policy`` and the resolver's ``verify_artifact``
+    wrapped while it is armed); the rest of the boot is the build."""
+
+    def __init__(self) -> None:
+        self.fetch = self.verify = 0.0
+
+    def __enter__(self) -> "BootClock":
+        from policy_server_tpu_torch import fetch
+        from policy_server_tpu_torch.fetch.downloader import Downloader
+
+        self._fetch = Downloader.fetch_policy
+        self._verify = fetch.verify_artifact
+        clock = self
+
+        def fetch_policy(dl, url, dest):
+            t0 = time.perf_counter()
+            try:
+                return clock._fetch(dl, url, dest)
+            finally:
+                clock.fetch += time.perf_counter() - t0
+
+        def verify_artifact(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return clock._verify(*a, **kw)
+            finally:
+                clock.verify += time.perf_counter() - t0
+
+        Downloader.fetch_policy = fetch_policy
+        fetch.verify_artifact = verify_artifact
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from policy_server_tpu_torch import fetch
+        from policy_server_tpu_torch.fetch.downloader import Downloader
+
+        Downloader.fetch_policy = self._fetch
+        fetch.verify_artifact = self._verify
+
+
+def boot_server(argv: list, label: str) -> tuple:
+    """A server from the command line (``__main__.build_cli`` +
+    ``server_from_args``), started → (server, boot seconds split into
+    fetch, verify and the rest, and the build's launches: the counts set
+    to 0 just before it)."""
+    import torch
+
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    args = build_cli().parse_args(argv)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BootClock() as clock:
+        server = server_from_args(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    server.start()
+    status, text = http_get(server.readiness_port, "/readiness")
+    if status != 200:
+        server.stop()
+        fail(f"{label}: /readiness answered {status} {text!r}")
+    return server, {
+        "boot_s": total, "fetch_s": clock.fetch, "verify_s": clock.verify,
+        "build_s": total - clock.fetch - clock.verify, "launches": launches,
+    }
+
+
+def served_wave(server, wave: list, expectations: list, label: str,
+                kernel_only: bool, expect_launches: bool = True) -> dict:
+    """One wave from the ``--native-client`` process (raw sockets, either
+    frontend): every answer must equal one of ``expectations``. The launch
+    counts are set to 0 just before it and read just after; kernel-only,
+    every device batch must launch K1 (``check_kernel_batches``), or, with
+    ``expect_launches`` False (an all-overflow batch), none may."""
+    import torch
+
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.telemetry import flightrec
+
+    rec = flightrec.recorder()
+    cursor = rec.events_recorded() if rec is not None else 0
+    b0 = server.batcher.stats_snapshot()
+    fb0 = server.env.oracle_fallbacks
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = client_wave(server.port, wave, label.replace(" ", "-"))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    time.sleep(0.1)  # the last batch's bookkeeping lands after delivery
+    counts = ck.launch_counts()
+    b1 = server.batcher.stats_snapshot()
+    run = check_wave(label, results, wave, expectations)
+    run.update({
+        "serving_launches": counts["policy_matrix"],
+        "probe_launches": counts["probe"],
+        "batches": b1["batches_dispatched"] - b0["batches_dispatched"],
+        "rows": b1["requests_dispatched"] - b0["requests_dispatched"],
+        "host_batches": b1["host_fastpath_batches"] - b0["host_fastpath_batches"],
+        "oracle_fallbacks": server.env.oracle_fallbacks - fb0,
+        "kernel_batches": kernel_batches(rec, cursor) if rec else None,
+        "req_s": len(wave) / wall,
+    })
+    if kernel_only and expect_launches:
+        check_kernel_batches(run, label)
+    if not expect_launches and run["serving_launches"]:
+        fail(f"{label}: an all-overflow wave launched policy_matrix "
+             f"{run['serving_launches']} times")
+    return run
+
+
+def fetch_waves(rig: FetchRig, work_docs: list, card: str) -> dict:
+    """Wave F and wave R (see the module docstring)."""
+    import gc as _gc
+
+    import torch
+
+    from policy_server_tpu_torch import failpoints
+    from policy_server_tpu_torch.fetch.downloader import retry_stats
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    out: dict = {"where": {k: sum(1 for v in rig.where.values() if v == k)
+                           for k in ("file", "https", "registry")}}
+    v1 = rig.tagged("v1")
+    policies = rig.write_policies("policies.json", v1)
+    oracle, _resolver = rig.oracle(v1, "oracle-store")
+    out["k1_device_ms"] = {}
+    out["k1_err"] = hold_set_against_plain(
+        v1, [d for _pid, d in work_docs], card,
+        "phase13 fetched set", timings=out["k1_device_ms"],
+        module_resolver=_resolver,
+    )
+    print(f"phase13 fetched set: K1 device ms at B=128 narrow by bucket "
+          f"{json.dumps(out['k1_device_ms'])} [{card}]")
+    wave = wave_of(work_docs, FETCH_WAVE, "f13")
+    exp = [expected_answer(oracle, pid, body) for pid, body in wave]
+    out["F"] = {}
+    servers = {}
+    try:
+        # python first: a server's stop() uninstalls its flight recorder,
+        # and wave R reads the native server's
+        for frontend in ("python", "native"):
+            if "python" in servers:
+                servers.pop("python").stop()
+            argv = rig.args(policies, f"store-{frontend}") + KERNEL_ONLY_ARGS + [
+                "--frontend", frontend, "--reload-admin-token", RELOAD_TOKEN,
+            ]
+            server, boot = boot_server(argv, f"phase13 wave F {frontend}")
+            servers[frontend] = server
+            run = served_wave(server, wave, [exp],
+                              f"phase13 wave F {frontend}", kernel_only=True)
+            run["boot"] = boot
+            out["F"][frontend] = run
+            print(
+                f"phase13 wave F --frontend {frontend}: boot "
+                f"{boot['boot_s']:.3f} s (fetch {boot['fetch_s']:.3f}, verify "
+                f"{boot['verify_s']:.3f}, build {boot['build_s']:.3f}) of "
+                f"{len(rig.artifacts)} artifacts ({json.dumps(out['where'])}); "
+                f"{len(wave)} kernel-only reviews, every body the oracle's over "
+                f"the same artifacts; {run['req_s']:.1f} req/s p50 "
+                f"{run['p50']:.3f} p99 {run['p99']:.3f} ms; {run['batches']} "
+                f"batches, policy_matrix {run['serving_launches']} launches, per "
+                f"batch {json.dumps(run['kernel_batches'])} [{card}]"
+            )
+        reg = rig.registry
+        print(
+            f"phase13 registry: {reg.requests} requests, storage 307 hits "
+            f"{reg.storage_hits}, refusals of Authorization "
+            f"{reg.storage_refusals} [{card}]"
+        )
+        if reg.storage_refusals or not reg.storage_hits:
+            fail("phase13: a redirected blob carried Authorization, or none "
+                 "was redirected")
+
+        # wave R: the moving policy between tags v1 and v2, 20 reloads
+        server = servers["native"]
+        lc = server.lifecycle
+        rp = server.readiness_port
+        v2 = rig.tagged("v2")
+        oracle_v2, _r2 = rig.oracle(v2, "oracle-store-v2")
+        cycles = []
+        for c in range(RELOAD_TAG_CYCLES):
+            specs, orc, tag = (v2, oracle_v2, "v2") if c % 2 == 0 else (v1, oracle, "v1")
+            rig.write_policies("policies.json", specs)
+            reloads = lc.stats()["reloads"]
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            status, body = admin_post(rp, "/policies/reload")
+            if status != 202:
+                fail(f"phase13 wave R: POST /policies/reload answered {status} {body}")
+            wait_until(
+                lambda: lc.stats()["reloads"] > reloads and not lc.reload_in_flight(),
+                120, f"phase13 reload {c + 1}",
+            )
+            reload_s = time.perf_counter() - t0
+            # the policies-file watch may start one more reload of the same
+            # file; let it land before the wave
+            time.sleep(1.2)
+            wait_until(lambda: not lc.reload_in_flight(), 120, "the file watch's reload")
+            torch.cuda.synchronize()
+            built = ck.launch_counts()
+            # every fourth review to the moving policy
+            wave_r = [
+                (rig.moving if i % 4 == 0 else pid, body) for i, (pid, body)
+                in enumerate(wave_of(work_docs, RELOAD_TAG_WAVE, f"r13-{c}"))
+            ]
+            exp_r = [expected_answer(orc, pid, b) for pid, b in wave_r]
+            run = served_wave(server, wave_r, [exp_r],
+                              f"phase13 wave R cycle {c + 1}", kernel_only=True)
+            join_retirements()
+            _gc.collect()
+            torch.cuda.synchronize()
+            cycles.append({
+                "tag": tag, "reload_s": reload_s,
+                "reloads": lc.stats()["reloads"], "epoch": lc.current_epoch,
+                "memory_allocated": torch.cuda.memory_allocated(),
+                "max_memory_reserved": torch.cuda.max_memory_reserved(),
+                "launches": run["serving_launches"], "p99": run["p99"],
+                "reload_launches": built,
+            })
+            print(f"phase13 wave R cycle {c + 1}: {json.dumps(cycles[-1])} [{card}]")
+        differs = sum(
+            expected_answer(oracle, rig.moving, b)
+            != expected_answer(oracle_v2, rig.moving, b)
+            for _pid, b in wave_of(work_docs, RELOAD_TAG_WAVE, "r13-x")
+        )
+        if not differs:
+            fail("phase13 wave R: tags v1 and v2 answer every review alike")
+        out["R"] = {"cycles": cycles, "differs": differs}
+        grown = cycles[-1]["memory_allocated"] - cycles[1]["memory_allocated"]
+        if grown > RELOAD_MEMORY_SLACK:
+            fail(f"phase13 wave R: memory_allocated grew {grown} B over the cycles")
+    finally:
+        for server in servers.values():
+            server.stop()
+
+    # the negative runs: a tampered artifact, then fetch.http faults
+    tampered = copy.deepcopy(v1)
+    victim = next(n for n in sorted(rig.where) if rig.where[n] == "file")
+    src = tampered[victim]["module"][len("file://"):]
+    bad = os.path.join(FETCH_DIR, "files", f"tampered-{victim}.tpp.json")
+    with open(src, "rb") as f:
+        data = f.read()
+    with open(bad, "wb") as f:
+        f.write(data + b" ")
+    with open(src + ".sig.json", "rb") as f, open(bad + ".sig.json", "wb") as g:
+        g.write(f.read())
+    tampered[victim]["module"] = f"file://{bad}"
+    bad_policies = rig.write_policies("tampered.json", tampered)
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+
+    try:
+        server_from_args(build_cli().parse_args(
+            rig.args(bad_policies, "store-tampered")
+        ))
+        fail("phase13: the tampered artifact booted")
+    except Exception as e:  # noqa: BLE001 — the expected failure
+        text = f"{type(e).__name__}: {e}"
+    if not (text.startswith("VerificationError: artifact ")
+            and "failed verification" in text):
+        fail(f"phase13: the tampered artifact failed the boot with {text}")
+    out["tampered"] = text
+    server, _boot = boot_server(
+        rig.args(bad_policies, "store-tampered") + ["--continue-on-errors"],
+        "phase13 tampered --continue-on-errors",
+    )
+    try:
+        orc, _r = rig.oracle(tampered, "store-tampered", continue_on_errors=True)
+        wave_t = wave_of(work_docs, FETCH_NEGATIVE_WAVE, "t13")
+        run = served_wave(server, wave_t,
+                          [[expected_answer(orc, p, b) for p, b in wave_t]],
+                          "phase13 tampered --continue-on-errors", kernel_only=False)
+        errors = dict(server.env._init_errors)
+    finally:
+        server.stop()
+    if list(errors) != [victim]:
+        fail(f"phase13: init errors {errors}, not only {victim}")
+    print(
+        f"phase13 tampered artifact: the boot fails with {text[:160]}...; under "
+        f"--continue-on-errors {victim} answers its init error and the other "
+        f"{len(tampered) - 1} ids serve ({run['answered']} bodies equal the "
+        f"oracle's) [{card}]"
+    )
+    before = retry_stats()
+    failpoints.configure("fetch.http=raise:registry unreachable")
+    try:
+        try:
+            server_from_args(build_cli().parse_args(rig.args(policies, "store-fp")))
+            fail("phase13: the boot survived fetch.http faults")
+        except Exception as e:  # noqa: BLE001 — the expected failure
+            text = f"{type(e).__name__}: {e}"
+    finally:
+        failpoints.reset()
+    after = retry_stats()
+    counted = {k: after[k] - before[k] for k in after}
+    if counted != {"attempts": 3, "giveups": 1} or not (
+        text.startswith("FetchError: GET ") and text.endswith("registry unreachable")
+    ):
+        fail(f"phase13 fetch.http: {text}, retries {counted}")
+    out["failpoint"] = {"error": text, "retries": counted}
+    print(
+        f"phase13 fetch.http faults: {counted['attempts']} retries counted, "
+        f"{counted['giveups']} give-up, then {text} [{card}]"
+    )
+    return out
+
+
+def context_docs(work_docs: list, names: list, n: int, tag: str) -> list:
+    """``n`` (policy id, body) pairs: every other one to namespace-exists,
+    the rest to the flagship ids, each review moved into one of ``names``."""
+    out = []
+    for i in range(n):
+        pid, d = work_docs[i % len(work_docs)]
+        d = copy.deepcopy(d)
+        ns = names[(i * 7) % len(names)]
+        d["request"]["namespace"] = ns
+        obj = d["request"].get("object") or {}
+        if isinstance(obj.get("metadata"), dict):
+            obj["metadata"]["namespace"] = ns
+        d["request"]["uid"] = f"{d['request']['uid']}-{tag}-{i}"
+        out.append(("namespace-exists" if i % 2 == 0 else pid,
+                    json.dumps(d).encode()))
+    return out
+
+
+def context_oracle(specs: dict, objects: list):
+    from policy_server_tpu_torch.context import (
+        ContextSnapshotService,
+        StaticContextFetcher,
+    )
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import (
+        ContextAwareResource,
+        parse_policies,
+    )
+
+    service = ContextSnapshotService(
+        StaticContextFetcher({"v1/Namespace": list(objects)}),
+        wanted=[ContextAwareResource("v1", "Namespace")],
+    )
+    service.refresh()
+    return EvaluationEnvironmentBuilder(
+        backend="oracle", context_service=service
+    ).build(parse_policies(specs))
+
+
+def hold_context_rows(specs: dict, n_namespaces: int, work_docs: list,
+                      card: str) -> dict:
+    """K1 on rows that carry a ``__context__`` slice of ``n_namespaces``
+    namespaces against its plain version at B = 128 (namespace-exists
+    beside the flagship set, both buckets, narrow) → timings and error."""
+    import torch
+
+    import torch_fetch_fixtures as fx
+    from policy_server_tpu_torch.context import (
+        ContextSnapshotService,
+        StaticContextFetcher,
+    )
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.evaluation.policy_id import PolicyID
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+    from policy_server_tpu_torch.models import ValidateRequest
+    from policy_server_tpu_torch.models.policy import (
+        ContextAwareResource,
+        parse_policies,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    names = [f"ns-{i}" for i in range(n_namespaces)]
+    service = ContextSnapshotService(
+        StaticContextFetcher({"v1/Namespace": [fx.namespace(n) for n in names]}),
+        wanted=[ContextAwareResource("v1", "Namespace")],
+    )
+    service.refresh()
+    env = EvaluationEnvironmentBuilder(
+        device="cuda", context_service=service
+    ).build(parse_policies(specs))
+    target = env._lookup_top_level(PolicyID.parse("namespace-exists"))
+    out = {"namespaces": n_namespaces, "err": 0, "rows": {}}
+    for idx, schema in enumerate(env.schemas):
+        encs, ghosts = [], 0
+        for i, (_pid, d) in enumerate(work_docs):
+            d = widen(d) if idx == 1 else copy.deepcopy(d)
+            d["request"]["namespace"] = names[i % n_namespaces] if i % 4 else "ghost"
+            req = ValidateRequest.from_admission(
+                AdmissionReviewRequest.from_dict(d).request
+            )
+            got_idx, enc = env.encode_bucketed(env.payload_for(target, req))
+            if got_idx == idx:
+                encs.append(enc)
+                ghosts += i % 4 == 0
+            if len(encs) == 128:
+                break
+        if len(encs) < 128:
+            fail(f"phase13 context rows: {len(encs)} rows in bucket {idx}")
+        wide = schema.pack(schema.stack(encs, batch_size=128))
+        buf = schema.to_transport(wide, vocab_size=len(env.table))["__packed__"]
+        program = env.program_for(idx, True, True)
+        dev = torch.from_numpy(buf).to("cuda")
+        want_a, want_r = ck.policy_matrix_plain(dev, program)
+        got_a, got_r = ck.policy_matrix(dev, program)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_a, want_a) and torch.equal(got_r, want_r)):
+            fail(f"phase13: policy_matrix disagrees with its plain version on "
+                 f"context rows ({n_namespaces} namespaces, bucket {idx})")
+        col = program.column_of.get("namespace-exists")
+        rejected = int((~want_a[:, col]).sum()) if col is not None else -1
+        ms = time_cuda(lambda: ck.policy_matrix(dev, program), 20)
+        out["rows"][idx] = {
+            "width": int(buf.shape[1]), "ms": ms,
+            "device_ms": graph_ms(lambda: ck.policy_matrix(dev, program)),
+            "plain_ms": time_cuda(
+                lambda: ck.policy_matrix_plain(dev, program), 2, warmup=1
+            ),
+            "namespace_exists_rejected": rejected,
+        }
+        if rejected != ghosts:
+            fail(f"phase13 context rows: namespace-exists rejected {rejected} "
+                 f"of 128 rows, not the {ghosts} sent outside the cluster")
+    env.close()
+    print(
+        f"phase13 context rows ({n_namespaces} namespaces in __context__): "
+        f"policy_matrix exact against its plain version at B=128: "
+        f"{json.dumps(out['rows'])} [{card}]"
+    )
+    return out
+
+
+def context_waves(work_docs: list, card: str) -> dict:
+    """Wave C (see the module docstring)."""
+    import pathlib
+
+    import torch_fetch_fixtures as fx
+    from policy_server_tpu_torch.context import service as ctx_service
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    specs = flagship_policy_specs()
+    specs["namespace-exists"] = {
+        "module": "builtin://namespace-exists", "contextAwareResources": NS_AWARE,
+    }
+    work_dir = pathlib.Path(FETCH_DIR) / "context"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    with open(work_dir / "policies.json", "w") as f:
+        json.dump(specs, f)
+    out: dict = {"holds": [hold_context_rows(specs, n, work_docs, card)
+                           for n in CONTEXT_HOLD_NAMESPACES]}
+    names = [f"team-{i:03d}" for i in range(CONTEXT_NAMES)]
+    path = fx.list_path("v1", "Namespace")
+    saved = (ctx_service.SERVICE_ACCOUNT_DIR, ctx_service.KUBE_API_SERVER)
+    api = fx.KubeApi(work_dir / "kube")
+    servers = []
+    try:
+        api.register(path, [fx.namespace(n) for n in names[:CONTEXT_NAMESPACES]])
+        ctx_service.SERVICE_ACCOUNT_DIR = api.write_service_account(work_dir / "sa")
+        ctx_service.KUBE_API_SERVER = api.url
+        base = ["--policies", str(work_dir / "policies.json"), "--addr",
+                "127.0.0.1", "--port", "0", "--readiness-probe-port", "0",
+                "--enable-metrics", "--frontend", "native"]
+        default, _b = boot_server(base, "phase13 wave C default flags")
+        servers.append(default)
+        kernel, _b = boot_server(base + KERNEL_ONLY_ARGS, "phase13 wave C kernel-only")
+        servers.append(kernel)
+        live = [fx.namespace(n) for n in names[:CONTEXT_NAMESPACES]]
+        oracle = context_oracle(specs, live)
+        wave1 = context_docs(work_docs, names, CONTEXT_WAVE, "c1")
+        exp1 = [expected_answer(oracle, p, b) for p, b in wave1]
+        out["C1"] = {
+            "default": served_wave(default, wave1, [exp1], "phase13 wave C1 default",
+                                   kernel_only=False),
+            "kernel": served_wave(kernel, wave1, [exp1], "phase13 wave C1 kernel-only",
+                                  kernel_only=True),
+        }
+        # 20 DELETED, 20 ADDED; the time from an event's send to the first
+        # answer that reflects it
+        for n in names[:CONTEXT_EVENTS]:
+            api.delete(path, fx.namespace(n))
+        added = names[CONTEXT_NAMESPACES:CONTEXT_NAMESPACES + CONTEXT_EVENTS]
+        rvs = [api.add(path, fx.namespace(n)) for n in added]
+        probe_doc = copy.deepcopy(work_docs[0][1])
+        probe_doc["request"]["namespace"] = added[-1]
+        lags = {}
+        for label, server in (("default", default), ("kernel", kernel)):
+            t_sent = api.sent_at[rvs[-1]]
+            while True:
+                conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+                try:
+                    conn.request("POST", "/validate/namespace-exists",
+                                 body=json.dumps(probe_doc).encode(),
+                                 headers={"Content-Type": "application/json"})
+                    answer = json.loads(conn.getresponse().read())
+                finally:
+                    conn.close()
+                if answer["response"]["allowed"]:
+                    break
+                if time.monotonic() - t_sent > 60:
+                    fail(f"phase13: {label} never answered the added namespace")
+                time.sleep(0.005)
+            lags[label] = time.monotonic() - t_sent
+        want = sorted(names[CONTEXT_EVENTS:CONTEXT_NAMESPACES + CONTEXT_EVENTS])
+        for server in servers:
+            wait_until(lambda: sorted(
+                o["metadata"]["name"]
+                for o in server.context_service.snapshot().resources["v1/Namespace"]
+            ) == want, 60, "the snapshot after the events")
+        live = [fx.namespace(n) for n in want]
+        oracle2 = context_oracle(specs, live)
+        wave2 = context_docs(work_docs, names, CONTEXT_WAVE, "c2")
+        exp2 = [expected_answer(oracle2, p, b) for p, b in wave2]
+        if exp2 == [expected_answer(oracle, p, b) for p, b in wave2]:
+            fail("phase13: the events change no answer of wave C2")
+        out["C2"] = {
+            "default": served_wave(default, wave2, [exp2], "phase13 wave C2 default",
+                                   kernel_only=False),
+            "kernel": served_wave(kernel, wave2, [exp2], "phase13 wave C2 kernel-only",
+                                  kernel_only=True),
+        }
+        out["event_to_answer_s"] = lags
+        for s in servers:
+            s.stop()
+        servers.clear()
+        api.stop()
+
+        # 257 namespaces: every context row overflows to the host
+        api = fx.KubeApi(work_dir / "kube-257")
+        over = [f"wide-{i:03d}" for i in range(CONTEXT_OVERFLOW)]
+        api.register(path, [fx.namespace(n) for n in over])
+        ctx_service.SERVICE_ACCOUNT_DIR = api.write_service_account(work_dir / "sa-257")
+        ctx_service.KUBE_API_SERVER = api.url
+        server, _b = boot_server(base + KERNEL_ONLY_ARGS, "phase13 wave C 257")
+        servers.append(server)
+        oracle3 = context_oracle(specs, [fx.namespace(n) for n in over])
+        wave3 = [
+            ("namespace-exists", b)
+            for _p, b in context_docs(work_docs, over + ["ghost"],
+                                      2 * CONTEXT_OVERFLOW_WAVE, "c3")[::2]
+        ]
+        exp3 = [expected_answer(oracle3, p, b) for p, b in wave3]
+        run = served_wave(server, wave3, [exp3], "phase13 wave C 257 namespaces",
+                          kernel_only=True, expect_launches=False)
+        if run["oracle_fallbacks"] != len(wave3):
+            fail(f"phase13: {run['oracle_fallbacks']} of {len(wave3)} rows "
+                 "overflowed at 257 namespaces")
+        out["C257"] = run
+    finally:
+        for s in servers:
+            s.stop()
+        api.stop()
+        ctx_service.SERVICE_ACCOUNT_DIR, ctx_service.KUBE_API_SERVER = saved
+    for name in ("C1", "C2"):
+        for label in ("default", "kernel"):
+            r = out[name][label]
+            print(
+                f"phase13 wave {name} {label}: {r['answered']} reviews over "
+                f"{CONTEXT_NAMES} namespace names, every body the oracle's with "
+                f"the same snapshot; {r['req_s']:.1f} req/s p50 {r['p50']:.3f} "
+                f"p99 {r['p99']:.3f} ms; {r['batches']} batches "
+                f"({r['host_batches']} host-routed), policy_matrix "
+                f"{r['serving_launches']} launches [{card}]"
+            )
+    print(
+        f"phase13 wave C events: {CONTEXT_EVENTS} DELETED + {CONTEXT_EVENTS} "
+        f"ADDED; seconds from the last event's send to the first answer that "
+        f"reflects it: {json.dumps(lags)} [{card}]"
+    )
+    r = out["C257"]
+    print(
+        f"phase13 wave C {CONTEXT_OVERFLOW} namespaces: {r['answered']} "
+        f"namespace-exists reviews, all {r['oracle_fallbacks']} rows to the "
+        f"host oracle, {r['batches']} batches, policy_matrix "
+        f"{r['serving_launches']} launches, every body the oracle's [{card}]"
+    )
+    return out
+
+
+def watch_wave(work_docs: list, card: str) -> dict:
+    """Wave W (see the module docstring)."""
+    import pathlib
+
+    import torch
+
+    import torch_fetch_fixtures as fx
+    from policy_server_tpu_torch.audit import resource_key, synthesize_review
+    from policy_server_tpu_torch.context import service as ctx_service
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    work_dir = pathlib.Path(FETCH_DIR) / "watch"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    specs = flagship_policy_specs()
+    with open(work_dir / "policies.json", "w") as f:
+        json.dump(specs, f)
+    objects = audit_inventory(WATCH_OBJECTS, seed=13)
+    for obj in objects:
+        obj["metadata"]["uid"] = f"uid-{obj['metadata']['name']}"
+    path = fx.list_path("v1", "Pod")
+    api = fx.KubeApi(work_dir / "kube")
+    api.register(path, copy.deepcopy(objects))
+    saved = (ctx_service.SERVICE_ACCOUNT_DIR, ctx_service.KUBE_API_SERVER)
+    ctx_service.SERVICE_ACCOUNT_DIR = api.write_service_account(work_dir / "sa")
+    ctx_service.KUBE_API_SERVER = api.url
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(parse_policies(specs))
+    policy_ids = sorted(specs)
+    out: dict = {}
+    server = None
+    try:
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        server, boot = boot_server([
+            "--policies", str(work_dir / "policies.json"), "--addr", "127.0.0.1",
+            "--port", "0", "--readiness-probe-port", "0", "--enable-metrics",
+            "--frontend", "native", "--audit-mode", "interval",
+            "--audit-interval-seconds", "1", "--audit-watch",
+            "--audit-watch-resources", "v1/Pod", "--context-refresh-seconds", "5",
+        ], "phase13 wave W")
+        scanner, feed = server.state.audit, server.state.audit_watch
+        rp = server.readiness_port
+        wait_until(lambda: len(scanner.snapshot) == WATCH_OBJECTS, 120,
+                   "the watch feed's LIST")
+        wait_until(lambda: scanner.stats()["full_sweeps"] >= 1, 600, "the boot sweep")
+        settle(scanner, "the boot sweep")
+        out["boot_sweep_s"] = time.perf_counter() - t0
+        b0 = server.batcher.stats_snapshot()
+        launches0 = ck.launch_counts()["policy_matrix"]
+        rng = random.Random(13)
+        alive = {o["metadata"]["name"]: o for o in objects}
+        fresh = iter(audit_inventory(WATCH_OBJECTS + WATCH_EVENTS, seed=29)[WATCH_OBJECTS:])
+        sent: list = []  # (etype, key, rv)
+
+        def one_event() -> None:
+            kind = rng.choice(("ADDED", "MODIFIED", "DELETED"))
+            if kind == "ADDED" or not alive:
+                obj = next(fresh)
+                obj["metadata"]["name"] += "-w13"
+                obj["metadata"]["uid"] = f"uid-{obj['metadata']['name']}"
+                rv = api.add(path, obj)
+                alive[obj["metadata"]["name"]] = obj
+                kind = "ADDED"
+            elif kind == "MODIFIED":
+                name = rng.choice(sorted(alive))
+                obj = copy.deepcopy(alive[name])
+                obj["metadata"].setdefault("labels", {})["w13"] = str(rng.random())
+                rv = api.modify(path, obj)
+                alive[name] = obj
+            else:
+                name = rng.choice(sorted(alive))
+                obj = alive.pop(name)
+                rv = api.delete(path, obj)
+            sent.append((kind, resource_key(synthesize_review(obj, "UPDATE")), rv))
+
+        rows = scanner.reports._rows  # (resource, policy) → row
+        lags: list = []
+
+        def event_lags(events: list) -> None:
+            """Seconds from each object's last event's send to its report
+            row's stamp (deleted objects have no row)."""
+            last = {key: (kind, rv) for kind, key, rv in events}
+            for key, (kind, rv) in last.items():
+                if kind == "DELETED":
+                    continue
+                row = rows.get((key, policy_ids[0]))
+                if row is None:
+                    fail(f"phase13 wave W: no report row for {key}")
+                lags.append(row["scanned_at"] - api.sent_wall[rv])
+
+        # each half is measured once its dirty sweeps have settled, so no
+        # later sweep re-stamps its rows; the 410 between them re-LISTs
+        # the kind, and the re-LIST records (so dirties) every object
+        half = WATCH_EVENTS // 2
+        for _ in range(half):
+            one_event()
+        wait_until(lambda: feed.stats()["events_applied"] >= half, 120,
+                   "the first half of the events")
+        settle(scanner, "the first half's dirty sweeps")
+        event_lags(sent)
+        api.expire(path)
+        t_resync = time.perf_counter()
+        # the boot LIST was the first replace; the resync's is the second
+        wait_until(lambda: feed.stats()["resyncs"] >= 1
+                   and feed.stats()["replaces"] >= 2
+                   and feed.stats()["queue_depth"] == 0, 120, "the 410 resync")
+        settle(scanner, "the resync's sweep")
+        out["resync_sweep_s"] = time.perf_counter() - t_resync
+        resync_at = len(sent)
+        for _ in range(WATCH_EVENTS - half):
+            one_event()
+        wait_until(lambda: feed.stats()["events_applied"] >= WATCH_EVENTS, 120,
+                   "the second half of the events")
+        wait_until(lambda: len(scanner.snapshot) == len(alive), 60,
+                   "the snapshot to match the cluster")
+        settle(scanner, "the events' dirty sweeps")
+        event_lags(sent[resync_at:])
+        stats = feed.stats()
+        if (stats["events_applied"], stats["events_dropped"], stats["resyncs"]) != (
+            WATCH_EVENTS, 0, 1
+        ):
+            fail(f"phase13 wave W: the feed counted {stats}")
+        families = {
+            name: metric_value(rp, f"policy_server_audit_{name}_total")
+            for name in ("watch_events_applied", "watch_events_dropped",
+                         "watch_resyncs")
+        }
+        if families != {"watch_events_applied": float(WATCH_EVENTS),
+                         "watch_events_dropped": 0.0, "watch_resyncs": 1.0}:
+            fail(f"phase13 wave W: /metrics watch families read {families}")
+        summary = check_reports("wave W", rp, scanner, oracle, policy_ids,
+                                {}, 0, card, phase="phase13")
+        lags.sort()
+        b1 = server.batcher.stats_snapshot()
+        out.update({
+            "boot": boot, "feed": stats, "families": families, "summary": summary,
+            "event_to_report_p50_s": lags[len(lags) // 2],
+            "event_to_report_p99_s": lags[min(len(lags) - 1, int(0.99 * len(lags)))],
+            "audit_batches": b1["audit_batches_dispatched"] - b0["audit_batches_dispatched"],
+            "audit_launches": ck.launch_counts()["policy_matrix"] - launches0,
+        })
+        # rows the verdict cache answers launch nothing (the resync's
+        # re-judge of unchanged objects), so a batch may launch no K1
+        if out["audit_batches"] < 1 or out["audit_launches"] < 1:
+            fail(f"phase13 wave W: {out['audit_batches']} audit batches, "
+                 f"{out['audit_launches']} policy_matrix launches")
+    finally:
+        if server is not None:
+            server.stop()
+        api.stop()
+        ctx_service.SERVICE_ACCOUNT_DIR, ctx_service.KUBE_API_SERVER = saved
+    torch.cuda.synchronize()
+    out["launches"] = ck.launch_counts()
+    print(
+        f"phase13 wave W: {WATCH_OBJECTS} pods listed, boot sweep "
+        f"{out['boot_sweep_s']:.1f} s; {WATCH_EVENTS} ADDED/MODIFIED/DELETED "
+        f"events with one 410 (feed {json.dumps(out['feed'])}, /metrics "
+        f"{json.dumps(out['families'])}; the 410's re-LIST re-judged the "
+        f"inventory in {out['resync_sweep_s']:.1f} s); every report row the "
+        f"oracle's; "
+        f"event to report row p50 {out['event_to_report_p50_s']:.3f} s p99 "
+        f"{out['event_to_report_p99_s']:.3f} s over {len(lags)} objects; audit "
+        f"lane {out['audit_batches']} batches, policy_matrix "
+        f"{out['audit_launches']} launches for the events [{card}]"
+    )
+    return out
+
+
+def acquisition_phase(work_docs: list, card: str) -> dict:
+    """Phase 13 (see the module docstring) → its numbers for the kernels
+    line."""
+    rig = FetchRig()
+    try:
+        out = {"fetch": fetch_waves(rig, work_docs, card)}
+    finally:
+        rig.stop()
+    out["context"] = context_waves(work_docs, card)
+    out["watch"] = watch_wave(work_docs, card)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5288,6 +6352,11 @@ def main() -> int:
     print_wasm_phase(r12, card)
     print(f"phase12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 13: policy acquisition, context and the audit watch feed -----
+    t_phase = time.perf_counter()
+    r13 = acquisition_phase(work_docs, card)
+    print(f"phase13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -5349,6 +6418,23 @@ def main() -> int:
                     for run in (r12["default"], r12["kernel"], r12["replay"])
                     for w in run["waves"]
                 },
+                **{
+                    f"phase13 wave F fetched set, --frontend {fe}, kernel-only":
+                        run["serving_launches"]
+                    for fe, run in r13["fetch"]["F"].items()
+                },
+                "phase13 wave R, 20 tag reloads, kernel-only waves": sum(
+                    c["launches"] for c in r13["fetch"]["R"]["cycles"]
+                ),
+                **{
+                    f"phase13 wave {w} context, {label}":
+                        r13["context"][w][label]["serving_launches"]
+                    for w in ("C1", "C2") for label in ("default", "kernel")
+                },
+                "phase13 wave C, 257 namespaces (all rows to the host)":
+                    r13["context"]["C257"]["serving_launches"],
+                "phase13 wave W audit lane, the watch events":
+                    r13["watch"]["audit_launches"],
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -5362,9 +6448,17 @@ def main() -> int:
                 for c in r8["candidates"]
             ],
             "max_abs_err": max(
-                k1_err, r8["k1_err"], r9["k1_err"], r10["k1_err"], r12["cel"]["err"]
+                k1_err, r8["k1_err"], r9["k1_err"], r10["k1_err"],
+                r12["cel"]["err"], r13["fetch"]["k1_err"],
+                *(h["err"] for h in r13["context"]["holds"]),
             ),
             "max_abs_err_by_program": {
+                "phase13 fetched flagship artifacts": r13["fetch"]["k1_err"],
+                **{
+                    f"phase13 context rows, {h['namespaces']} namespaces":
+                        h["err"]
+                    for h in r13["context"]["holds"]
+                },
                 "phase12 lowered CEL programs, B in "
                 f"{CEL_BATCHES}, both buckets and forms": r12["cel"]["err"],
                 "phase2 flagship set": k1_err,
@@ -5408,6 +6502,18 @@ def main() -> int:
                     r11["launches"]["probe"],
                 "phase12 wasm set servers, the deadline server and the "
                 "CEL hold (one build each)": r12["probe"],
+                **{
+                    f"phase13 wave F --frontend {fe} (the boot's build)":
+                        run["boot"]["launches"]["probe"]
+                    for fe, run in r13["fetch"]["F"].items()
+                },
+                "phase13 wave R (20 reloads: each candidate's build and the "
+                "file watch's)": sum(
+                    c["reload_launches"]["probe"]
+                    for c in r13["fetch"]["R"]["cycles"]
+                ),
+                "phase13 wave W (server build and the audit run)":
+                    r13["watch"]["launches"]["probe"],
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,

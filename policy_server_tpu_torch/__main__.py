@@ -12,12 +12,22 @@ the policies file is watched and a changed digest, SIGHUP or ``POST
 /policies/reload`` reloads it (``--policy-reload-mode``); ``--tenants``
 serves named tenants beside the default one and ``--serving-shards`` serves
 each from several stacks; ``--audit-mode interval|on-promote`` runs the
-background audit scanner (``--audit-matrix`` its verdict matrix; the live
-watch feed, ``--audit-watch``, waits for ROADMAP A10, and
-``--audit-matrix-spill-seconds`` is read only by the spill, which waits for
-A11). The flags, their
-defaults, choices, validation and ``KUBEWARDEN_*`` environment variables
-are the JAX package's (``config/cli.py``, ``config/config.py``).
+background audit scanner (``--audit-matrix`` its verdict matrix,
+``--audit-watch`` the live list+watch feed; ``--audit-matrix-spill-seconds``
+is read only by the spill, which waits for A11). Modules that are not
+builtins are fetched (``--policies-download-dir``, ``--sources-path``,
+``--docker-config-json-path``) and verified (``--verification-path``,
+``--sigstore-cache-dir``); the sources and verification files are JSON, or
+YAML where PyYAML is installed. Context-aware policies read the cluster
+through the in-cluster Kubernetes API (``--context-*``,
+``--kube-insecure-skip-tls-verify``,
+``--ignore-kubernetes-connection-failure``). ``--evaluation-backend jax``
+(the default) is this package's device backend — the CUDA kernels on the
+card, or their plain PyTorch versions under ``--device cpu``; ``oracle`` is
+the host interpreter. ``docs --output FILE`` writes the markdown CLI
+reference, and ``--daemon`` detaches. The flags, their defaults, choices,
+validation and ``KUBEWARDEN_*`` environment variables are the JAX
+package's (``config/cli.py``, ``config/config.py``).
 """
 
 from __future__ import annotations
@@ -25,11 +35,14 @@ from __future__ import annotations
 import argparse
 import os
 import signal
+import subprocess
 import sys
 import threading
 from typing import Any
 
 from policy_server_tpu_torch import __version__
+from policy_server_tpu_torch.audit import parse_watch_resources
+from policy_server_tpu_torch.config import read_sources_file, read_verification_file
 from policy_server_tpu_torch.runtime.batcher import (
     DEFAULT_BATCH_TIMEOUT_MS,
     DEFAULT_HOST_FASTPATH_THRESHOLD,
@@ -40,6 +53,9 @@ from policy_server_tpu_torch.runtime.batcher import (
 )
 from policy_server_tpu_torch.certs import TlsConfig
 from policy_server_tpu_torch.server import (
+    DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
+    DEFAULT_AUDIT_WATCH_RESOURCES,
+    DEFAULT_CONTEXT_REFRESH_SECONDS,
     DEFAULT_NATIVE_IDLE_TIMEOUT_SECONDS,
     DEFAULT_NATIVE_READ_TIMEOUT_SECONDS,
     DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS,
@@ -100,6 +116,24 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
          dict(default="policies.yml", metavar="POLICIES_FILE",
               help="YAML (or JSON) file holding the policies to be loaded "
                    "and their settings")),
+        ("--policies-download-dir", "KUBEWARDEN_POLICIES_DOWNLOAD_DIR",
+         dict(default=".", metavar="POLICIES_DOWNLOAD_DIR",
+              help="Download path for the policies")),
+        ("--sources-path", "KUBEWARDEN_SOURCES_PATH",
+         dict(default=None, metavar="SOURCES_PATH",
+              help="YAML file holding source information (registries, HTTP, "
+                   "insecure sources, authorities)")),
+        ("--verification-path", "KUBEWARDEN_VERIFICATION_CONFIG_PATH",
+         dict(default=None, metavar="VERIFICATION_CONFIG_PATH",
+              help="YAML file holding verification config information "
+                   "(signatures, requirements)")),
+        ("--sigstore-cache-dir", "KUBEWARDEN_SIGSTORE_CACHE_DIR",
+         dict(default="sigstore-data", metavar="SIGSTORE_CACHE_DIR",
+              help="Directory used to cache sigstore data")),
+        ("--docker-config-json-path", "KUBEWARDEN_DOCKER_CONFIG_JSON_PATH",
+         dict(default=None, metavar="DOCKER_CONFIG",
+              help="Path to a Docker config.json-like file holding registry "
+                   "authentication details")),
         ("--workers", "KUBEWARDEN_WORKERS",
          dict(type=int, default=None, metavar="WORKERS_NUMBER",
               help="Number of concurrent evaluation slots (default: number "
@@ -121,6 +155,17 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "propagation and load shedding")),
         ("--disable-timeout-protection", "KUBEWARDEN_DISABLE_TIMEOUT_PROTECTION",
          dict(action="store_true", help="Disable policy timeout protection")),
+        ("--ignore-kubernetes-connection-failure",
+         "KUBEWARDEN_IGNORE_KUBERNETES_CONNECTION_FAILURE",
+         dict(action="store_true",
+              help="Do not exit with an error if the Kubernetes connection fails; "
+                   "context-aware policies will break")),
+        ("--kube-insecure-skip-tls-verify",
+         "KUBEWARDEN_KUBE_INSECURE_SKIP_TLS_VERIFY",
+         dict(action="store_true",
+              help="Skip TLS verification of the Kubernetes API server "
+                   "(explicit opt-in; without it, a missing cluster CA falls "
+                   "back to the system trust store)")),
         ("--always-accept-admission-reviews-on-namespace",
          "KUBEWARDEN_ALWAYS_ACCEPT_ADMISSION_REVIEWS_ON_NAMESPACE",
          dict(default=None, metavar="NAMESPACE",
@@ -145,6 +190,25 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "lines and exports no span)")),
         ("--log-no-color", "KUBEWARDEN_LOG_NO_COLOR",
          dict(action="store_true", help="Disable colored output for logs")),
+        ("--daemon", "KUBEWARDEN_DAEMON",
+         dict(action="store_true",
+              help="If set, runs policy-server in detached mode as a daemon")),
+        ("--daemon-pid-file", "KUBEWARDEN_DAEMON_PID_FILE",
+         dict(default="policy-server.pid", metavar="DAEMON-PID-FILE",
+              help="Path to the PID file, used only when running in daemon mode")),
+        ("--daemon-stdout-file", "KUBEWARDEN_DAEMON_STDOUT_FILE",
+         dict(default=None, metavar="DAEMON-STDOUT-FILE",
+              help="Path to the file holding stdout, used only in daemon mode")),
+        ("--daemon-stderr-file", "KUBEWARDEN_DAEMON_STDERR_FILE",
+         dict(default=None, metavar="DAEMON-STDERR-FILE",
+              help="Path to the file holding stderr, used only in daemon mode")),
+        ("--evaluation-backend", "KUBEWARDEN_EVALUATION_BACKEND",
+         dict(default="jax", metavar="BACKEND", choices=["jax", "oracle"],
+              help="Evaluation backend: 'jax' (batched predicate programs on "
+                   "the device; in this package the CUDA kernels on the "
+                   "card, or their plain PyTorch versions under --device "
+                   "cpu) or 'oracle' (host interpreter, the "
+                   "differential-test oracle)")),
         ("--max-batch-size", "KUBEWARDEN_MAX_BATCH_SIZE",
          dict(type=int, default=DEFAULT_MAX_BATCH_SIZE, metavar="N",
               help="Maximum micro-batch size dispatched to the device")),
@@ -163,6 +227,20 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "measured device round trip would exceed the oldest "
                    "request's remaining budget is answered by the host "
                    "oracle (0 disables)")),
+        ("--predicate-opt", "KUBEWARDEN_PREDICATE_OPT",
+         dict(default="on", metavar="MODE", choices=["on", "off"],
+              help="Predicate-program optimizer (round 15): before "
+                   "lowering, run cross-policy common-subexpression "
+                   "elimination (identical field-gather + comparison "
+                   "subtrees compute once via a shared let-binding "
+                   "table), constant folding (whole policies folding to "
+                   "a constant verdict drop out of the device program), "
+                   "and dead-field pruning (fields no surviving "
+                   "predicate reads lose their gather columns; validity "
+                   "masks provably redundant at the zero-fill lose "
+                   "their mask lanes). Purely structural — bit-exact vs "
+                   "the unoptimized program and the host oracle. 'off' "
+                   "restores the naive per-policy lowering")),
         ("--breaker-failure-threshold", "KUBEWARDEN_BREAKER_FAILURE_THRESHOLD",
          dict(type=int, default=5, metavar="N",
               help="Device faults or watchdog trips within the window that "
@@ -409,16 +487,15 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "queue overflows force a counted full re-LIST "
                    "resync. Requires --audit-mode interval|on-promote")),
         ("--audit-watch-resources", "KUBEWARDEN_AUDIT_WATCH_RESOURCES",
-         dict(default="v1/Pod,v1/Namespace,apps/v1/Deployment,"
-                      "apps/v1/ReplicaSet,apps/v1/StatefulSet,"
-                      "apps/v1/DaemonSet",
+         dict(default=DEFAULT_AUDIT_WATCH_RESOURCES,
               metavar="KINDS",
               help="Comma-separated apiVersion/Kind list the audit "
                    "watch feed follows (e.g. 'v1/Pod,apps/v1/"
                    "Deployment')")),
         ("--audit-watch-max-queue-events",
          "KUBEWARDEN_AUDIT_WATCH_MAX_QUEUE_EVENTS",
-         dict(type=int, default=65536, metavar="N",
+         dict(type=int, default=DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
+              metavar="N",
               help="Bound of the watch-event queue between the per-kind "
                    "watcher threads and the snapshot applier; an "
                    "overflow drops the event (counted loudly) and "
@@ -461,6 +538,17 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "verdict diff on the reload status — canarying over "
                    "the whole cluster, not just the request ring. "
                    "Requires --audit-matrix")),
+        ("--context-refresh-seconds", "KUBEWARDEN_CONTEXT_REFRESH_SECONDS",
+         dict(type=float, default=DEFAULT_CONTEXT_REFRESH_SECONDS,
+              metavar="SECONDS",
+              help="Context-aware snapshot freshness: the re-LIST period in "
+                   "poll mode; in watch mode (snapshots are event-fresh) "
+                   "the error-backoff cap, with a full re-LIST resync every "
+                   "10x this value (staleness contract: context/service.py)")),
+        ("--context-no-watch", "KUBEWARDEN_CONTEXT_NO_WATCH",
+         dict(action="store_true",
+              help="Disable the Kubernetes watch stream for context-aware "
+                   "snapshots and poll with periodic LISTs instead")),
         ("--no-warmup", "KUBEWARDEN_NO_WARMUP",
          dict(action="store_true",
               help="Skip the warmup of every batch bucket at boot and for "
@@ -514,7 +602,59 @@ def build_cli() -> argparse.ArgumentParser:
             if kwargs.get("help") is not argparse.SUPPRESS:
                 kwargs["help"] += f" [env: {env}]"
         parser.add_argument(flag, **kwargs)
+    sub = parser.add_subparsers(dest="subcommand")
+    docs = sub.add_parser(
+        "docs", help="Generates the markdown documentation for the CLI"
+    )
+    docs.add_argument(
+        "--output", "-o", required=True, metavar="FILE",
+        help="path where to save the docs file",
+    )
     return parser
+
+
+def generate_docs() -> str:
+    """The markdown CLI reference of the ``docs`` subcommand, in the JAX
+    package's format (reference cli-docs.md, main.rs:68)."""
+    lines = [
+        f"# Command-Line Help for `{PROG}`",
+        "",
+        f"This document contains the help content for the `{PROG}` "
+        "command-line program.",
+        "",
+        f"## `{PROG}`",
+        "",
+        f"**Usage:** `{PROG} [OPTIONS] [COMMAND]`",
+        "",
+        "###### **Subcommands:**",
+        "",
+        "* `docs` — Generates the markdown documentation for the CLI",
+        "",
+        "###### **Options:**",
+        "",
+    ]
+    for flag, env, kwargs in _flag_specs():
+        help_text = kwargs.get("help")
+        if help_text is argparse.SUPPRESS:
+            continue
+        metavar = kwargs.get("metavar")
+        action = kwargs.get("action")
+        head = flag if action in ("store_true",) else f"{flag} <{metavar}>"
+        lines.append(f"* `{head}` — {help_text}")
+        if env:
+            lines.append(f"  [env: `{env}`]")
+        default = kwargs.get("default")
+        if default not in (None, False, []):
+            lines.append("")
+            lines.append(f"  Default value: `{default}`")
+        choices = kwargs.get("choices")
+        if choices:
+            lines.append("")
+            lines.append(
+                "  Possible values: " + ", ".join(f"`{c}`" for c in choices)
+            )
+        lines.append("")
+    return "\n".join(lines)
 
 
 def validate_args(args: argparse.Namespace) -> None:
@@ -570,16 +710,19 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--audit-batch-size must be >= 1")
     if parse_size(args.audit_max_snapshot_bytes) < 0:
         raise ValueError("--audit-max-snapshot-bytes must be >= 0")
+    if args.context_refresh_seconds <= 0:
+        raise ValueError("--context-refresh-seconds must be > 0")
     if args.audit_watch:
         if args.audit_mode == "off":
             raise ValueError(
                 "--audit-watch requires the audit scanner "
                 "(--audit-mode interval or on-promote)"
             )
-        raise ValueError(
-            "--audit-watch: the live watch feed is not in this package yet "
-            "(ROADMAP A10)"
-        )
+        if not parse_watch_resources(args.audit_watch_resources):
+            raise ValueError(
+                "--audit-watch-resources must name at least one "
+                "apiVersion/Kind"
+            )
     if args.audit_watch_max_queue_events < 1:
         raise ValueError("--audit-watch-max-queue-events must be >= 1")
     if args.audit_matrix and args.audit_mode == "off":
@@ -667,7 +810,48 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         worker_respawn_giveup=args.worker_respawn_giveup,
         log_level=args.log_level,
         log_fmt=args.log_fmt,
+        backend="torch" if args.evaluation_backend == "jax" else "oracle",
+        predicate_opt=args.predicate_opt == "on",
+        sources=read_sources_file(args.sources_path) if args.sources_path else None,
+        verification_config=(
+            read_verification_file(args.verification_path)
+            if args.verification_path else None
+        ),
+        docker_config_json_path=args.docker_config_json_path,
+        policies_download_dir=args.policies_download_dir,
+        sigstore_cache_dir=args.sigstore_cache_dir,
+        context_refresh_seconds=args.context_refresh_seconds,
+        context_watch=not args.context_no_watch,
+        kube_insecure_skip_tls_verify=args.kube_insecure_skip_tls_verify,
+        ignore_kubernetes_connection_failure=(
+            args.ignore_kubernetes_connection_failure
+        ),
+        audit_watch=args.audit_watch,
+        audit_watch_resources=args.audit_watch_resources,
+        audit_watch_max_queue_events=args.audit_watch_max_queue_events,
     )
+
+
+def daemonize(argv: list[str], args: argparse.Namespace) -> int:
+    """``--daemon``: run the server detached in a new session (setsid, as
+    the reference's daemonize crate, main.rs:35-55), its stdout and
+    stderr in the given files (else /dev/null), and write its pid file.
+    The detached process is a fresh interpreter started without
+    ``--daemon``: forking this one, whose torch import already runs
+    threads, can deadlock the child."""
+    child_argv = [a for a in argv if a != "--daemon"]
+    env = dict(os.environ, KUBEWARDEN_DAEMON="")
+    with open(args.daemon_stdout_file or os.devnull, "ab") as out, open(
+        args.daemon_stderr_file or os.devnull, "ab"
+    ) as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "policy_server_tpu_torch", *child_argv],
+            stdin=subprocess.DEVNULL, stdout=out, stderr=err, env=env,
+            start_new_session=True,
+        )
+    with open(args.daemon_pid_file, "w", encoding="utf-8") as f:
+        f.write(str(proc.pid))
+    return 0
 
 
 def install_reload_signal(server: PolicyServer) -> None:
@@ -684,6 +868,12 @@ def main(argv: list[str] | None = None) -> int:
     if args.long_version:
         print(long_version())
         return 0
+    if args.subcommand == "docs":
+        with open(args.output, "w", encoding="utf-8") as f:
+            f.write(generate_docs())
+        return 0
+    if args.daemon:
+        return daemonize(sys.argv[1:] if argv is None else list(argv), args)
     log = setup_tracing(args.log_level, args.log_fmt, args.log_no_color)
     server = server_from_args(args)
     install_reload_signal(server)

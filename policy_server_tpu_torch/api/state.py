@@ -73,6 +73,10 @@ class ApiServerState:
     # the audit.AuditScanner under --audit-mode interval|on-promote (GET
     # /audit/reports answers 404 without one)
     audit: Any = None
+    # the audit.WatchFeed under --audit-watch (None without it, or when the
+    # Kubernetes connection failed under
+    # --ignore-kubernetes-connection-failure)
+    audit_watch: Any = None
     # the audit.VerdictMatrix under --audit-matrix (GET /audit/stream
     # answers 404 without one)
     audit_matrix: Any = None

@@ -89,6 +89,10 @@ class AuditScanner:
         # + device time); a sweep that cannot land a batch inside it
         # aborts and retries on the next cadence tick
         self.job_timeout = float(job_timeout_seconds)
+        # optional live-cluster feed (audit/watch_feed.WatchFeed): set by
+        # the server under --audit-watch so sweep payloads and stats
+        # carry the feed's freshness accounting next to the scanner's
+        self.watch_feed: Any = None
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: threading.Thread | None = None
@@ -433,6 +437,8 @@ class AuditScanner:
             }
         body["scanner"]["freshness_seconds"] = self.freshness_seconds()
         body["scanner"]["snapshot"] = self.snapshot.stats()
+        if self.watch_feed is not None:
+            body["scanner"]["watch_feed"] = self.watch_feed.stats()
         if self.matrix is not None:
             body["scanner"]["matrix"] = self.matrix.stats()
         return body
@@ -457,11 +463,15 @@ class AuditScanner:
                 },
             }
         out["freshness_seconds"] = self.freshness_seconds()
-        # the watch feed waits for ROADMAP A10: its families read zero, as
-        # the JAX package's do without --audit-watch
-        out["watch_events_applied"] = 0
-        out["watch_events_dropped"] = 0
-        out["watch_resyncs"] = 0
+        if self.watch_feed is not None:
+            wstats = self.watch_feed.stats()
+            out["watch_events_applied"] = wstats["events_applied"]
+            out["watch_events_dropped"] = wstats["events_dropped"]
+            out["watch_resyncs"] = wstats["resyncs"]
+        else:
+            out["watch_events_applied"] = 0
+            out["watch_events_dropped"] = 0
+            out["watch_resyncs"] = 0
         rstats = self.reports.stats()
         out["reports_resident"] = rstats["resident"]
         out["reports_stale"] = rstats["stale"]

@@ -323,6 +323,10 @@ class BoundPolicy:
     module_url: str
     precompiled: PrecompiledPolicy
     eval_settings: PolicyEvaluationSettings
+    # per-policy cluster-state capability allowlist (reference
+    # EvaluationContext.ctx_aware_resources_allow_list,
+    # evaluation_environment.rs:243-247)
+    ctx_allowlist: frozenset = frozenset()
 
 
 @dataclass
@@ -340,7 +344,10 @@ def default_module_resolver(url: str) -> PolicyModule:
     if builtin is None:
         raise BootstrapFailure(
             f"module {url!r} is not a builtin and no fetcher was configured "
-            "(use PolicyServer bootstrap, or builtin:// modules)"
+            "(serve it through PolicyServer, which fetches file://, https:// "
+            "and registry:// modules per --sources-path and "
+            "--verification-path, or pass fetch.make_module_resolver(...) "
+            "as module_resolver)"
         )
     return builtin
 
@@ -354,9 +361,15 @@ class EvaluationEnvironmentBuilder:
 
     ``module_resolver`` maps a module URL to a policy module; the default
     resolves builtins and raises ``BootstrapFailure`` for anything else
-    (``fetch.load_artifact`` makes a module of a ``.wasm`` file's bytes).
+    (``fetch.make_module_resolver`` fetches and verifies artifacts).
     ``wasm_wall_clock_budget``, when given, is set on every module that
-    has a ``wall_clock_budget`` (None disables it)."""
+    has a ``wall_clock_budget`` (None disables it); ``wasm_trust_root``
+    (the offline sigstore trust root) and ``wasm_oci_digest_source`` (an
+    image ref → its manifest digest, ``Downloader.manifest_digest``) are
+    handed to every wasm module for the keyless ``v2/verify`` and the
+    ``oci/v1/manifest_digest`` capabilities. ``context_service`` (a
+    ``context.ContextSnapshotService``) gives every context-aware policy
+    the capability-filtered cluster snapshot under ``__context__``."""
 
     def __init__(
         self,
@@ -369,6 +382,9 @@ class EvaluationEnvironmentBuilder:
         breaker_config: Mapping[str, Any] | None = None,
         module_resolver: Callable[[str], PolicyModule] | None = None,
         wasm_wall_clock_budget: float | None | object = _BUDGET_UNSET,
+        wasm_trust_root: Any = None,
+        wasm_oci_digest_source: Callable[[str], str] | None = None,
+        context_service: Any = None,
     ) -> None:
         if backend not in ("torch", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -381,10 +397,19 @@ class EvaluationEnvironmentBuilder:
         self.breaker_config = breaker_config
         self.module_resolver = module_resolver or default_module_resolver
         self.wasm_wall_clock_budget = wasm_wall_clock_budget
+        self.wasm_trust_root = wasm_trust_root
+        self.wasm_oci_digest_source = wasm_oci_digest_source
+        self.context_service = context_service
 
     def build(
         self, policies: Mapping[str, PolicyOrPolicyGroup]
     ) -> "EvaluationEnvironment":
+        from policy_server_tpu_torch.fetch.downloader import (
+            FetchError,
+            VerificationError,
+        )
+
+        acquisition_errors = (FetchError, VerificationError)
         cache = ProgramCache()
         bound: dict[str, BoundPolicy] = {}
         groups: dict[str, BoundGroup] = {}
@@ -396,12 +421,21 @@ class EvaluationEnvironmentBuilder:
             settings: Mapping[str, Any] | None,
             policy_mode: PolicyMode,
             allowed_to_mutate: bool,
+            ctx_allowlist: frozenset = frozenset(),
         ) -> BoundPolicy:
             module = self.module_resolver(module_url)
             if self.wasm_wall_clock_budget is not _BUDGET_UNSET and hasattr(
                 module, "wall_clock_budget"
             ):
                 module.wall_clock_budget = self.wasm_wall_clock_budget
+            if self.wasm_trust_root is not None and hasattr(
+                module, "trust_root"
+            ):
+                module.trust_root = self.wasm_trust_root
+            if self.wasm_oci_digest_source is not None and hasattr(
+                module, "oci_digest_source"
+            ):
+                module.oci_digest_source = self.wasm_oci_digest_source
             validation = module.validate_settings(dict(settings or {}))
             if not validation.valid:
                 raise PolicyInitializationError(
@@ -417,6 +451,7 @@ class EvaluationEnvironmentBuilder:
                     allowed_to_mutate=allowed_to_mutate,
                     settings=dict(settings or {}),
                 ),
+                ctx_allowlist=ctx_allowlist,
             )
 
         for name, entry in policies.items():
@@ -428,6 +463,7 @@ class EvaluationEnvironmentBuilder:
                         entry.settings,
                         entry.policy_mode,
                         bool(entry.allowed_to_mutate),
+                        entry.context_aware_resources,
                     )
                 elif isinstance(entry, PolicyGroup):
                     ast = groups_mod.validate_expression(
@@ -450,6 +486,7 @@ class EvaluationEnvironmentBuilder:
                             member.settings,
                             entry.policy_mode,
                             False,  # group members never mutate
+                            member.context_aware_resources,
                         )
                     groups[name] = group
                     for bp in group.members.values():
@@ -470,6 +507,15 @@ class EvaluationEnvironmentBuilder:
                         f"failed to bootstrap policy {name!r}: {e}"
                     ) from e
                 init_errors[name] = str(e)
+            except acquisition_errors as e:
+                # a module that could not be fetched or verified: its own
+                # error at boot (the JAX package's text), a per-policy
+                # initialization error under continue_on_errors, as the
+                # reference's per-policy download errors are
+                # (policy_downloader.rs:53-217)
+                if not self.continue_on_errors:
+                    raise
+                init_errors[name] = str(e)
 
         env = EvaluationEnvironment(
             backend=self.backend,
@@ -481,6 +527,7 @@ class EvaluationEnvironmentBuilder:
             predicate_opt=self.predicate_opt,
             verdict_cache_size=self.verdict_cache_size,
             breaker_config=self.breaker_config,
+            context_service=self.context_service,
         )
         # the mapping it was built from: the shard router rebuilds sibling
         # environments from it (runtime/shards.py); the serving path never
@@ -519,10 +566,12 @@ class EvaluationEnvironment:
         predicate_opt: bool = True,
         verdict_cache_size: int = DEFAULT_VERDICT_CACHE_SIZE,
         breaker_config: Mapping[str, Any] | None = None,
+        context_service: Any = None,
     ) -> None:
         self.backend = backend
         self.device = device
         self.always_accept_namespace = always_accept_namespace
+        self.context_service = context_service
         self._bound = bound
         self._groups = groups
         self._init_errors = init_errors
@@ -878,6 +927,17 @@ class EvaluationEnvironment:
         )
 
     @staticmethod
+    def _allowlist_of(target: "BoundPolicy | BoundGroup") -> frozenset:
+        """The context kinds a target may see: its own allowlist, or the
+        union of its members' for a group."""
+        if isinstance(target, BoundGroup):
+            out: set = set()
+            for bp in target.members.values():
+                out |= bp.ctx_allowlist
+            return frozenset(out)
+        return target.ctx_allowlist
+
+    @staticmethod
     def _providers_of(target: "BoundPolicy | BoundGroup") -> list:
         bps = (
             list(target.members.values())
@@ -893,14 +953,22 @@ class EvaluationEnvironment:
     def payload_for(
         self, target: "BoundPolicy | BoundGroup", request: ValidateRequest
     ) -> Any:
-        """The evaluation payload: the request document, plus the program
-        context providers' output under ``__context__``."""
+        """The evaluation payload: the request document, plus — under
+        ``__context__`` — the capability-filtered cluster snapshot for
+        context-aware policies (context/service.py; the reference's
+        EvaluationContext allowlist, evaluation_environment.rs:243-247)
+        and any program context-provider output (cached host capabilities
+        such as image-signature verification)."""
         payload = request.payload()
-        providers = self._providers_of(target)
-        if not providers:
+        if self._target_plain(target):
             return payload
+        allowlist = self._allowlist_of(target)
+        providers = self._providers_of(target)
+        has_snapshot = bool(allowlist) and self.context_service is not None
         payload = dict(payload)
         ctx: dict = {}
+        if has_snapshot:
+            ctx.update(self.context_service.snapshot().view(allowlist))
         for provider in providers:
             ctx.update(provider(payload))
         payload[CONTEXT_KEY] = ctx
@@ -926,13 +994,20 @@ class EvaluationEnvironment:
 
     def _target_plain(self, target: "BoundPolicy | BoundGroup") -> bool:
         """Memoized: True when the target's evaluation payload is the raw
-        request document (no context providers), so the canonical blob is
-        ``request.payload_json()``. The one source of truth for
-        ``_payload_blob`` and ``_blob_of``: desynchronizing them would key
-        the blob tier on other bytes than the payload evaluated."""
+        request document (no context snapshot, no providers), so the
+        canonical blob is ``request.payload_json()``. The one source of
+        truth for ``payload_for``, ``_payload_blob`` and ``_blob_of``:
+        desynchronizing them would key the blob tier on other bytes than
+        the payload evaluated (a snapshot change must change the key)."""
         plain = self._blob_plain_memo.get(id(target))
         if plain is None:
-            plain = not self._providers_of(target)
+            plain = not (
+                (
+                    self._allowlist_of(target)
+                    and self.context_service is not None
+                )
+                or self._providers_of(target)
+            )
             self._blob_plain_memo[id(target)] = plain
         return plain
 

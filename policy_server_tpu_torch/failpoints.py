@@ -33,6 +33,13 @@ Sites instrumented (grep for ``failpoints.fire``):
                     ``sleep`` = hung device, ``raise`` = dispatch fault
 ``encode.batch``    host batch encode (the native pipeline's encode of
                     each schema bucket and chunk)
+``fetch.http``      every registry or HTTPS GET (fetch/downloader.py) —
+                    an injected failure is retryable, like a real 5xx or
+                    timeout; the retries are counted
+``watch.stream``    before every watch-stream connect (audit/
+                    watch_feed.py) — ``raise`` = a watch transport fault;
+                    the kind's loop backs off and resyncs through a
+                    counted full re-LIST, the snapshot keeps serving
 ``frontend.accept`` the native HTTP frontend's intake of one drained
                     burst (runtime/native_frontend.py) — ``raise``
                     answers every request of the burst 500 in-band

@@ -1,4 +1,5 @@
-"""The device circuit breaker.
+"""Failure containment: the device circuit breaker and the capped-backoff
+retry helper.
 
 One CircuitBreaker guards each EvaluationEnvironment's device path:
 repeated faults or watchdog trips within a sliding window trip it OPEN,
@@ -18,11 +19,17 @@ fetch, failpoint injections among them, but never an error the CUDA
 runtime reported: a kernel or CUDA error (a sticky one poisons the
 context, and no probe recovers from it) fails its batch's requests
 instead of turning into host answers.
+
+``retry_with_backoff`` is the fetch path's policy: capped exponential
+backoff with full jitter for transient registry and HTTPS failures (429
+and 5xx answers, connect errors, timeouts), so one registry blip at boot
+or reload is not fatal.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import threading
 import time
 from typing import Callable
@@ -206,3 +213,33 @@ class CircuitBreaker:
                 "recoveries": self.recoveries,
                 "probes": self.probes,
             }
+
+
+def retry_with_backoff(
+    fn: Callable[[], "object"],
+    is_retryable: Callable[[BaseException], bool],
+    attempts: int = 4,
+    base_seconds: float = 0.25,
+    cap_seconds: float = 5.0,
+    sleep: Callable[[float], None] = time.sleep,
+    on_retry: Callable[[int, BaseException, float], None] | None = None,
+) -> "object":
+    """Run ``fn`` up to ``attempts`` times; between attempts sleep with
+    capped exponential backoff and full jitter (the AWS-style policy —
+    decorrelated enough that a boot-time thundering herd of policy
+    fetchers does not re-synchronize on the registry). Non-retryable
+    exceptions and the final attempt's failure propagate unchanged."""
+    attempts = max(1, int(attempts))
+    for attempt in range(attempts):
+        try:
+            return fn()
+        except BaseException as e:  # noqa: BLE001 — filtered by predicate
+            if attempt + 1 >= attempts or not is_retryable(e):
+                raise
+            delay = random.uniform(
+                0, min(cap_seconds, base_seconds * (2**attempt))
+            )
+            if on_retry is not None:
+                on_retry(attempt + 1, e, delay)
+            sleep(delay)
+    raise AssertionError("unreachable")  # pragma: no cover

@@ -341,6 +341,9 @@ class MicroBatcher:
         self._host_cost_per_row = 1e-4
         # policy ids known to resolve, and whether their target has hooks
         self._hookless: dict[str, bool] = {}
+        # policy id → its payload is the bare request (no cluster
+        # snapshot, no provider output); lookup admission needs it
+        self._plain: dict[str, bool] = {}
         self._queue: queue.Queue[_Pending] = queue.Queue(
             maxsize=queue_capacity or self.max_batch_size * 8
         )
@@ -576,8 +579,9 @@ class MicroBatcher:
         """Lookup admission: answer the row from the verdict matrix when
         every gate holds — VALIDATE origin, an UPDATE (a CREATE or DELETE
         changes the inventory), no always-accept namespace, a hookless
-        target, and the matrix's own (byte-identical payload, current
-        column fingerprint, fragment eligibility). A hit resolves as a
+        target whose payload is the bare request (no cluster snapshot),
+        and the matrix's own (byte-identical payload, current column
+        fingerprint, fragment eligibility). A hit resolves as a
         FragVerdict and is not recorded for the audit tracker (its payload
         is the row the verdict came from). False on any miss."""
         matrix = self.verdict_matrix
@@ -589,6 +593,10 @@ class MicroBatcher:
         if self.env.always_accept_namespace is not None:
             return False
         if self._target_hookless(p.policy_id) is not True:
+            return False
+        if self._target_plain(p.policy_id) is not True:
+            # the payload carries the cluster snapshot: a cell judged
+            # under an older snapshot would answer stale
             return False
         tmpl = matrix.lookup(p.policy_id, p.request, self.env)
         if not tmpl:
@@ -1559,6 +1567,21 @@ class MicroBatcher:
         hookless = not self.env._hooks_of(target)
         self._hookless[policy_id] = hookless
         return hookless
+
+    def _target_plain(self, policy_id: str) -> bool | None:
+        """Whether the id's target evaluates the bare request, with no
+        context snapshot or provider output in its payload (memoized as
+        ``_target_hookless`` is); None for an unknown id."""
+        known = self._plain.get(policy_id)
+        if known is not None:
+            return known
+        try:
+            target = self.env._lookup_top_level(PolicyID.parse(policy_id))
+        except Exception:  # noqa: BLE001 — resolved later with semantics
+            return None
+        plain = self.env._target_plain(target)
+        self._plain[policy_id] = plain
+        return plain
 
     def _run_hooks_with_deadline(
         self, p: _Pending, delivery: _DeliveryBatch

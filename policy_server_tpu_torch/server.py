@@ -53,22 +53,38 @@ lifecycle's cluster what-if. Named tenants feed neither. Every audit,
 matrix and watch family is on /metrics at every setting, with zeros for
 what is off.
 
-``module_resolver`` (a module URL → policy module; ``fetch.load_artifact``
-makes one of a ``.wasm`` file's bytes) resolves every module of every
-environment the server builds; the default resolves builtins only and
-raises ``BootstrapFailure`` for any other URL (a per-policy
-initialization error under ``continue_on_errors``). Host-executed
-policies (wasm, and CEL that does not lower) get ``policy_timeout`` as
-their wall-clock budget.
+Module acquisition follows the JAX package's bootstrap: the offline
+sigstore trust root is loaded once from ``sigstore_cache_dir`` (a
+malformed one warns and disables keyless verification), and when a
+policy's module is not a builtin, or ``sources`` or
+``verification_config`` is given, ``fetch.make_module_resolver`` fetches
+``file://``, ``https://`` and ``registry://`` modules into
+``policies_download_dir`` and verifies them. That resolver (or the
+caller's ``module_resolver``) serves every environment the server builds,
+reloads included; without either only builtins resolve. Wasm guests get
+the trust root, a registry client for ``oci/v1/manifest_digest``
+(``Downloader.manifest_digest``) and ``policy_timeout`` as their
+wall-clock budget.
+
+When a policy declares ``contextAwareResources`` the server starts a
+``context.ContextSnapshotService`` over the in-cluster Kubernetes API
+(list+watch, or polling with ``context_watch=False``), and every
+environment injects each policy's allowed slice of its snapshot; a
+connection failure fails the boot unless
+``ignore_kubernetes_connection_failure``, which serves an empty cluster.
+``audit_watch`` feeds the audit snapshot store from the same API
+(``audit.WatchFeed`` over ``audit_watch_resources``).
 
 ``stop()`` follows the JAX package's order: the watchdog, then the native
 frontend stops accepting, the worker supervisor stops, the workers are
 terminated (killed after 5 s), the bridge closes and its socket and
-directory go, the audit streams end, then the audit scanner,
+directory go, the audit streams end, then the audit watch feed, the
+audit scanner,
 then the named tenants' epochs, then every epoch of the default tenant:
 each batcher answers what it holds (503 for rows not yet in a batch) and
 its environments close, then the native TLS manager stops and the native
-frontend flushes and frees, and the certificate watcher ends.
+frontend flushes and frees, the certificate watcher ends and, last, the
+context snapshot service (the environments read it until they close).
 
 ``tls_config`` (``--cert-file``, ``--key-file``, ``--client-ca-file``)
 serves the API port over HTTPS, with mTLS when client CAs are given
@@ -129,6 +145,8 @@ from policy_server_tpu_torch.audit import (
     PolicyReportStore,
     SnapshotStore,
     VerdictMatrix,
+    WatchFeed,
+    parse_watch_resources,
 )
 from policy_server_tpu_torch.api.handlers import ApiHandler, ReadinessHandler
 from policy_server_tpu_torch.api.state import ApiServerState
@@ -136,12 +154,22 @@ from policy_server_tpu_torch.certs import (
     TlsConfig,
     create_tls_config_and_watch_certificate_changes,
 )
+from policy_server_tpu_torch.config.sources import Sources
+from policy_server_tpu_torch.config.verification import VerificationConfig
 from policy_server_tpu_torch.evaluation.environment import (
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
 )
+from policy_server_tpu_torch.fetch import (
+    Downloader,
+    FetchConfig,
+    load_trust_root,
+    make_module_resolver,
+)
+from policy_server_tpu_torch.fetch.downloader import retry_stats
 from policy_server_tpu_torch.lifecycle import PolicyLifecycleManager, ShadowRecorder
 from policy_server_tpu_torch.models.policy import parse_policies
+from policy_server_tpu_torch.policies import resolve_builtin
 from policy_server_tpu_torch.runtime import native_frontend as nf
 from policy_server_tpu_torch.runtime.frontend import EvaluationBridge
 from policy_server_tpu_torch.supervision import SelfHealWatchdog, SupervisorStats
@@ -184,6 +212,12 @@ DEFAULT_AUDIT_INTERVAL_SECONDS = 30.0
 DEFAULT_AUDIT_BATCH_SIZE = 256
 DEFAULT_AUDIT_MAX_SNAPSHOT_BYTES = 64 * 1024 * 1024
 DEFAULT_AUDIT_STREAM_MAX_CLIENTS = 64
+DEFAULT_AUDIT_WATCH_RESOURCES = (
+    "v1/Pod,v1/Namespace,apps/v1/Deployment,apps/v1/ReplicaSet,"
+    "apps/v1/StatefulSet,apps/v1/DaemonSet"
+)
+DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS = 65536
+DEFAULT_CONTEXT_REFRESH_SECONDS = 30.0
 NATIVE_TLS_MODES = ("auto", "off")
 DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS = (
     nf.NativeTlsManager.HANDSHAKE_TIMEOUT_MS / 1000
@@ -279,10 +313,11 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     frontend's families read zero under ``--frontend python``, the
     lifecycle's under ``--policy-reload-mode off``, the audit families
     under ``--audit-mode off``, the matrix families without
-    ``--audit-matrix`` and the watch families always (the watch feed waits
-    for ROADMAP A10); the tenant families have no samples without
-    ``--tenants`` and the shard families show one shard and no fence at
-    ``--serving-shards 1``."""
+    ``--audit-matrix`` and the watch families without ``--audit-watch``
+    (they count what the watch feed applied, dropped and resynced); the
+    tenant families have no samples without ``--tenants`` and the shard
+    families show one shard and no fence at ``--serving-shards 1``. The
+    fetch-retry families count the downloader's retries process-wide."""
     batcher = state.batcher
     env = state.evaluation_environment
     b = batcher.stats_snapshot()
@@ -412,6 +447,13 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.BREAKER_SHORT_CIRCUITED, "counter",
            "Requests served host-side because a breaker was open",
            breaker.get("short_circuited_requests", 0))
+    fetch_retries = retry_stats()
+    yield (names.FETCH_RETRY_ATTEMPTS, "counter",
+           "Transient policy-fetch failures retried with backoff",
+           fetch_retries["attempts"])
+    yield (names.FETCH_RETRY_GIVEUPS, "counter",
+           "Policy-fetch operations that exhausted the retry budget",
+           fetch_retries["giveups"])
     yield (names.DEVICE_ERRORS, "counter",
            "Kernel and CUDA errors at dispatch or fetch (each failed its "
            "batch's requests; none tripped the breaker)", env.device_errors)
@@ -790,6 +832,20 @@ class PolicyServer:
         log_level: str = "info",
         log_fmt: str = "text",
         module_resolver: Callable[[str], Any] | None = None,
+        backend: str = "torch",
+        predicate_opt: bool = True,
+        sources: Sources | None = None,
+        verification_config: VerificationConfig | None = None,
+        docker_config_json_path: str | None = None,
+        policies_download_dir: str = ".",
+        sigstore_cache_dir: str = "sigstore-data",
+        context_refresh_seconds: float = DEFAULT_CONTEXT_REFRESH_SECONDS,
+        context_watch: bool = True,
+        kube_insecure_skip_tls_verify: bool = False,
+        ignore_kubernetes_connection_failure: bool = False,
+        audit_watch: bool = False,
+        audit_watch_resources: str = DEFAULT_AUDIT_WATCH_RESOURCES,
+        audit_watch_max_queue_events: int = DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
     ) -> None:
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
@@ -815,6 +871,13 @@ class PolicyServer:
             )
         if audit_matrix_whatif and not audit_matrix:
             raise ValueError("--audit-matrix-whatif requires --audit-matrix")
+        if audit_watch and audit_mode == "off":
+            raise ValueError(
+                "--audit-watch requires the audit scanner "
+                "(--audit-mode interval or on-promote)"
+            )
+        if context_refresh_seconds <= 0:
+            raise ValueError("--context-refresh-seconds must be > 0")
         if policy_reload_mode not in RELOAD_MODES:
             raise ValueError(
                 f"invalid policy reload mode {policy_reload_mode!r} "
@@ -822,6 +885,35 @@ class PolicyServer:
             )
         if enable_metrics:
             setup_metrics()
+        # the offline sigstore trust root, loaded once and shared by the
+        # module resolver (artifact verification) and every environment
+        # (the wasm keyless v2/verify capability); None degrades keyless
+        trust_root = load_trust_root(sigstore_cache_dir)
+        if module_resolver is None and (
+            sources or verification_config or _needs_fetch(policies)
+        ):
+            module_resolver = make_module_resolver(
+                FetchConfig(
+                    sources=sources,
+                    verification_config=verification_config,
+                    docker_config_json_path=docker_config_json_path,
+                    policies_download_dir=policies_download_dir,
+                    sigstore_cache_dir=sigstore_cache_dir,
+                ),
+                trust_root=trust_root,
+            )
+        # the registry client of the oci/v1/manifest_digest capability:
+        # the token flow, TLS and docker config of registry:// pulls
+        oci_digest_source = Downloader(
+            sources=sources, docker_config_json_path=docker_config_json_path
+        ).manifest_digest
+        self._context_service = _build_context_service(
+            policies,
+            refresh_seconds=context_refresh_seconds,
+            watch=context_watch,
+            insecure_skip_tls_verify=kube_insecure_skip_tls_verify,
+            ignore_connection_failure=ignore_kubernetes_connection_failure,
+        )
         # the recorder goes in before the environment and the batcher are
         # built, so their warmup records
         self._recorder = (
@@ -855,16 +947,22 @@ class PolicyServer:
 
         # every environment (boot, reload candidate and its oracle referee,
         # each tenant and each shard) resolves modules through the same
-        # resolver, and wasm guests get the policy timeout as their
-        # wall-clock budget (None under --disable-timeout-protection)
+        # resolver, reads the same context snapshot, and gives wasm guests
+        # the trust root, the registry client and the policy timeout as
+        # their wall-clock budget (None under --disable-timeout-protection)
         wasm_kwargs = dict(
             module_resolver=module_resolver,
             wasm_wall_clock_budget=policy_timeout,
+            wasm_trust_root=trust_root,
+            wasm_oci_digest_source=oci_digest_source,
+            context_service=self._context_service,
         )
 
         def build_environment(policy_set: Mapping[str, Any]) -> Any:
             return EvaluationEnvironmentBuilder(
+                backend=backend,
                 device=device,
+                predicate_opt=predicate_opt,
                 continue_on_errors=continue_on_errors,
                 always_accept_admission_reviews_on_namespace=(
                     always_accept_admission_reviews_on_namespace
@@ -911,6 +1009,7 @@ class PolicyServer:
         # consult it
         snapshot = None
         matrix = None
+        self._watch_feed = None
         if audit_mode != "off":
             snapshot = SnapshotStore(max_bytes=audit_max_snapshot_bytes)
             if audit_resources_file:
@@ -918,6 +1017,23 @@ class PolicyServer:
             if audit_matrix:
                 matrix = VerdictMatrix(snapshot=snapshot)
                 matrix.set_columns(policies, 0)
+            if audit_watch:
+                # the live feed: list+watch events populate the snapshot
+                # the scanner sweeps (audit/watch_feed.py)
+                try:
+                    self._watch_feed = _build_audit_watch_feed(
+                        snapshot,
+                        resources=audit_watch_resources,
+                        refresh_seconds=context_refresh_seconds,
+                        max_queue_events=audit_watch_max_queue_events,
+                        insecure_skip_tls_verify=kube_insecure_skip_tls_verify,
+                        ignore_connection_failure=(
+                            ignore_kubernetes_connection_failure
+                        ),
+                    )
+                except BaseException:
+                    self._stop_feeds()
+                    raise
 
         def make_batcher(
             env: Any, tenant: str, admission: Any, spec: TenantSpec | None,
@@ -974,11 +1090,16 @@ class PolicyServer:
         build_batcher = plane_builder(
             DEFAULT_TENANT, default_admission, default_spec, recorder, snapshot
         )
-        env = build_environment(policies)
+        try:
+            env = build_environment(policies)
+        except BaseException:
+            self._stop_feeds()
+            raise
         try:
             batcher = build_batcher(env)
         except BaseException:
             env.close()
+            self._stop_feeds()
             raise
         self._selfheal_interval = selfheal_interval_seconds
         self._selfheal: SelfHealWatchdog | None = None
@@ -1102,6 +1223,7 @@ class PolicyServer:
             self._stop_tls_watch()
             batcher.shutdown()
             env.close()
+            self._stop_feeds()
             if flightrec.recorder() is self._recorder:
                 flightrec.install(None)
             raise
@@ -1140,6 +1262,9 @@ class PolicyServer:
                 )
                 if audit_matrix_whatif:
                     self.lifecycle.set_whatif_matrix(matrix)
+            # the live feed (built with the snapshot) joins the scanner's
+            # stats and report payload
+            scanner.watch_feed = self.state.audit_watch = self._watch_feed
         self._threads: list[threading.Thread] = []
 
     @staticmethod
@@ -1215,6 +1340,20 @@ class PolicyServer:
             }},
         )
         return Tenant(name, spec, state, admission)
+
+    @property
+    def context_service(self) -> Any:
+        """The ``context.ContextSnapshotService`` when a policy declares
+        ``contextAwareResources``, else None."""
+        return self._context_service
+
+    def _stop_feeds(self) -> None:
+        """Stop the cluster clients a failed boot started: the audit watch
+        feed and the context snapshot service."""
+        if self._watch_feed is not None:
+            self._watch_feed.stop()
+        if self._context_service is not None:
+            self._context_service.stop()
 
     @property
     def env(self) -> Any:
@@ -1549,6 +1688,11 @@ class PolicyServer:
                 httpd.shutdown()
         for t in self._threads:
             t.join(5)
+        if self._watch_feed is not None:
+            # the live feed stops before the scanner: events applied into
+            # a store nobody sweeps again are dead work
+            self._watch_feed.stop()
+            self._watch_feed = self.state.audit_watch = None
         if self.state.audit is not None:
             # sweeping stops before the epochs tear down: a sweep racing
             # the batchers' shutdown would only burn its retries
@@ -1566,8 +1710,107 @@ class PolicyServer:
         self._close_api()
         self._stop_tls_watch()
         self._readiness.server_close()
+        if self._context_service is not None:
+            self._context_service.stop()
         if self._recorder is not None and flightrec.recorder() is self._recorder:
             flightrec.install(None)
+
+
+def _needs_fetch(policies: Mapping[str, Any]) -> bool:
+    """True when a module URL of the policies is not a builtin."""
+    urls: list[str] = []
+    for entry in policies.values():
+        if hasattr(entry, "module"):
+            urls.append(entry.module)
+        else:
+            urls.extend(m.module for m in entry.policies.values())
+    return any(resolve_builtin(u) is None for u in urls)
+
+
+def _build_context_service(
+    policies: Mapping[str, Any], refresh_seconds: float, watch: bool,
+    insecure_skip_tls_verify: bool, ignore_connection_failure: bool,
+) -> Any:
+    """The context snapshot service (reference kube::Client bootstrap,
+    lib.rs:91-125), started, when some policy declares
+    ``contextAwareResources``, else None. A connection failure fails the
+    boot unless ``ignore_connection_failure`` (lib.rs:106-123): context-
+    aware policies then see an empty cluster."""
+    wanted: set = set()
+    for entry in policies.values():
+        if hasattr(entry, "context_aware_resources"):
+            wanted |= set(entry.context_aware_resources)
+        elif hasattr(entry, "policies"):
+            for member in entry.policies.values():
+                wanted |= set(member.context_aware_resources)
+    if not wanted:
+        return None
+    from policy_server_tpu_torch.context import (
+        ContextSnapshotService,
+        KubeApiFetcher,
+        KubeConnectionError,
+        StaticContextFetcher,
+    )
+
+    try:
+        fetcher = KubeApiFetcher(
+            insecure_skip_tls_verify=insecure_skip_tls_verify
+        )
+    except KubeConnectionError as e:
+        if not ignore_connection_failure:
+            raise RuntimeError(
+                f"cannot connect to the Kubernetes API: {e} "
+                "(use --ignore-kubernetes-connection-failure to boot anyway)"
+            ) from e
+        logger.error(
+            "Kubernetes connection failed, context-aware policies will see "
+            "an empty cluster: %s", e,
+        )
+        fetcher = StaticContextFetcher()
+    return ContextSnapshotService(
+        fetcher,
+        wanted,
+        refresh_seconds=refresh_seconds,
+        # None = auto (watch when the fetcher supports it); False = forced
+        # poll mode via --context-no-watch
+        watch=None if watch else False,
+    ).start()
+
+
+def _build_audit_watch_feed(
+    snapshot: SnapshotStore, resources: str, refresh_seconds: float,
+    max_queue_events: int, insecure_skip_tls_verify: bool,
+    ignore_connection_failure: bool,
+) -> Any:
+    """``--audit-watch``: the in-cluster list+watch client feeding the
+    audit snapshot store, started. A connection failure fails the boot
+    unless ``ignore_connection_failure``, which leaves the store to the
+    /validate traffic and the seed file (None)."""
+    from policy_server_tpu_torch.context import KubeApiFetcher, KubeConnectionError
+
+    kinds = parse_watch_resources(resources)
+    try:
+        fetcher = KubeApiFetcher(
+            insecure_skip_tls_verify=insecure_skip_tls_verify
+        )
+    except KubeConnectionError as e:
+        if not ignore_connection_failure:
+            raise RuntimeError(
+                f"--audit-watch cannot connect to the Kubernetes API: {e} "
+                "(use --ignore-kubernetes-connection-failure to boot "
+                "without the live feed)"
+            ) from e
+        logger.error(
+            "Kubernetes connection failed; the audit snapshot store "
+            "falls back to /validate dirty-tracking and the seed file: "
+            "%s", e,
+        )
+        return None
+    return WatchFeed(
+        fetcher, kinds, snapshot,
+        refresh_seconds=refresh_seconds,
+        max_queue_events=max_queue_events,
+    ).start()
 
 
 class _PendingRespawn:

@@ -426,3 +426,77 @@ def test_wasm_bits_ride_with_the_rows(wasm_group_env, idx, batch):
     assert (out["g:guard:eval:ns"] == bits[:, 0]).all()
     flipped = env._unpack(env.enqueue_packed(buf, ~bits).wait())
     assert (flipped["g:guard:allowed"] == (~bits[:, 0] & ns_ok)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_namespaces", [200, 256])
+@pytest.mark.parametrize("idx", [0, 1])
+def test_policy_matrix_on_context_rows(n_namespaces, idx):
+    """Rows carrying a ``__context__`` slice of up to 256 namespaces (the
+    context axis cap) through K1 on the card, namespace-exists beside the
+    flagship set: equal to the plain version, and a quarter of the rows,
+    in a namespace outside the cluster, rejected by namespace-exists."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from policy_server_tpu_torch.context import (
+        ContextSnapshotService,
+        StaticContextFetcher,
+    )
+    from policy_server_tpu_torch.evaluation.policy_id import PolicyID
+    from policy_server_tpu_torch.models.policy import (
+        ContextAwareResource,
+        parse_policy_entry,
+    )
+
+    names = [f"ns-{i}" for i in range(n_namespaces)]
+    service = ContextSnapshotService(
+        StaticContextFetcher({"v1/Namespace": [
+            {"metadata": {"name": n, "uid": f"u-{n}"}} for n in names
+        ]}),
+        wanted=[ContextAwareResource("v1", "Namespace")],
+    )
+    service.refresh()
+    policies = dict(flagship_policies())
+    policies["namespace-exists"] = parse_policy_entry("namespace-exists", {
+        "module": "builtin://namespace-exists",
+        "contextAwareResources": [{"apiVersion": "v1", "kind": "Namespace"}],
+    })
+    env = EvaluationEnvironmentBuilder(
+        device="cuda", context_service=service
+    ).build(policies)
+    target = env._lookup_top_level(PolicyID.parse("namespace-exists"))
+    encs, ghosts = [], 0
+    for i, doc in enumerate(synthetic_firehose(400, seed=61)):
+        doc = copy.deepcopy(doc)
+        if idx == 1:
+            pod = doc["request"]["object"]["spec"]
+            pod["containers"] = [
+                dict(pod["containers"][k % len(pod["containers"])], name=f"c{k}")
+                for k in range(12)
+            ]
+        doc["request"]["namespace"] = names[i % n_namespaces] if i % 4 else "ghost"
+        req = ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(doc).request
+        )
+        got, enc = env.encode_bucketed(env.payload_for(target, req))
+        if got == idx:
+            encs.append(enc)
+            ghosts += i % 4 == 0
+        if len(encs) == 128:
+            break
+    assert len(encs) == 128
+    schema = env.schemas[idx]
+    wide = schema.pack(schema.stack(encs, batch_size=128))
+    buf = torch.from_numpy(
+        schema.to_transport(wide, vocab_size=len(env.table))["__packed__"]
+    ).cuda()
+    program = env.program_for(idx, True, True)
+    want_a, want_r = ck.policy_matrix_plain(buf, program)
+    before = ck.policy_matrix.launches
+    got_a, got_r = ck.policy_matrix(buf, program)
+    torch.cuda.synchronize()
+    assert ck.policy_matrix.launches == before + 1
+    assert torch.equal(got_a, want_a) and torch.equal(got_r, want_r)
+    col = program.column_of["namespace-exists"]
+    assert int((~got_a[:, col]).sum()) == ghosts > 0
+    env.close()

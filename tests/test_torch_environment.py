@@ -149,14 +149,15 @@ def test_unknown_policy_is_a_per_item_error():
 
 
 _NOT_ON_THE_CARD = ("jax", "jaxlib", "policy_server_tpu", "prometheus_client",
-                    "aiohttp", "yaml")
+                    "aiohttp", "yaml", "requests")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of the port, nor ``chip_smoke.py``, nor the port's wasm
-    fixtures (``tests/torch_wasm_fixtures.py``), imports JAX, the JAX
-    package, or what the card's machine lacks (prometheus_client,
-    aiohttp, PyYAML): imported in a fresh interpreter, with the native
+    and fetch fixtures (``tests/torch_wasm_fixtures.py``,
+    ``tests/torch_fetch_fixtures.py``), imports JAX, the JAX
+    package, or what the card's machine lacks or does not promise
+    (prometheus_client, aiohttp, PyYAML, requests): imported in a fresh interpreter, with the native
     wasm core built and a fixture assembled and run on it, and
     ``chip_smoke.py``'s import statements read from its source, lazy ones
     included."""
@@ -169,6 +170,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             importlib.import_module(m.name)
         import policy_server_tpu_torch.__main__
         import chip_smoke
+        import torch_fetch_fixtures
         import torch_wasm_fixtures
         from policy_server_tpu_torch.wasm import native_exec, wapc
         native_exec.build_library()
@@ -227,6 +229,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.cel.interp",
             "policy_server_tpu_torch.cel.lower",
             "policy_server_tpu_torch.cel.policy",
+            "policy_server_tpu_torch.httpclient",
+            "policy_server_tpu_torch.config.sources",
+            "policy_server_tpu_torch.config.verification",
+            "policy_server_tpu_torch.fetch.downloader",
+            "policy_server_tpu_torch.fetch.verify",
+            "policy_server_tpu_torch.fetch.keyless",
+            "policy_server_tpu_torch.context.service",
+            "policy_server_tpu_torch.audit.watch_feed",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)

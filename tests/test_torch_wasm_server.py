@@ -279,14 +279,22 @@ def test_long_version_matches_the_jax_cli():
 
 
 def test_non_builtin_module_on_the_command_line(tmp_path):
+    """A module that is not a builtin goes through the fetch path: one
+    that cannot be fetched fails the boot with the downloader's error, and
+    under --continue-on-errors answers that error as its init error while
+    the rest serve."""
+    from policy_server_tpu_torch.fetch import FetchError
+
+    missing = tmp_path / "missing.tpp.json"
     policies = tmp_path / "policies.json"
     policies.write_text(json.dumps({
-        "w": {"module": "registry://ghcr.io/example/some-policy:v1"},
+        "w": {"module": f"file://{missing}"},
         "priv": {"module": "builtin://pod-privileged"},
     }))
     base = ["--policies", str(policies), "--port", "0",
-            "--readiness-probe-port", "0", "--device", "cpu", "--no-warmup"]
-    with pytest.raises(BootstrapFailure, match="no fetcher was configured"):
+            "--readiness-probe-port", "0", "--device", "cpu", "--no-warmup",
+            "--policies-download-dir", str(tmp_path / "store")]
+    with pytest.raises(FetchError, match="file not found"):
         cli.server_from_args(cli.build_cli().parse_args(base))
     server = cli.server_from_args(
         cli.build_cli().parse_args(base + ["--continue-on-errors"])
@@ -297,6 +305,6 @@ def test_non_builtin_module_on_the_command_line(tmp_path):
             "/validate/w", json.dumps(pod_docs()[0]).encode()
         ))[0][2])
         assert doc["response"]["allowed"] is False
-        assert "no fetcher was configured" in doc["response"]["status"]["message"]
+        assert "file not found" in doc["response"]["status"]["message"]
     finally:
         server.stop()
