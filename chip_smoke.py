@@ -280,6 +280,33 @@ card's name and power limit:
    the oracle's, and the seconds from an event's send to its report row
    (p50, p99) and the audit lane's K1 launches are printed.
 
+14. crash recovery — phase 13's fetched set (27 artifacts, its sources
+   and signatures) served by server processes (``python -m
+   policy_server_tpu_torch``, run by this script re-invoked with
+   ``--recovery-server``, which adds a SIGUSR1 command channel for the
+   launch counts and the chaos sites) with ``--state-dir``,
+   ``--enable-metrics`` and the kernel-only flags, under
+   ``build/chip_smoke_recovery/``. Cold boot: 1,024 reviews, every body
+   the oracle's, every micro-batch launching K1 (counts set to 0 just
+   before each wave and read just after; no host-routed batch). SIGKILL
+   with 256 requests in flight (the dispatch loop stalled by a
+   ``shard.dispatch`` sleep, the kill once all 256 wait in its queue;
+   none answered). Warm boot with the registry and HTTPS hosts stopped,
+   the ``file://`` sources deleted and ``FAILPOINTS=fetch.http=raise``:
+   ``policy_server_boot_warm`` 1, 27 artifact-cache hits, 0 degraded
+   sources, 0 quarantined files and 0 files downloaded; K2 at the build;
+   the same 1,024 reviews as at the cold boot. A changed policies file
+   (one builtin id dropped) with the sources still down: the boot
+   degrades loudly (``degraded_sources`` ≥ 1) and 256 reviews equal the
+   changed set's oracle. A flipped byte in ``manifests.journal``'s newest
+   record: quarantined at the next boot (``--serving-shards 2``), which
+   lands on the generation before it and serves; a ``shard.dispatch``
+   raise in shard 0 fences it and the heartbeat revives it; SIGKILL; the
+   next boot's shard counters on /metrics equal those before the crash.
+   Each boot's time to ready (the metric, and the wall clock from the
+   process's start to /readiness 200), each wave's rate, p50 and p99,
+   and K1 and K2 launches are printed.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
@@ -290,7 +317,8 @@ to 13: it needs neither torch nor the package (``tolerate-close``: a
 connection the server closes leaves its unanswered requests empty instead
 of failing the run; ``tls``: HTTPS, with a client certificate for mTLS).
 ``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
-10's ``/audit/stream`` reader.
+10's ``/audit/stream`` reader. ``python3 chip_smoke.py --recovery-server
+CONTROL COUNTS ARGS...`` is phase 14's server process.
 """
 
 from __future__ import annotations
@@ -4924,6 +4952,7 @@ class FetchRig:
         import torch_fetch_fixtures as fx
 
         self.fx = fx
+        self.stopped = False
         shutil.rmtree(FETCH_DIR, ignore_errors=True)
         os.makedirs(FETCH_DIR)
         key = Ed25519PrivateKey.generate()
@@ -5079,8 +5108,10 @@ class FetchRig:
         return env, resolver
 
     def stop(self) -> None:
-        self.https.stop()
-        self.registry.stop()
+        if not self.stopped:
+            self.stopped = True
+            self.https.stop()
+            self.registry.stop()
 
 
 class BootClock:
@@ -5840,17 +5871,412 @@ def watch_wave(work_docs: list, card: str) -> dict:
     return out
 
 
-def acquisition_phase(work_docs: list, card: str) -> dict:
+def acquisition_phase(rig: FetchRig, work_docs: list, card: str) -> dict:
     """Phase 13 (see the module docstring) → its numbers for the kernels
-    line."""
-    rig = FetchRig()
-    try:
-        out = {"fetch": fetch_waves(rig, work_docs, card)}
-    finally:
-        rig.stop()
+    line. The rig's sources stay up for phase 14."""
+    out = {"fetch": fetch_waves(rig, work_docs, card)}
     out["context"] = context_waves(work_docs, card)
     out["watch"] = watch_wave(work_docs, card)
     return out
+
+
+RECOVERY_DIR = os.path.join(REPO, "build", "chip_smoke_recovery")
+RECOVERY_WAVE = 1024
+RECOVERY_KILL_WAVE = 256
+RECOVERY_SMALL_WAVE = 256
+# the dispatch loop's stall that holds the kill wave in flight: every row
+# waits in the batcher's queue, and the kill comes once all are there
+RECOVERY_STALL_SECONDS = 30.0
+SHARD_FAMILIES = (
+    "policy_server_shard_fences_total", "policy_server_shard_rerouted_rows_total",
+    "policy_server_shard_fenced_rows_total", "policy_server_shard_respawns_total",
+    "policy_server_shard_heartbeat_faults_total",
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def recovery_server_main(argv: list[str]) -> int:
+    """Phase 14's server process: ``python -m policy_server_tpu_torch ARGS``
+    run in this process (``runpy``), with one addition: on SIGUSR1 it reads
+    the JSON command in CONTROL (``{"seq": n, "op": "counts" | "reset" |
+    "stall" | "kill-shard", ...}``), applies it (``reset`` sets the kernel
+    wrappers' launch counts to 0, ``stall`` arms a ``shard.dispatch`` sleep
+    (the dispatch loop stops popping its queue), ``kill-shard`` arms one ``shard.dispatch`` raise in a shard's scope) and
+    writes ``{"seq": n, "counts": ...}`` to COUNTS. ARGV is CONTROL COUNTS
+    then the server's arguments."""
+    import runpy
+    import signal
+
+    control, counts_path = argv[0], argv[1]
+    sys.path.insert(0, REPO)
+    from policy_server_tpu_torch import failpoints
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    def die() -> None:
+        raise RuntimeError("chip smoke: shard killed")
+
+    def on_signal(_signum, _frame) -> None:
+        with open(control) as f:
+            cmd = json.load(f)
+        if cmd["op"] == "reset":
+            ck.reset_launch_counts()
+        elif cmd["op"] == "stall":
+            failpoints.configure(f"shard.dispatch=sleep:{cmd['seconds']}")
+        elif cmd["op"] == "kill-shard":
+            failpoints.set_failpoint("shard.dispatch", die, count=1,
+                                     scope=cmd["scope"])
+        tmp = counts_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"seq": cmd["seq"], "counts": ck.launch_counts()}, f)
+        os.replace(tmp, counts_path)
+
+    signal.signal(signal.SIGUSR1, on_signal)
+    sys.argv = ["policy_server_tpu_torch", *argv[2:]]
+    runpy.run_module("policy_server_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+    return 0
+
+
+class RecoveryServer:
+    """One phase 14 server process (``recovery_server_main``) on free ports,
+    waited for until /readiness answers 200: ``wall_ready_s`` runs from the
+    process's start to that answer."""
+
+    def __init__(self, argv: list, label: str) -> None:
+        self.label = label
+        self.port, self.readiness_port = free_port(), free_port()
+        tag = label.replace(" ", "-")
+        self.control = os.path.join(RECOVERY_DIR, f"{tag}.control")
+        self.counts = os.path.join(RECOVERY_DIR, f"{tag}.counts")
+        self.log = os.path.join(RECOVERY_DIR, f"{tag}.log")
+        self.seq = 0
+        t0 = time.perf_counter()
+        with open(self.log, "wb") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--recovery-server",
+                 self.control, self.counts, *argv, "--port", str(self.port),
+                 "--readiness-probe-port", str(self.readiness_port)],
+                stdin=subprocess.DEVNULL, stdout=log, stderr=subprocess.STDOUT,
+            )
+        deadline = time.monotonic() + 300
+        while True:
+            if self.proc.poll() is not None:
+                fail(f"{label}: the server exited {self.proc.returncode}: "
+                     f"{self.tail()}")
+            try:
+                if http_get(self.readiness_port, "/readiness")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                self.kill()
+                fail(f"{label}: /readiness never answered 200: {self.tail()}")
+            time.sleep(0.05)
+        self.wall_ready_s = time.perf_counter() - t0
+
+    def tail(self) -> str:
+        with open(self.log, "rb") as f:
+            return f.read()[-3000:].decode("utf-8", "replace")
+
+    def command(self, op: str, **kw) -> dict:
+        """Send one command (``recovery_server_main``) → the launch counts
+        it answered with."""
+        import signal
+
+        self.seq += 1
+        with open(self.control, "w") as f:
+            json.dump({"seq": self.seq, "op": op, **kw}, f)
+        os.kill(self.proc.pid, signal.SIGUSR1)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            try:
+                with open(self.counts) as f:
+                    doc = json.load(f)
+                if doc["seq"] == self.seq:
+                    return doc["counts"]
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.02)
+        fail(f"{self.label}: the server did not answer command {op}")
+        return {}
+
+    def metric(self, name: str) -> float:
+        return metric_value(self.readiness_port, name)
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGKILL)
+        self.proc.wait(30)
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGINT)
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.kill()
+
+
+def recovery_wave(server: RecoveryServer, wave: list, expectations: list,
+                  label: str) -> dict:
+    """A kernel-only wave from the ``--native-client`` process: every body
+    must equal the oracle's, no batch may be host-routed, and every
+    micro-batch must launch K1 (the launch counts set to 0 just before the
+    wave, read just after; beside them the batches and shard 0's device
+    dispatches on /metrics)."""
+    m = "policy_server_{}_total".format
+    b0 = {k: server.metric(m(k)) for k in
+          ("batches_dispatched", "host_fastpath_batches", "pallas_dispatches")}
+    server.command("reset")
+    t0 = time.perf_counter()
+    results = client_wave(server.port, wave, label.replace(" ", "-"))
+    wall = time.perf_counter() - t0
+    time.sleep(0.1)  # the last batch's bookkeeping lands after delivery
+    counts = server.command("counts")
+    b1 = {k: server.metric(m(k)) for k in b0}
+    run = check_wave(label, results, wave, expectations)
+    run.update({
+        "req_s": len(wave) / wall,
+        "batches": int(b1["batches_dispatched"] - b0["batches_dispatched"]),
+        "host_batches": int(
+            b1["host_fastpath_batches"] - b0["host_fastpath_batches"]
+        ),
+        "dispatches": int(b1["pallas_dispatches"] - b0["pallas_dispatches"]),
+        "serving_launches": counts["policy_matrix"],
+        "probe_launches": counts["probe"],
+    })
+    if run["host_batches"] or not run["batches"] or (
+        run["serving_launches"] < run["batches"]
+    ):
+        fail(f"{label}: {run['batches']} batches ({run['host_batches']} "
+             f"host-routed), {run['dispatches']} device dispatches, "
+             f"policy_matrix {run['serving_launches']} launches")
+    return run
+
+
+def boot_numbers(server: RecoveryServer) -> dict:
+    """The boot families on /metrics and K2's launches at the build."""
+    m = server.metric
+    return {
+        "ttr_metric_s": m("policy_server_boot_time_to_ready_seconds"),
+        "ttr_wall_s": server.wall_ready_s,
+        "warm": m("policy_server_boot_warm"),
+        "degraded_sources": m("policy_server_boot_degraded_sources"),
+        "cache_hits": m("policy_server_statestore_artifact_cache_hits_total"),
+        "cache_misses": m(
+            "policy_server_statestore_artifact_cache_misses_total"
+        ),
+        "quarantined": m("policy_server_statestore_fsck_quarantined_total"),
+        "artifacts_resident": m("policy_server_statestore_artifacts_resident"),
+        "build_launches": server.command("counts"),
+    }
+
+
+def recovery_phase(rig: FetchRig, work_docs: list, card: str) -> dict:
+    """Phase 14 (see the module docstring) → its numbers."""
+    import shutil
+
+    shutil.rmtree(RECOVERY_DIR, ignore_errors=True)
+    os.makedirs(RECOVERY_DIR)
+    state = os.path.join(RECOVERY_DIR, "state")
+    v1 = rig.tagged("v1")
+    drop = next(n for n in sorted(v1) if n not in rig.where)
+    changed = {k: v for k, v in v1.items() if k != drop}
+    policies = os.path.join(RECOVERY_DIR, "policies.json")
+    with open(policies, "w") as f:
+        json.dump(v1, f)
+    # the oracles over the same artifacts, fetched while the sources are up
+    oracle, _r = rig.oracle(v1, "oracle-store-14")
+    oracle_changed, _r2 = rig.oracle(changed, "oracle-store-14c")
+    wave = wave_of(work_docs, RECOVERY_WAVE, "c14")
+    exp = [expected_answer(oracle, pid, b) for pid, b in wave]
+
+    def argv(download: str, *extra: str) -> list:
+        args = rig.args(policies, download) + KERNEL_ONLY_ARGS + [
+            "--state-dir", state, *extra,
+        ]
+        # the ports are the process's own (RecoveryServer)
+        for flag in ("--port", "--readiness-probe-port"):
+            i = args.index(flag)
+            del args[i:i + 2]
+        return args
+
+    out: dict = {}
+    servers: list = []
+
+    def boot(label: str, *extra: str, download: str = "dl") -> RecoveryServer:
+        server = RecoveryServer(
+            argv(os.path.join(RECOVERY_DIR, download), *extra), label
+        )
+        servers.append(server)
+        return server
+
+    try:
+        # 1. the cold boot fetches all 27 artifacts and fills the store
+        cold = boot("phase14 cold")
+        out["cold"] = boot_numbers(cold)
+        out["cold"]["wave"] = recovery_wave(cold, wave, [exp], "phase14 cold wave")
+        # 2. SIGKILL with a wave in flight: the dispatch loop stalls (its
+        # running iteration ends first), and the kill comes once every row
+        # waits in the queue
+        kill_wave = wave_of(work_docs, RECOVERY_KILL_WAVE, "k14")
+        cold.command("stall", seconds=RECOVERY_STALL_SECONDS)
+        time.sleep(0.2)
+        # one request per connection: the standard-library frontend reads
+        # a connection's next request only after answering the last
+        proc, path = start_client(cold.port, kill_wave, "phase14-kill",
+                                  tolerate_close=True, work_dir=RECOVERY_DIR,
+                                  conns=RECOVERY_KILL_WAVE, depth=1)
+        deadline = time.monotonic() + 20
+        admitted = 0.0
+        while time.monotonic() < deadline:
+            admitted = cold.metric("policy_server_queue_depth")
+            if admitted >= RECOVERY_KILL_WAVE:
+                break
+            time.sleep(0.02)
+        cold.kill()
+        killed = finish_client(proc, path, "phase14 kill wave")
+        answered = sum(r is not None for r in killed)
+        out["kill"] = {"admitted": admitted, "answered": answered,
+                       "returncode": cold.proc.returncode}
+        if answered:
+            fail(f"phase14: {answered} of the kill wave's requests were "
+                 "answered before the SIGKILL")
+        # 3. the warm boot: the sources down, the file:// artifacts gone,
+        # the network failpoint armed; a fresh download directory stays
+        # empty (no fetch)
+        rig.stop()
+        for name, where in rig.where.items():
+            if where == "file":
+                src = v1[name]["module"][len("file://"):]
+                os.unlink(src)
+                os.unlink(src + ".sig.json")
+        os.environ["FAILPOINTS"] = "fetch.http=raise:the sources are down"
+        try:
+            warm = boot("phase14 warm", download="dl-warm")
+        finally:
+            del os.environ["FAILPOINTS"]
+        out["warm"] = boot_numbers(warm)
+        fetched = os.listdir(os.path.join(RECOVERY_DIR, "dl-warm")) if os.path.isdir(
+            os.path.join(RECOVERY_DIR, "dl-warm")) else []
+        out["warm"]["downloads"] = len(fetched)
+        w = out["warm"]
+        if (w["warm"] != 1 or w["cache_hits"] != len(rig.artifacts)
+                or w["quarantined"] or w["degraded_sources"] or fetched
+                or w["build_launches"]["probe"] < 1):
+            fail(f"phase14 warm boot: {json.dumps(w)}")
+        w["wave"] = recovery_wave(warm, wave, [exp], "phase14 warm wave")
+        warm.stop()
+        # 4. a changed policies file with the sources still down: every
+        # artifact degrades loudly to its cached bytes
+        with open(policies, "w") as f:
+            json.dump(changed, f)
+        degraded = boot("phase14 changed", download="dl-changed")
+        out["changed"] = boot_numbers(degraded)
+        if out["changed"]["degraded_sources"] < 1:
+            fail(f"phase14 changed file: {json.dumps(out['changed'])}")
+        small = wave_of([(p, d) for p, d in work_docs if p != drop],
+                        RECOVERY_SMALL_WAVE, "d14")
+        out["changed"]["wave"] = recovery_wave(
+            degraded, small, [[expected_answer(oracle_changed, p, b)
+                               for p, b in small]],
+            "phase14 changed wave",
+        )
+        degraded.stop()
+        # 5. a flipped byte in the newest manifest record: quarantined, and
+        # the boot lands on the generation before it (the first file's),
+        # with two serving shards for step 6
+        journal = os.path.join(state, "manifests.journal")
+        with open(journal, "rb") as f:
+            data = bytearray(f.read())
+        data[-10] ^= 0x01
+        with open(journal, "wb") as f:
+            f.write(bytes(data))
+        with open(policies, "w") as f:
+            json.dump(v1, f)
+        flipped = boot("phase14 flipped", "--serving-shards", "2",
+                       download="dl-flipped")
+        out["flipped"] = boot_numbers(flipped)
+        fl = out["flipped"]
+        if fl["quarantined"] < 1:
+            fail(f"phase14 flipped byte: nothing quarantined {json.dumps(fl)}")
+        small = wave_of(work_docs, RECOVERY_SMALL_WAVE, "f14")
+        exp_small = [expected_answer(oracle, p, b) for p, b in small]
+        fl["wave"] = recovery_wave(flipped, small, [exp_small],
+                                   "phase14 flipped wave")
+        # 6. fence a shard, SIGKILL, boot again: the shard counters resume
+        # from the incident journal
+        flipped.command("kill-shard", scope="shard-0")
+        wait_until(
+            lambda: flipped.metric("policy_server_shard_respawns_total") >= 1,
+            30, "phase14: the fenced shard's respawn",
+        )
+        before = {n: flipped.metric(n) for n in SHARD_FAMILIES}
+        fenced_wave = wave_of(work_docs, RECOVERY_SMALL_WAVE, "s14")
+        fl["shard_wave"] = recovery_wave(
+            flipped, fenced_wave,
+            [[expected_answer(oracle, p, b) for p, b in fenced_wave]],
+            "phase14 fenced-shard wave",
+        )
+        flipped.kill()
+        again = boot("phase14 shards again", "--serving-shards", "2",
+                     download="dl-again")
+        out["again"] = boot_numbers(again)
+        after = {n: again.metric(n) for n in SHARD_FAMILIES}
+        out["shards"] = {"before": before, "after": after}
+        if after != before or before["policy_server_shard_fences_total"] < 1:
+            fail(f"phase14 shard counters: before the crash {before}, "
+                 f"after {after}")
+        out["again"]["wave"] = recovery_wave(
+            again, small, [exp_small], "phase14 shards-again wave"
+        )
+        again.stop()
+    finally:
+        for server in servers:
+            server.kill()
+    return out
+
+
+def print_recovery_phase(r: dict, card: str) -> None:
+    for step in ("cold", "warm", "changed", "flipped", "again"):
+        b = r[step]
+        run = b["wave"]
+        print(
+            f"phase14 {step} boot: time to ready {b['ttr_metric_s']:.3f} s "
+            f"(metric) / {b['ttr_wall_s']:.3f} s (process start to "
+            f"/readiness 200); warm {b['warm']:.0f}, cache hits "
+            f"{b['cache_hits']:.0f}, degraded sources "
+            f"{b['degraded_sources']:.0f}, quarantined {b['quarantined']:.0f}; "
+            f"K2 {b['build_launches']['probe']} at the build; "
+            f"{run['answered']} kernel-only reviews, every body the oracle's; "
+            f"{run['req_s']:.1f} req/s p50 {run['p50']:.3f} p99 "
+            f"{run['p99']:.3f} ms; {run['batches']} batches, policy_matrix "
+            f"{run['serving_launches']} launches [{card}]"
+        )
+    k = r["kill"]
+    print(
+        f"phase14 SIGKILL: {k['admitted']:.0f} of {RECOVERY_KILL_WAVE} "
+        f"requests admitted and in flight, {k['answered']} answered, exit "
+        f"{k['returncode']} [{card}]"
+    )
+    print(
+        f"phase14 warm boot: {r['warm']['downloads']} files downloaded; "
+        f"shard counters before the crash {json.dumps(r['shards']['before'])}"
+        f", after the reboot {json.dumps(r['shards']['after'])}; fenced-shard "
+        f"wave policy_matrix {r['flipped']['shard_wave']['serving_launches']} "
+        f"launches [{card}]"
+    )
 
 
 def main() -> int:
@@ -6353,9 +6779,18 @@ def main() -> int:
     print(f"phase12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- phase 13: policy acquisition, context and the audit watch feed -----
+    # -- phase 14: crash recovery on phase 13's fetched set ------------------
     t_phase = time.perf_counter()
-    r13 = acquisition_phase(work_docs, card)
-    print(f"phase13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    rig = FetchRig()
+    try:
+        r13 = acquisition_phase(rig, work_docs, card)
+        print(f"phase13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+        t_phase = time.perf_counter()
+        r14 = recovery_phase(rig, work_docs, card)
+    finally:
+        rig.stop()
+    print_recovery_phase(r14, card)
+    print(f"phase14 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- the kernels line -------------------------------------------------
     main_row = next(
@@ -6435,6 +6870,13 @@ def main() -> int:
                     r13["context"]["C257"]["serving_launches"],
                 "phase13 wave W audit lane, the watch events":
                     r13["watch"]["audit_launches"],
+                **{
+                    f"phase14 {step} boot's kernel-only wave":
+                        r14[step]["wave"]["serving_launches"]
+                    for step in ("cold", "warm", "changed", "flipped", "again")
+                },
+                "phase14 fenced-shard wave":
+                    r14["flipped"]["shard_wave"]["serving_launches"],
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -6514,6 +6956,11 @@ def main() -> int:
                 ),
                 "phase13 wave W (server build and the audit run)":
                     r13["watch"]["launches"]["probe"],
+                **{
+                    f"phase14 {step} boot (its build)":
+                        r14[step]["build_launches"]["probe"]
+                    for step in ("cold", "warm", "changed", "flipped", "again")
+                },
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,
@@ -6545,4 +6992,6 @@ if __name__ == "__main__":
         sys.exit(native_client_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--stream-client"]:
         sys.exit(stream_client_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--recovery-server"]:
+        sys.exit(recovery_server_main(sys.argv[2:]))
     sys.exit(main())

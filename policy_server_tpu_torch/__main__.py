@@ -14,7 +14,11 @@ serves named tenants beside the default one and ``--serving-shards`` serves
 each from several stacks; ``--audit-mode interval|on-promote`` runs the
 background audit scanner (``--audit-matrix`` its verdict matrix,
 ``--audit-watch`` the live list+watch feed; ``--audit-matrix-spill-seconds``
-is read only by the spill, which waits for A11). Modules that are not
+is read only by the spill, which waits for A11b). ``--state-dir DIR`` keeps
+the durable last-good state (``statestore.py``): the artifact cache, the
+per-tenant manifests, the boot report and the shard incident log, so a
+restart boots warm; with the audit scanner on it is refused until the
+audit spill is ported (ROADMAP A11b). Modules that are not
 builtins are fetched (``--policies-download-dir``, ``--sources-path``,
 ``--docker-config-json-path``) and verified (``--verification-path``,
 ``--sigstore-cache-dir``); the sources and verification files are JSON, or
@@ -387,6 +391,29 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "admin endpoints (POST /policies/reload, /policies/"
                    "promote, /policies/rollback on the readiness port); "
                    "unset disables them")),
+        ("--state-dir", "KUBEWARDEN_STATE_DIR",
+         dict(default=None, metavar="DIR",
+              help="Durable last-good state directory (round 17, "
+                   "statestore.py): a crash-consistent store (atomic "
+                   "tmp+fsync+rename writes, CRC-framed generation-"
+                   "numbered journals) holding (a) a content-addressed "
+                   "policy artifact cache shared by boot and hot-reload "
+                   "fetch, (b) per-tenant last-good epoch manifests "
+                   "persisted on every promotion/rollback so the "
+                   "rollback pin survives restarts, and (c) the audit "
+                   "snapshot spill (resourceVersion cursors + "
+                   "inventory) so the watch feed RESUMES instead of "
+                   "re-LISTing the cluster. A warm boot whose policies "
+                   "config matches the last-good manifest loads pinned "
+                   "artifacts from the cache with ZERO network fetches; "
+                   "a failed fetch degrades loudly to last-good instead "
+                   "of fail-closing. Corrupt or torn entries are "
+                   "quarantined by the boot fsck pass, never fatal. "
+                   "Unset = amnesiac "
+                   "restarts (every boot refetches and re-LISTs). This "
+                   "package does not spill the audit state yet (ROADMAP "
+                   "A11b): --state-dir with --audit-mode other than off, "
+                   "--audit-watch or --audit-matrix is refused")),
         ("--selfheal-interval-seconds", "KUBEWARDEN_SELFHEAL_INTERVAL_SECONDS",
          dict(type=float, default=DEFAULT_SELFHEAL_INTERVAL_SECONDS,
               metavar="SECONDS",
@@ -829,6 +856,7 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         audit_watch=args.audit_watch,
         audit_watch_resources=args.audit_watch_resources,
         audit_watch_max_queue_events=args.audit_watch_max_queue_events,
+        state_dir=args.state_dir,
     )
 
 

@@ -88,6 +88,15 @@ class ApiServerState:
     # the native_frontend.NativeTlsManager when TLS terminates on the
     # native loops (the generations counter and the termination gauge)
     native_tls: Any = None
+    # the statestore.StateStore under --state-dir (the statestore
+    # families read its stats; None without it)
+    statestore: Any = None
+    # how this boot went: warm or cold, time to ready, cache hits,
+    # degraded sources (the boot families); written once at boot
+    boot_report: Any = None
+    # a soak window's {rps, p99_ms, shed_rate}, refreshed by whoever runs
+    # a soak in-process; None outside one (the soak gauges read 0)
+    soak: Any = None
 
     def _supervisor_note(self, body: str) -> str:
         """A 200 body names the frontend worker slots that gave up

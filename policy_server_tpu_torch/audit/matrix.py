@@ -33,7 +33,7 @@ target, so the audit lane's raw verdict and the live verdict are the same
 bytes.
 
 Without a state store (the spill and the warm resume wait for ROADMAP
-A11) :meth:`maybe_spill` spills nothing and :meth:`restore` restores
+A11b) :meth:`maybe_spill` spills nothing and :meth:`restore` restores
 nothing, as the JAX package's matrix does without ``--state-dir``.
 
 Thread-safety: one lock guards all matrix state. Publishers append to
@@ -537,13 +537,13 @@ class VerdictMatrix:
 
     def maybe_spill(self, force: bool = False) -> bool:
         """Spill the matrix when the cadence (or ``force``) says so → False:
-        there is no state store to spill through (ROADMAP A11), as in the
+        there is no state store to spill through (ROADMAP A11b), as in the
         JAX package without ``--state-dir``."""
         return False
 
     def restore(self) -> int:
         """Warm-boot restore from the spill → 0: there is no state store
-        (ROADMAP A11)."""
+        (ROADMAP A11b)."""
         return 0
 
     # -- what-if (--audit-matrix-whatif) -------------------------------------
@@ -652,7 +652,7 @@ class VerdictMatrix:
                 "columns_invalidated": self._columns_invalidated,
                 "row_sweep_rows": self._row_sweep_rows,
                 "column_sweep_rows": self._column_sweep_rows,
-                # no state store (ROADMAP A11): nothing spilled or restored
+                # no state store (ROADMAP A11b): nothing spilled or restored
                 "spills": 0,
                 "cells_restored": 0,
             }

@@ -134,7 +134,7 @@ class AuditScanner:
             self._thread.join(timeout=5)
             self._thread = None
         if self.matrix is not None:
-            # the final spill (nothing without a state store, ROADMAP A11)
+            # the final spill (nothing without a state store, ROADMAP A11b)
             self.matrix.maybe_spill(force=True)
 
     # -- triggers ----------------------------------------------------------
@@ -407,7 +407,7 @@ class AuditScanner:
                 self._dirty_sweeps += 1
         if matrix is not None:
             # the spill rides the sweep tail, never the serving path
-            # (nothing without a state store, ROADMAP A11)
+            # (nothing without a state store, ROADMAP A11b)
             matrix.maybe_spill()
         return scanned
 

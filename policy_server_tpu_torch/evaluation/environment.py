@@ -124,6 +124,7 @@ from policy_server_tpu_torch.ops.codec import (
     FeatureSchema,
     SchemaOverflow,
     ensure_unique_packed_widths,
+    mask_key_for,
 )
 from policy_server_tpu_torch.ops.compiler import compile_constant, compile_program
 from policy_server_tpu_torch.ops.optimizer import (
@@ -609,6 +610,12 @@ class EvaluationEnvironment:
             for a, n in cap_buckets
         ]
         self.schema = self.schemas[-1]
+        # the optimizer's pruning accounting against the unoptimized
+        # schema (optimizer_stats), computed on the first read: a reload
+        # candidate's build does not pay for it
+        self._opt_accounting: tuple[int, int] | None = None
+        self._opt_base_exprs = exprs if self.optimization is not None else None
+        self._opt_cap_buckets = list(cap_buckets)
         # the device selects a layout by row width, so widths must be
         # unique across schemas and buffer forms; fixed before the native
         # encoder captures the row stride
@@ -1217,6 +1224,65 @@ class EvaluationEnvironment:
             "dispatches": dispatches,
             "buckets_armed": len(self.schemas) if self.backend == "torch" else 0,
         }
+
+    @property
+    def optimizer_stats(self) -> dict[str, int]:
+        """The predicate optimizer's work on this set, as the JAX
+        package's: CSE subtrees shared, policies and rules folded to
+        constants, and (against the unoptimized schema) the fields pruned
+        from the widest bucket and the packed-row bytes saved over every
+        bucket. Zeros with the optimizer off."""
+        if self.optimization is None:
+            return dict.fromkeys(
+                ("subtrees_shared", "policies_folded", "rules_folded",
+                 "fields_pruned", "row_bytes_saved"), 0,
+            )
+        fields_pruned, row_bytes_saved = self._opt_accounting_get()
+        return {
+            "subtrees_shared": self.optimization.subtrees_shared,
+            "policies_folded": self.optimization.policies_folded,
+            "rules_folded": self.optimization.rules_folded,
+            "fields_pruned": fields_pruned,
+            "row_bytes_saved": row_bytes_saved,
+        }
+
+    def _opt_accounting_get(self) -> tuple[int, int]:
+        """(fields pruned, row bytes saved): the naive schema is rebuilt
+        per cap bucket once, on the first read (a benign race: the
+        computation is pure)."""
+        if self._opt_accounting is not None:
+            return self._opt_accounting
+
+        def keyset(schema: FeatureSchema) -> set:
+            keys = set(schema.specs)
+            keys.update(
+                mask_key_for(s.key) for s in schema.specs.values() if s.has_mask
+            )
+            return keys
+
+        fields_pruned = row_bytes_saved = 0
+        for i, (a, n) in enumerate(self._opt_cap_buckets):
+            base = FeatureSchema.build(
+                self._opt_base_exprs, axis_cap=a, nested_axis_cap=n
+            )
+            saved = base.packed_layout().width - self.schemas[i].packed_layout().width
+            row_bytes_saved += max(0, saved)
+            if i == len(self._opt_cap_buckets) - 1:
+                fields_pruned = len(keyset(base) - keyset(self.schemas[i]))
+        self._opt_accounting = (fields_pruned, row_bytes_saved)
+        return self._opt_accounting
+
+    @property
+    def kernel_runs_plain(self) -> bool:
+        """True where the device backend runs K1's plain PyTorch version
+        (an environment on the CPU), as the JAX package's Pallas path runs
+        in interpret mode; False where it launches the CUDA kernel, and on
+        the oracle backend, which runs neither."""
+        return (
+            self.backend == "torch"
+            and self.device is not None
+            and self.device.type != "cuda"
+        )
 
     @property
     def warmup_dispatches(self) -> int:

@@ -114,7 +114,10 @@ _TRUST_ROOT_UNSET = object()
 
 
 def make_module_resolver(
-    config: Any, trust_root: Any = _TRUST_ROOT_UNSET
+    config: Any,
+    trust_root: Any = _TRUST_ROOT_UNSET,
+    statestore: Any = None,
+    pinned_artifacts: dict[str, str] | None = None,
 ) -> Callable[[str], "PolicyModule"]:
     """The server's module resolver (lib.rs:134-143 download step folded
     into evaluation bootstrap): builtin:// and known upstream refs resolve
@@ -130,7 +133,15 @@ def make_module_resolver(
     The cache is per URL and lives as long as the resolver: the server
     builds one resolver, so a reload whose URL is unchanged keeps the
     module it first fetched, even where the tag has moved since (as in
-    the JAX package)."""
+    the JAX package).
+
+    ``statestore``/``pinned_artifacts`` (``statestore.py``): the durable
+    artifact cache shared by boot and hot reload. A URL whose digest the
+    last-good manifest pins (the policies file is byte-identical to what
+    last served) loads from the cache with no network. Other URLs prefer
+    the live fetch, which refreshes the cache (the artifact and its
+    detached-signature sidecar), and degrade loudly to the newest cached
+    bytes when the fetch fails."""
     from policy_server_tpu_torch.policies import resolve_builtin
 
     if trust_root is _TRUST_ROOT_UNSET:
@@ -144,6 +155,51 @@ def make_module_resolver(
     )
     dest = Path(config.policies_download_dir)
     cache: dict[str, "PolicyModule"] = {}
+    pinned = dict(pinned_artifacts or {})
+
+    def _fetch_with_last_good(url: str) -> Path:
+        """Pinned URLs skip the network; others fetch live and fall back,
+        loudly, to the newest cached artifact when the fetch fails."""
+        if statestore is not None and url in pinned:
+            hit = statestore.cached_artifact(url, digest=pinned[url])
+            if hit is not None:
+                logger.info(
+                    "module %s loaded from the state-store artifact cache "
+                    "(pinned by the last-good manifest; no network fetch)",
+                    url,
+                )
+                return hit
+            # the pin names a blob fsck quarantined or never cached: the
+            # live fetch decides
+        try:
+            path = downloader.fetch_policy(url, dest)
+        except (FetchError, OSError) as e:
+            if statestore is not None:
+                hit = statestore.cached_artifact(url)
+                if hit is not None:
+                    statestore.count_degraded_load()
+                    logger.error(
+                        "fetch of %s FAILED (%s); DEGRADED to the last-good "
+                        "cached artifact — update the source and reload to "
+                        "clear this", url, e,
+                    )
+                    return hit
+            raise
+        if statestore is not None:
+            try:
+                # the sidecar travels with the artifact: a cache-served
+                # module verifies exactly as a live-fetched one
+                sidecar_path = Path(str(path) + ".sig.json")
+                sidecar = (
+                    sidecar_path.read_bytes() if sidecar_path.exists() else None
+                )
+                statestore.record_artifact(url, path.read_bytes(), sidecar=sidecar)
+            except OSError as e:  # a cache write failure must not fail boot
+                logger.error(
+                    "could not cache artifact %s in the state store: %s",
+                    url, e,
+                )
+        return path
 
     def resolve(url: str) -> "PolicyModule":
         if url in cache:
@@ -152,7 +208,7 @@ def make_module_resolver(
         if builtin is not None:
             cache[url] = builtin
             return builtin
-        path = downloader.fetch_policy(url, dest)
+        path = _fetch_with_last_good(url)
         digest = None
         if config.verification_config is not None:
             digest = verify_artifact(

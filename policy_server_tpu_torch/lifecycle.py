@@ -53,6 +53,7 @@ import time
 from typing import Any, Callable, Mapping
 
 from policy_server_tpu_torch import failpoints
+from policy_server_tpu_torch.fetch import iter_module_urls
 from policy_server_tpu_torch.models import AdmissionReviewRequest, ValidateRequest
 from policy_server_tpu_torch.telemetry.tracing import logger
 
@@ -196,6 +197,8 @@ class PolicyLifecycleManager:
         divergence_threshold: float = 0.0,
         warmup: bool = True,
         tenant: str = "default",
+        statestore: Any = None,
+        fingerprint: str | None = None,
     ) -> None:
         self.state = state
         # names the ambient failpoint scope the reload and canary threads
@@ -244,6 +247,11 @@ class PolicyLifecycleManager:
         self._on_rollback: Callable[[int, int], None] | None = None
         # the verdict matrix asked for the cluster what-if; None = off
         self._whatif_matrix: Any = None
+        # the durable last-good sink (statestore.py): every boot,
+        # promotion and rollback persists its epoch's manifest; None
+        # without --state-dir
+        self.statestore = statestore
+        self._fingerprint = fingerprint
 
     def set_whatif_matrix(self, matrix: Any) -> None:
         """Arm the cluster what-if of each candidate that passes its
@@ -271,6 +279,35 @@ class PolicyLifecycleManager:
         except Exception as e:  # noqa: BLE001 — observers must not fail
             logger.error("epoch-transition hook failed: %s", e)
 
+    # -- durable last-good manifest -----------------------------------------
+
+    def _persist_manifest(self, epoch: Epoch, outcome: str) -> None:
+        """Record this epoch as the tenant's last-good in the state store:
+        the policies text the epoch READ (never a re-read of the file,
+        which a concurrent rewrite could have changed), the artifact
+        digests its modules resolved to and the fingerprint. A failure
+        (a full disk) is logged at error level and never fails the
+        transition, as the JAX package's."""
+        store = self.statestore
+        if store is None:
+            return
+        try:
+            urls = set(iter_module_urls(epoch.policies).values())
+            store.persist_manifest(
+                self.tenant,
+                epoch=epoch.number,
+                outcome=outcome,
+                policy_ids=list(epoch.policies),
+                policies_yaml=epoch.policies_yaml,
+                artifact_digests=store.artifact_digests(urls),
+                fingerprint=self._fingerprint,
+            )
+        except Exception as e:  # noqa: BLE001 — durability is best-effort
+            logger.error(
+                "could not persist the last-good manifest for tenant %s: "
+                "%s", self.tenant, e,
+            )
+
     # -- bootstrap ---------------------------------------------------------
 
     def install_first_epoch(self, environment: Any, batcher: Any,
@@ -286,6 +323,7 @@ class PolicyLifecycleManager:
         self.state.evaluation_environment = environment
         self.state.batcher = batcher
         self.state.ready = True
+        self._persist_manifest(epoch, "boot")
         return epoch
 
     def start_watching(self) -> None:
@@ -659,6 +697,8 @@ class PolicyLifecycleManager:
             # one generation is the pin window: the epoch demoted two
             # promotions ago closes for good
             self._retire(beyond_pin, close_env=True)
+        # the pin must survive a crash right after this flip
+        self._persist_manifest(epoch, "promoted")
         # the post-promote observers (the audit scanner's re-judge)
         self._fire_hook(self._on_promote, epoch.number)
 
@@ -760,6 +800,8 @@ class PolicyLifecycleManager:
             self.state.batcher = revived.batcher
             if demoted is not None:
                 self._retire(demoted, close_env=False)
+            # a crash after a rollback comes back on the rolled-back-to set
+            self._persist_manifest(revived, "rolled-back")
             # the post-rollback observers: the demoted epoch's reports go
             # stale, then a re-judge under the revived one
             self._fire_hook(

@@ -39,7 +39,10 @@ environments (``EvaluationEnvironment.close``: refuse new dispatches, wait
 for those in flight and for each stream's last event, then drop the device
 code), never shard 0's. Chaos sites: ``shard.dispatch`` (the batcher's
 loop) and ``shard.heartbeat`` (here), both under the shard's ``shard-<i>``
-failpoint scope.
+failpoint scope. With a state store (``--state-dir``) each fence and warm
+respawn is journaled (``statestore.record_shard_event``), and every router
+built over the store seeds its counters from that journal, so they count
+across reloads and restarts.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ class ShardRouter:
         shards: list[_Shard],
         heartbeat_seconds: float = 0.5,
         supervisor: Any = None,
+        statestore: Any = None,
     ) -> None:
         if len(shards) < 2:
             raise ValueError("a router needs at least two shards")
@@ -101,9 +105,50 @@ class ShardRouter:
         self.shard_fenced_rows = 0  # guarded-by: _stats_lock
         self.shard_respawns = 0  # guarded-by: _stats_lock
         self.shard_heartbeat_faults = 0  # guarded-by: _stats_lock
+        # the durable incident log (statestore.record_shard_event): each
+        # fence and warm respawn is journaled, and a rebuilt router (a
+        # reload epoch, a restart) resumes its counters from it
+        self._statestore = statestore
+        if statestore is not None:
+            self._seed_from_journal(statestore)
         self._stop = threading.Event()
         self._stopping = False
         self._thread: threading.Thread | None = None
+
+    def _seed_from_journal(self, statestore: Any) -> None:
+        """Resume the counters from the incident journal, as the JAX
+        package's router does: a fence adds its re-routed and fenced rows,
+        a probe-fault fence a heartbeat fault (a lower bound: only fenced
+        probe faults are journaled), a warm respawn a respawn. A journal
+        that cannot be read seeds nothing, and the error is logged."""
+        try:
+            log = statestore.shard_events()
+        except Exception as e:  # noqa: BLE001 — forensics, never fatal
+            logger.error(
+                "shard incident journal unreadable (%s); the shard counters "
+                "start from zero", e,
+            )
+            return
+        for ev in log:
+            if ev.get("reason") == "warm-respawn":
+                self.shard_respawns += 1
+                continue
+            self.shard_fences += 1
+            self.shard_reroutes += int(ev.get("rows_rerouted", 0) or 0)
+            self.shard_fenced_rows += int(ev.get("rows_fenced", 0) or 0)
+            if ev.get("reason") == "probe fault":
+                self.shard_heartbeat_faults += 1
+
+    def _journal(self, event: dict) -> None:
+        """Journal one incident; a failed write is logged, never raised."""
+        if self._statestore is None:
+            return
+        try:
+            self._statestore.record_shard_event(event)
+        except Exception as e:  # noqa: BLE001 — forensics, never fatal
+            logger.error(
+                "could not journal shard incident %s: %s", event, e
+            )
 
     def __getattr__(self, name: str) -> Any:
         # only for attributes the router does not define: knobs, tenant,
@@ -305,6 +350,7 @@ class ShardRouter:
                 with self._lock:
                     s.healthy = True
                     s.ewma = 0.0
+                self._journal({"shard": s.index, "reason": "warm-respawn"})
                 logger.error(
                     "shard %d dispatch loop was DEAD — fenced, drained, "
                     "and warm-revived in place (siblings untouched)",
@@ -338,6 +384,12 @@ class ShardRouter:
         with self._stats_lock:
             self.shard_reroutes += len(rows) - len(refused)
             self.shard_fenced_rows += len(refused)
+        self._journal({
+            "shard": victim.index,
+            "reason": reason,
+            "rows_rerouted": len(rows) - len(refused),
+            "rows_fenced": len(refused),
+        })
         logger.error(
             "FENCED shard %d (%s): %d queued row(s) re-routed, %d "
             "answered 503+Retry-After; in-flight batches resolve on "
@@ -353,6 +405,7 @@ def build_serving_shards(
     count: int,
     heartbeat_seconds: float = 0.5,
     supervisor: Any = None,
+    statestore: Any = None,
 ) -> "MicroBatcher | ShardRouter":
     """One tenant's serving plane: the plain ``MicroBatcher`` when
     ``count`` is at most 1 (the bypass), else a :class:`ShardRouter` over
@@ -388,5 +441,6 @@ def build_serving_shards(
         count - 1, (time.perf_counter() - t0) * 1e3,
     )
     return ShardRouter(
-        shards, heartbeat_seconds=heartbeat_seconds, supervisor=supervisor
+        shards, heartbeat_seconds=heartbeat_seconds, supervisor=supervisor,
+        statestore=statestore,
     )

@@ -75,6 +75,19 @@ connection failure fails the boot unless
 ``audit_watch`` feeds the audit snapshot store from the same API
 (``audit.WatchFeed`` over ``audit_watch_resources``).
 
+``state_dir`` (``--state-dir``) opens the durable last-good store
+(``statestore.py``) before any fetch: the fsck pass quarantines torn
+state, and the last-good manifest of each tenant whose policies file is
+byte-identical to it pins the artifact digests, which the resolver then
+loads from the store's cache with no network; a changed file prefers the
+live fetch and degrades loudly to the cache, and a named tenant whose file
+cannot be read boots on its manifest. Every boot, promotion and rollback
+persists its manifest; shard fences and respawns are journaled; the boot
+report (warm or cold, time to ready, cache hits, degraded sources,
+quarantined files) goes to ``last_boot.json`` and /metrics. With the audit
+scanner on the combination raises (the audit spill waits for ROADMAP
+A11b).
+
 ``stop()`` follows the JAX package's order: the watchdog, then the native
 frontend stops accepting, the worker supervisor stops, the workers are
 terminated (killed after 5 s), the bridge closes and its socket and
@@ -183,6 +196,7 @@ from policy_server_tpu_torch.runtime.batcher import (
 )
 from policy_server_tpu_torch.runtime.scheduler import FairDispatchScheduler
 from policy_server_tpu_torch.runtime.shards import build_serving_shards
+from policy_server_tpu_torch.statestore import StateStore, compute_fingerprint
 from policy_server_tpu_torch.tenancy import (
     DEFAULT_TENANT,
     Tenant,
@@ -291,15 +305,97 @@ def default_workers() -> int:
 
 
 def read_policies_source(path: str) -> tuple[dict, str]:
-    """A policies file → (the parsed mapping, the exact text parsed). YAML
-    where PyYAML is installed; a JSON file needs nothing."""
+    """A policies file → (the parsed mapping, the exact text parsed)."""
     with open(path, encoding="utf-8") as f:
         text = f.read()
+    return parse_policies_text(text), text
+
+
+def parse_policies_text(text: str) -> dict:
+    """A policies file's text → the parsed mapping. YAML where PyYAML is
+    installed; JSON needs nothing."""
     try:
         import yaml
     except ImportError:
-        return parse_policies(json.loads(text)), text
-    return parse_policies(yaml.safe_load(text)), text
+        return parse_policies(json.loads(text))
+    return parse_policies(yaml.safe_load(text))
+
+
+def _read_text(path: str | None) -> str | None:
+    if not path:
+        return None
+    try:
+        with open(path, encoding="utf-8") as f:
+            return f.read()
+    except OSError:
+        return None  # an unreadable file pins nothing
+
+
+def _open_statestore(
+    state_dir: str | None, policies: Mapping[str, Any],
+    policies_path: str | None, policies_text: str | None,
+    tenants: TenantManifest | None, backend: str, predicate_opt: bool,
+) -> tuple[Any, str | None, dict, dict[str, str]]:
+    """(store, fingerprint, boot report, artifact pins) of a boot: all
+    empty without ``state_dir``. The fingerprint's parts are the JAX
+    package's, with the runtime's versions (torch, CUDA) in place of
+    jax's and the kernel path this package runs (``cuda``, no columnar
+    transport): a JAX package's manifest is found, but its fingerprint
+    does not match."""
+    boot_report: dict = {"warm": False}
+    if not state_dir:
+        return None, None, boot_report, {}
+    import torch
+
+    store = StateStore(state_dir)
+    fingerprint = compute_fingerprint({
+        "policy_ids": sorted(policies),
+        "backend": "jax" if backend == "torch" else backend,
+        "predicate_opt": bool(predicate_opt),
+        "kernel": "cuda",
+        "columnar": False,
+        "torch": str(torch.__version__),
+        "cuda": str(torch.version.cuda),
+    })
+    manifest = store.last_good_manifest(DEFAULT_TENANT)
+    boot_report.update(
+        manifest_epoch=manifest.get("epoch") if manifest is not None else None,
+        manifest_found=manifest is not None,
+        fingerprint_match=(
+            manifest is not None and manifest.get("fingerprint") == fingerprint
+        ),
+    )
+    if policies_text is None:
+        policies_text = _read_text(policies_path)
+    pinned = store.pinned_digests(DEFAULT_TENANT, policies_text)
+    if tenants is not None:
+        for name, spec in tenants.tenants.items():
+            pinned.update(
+                store.pinned_digests(name, _read_text(spec.policies_path))
+            )
+    return store, fingerprint, boot_report, pinned
+
+
+def _finish_boot_report(
+    boot_report: dict, store: Any, boot_t0: float
+) -> None:
+    """Complete the boot report once the first epoch is built and warmed:
+    the time to ready, and with a store whether the boot was warm, its
+    cache hits, degraded sources and quarantined files (persisted as
+    ``last_boot.json`` and logged)."""
+    boot_report["time_to_ready_seconds"] = round(time.monotonic() - boot_t0, 3)
+    if store is None:
+        return
+    ss = store.stats()
+    boot_report.update(
+        warm=bool(boot_report.get("manifest_found")),
+        artifacts_from_cache=ss["artifact_cache_hits"],
+        degraded_sources=ss["degraded_loads"],
+        fsck_quarantined=ss["fsck_quarantined"],
+        fetch_retry_giveups=retry_stats()["giveups"],
+    )
+    store.record_boot_report(boot_report)
+    logger.info("boot report", extra={"span_fields": dict(boot_report)})
 
 
 def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
@@ -464,6 +560,13 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.PALLAS_BUCKETS_ARMED, "gauge",
            "Schema buckets the policy_matrix kernel serves",
            kernel["buckets_armed"])
+    yield (names.PALLAS_INTERPRET_MODE, "gauge",
+           "1 when the Pallas kernel runs in interpret mode (the Mosaic "
+           "capability probe failed — bit-exact, slow, loudly warned)",
+           1 if env.kernel_runs_plain else 0)
+    yield from _predicate_families(env)
+    yield from _columnar_families()
+    yield from _recovery_families(state)
     yield from _tenant_families(state)
     lstats = state.lifecycle.stats() if state.lifecycle is not None else {}
     yield (names.POLICY_RELOADS, "counter",
@@ -526,6 +629,120 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
         ],
         ("trace_id", "policy_id", "slowest_phase"),
     )
+
+
+def _predicate_families(env: Any) -> Iterator[tuple]:
+    """The predicate optimizer's facts about the serving set
+    (``env.optimizer_stats``)."""
+    o = env.optimizer_stats
+    yield (names.PREDICATE_SUBTREES_SHARED, "gauge",
+           "Distinct predicate subtrees shared across policies by the "
+           "optimizer's CSE table (computed once per program instead of "
+           "once per policy)", o["subtrees_shared"])
+    yield (names.PREDICATE_POLICIES_FOLDED, "gauge",
+           "Policies whose verdict folded to a constant and dropped out of "
+           "the device program", o["policies_folded"])
+    yield (names.PREDICATE_RULES_FOLDED, "gauge",
+           "Rule conditions folded to constants (unreachable or constant "
+           "rules; indices preserved)", o["rules_folded"])
+    yield (names.PREDICATE_FIELDS_PRUNED, "gauge",
+           "Feature-schema fields pruned by the optimizer (dead gather "
+           "columns + zero-fill-redundant validity masks)",
+           o["fields_pruned"])
+    yield (names.PREDICATE_ROW_BYTES_SAVED, "gauge",
+           "Packed-row bytes saved per row, summed over schema buckets, vs "
+           "the unoptimized layout", o["row_bytes_saved"])
+
+
+def _columnar_families() -> Iterator[tuple]:
+    """The columnar transport's families. This package ships packed rows
+    only (no columnar planes), so each reads 0, as the JAX package's do
+    at ``--columnar off``."""
+    for name, help_text in (
+        (names.WIRE_BYTES_SHIPPED,
+         "Bytes actually shipped to the device by the columnar transport "
+         "(delta planes + column indices)"),
+        (names.WIRE_BYTES_PACKED_EQUIV,
+         "Bytes the row-packed transport form would have shipped for the "
+         "same dispatches"),
+        (names.WIRE_ROWS,
+         "Rows shipped by the columnar transport (bytes/row = "
+         "wire_bytes_shipped / this)"),
+        (names.DELTA_COLS_SHIPPED,
+         "32-bit feature columns shipped (delta columns with any nonzero "
+         "value, after power-of-two padding)"),
+        (names.DELTA_COLS_TOTAL,
+         "32-bit feature columns in the dispatched schemas (hit rate = 1 - "
+         "shipped/total)"),
+        (names.DONATED_DISPATCHES,
+         "Columnar dispatches whose input buffers were donated (jax "
+         "donate_argnums)"),
+        (names.RESIDENT_CONST_BYTES,
+         "Bytes of elided zero planes/columns materialized as "
+         "device-resident constants of compiled columnar programs"),
+    ):
+        yield (name, "counter", help_text, 0)
+
+
+def _recovery_families(state: ApiServerState) -> Iterator[tuple]:
+    """The soak window's gauges (``state.soak``), the boot's
+    (``state.boot_report``) and the state store's (``statestore.stats()``;
+    zero without ``--state-dir``)."""
+    soak = state.soak or {}
+    yield (names.SOAK_WINDOW_RPS, "gauge",
+           "Requests/s of the current soak window (tools/soak in-process "
+           "engine; 0 outside a soak)", soak.get("rps", 0.0))
+    yield (names.SOAK_WINDOW_P99_MS, "gauge",
+           "p99 latency (ms) of the current soak window",
+           soak.get("p99_ms", 0.0))
+    yield (names.SOAK_WINDOW_SHED_RATE, "gauge",
+           "Shed (429) fraction of the current soak window",
+           soak.get("shed_rate", 0.0))
+    boot = state.boot_report or {}
+    yield (names.BOOT_TIME_TO_READY, "gauge",
+           "Seconds from process bootstrap start to the first serving epoch "
+           "compiled+warmed (the MTTR numerator)",
+           boot.get("time_to_ready_seconds", 0.0))
+    yield (names.BOOT_WARM, "gauge",
+           "1 when this boot was WARM: a last-good manifest was found in the "
+           "state store (artifact pins / audit resume applied where "
+           "eligible)", 1 if boot.get("warm") else 0)
+    yield (names.BOOT_DEGRADED_SOURCES, "gauge",
+           "Policy sources this boot served from last-good state because "
+           "the live read/fetch FAILED (loud degradation, not an outage)",
+           boot.get("degraded_sources", 0))
+    store = state.statestore
+    ss = store.stats() if store is not None else {}
+    for name, kind, help_text, key in (
+        (names.STATESTORE_ARTIFACTS, "gauge",
+         "Content-addressed policy artifacts resident in the state store's "
+         "cache", "artifacts_resident"),
+        (names.STATESTORE_BYTES, "gauge",
+         "Bytes resident in the state store's artifact cache",
+         "bytes_resident"),
+        (names.STATESTORE_CACHE_HITS, "counter",
+         "Artifact-cache hits (pinned warm-boot loads + degraded last-good "
+         "fallbacks)", "artifact_cache_hits"),
+        (names.STATESTORE_CACHE_MISSES, "counter",
+         "Artifact-cache misses (url unknown, blob missing, or "
+         "content-address verification failed)", "artifact_cache_misses"),
+        (names.STATESTORE_MANIFESTS_PERSISTED, "counter",
+         "Last-good epoch manifests persisted (boot, promotion, rollback — "
+         "the durable rollback pin)", "manifests_persisted"),
+        (names.STATESTORE_JOURNAL_RECORDS, "gauge",
+         "Live records across the state store's journals (manifest history "
+         "+ url map)", "journal_records"),
+        (names.STATESTORE_FSCK_QUARANTINED, "counter",
+         "Torn/corrupt state-dir entries the fsck pass moved to quarantine "
+         "(boot continued on surviving state)", "fsck_quarantined"),
+        (names.STATESTORE_AUDIT_SPILLS, "counter",
+         "Audit snapshot spills written (cursors + fed map + inventory, one "
+         "atomic journal replace each)", "audit_spills"),
+        (names.STATESTORE_AUDIT_ROWS_RESTORED, "gauge",
+         "Audit inventory rows restored from the spill at this boot (the "
+         "re-LIST the warm boot did NOT pay)", "audit_rows_restored"),
+    ):
+        yield (name, kind, help_text, ss.get(key, 0))
 
 
 def _tls_families(state: ApiServerState, n: dict) -> Iterator[tuple]:
@@ -846,7 +1063,9 @@ class PolicyServer:
         audit_watch: bool = False,
         audit_watch_resources: str = DEFAULT_AUDIT_WATCH_RESOURCES,
         audit_watch_max_queue_events: int = DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
+        state_dir: str | None = None,
     ) -> None:
+        boot_t0 = time.monotonic()
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
         if native_tls not in NATIVE_TLS_MODES:
@@ -883,8 +1102,24 @@ class PolicyServer:
                 f"invalid policy reload mode {policy_reload_mode!r} "
                 "(expected off, auto, or manual)"
             )
+        if state_dir and (audit_mode != "off" or audit_watch or audit_matrix):
+            raise ValueError(
+                "--state-dir with the audit scanner (--audit-mode, "
+                "--audit-watch, --audit-matrix): this package does not yet "
+                "spill or resume the audit state through the state store "
+                "(ROADMAP A11b); run --state-dir with --audit-mode off, or "
+                "the audit scanner without --state-dir"
+            )
         if enable_metrics:
             setup_metrics()
+        # the durable last-good store, opened before any fetch: its fsck
+        # quarantines torn state (never fatal), and the last-good
+        # manifests pin the artifact digests of every tenant whose
+        # policies file is byte-identical to its manifest's
+        statestore, fingerprint, boot_report, pinned = _open_statestore(
+            state_dir, policies, policies_path, policies_text, tenants,
+            backend=backend, predicate_opt=predicate_opt,
+        )
         # the offline sigstore trust root, loaded once and shared by the
         # module resolver (artifact verification) and every environment
         # (the wasm keyless v2/verify capability); None degrades keyless
@@ -901,6 +1136,8 @@ class PolicyServer:
                     sigstore_cache_dir=sigstore_cache_dir,
                 ),
                 trust_root=trust_root,
+                statestore=statestore,
+                pinned_artifacts=pinned,
             )
         # the registry client of the oci/v1/manifest_digest capability:
         # the token flow, TLS and docker config of registry:// pulls
@@ -1085,6 +1322,7 @@ class PolicyServer:
                 serving_shards,
                 heartbeat_seconds=shard_heartbeat_seconds,
                 supervisor=supervisor,
+                statestore=statestore,
             )
 
         build_batcher = plane_builder(
@@ -1109,6 +1347,7 @@ class PolicyServer:
             admin_token=reload_admin_token, supervisor=supervisor,
             audit_matrix=matrix,
             audit_stream_max_clients=audit_stream_max_clients,
+            statestore=statestore, boot_report=boot_report,
         )
         self.lifecycle: PolicyLifecycleManager | None = None
         self._httpd: _HttpServer | None = None
@@ -1145,6 +1384,8 @@ class PolicyServer:
                     canary_requests=reload_canary_requests,
                     divergence_threshold=reload_divergence_threshold,
                     warmup=warmup,
+                    statestore=statestore,
+                    fingerprint=fingerprint,
                 )
             if tenants is not None:
                 manager = TenantManager(scheduler=scheduler)
@@ -1158,7 +1399,7 @@ class PolicyServer:
                         build_oracle_environment, plane_builder,
                         reload_enabled, policy_reload_mode,
                         reload_canary_requests, reload_divergence_threshold,
-                        warmup,
+                        warmup, statestore, fingerprint,
                     ))
             if tls_config.enabled:
                 self._tls_context = (
@@ -1266,22 +1507,41 @@ class PolicyServer:
             # stats and report payload
             scanner.watch_feed = self.state.audit_watch = self._watch_feed
         self._threads: list[threading.Thread] = []
+        _finish_boot_report(boot_report, statestore, boot_t0)
 
     @staticmethod
     def _build_tenant(
         name: str, spec: TenantSpec, build_environment: Any,
         build_oracle_environment: Any, plane_builder: Any,
         reload_enabled: bool, reload_mode: str, canary_requests: int,
-        divergence_threshold: float, warmup: bool,
+        divergence_threshold: float, warmup: bool, statestore: Any = None,
+        fingerprint: str | None = None,
     ) -> Tenant:
         """One named tenant's stack: its policies (the ``tenant.reload``
         failpoint fires first, under its scope), environment, serving
         plane (its quota, deadline and degraded mode) and, with reload on,
         its lifecycle over its policies file with a shadow ring of its
-        own."""
-        with failpoints.scope(name):
-            failpoints.fire("tenant.reload")
-        t_policies, t_text = read_policies_source(spec.policies_path)
+        own. With a state store, a policies file that cannot be read boots
+        the tenant on its last-good manifest, loudly."""
+        try:
+            with failpoints.scope(name):
+                failpoints.fire("tenant.reload")
+            t_policies, t_text = read_policies_source(spec.policies_path)
+        except Exception as e:  # noqa: BLE001 — every read failure
+            manifest = (
+                statestore.last_good_manifest(name)
+                if statestore is not None else None
+            )
+            if manifest is None or not manifest.get("policies_yaml"):
+                raise
+            statestore.count_degraded_load()
+            logger.error(
+                "tenant %s policies read FAILED (%s); booting DEGRADED on "
+                "the last-good manifest (epoch %s) — fix the manifest and "
+                "reload to clear this", name, e, manifest.get("epoch"),
+            )
+            t_text = manifest["policies_yaml"]
+            t_policies = parse_policies_text(t_text)
         admission = _admission_of(spec)
         shadow = (
             ShadowRecorder(capacity=canary_requests) if reload_enabled else None
@@ -1323,6 +1583,8 @@ class PolicyServer:
                 divergence_threshold=divergence_threshold,
                 warmup=warmup,
                 tenant=name,
+                statestore=statestore,
+                fingerprint=fingerprint,
             )
             state.lifecycle.install_first_epoch(
                 t_env, t_batcher, t_policies, policies_yaml=t_text

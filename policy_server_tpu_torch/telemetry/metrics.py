@@ -160,6 +160,25 @@ PREDICATE_FIELDS_PRUNED = "policy_server_predicate_fields_pruned"
 PREDICATE_ROW_BYTES_SAVED = "policy_server_predicate_row_bytes_saved"
 PALLAS_DISPATCHES = "policy_server_pallas_dispatches"
 PALLAS_BUCKETS_ARMED = "policy_server_pallas_buckets_armed"
+PALLAS_INTERPRET_MODE = "policy_server_pallas_interpret_mode"
+# crash recovery (statestore.py): the boot's shape and the state store's
+# cache, journal and fsck accounting; zero without --state-dir
+BOOT_TIME_TO_READY = "policy_server_boot_time_to_ready_seconds"
+BOOT_WARM = "policy_server_boot_warm"
+BOOT_DEGRADED_SOURCES = "policy_server_boot_degraded_sources"
+STATESTORE_ARTIFACTS = "policy_server_statestore_artifacts_resident"
+STATESTORE_BYTES = "policy_server_statestore_bytes_resident"
+STATESTORE_CACHE_HITS = "policy_server_statestore_artifact_cache_hits"
+STATESTORE_CACHE_MISSES = "policy_server_statestore_artifact_cache_misses"
+STATESTORE_MANIFESTS_PERSISTED = (
+    "policy_server_statestore_manifests_persisted"
+)
+STATESTORE_JOURNAL_RECORDS = "policy_server_statestore_journal_records"
+STATESTORE_FSCK_QUARANTINED = "policy_server_statestore_fsck_quarantined"
+STATESTORE_AUDIT_SPILLS = "policy_server_statestore_audit_spills"
+STATESTORE_AUDIT_ROWS_RESTORED = (
+    "policy_server_statestore_audit_rows_restored"
+)
 
 # the verdict matrix's families (audit/matrix.py), with lookup admission's
 MATRIX_ROWS_RESIDENT = "policy_server_audit_matrix_rows_resident"

@@ -1131,3 +1131,176 @@ def test_default_flags_metrics_carry_the_jax_audit_families(default_servers):
         assert got == want
     for name, (_kind, _help, samples) in got.items():
         assert samples == (["-1.0"] if "freshness" in name else ["0.0"]), name
+
+
+# -- every family of the JAX package's /metrics at the default flags ---------
+
+# the families whose help text names the port's CUDA path (type and name
+# are the JAX package's)
+CUDA_WORDED = {
+    "policy_server_batches_dispatched", "policy_server_fragment_hits",
+    "policy_server_host_encode_seconds", "policy_server_pallas_buckets_armed",
+    "policy_server_pallas_dispatches",
+}
+# the port's own family: kernel and CUDA errors
+PORT_ONLY = {"policy_server_device_errors"}
+# the families the port lacked at the default flags, by what feeds them
+REPAIRED = {
+    "predicate": (
+        "policy_server_predicate_subtrees_shared",
+        "policy_server_predicate_policies_folded",
+        "policy_server_predicate_rules_folded",
+        "policy_server_predicate_fields_pruned",
+        "policy_server_predicate_row_bytes_saved",
+    ),
+    "boot": (
+        "policy_server_boot_time_to_ready_seconds",
+        "policy_server_boot_warm",
+        "policy_server_boot_degraded_sources",
+    ),
+    "statestore": (
+        "policy_server_statestore_artifacts_resident",
+        "policy_server_statestore_bytes_resident",
+        "policy_server_statestore_artifact_cache_hits",
+        "policy_server_statestore_artifact_cache_misses",
+        "policy_server_statestore_manifests_persisted",
+        "policy_server_statestore_journal_records",
+        "policy_server_statestore_fsck_quarantined",
+        "policy_server_statestore_audit_spills",
+        "policy_server_statestore_audit_rows_restored",
+    ),
+    "kernel-mode": ("policy_server_pallas_interpret_mode",),
+    "soak": (
+        "policy_server_soak_window_rps",
+        "policy_server_soak_window_p99_ms",
+        "policy_server_soak_window_shed_rate",
+    ),
+    "columnar": (
+        "policy_server_wire_bytes_shipped",
+        "policy_server_wire_bytes_packed_equivalent",
+        "policy_server_wire_rows",
+        "policy_server_delta_columns_shipped",
+        "policy_server_delta_columns_available",
+        "policy_server_donated_buffer_dispatches",
+        "policy_server_device_resident_constant_bytes",
+    ),
+}
+
+
+def _all_families(port: int) -> dict:
+    """Every family of a /metrics page → (type, help, sample values), the
+    ``_total`` of a counter's name dropped."""
+    text = http(port, "GET", "/metrics")[2].decode()
+    out = {}
+    for name, kind in re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M):
+        help_text = re.search(
+            rf"^# HELP {re.escape(name)} (.*)$", text, re.M
+        ).group(1)
+        samples = re.findall(
+            rf"^{re.escape(name)}(?:_total)?(?:{{[^}}]*}})? (\S+)$", text, re.M
+        )
+        key = name[: -len("_total")] if (
+            kind == "counter" and name.endswith("_total")
+        ) else name
+        out[key] = (kind, help_text, samples)
+    return out
+
+
+@pytest.fixture(scope="module")
+def family_pages(default_servers):
+    """Each (package, frontend) server's families at the default flags."""
+    return {
+        key: _all_families(server.readiness_port)
+        for key, server in default_servers.items()
+    }
+
+
+@pytest.mark.parametrize("front", ["python", "native"])
+def test_default_flags_family_set_is_the_jax_packages(family_pages, front):
+    """The port exports every family the JAX package exports, and its own
+    device-errors family besides."""
+    want = set(family_pages["jax", front])
+    got = set(family_pages["port", front])
+    assert got - want == PORT_ONLY
+    assert want - got == set()
+    assert {n for names in REPAIRED.values() for n in names} <= got
+
+
+@pytest.mark.parametrize("front", ["python", "native"])
+def test_default_flags_family_type_and_help_are_the_jax_packages(
+    family_pages, front
+):
+    jax_fam, port_fam = family_pages["jax", front], family_pages["port", front]
+    for name in set(jax_fam) & set(port_fam):
+        assert port_fam[name][0] == jax_fam[name][0], name
+        if name in CUDA_WORDED:
+            assert port_fam[name][1] != jax_fam[name][1], name
+        else:
+            assert port_fam[name][1] == jax_fam[name][1], name
+
+
+@pytest.mark.parametrize("group", sorted(REPAIRED))
+@pytest.mark.parametrize("front", ["python", "native"])
+def test_default_flags_repaired_family_values(family_pages, front, group):
+    """The values: the predicate optimizer's facts equal the JAX server's
+    on the same policies; the boot time to ready is the port's own (above
+    0), a cold boot without a state store reads warm 0 and no degraded
+    source, the store's families 0; the kernel-mode gauge 1 on the CPU,
+    where K1 runs its plain version; the soak and columnar families 0."""
+    jax_fam, port_fam = family_pages["jax", front], family_pages["port", front]
+    values = {
+        n: [float(v) for v in port_fam[n][2]] for n in REPAIRED[group]
+    }
+    assert all(len(v) == 1 for v in values.values()), values
+    if group == "predicate":
+        for n, v in values.items():
+            assert v == [float(x) for x in jax_fam[n][2]], n
+        assert sum(v[0] for v in values.values()) > 0
+    elif group == "boot":
+        assert values["policy_server_boot_time_to_ready_seconds"][0] > 0
+        assert values["policy_server_boot_warm"] == [0.0]
+        assert values["policy_server_boot_degraded_sources"] == [0.0]
+    elif group == "kernel-mode":
+        assert values == {"policy_server_pallas_interpret_mode": [1.0]}
+    else:
+        assert all(v == [0.0] for v in values.values()), values
+
+
+def test_columnar_and_kernel_mode_families_after_kernel_traffic():
+    """The JAX server on its Pallas path with the columnar transport off
+    (``--kernel pallas --columnar off``, the twin of the port's K1 path)
+    and the port's server, after the same kernel-only traffic: the seven
+    columnar families read 0 on both, and the kernel-mode gauge 1 on both
+    (Pallas interpret mode there, K1's plain version here, on the CPU)."""
+    from test_torch_native_frontend import (
+        JaxServerHandle,
+        corpus,
+        pipelined,
+        port_server,
+        send_raw,
+    )
+
+    flags = dict(host_fastpath_threshold=0, verdict_cache_size=0)
+    jmetrics.reset_metrics_for_tests()
+    tmetrics.reset_metrics_for_tests()
+    jax_s = JaxServerHandle(enable_metrics=True, kernel="pallas",
+                            columnar=False, **flags)
+    port_s = None
+    try:
+        port_s = port_server(frontend="python", **flags)
+        work = corpus(7)[:64]
+        pages = {}
+        for name, server in (("jax", jax_s), ("port", port_s)):
+            send_raw(server.port, pipelined(work), timeout=120)
+            pages[name] = _all_families(server.readiness_port)
+        assert float(pages["jax"]["policy_server_pallas_dispatches"][2][0]) > 0
+        assert float(pages["port"]["policy_server_pallas_dispatches"][2][0]) > 0
+        for n in REPAIRED["columnar"] + REPAIRED["kernel-mode"]:
+            assert pages["port"][n] == pages["jax"][n], n
+        assert pages["port"]["policy_server_pallas_interpret_mode"][2] == ["1.0"]
+    finally:
+        if port_s is not None:
+            port_s.stop()
+        jax_s.stop()
+        jmetrics.reset_metrics_for_tests()
+        tmetrics.reset_metrics_for_tests()

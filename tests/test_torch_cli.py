@@ -30,15 +30,26 @@ SLICE_FLAGS = (
     "--context-refresh-seconds", "--context-no-watch",
     "--kube-insecure-skip-tls-verify", "--ignore-kubernetes-connection-failure",
     "--predicate-opt", "--daemon", "--daemon-pid-file", "--daemon-stdout-file",
-    "--daemon-stderr-file", "--evaluation-backend",
+    "--daemon-stderr-file", "--evaluation-backend", "--state-dir",
 )
-# the JAX flags whose items have not come yet (ROADMAP A11, A13, A14, A9)
+# the JAX flags whose items have not come yet (ROADMAP A11b, A13, A14, A9)
 NOT_YET = {
     "--kernel", "--columnar", "--donate-buffers", "--compilation-cache-dir",
     "--mesh", "--mesh-dispatch", "--distributed-coordinator",
     "--distributed-num-processes", "--distributed-process-id",
-    "--state-dir", "--state-audit-spill-seconds",
+    "--state-audit-spill-seconds",
 }
+# --state-dir's help drops the JAX package's compile-cache sentence (the
+# port has no --compilation-cache-dir) and says what the port refuses
+STATE_DIR_DROPPED = (
+    "Pair with --compilation-cache-dir inside it so compiled programs "
+    "survive too. "
+)
+STATE_DIR_ADDED = (
+    ". This package does not spill the audit state yet (ROADMAP A11b): "
+    "--state-dir with --audit-mode other than off, --audit-watch or "
+    "--audit-matrix is refused"
+)
 
 
 def specs_of(module) -> dict:
@@ -51,10 +62,14 @@ def test_slice_flags_are_the_jax_packages(flag):
     assert port[0] == jax[0]
     for key in ("default", "metavar", "choices", "action", "type"):
         assert port[1].get(key) == jax[1].get(key), (flag, key)
-    if flag != "--evaluation-backend":
-        assert port[1]["help"] == jax[1]["help"]
-    else:
+    if flag == "--evaluation-backend":
         assert "CUDA kernels" in port[1]["help"]
+    elif flag == "--state-dir":
+        want = jax[1]["help"].replace(STATE_DIR_DROPPED, "")
+        assert want != jax[1]["help"]
+        assert port[1]["help"] == want + STATE_DIR_ADDED
+    else:
+        assert port[1]["help"] == jax[1]["help"]
 
 
 def test_port_has_every_jax_flag_but_those_still_to_come():
@@ -72,6 +87,8 @@ def test_port_has_every_jax_flag_but_those_still_to_come():
     ("--predicate-opt", "KUBEWARDEN_PREDICATE_OPT", "off", "predicate_opt", "off"),
     ("--context-refresh-seconds", "KUBEWARDEN_CONTEXT_REFRESH_SECONDS", "5",
      "context_refresh_seconds", 5.0),
+    ("--state-dir", "KUBEWARDEN_STATE_DIR", "/var/lib/kw", "state_dir",
+     "/var/lib/kw"),
 ])
 def test_environment_variables_read_as_the_jax_cli(monkeypatch, flag, env, value,
                                                    attr, want):

@@ -237,6 +237,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.fetch.keyless",
             "policy_server_tpu_torch.context.service",
             "policy_server_tpu_torch.audit.watch_feed",
+            "policy_server_tpu_torch.statestore",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
@@ -454,3 +455,27 @@ def test_close_waits_for_an_in_flight_step():
     finally:
         release.set()
         failpoints.reset()
+
+
+def test_statestore_imports_the_standard_library_only():
+    """The state store, which a warm boot opens before anything else, is
+    standard library only (with the port's logger): in a fresh interpreter
+    it imports neither torch, numpy, JAX, the JAX package nor PyYAML."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import policy_server_tpu_torch.statestore as ss
+        assert ss.StateStore.MANIFESTS_JOURNAL == "manifests.journal"
+        print(sorted(
+            n for n in sys.modules
+            if n.split(".")[0] in ("torch", "numpy", "jax", "jaxlib",
+                                   "policy_server_tpu", "yaml")
+        ))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import threading
 import time
 
@@ -96,12 +97,12 @@ class Pkg:
             self._review_cls.from_dict(review_doc(namespace, privileged)).request
         )
 
-    def router(self, count=2, make=None):
+    def router(self, count=2, make=None, **kw):
         """A started router whose heartbeat is long enough that the test
         drives fencing with check_shards()."""
         r = self.sm.build_serving_shards(
             self.build_env(self.policies()), make or self.make,
-            self.build_env, count, heartbeat_seconds=30.0,
+            self.build_env, count, heartbeat_seconds=30.0, **kw,
         )
         r.start()
         return r
@@ -687,3 +688,143 @@ def test_killed_shard_is_fenced_revived_and_counted_once():
         assert status == 200 and json.loads(payload)["response"]["allowed"]
     finally:
         server.stop()
+
+
+# -- the durable incident journal (statestore.py) --------------------------------
+
+
+class _FakeIncidentStore:
+    """A store carrying a canned shard incident log."""
+
+    def __init__(self, events):
+        self._events = events
+
+    def shard_events(self):
+        return list(self._events)
+
+    def record_shard_event(self, event):
+        self._events.append(dict(event))
+
+
+class _BrokenIncidentStore:
+    def shard_events(self):
+        raise OSError("journal unreadable")
+
+
+class _WriteFailsStore(_FakeIncidentStore):
+    def record_shard_event(self, event):
+        raise OSError("journal unwritable")
+
+
+def test_router_counters_seed_from_durable_incident_journal():
+    """A rebuilt router (a reload epoch, a restart) resumes its fence,
+    re-route and respawn counters from the incident journal."""
+    events = [
+        {"shard": 1, "reason": "wedged dispatch",
+         "rows_rerouted": 3, "rows_fenced": 2},
+        {"shard": 1, "reason": "warm-respawn"},
+        {"shard": 0, "reason": "probe fault",
+         "rows_rerouted": 0, "rows_fenced": 5},
+    ]
+
+    def case(pkg):
+        r = pkg.router(statestore=_FakeIncidentStore(list(events)))
+        try:
+            return {k: r.stats_snapshot()[k] for k in SHARD_KEYS}
+        finally:
+            r.shutdown()
+
+    assert _both(case) == {
+        "shard_fences": 2, "shard_reroutes": 3, "shard_fenced_rows": 7,
+        "shard_respawns": 1, "shard_heartbeat_faults": 1,
+    }
+
+
+@pytest.mark.parametrize("store", ["none", "empty", "broken"])
+def test_router_counters_zero_on_empty_or_broken_journal(store, caplog):
+    """No journal, an empty one and one that cannot be read all seed zero;
+    the unreadable journal is logged at error level by the port."""
+    def case(pkg):
+        made = {"none": None, "empty": _FakeIncidentStore([]),
+                "broken": _BrokenIncidentStore()}[store]
+        r = pkg.router(statestore=made)
+        try:
+            return {k: r.stats_snapshot()[k] for k in SHARD_KEYS}
+        finally:
+            r.shutdown()
+
+    with caplog.at_level(logging.ERROR):
+        assert _both(case) == dict.fromkeys(SHARD_KEYS, 0)
+    logged = [
+        rec for rec in caplog.records
+        if rec.levelno == logging.ERROR
+        and "shard incident journal unreadable" in rec.getMessage()
+    ]
+    assert len(logged) == (1 if store == "broken" else 0)
+
+
+def test_fences_and_respawns_are_journaled_and_seed_the_next_router(tmp_path):
+    """With a real state store: a killed shard's fence and warm respawn
+    are journaled (the same events in both packages), and a router built
+    afterwards over the same store (the next epoch, or the process after
+    a crash) starts from the counters the first one ended with."""
+    from policy_server_tpu import statestore as jss
+    from policy_server_tpu_torch import statestore as tss
+
+    def case(pkg):
+        ss = jss if pkg is JAX else tss
+        store = ss.StateStore(tmp_path / pkg.name)
+        r = pkg.router(statestore=store)
+        try:
+            _kill(pkg, r, 0)
+            fut = r._shards[0].batcher.submit_nowait(
+                "ns", pkg.review("blocked"), pkg.origin
+            )
+            r.check_shards()
+            fut.result(timeout=30)
+            before = {k: r.stats_snapshot()[k] for k in SHARD_KEYS}
+        finally:
+            r.shutdown()
+        events = [
+            {k: v for k, v in ev.items() if k != "time"}
+            for ev in ss.StateStore(tmp_path / pkg.name).shard_events()
+        ]
+        r2 = pkg.router(statestore=ss.StateStore(tmp_path / pkg.name))
+        try:
+            after = {k: r2.stats_snapshot()[k] for k in SHARD_KEYS}
+        finally:
+            r2.shutdown()
+        return before, events, after
+
+    before, events, after = _both(case)
+    assert before == after and before["shard_fences"] == 1
+    assert events == [
+        {"shard": 0, "reason": "wedged dispatch", "rows_rerouted": 1,
+         "rows_fenced": 0},
+        {"shard": 0, "reason": "warm-respawn"},
+    ]
+
+
+def test_failed_journal_write_is_logged_and_the_fence_stands(caplog):
+    """A journal write that fails never fails the fence: the counters are
+    the JAX package's, and the port logs the failure at error level."""
+    def case(pkg):
+        r = pkg.router(statestore=_WriteFailsStore([]))
+        try:
+            _kill(pkg, r, 1)
+            fenced = r.check_shards()
+            return fenced, {k: r.stats_snapshot()[k] for k in SHARD_KEYS}
+        finally:
+            r.shutdown()
+
+    with caplog.at_level(logging.ERROR):
+        fenced, stats = _both(case)
+    assert fenced == 1 and stats["shard_fences"] == 1
+    assert stats["shard_respawns"] == 1
+    logged = [
+        rec for rec in caplog.records
+        if "could not journal shard incident" in rec.getMessage()
+    ]
+    assert len(logged) == 2 and all(
+        rec.levelno == logging.ERROR for rec in logged
+    )
