@@ -127,7 +127,8 @@ card's name and power limit:
    T, 1,024 reviews over the default tenant, team-a and team-b (every body
    its tenant's oracle's) and an unknown tenant (the 404 of the port's
    ``unknown_tenant_message``), with ``/readiness/team-a`` 200; Q, team-b
-   past its quota beside a team-a wave (team-b answers its oracle's body
+   past its quota (its 1,024 rows all in flight at once over 128
+   connections) beside a team-a wave (team-b answers its oracle's body
    or 429 with Retry-After and the shed body, as many 429s as
    ``policy_server_tenant_shed_rows{tenant="team-b"}`` rises; team-a's
    bodies its oracle's); X, a ``device.fetch`` sleep scoped to team-b
@@ -151,9 +152,9 @@ card's name and power limit:
    default flags plus ``--frontend native --enable-metrics
    --reload-admin-token`` and ``--audit-mode interval
    --audit-interval-seconds 1 --audit-matrix --audit-matrix-whatif
-   --audit-resources-file`` (a JSON file of 8,192 distinct pod objects
+   --audit-resources-file`` (a JSON file of 1,024 distinct pod objects
    from the seeded firehose, one in eight widened). Wave B: the boot sweep
-   (8,192 × 32 pairs on the audit lane) timed from ``start()`` while the
+   (1,024 × 32 pairs on the audit lane) timed from ``start()`` while the
    phase 7 client sends 1,024 /validate reviews (every body the oracle's),
    with its rows, audit batches, preemptions and K1 launches (the audit
    lane's from the flight recorder's ``device_execute`` events without a
@@ -254,7 +255,7 @@ card's name and power limit:
    A tampered artifact fails the boot with ``VerificationError``; under
    ``--continue-on-errors`` its id answers that error and the others
    serve; ``fetch.http`` faults are retried 3 times (counted), then the
-   boot fails with the downloader's ``FetchError``. Wave R: 20 reloads
+   boot fails with the downloader's ``FetchError``. Wave R: 8 reloads
    through ``POST /policies/reload`` (the file watch may add one of the
    same file), one registry policy switched between tags ``:v1`` and
    ``:v2`` (another policy's rules): after each, 128 kernel-only reviews
@@ -273,10 +274,10 @@ card's name and power limit:
    rows carrying 200 and 256 namespaces (B = 128, both buckets); at 257
    namespaces every context row goes to the host and no K1 launches.
    Wave W: ``--audit-mode interval --audit-watch
-   --audit-watch-resources v1/Pod`` against the fake API listing 8,192
-   pods, then 2,048 ADDED, MODIFIED and DELETED events with a 410 ERROR
+   --audit-watch-resources v1/Pod`` against the fake API listing 512
+   pods, then 512 ADDED, MODIFIED and DELETED events with a 410 ERROR
    between the halves: the feed and the watch families on /metrics count
-   exactly 2,048 events, 0 drops and 1 resync, every report row equals
+   exactly 512 events, 0 drops and 1 resync, every report row equals
    the oracle's, and the seconds from an event's send to its report row
    (p50, p99) and the audit lane's K1 launches are printed.
 
@@ -307,6 +308,47 @@ card's name and power limit:
    process's start to /readiness 200), each wave's rate, p50 and p99,
    and K1 and K2 launches are printed.
 
+15. the audit side's warm resume and the OTLP export — server processes
+   as in phase 14 under ``build/chip_smoke_resume/``. Wave A:
+   ``--state-dir --audit-mode interval --audit-matrix --audit-watch``,
+   kernel-only, with both spill cadences at 5 s
+   (``--state-audit-spill-seconds``, ``--audit-matrix-spill-seconds``),
+   over phase 13's fake Kubernetes API listing 8,192 pods. The cold boot's
+   time to compliance runs from the process's start until no row is dirty
+   and no sweep runs; then every snapshot row, matrix cell and report row
+   is checked against the oracle. Each kind of spill's seconds and bytes
+   (on the cadence, and forced); 1,024 live reviews with the cadence
+   spills held off, then 1,024 more with one forced spill of each kind
+   inside (p99 beside p99; there an answer is the oracle's or, past the
+   2 s policy timeout while the spill holds the GIL, the in-band
+   "execution deadline exceeded", counted); once a cadence spill of each
+   kind covers the
+   settled state, SIGKILL with 128 requests queued behind a stalled
+   dispatch loop; 64 MODIFIED and 8 DELETED events while it is down. The
+   warm boot: 0 LISTs, every spilled row and cell restored and none left
+   dirty, exactly the 64 modified pods re-judged (no column sweep) and the
+   8 deleted ones evicted, K1 launched on the audit lane, every cell and
+   the re-judged report rows the oracle's, and its time to compliance
+   beside the cold one. Then a flipped byte in the matrix journal's head
+   record: quarantined, 0 cells restored, one full sweep, every row, cell
+   and report row the oracle's. Wave O: where ``grpc`` and
+   ``google.protobuf`` import, an in-process gRPC collector
+   (``tests/torch_otlp_collector.py``) and servers with ``--enable-metrics
+   --log-fmt otlp`` (``OTEL_EXPORTER_OTLP_ENDPOINT`` the collector's)
+   under the native frontend (1,024 kernel-only reviews) and the standard
+   library's (256), each request with a ``traceparent`` of its own: every
+   body the oracle's, each header's trace and parent ids on the spans the
+   JAX package's rule emits for it (native: one ``policy_evaluation``;
+   standard library: ``validation`` and its ``policy_evaluation`` child),
+   spans received + dropped = emitted, and the last metrics push's
+   ``kubewarden_policy_evaluations_total`` equal to the /metrics pull
+   after the wave; req/s and p99 beside the same waves under ``--log-fmt
+   json``. Without ``grpc``: each otlp server's ERROR lines, every body
+   the oracle's, and a line saying the export was verified by the CPU
+   tests only. For the time limit, phase 10's inventory is 1,024 pods,
+   phase 13's wave W lists 512 pods and sends 512 events (8,192 and 2,048
+   before this phase) and its wave R makes 8 reloads (20 before).
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
@@ -318,7 +360,7 @@ connection the server closes leaves its unanswered requests empty instead
 of failing the run; ``tls``: HTTPS, with a client certificate for mTLS).
 ``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
 10's ``/audit/stream`` reader. ``python3 chip_smoke.py --recovery-server
-CONTROL COUNTS ARGS...`` is phase 14's server process.
+CONTROL COUNTS ARGS...`` is the server process of phases 14 and 15.
 """
 
 from __future__ import annotations
@@ -388,7 +430,9 @@ RATE_WAVES = 2
 # and on the flips it counts (the JAX package's whatif_diff keeps a sample
 # of 32 and reports its length), K1's holds at the audit path's batch
 # sizes, and the entries a reconnect replays
-AUDIT_OBJECTS = 8192
+# cut from 8,192 to 1,024 (and phase 13's wave W to 512 pods) to make
+# room for phase 15, which keeps 8,192
+AUDIT_OBJECTS = 1024
 AUDIT_LIVE_WAVE = 1024
 AUDIT_UPDATE_WAVE = 512
 AUDIT_WHATIF_ROWS = 256
@@ -1336,16 +1380,19 @@ def native_phase_split(rec, since: int) -> dict:
 
 
 def write_corpus(path: str, waves: list) -> None:
-    """The client's corpus: each wave's (policy id, body) pairs as raw
-    POSTs to /validate (u32 wave, u32 length, bytes each)."""
+    """The client's corpus: each wave's (policy id, body) pairs, or (policy
+    id, body, header lines) triples, as raw POSTs to /validate (u32 wave,
+    u32 length, bytes each)."""
     with open(path, "wb") as f:
         for w, wave in enumerate(waves):
-            for pid, body in wave:
+            for item in wave:
+                pid, body = item[0], item[1]
+                extra = item[2] if len(item) > 2 else b""
                 req = (
                     f"POST /validate/{pid} HTTP/1.1\r\nHost: smoke\r\n"
                     f"Content-Type: application/json\r\n"
-                    f"Content-Length: {len(body)}\r\n\r\n"
-                ).encode() + body
+                    f"Content-Length: {len(body)}\r\n"
+                ).encode() + extra + b"\r\n" + body
                 f.write(w.to_bytes(4, "little") + len(req).to_bytes(4, "little"))
                 f.write(req)
 
@@ -2059,7 +2106,8 @@ def tenant_wave(work_docs: list, n: int, tag: str, tenants: tuple,
     return out
 
 
-def client_run(port: int, wave: list, name: str) -> tuple:
+def client_run(port: int, wave: list, name: str,
+               conns: int = NATIVE_CONNS) -> tuple:
     """Start the client process on one wave of (route, body, ...) → (the
     process, its OUT path) for ``finish_run``."""
     work_dir = os.path.join(REPO, "build", "chip_smoke_tenants")
@@ -2068,7 +2116,7 @@ def client_run(port: int, wave: list, name: str) -> tuple:
     write_corpus(corpus, [[(route, body) for route, body, *_ in wave]])
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--native-client",
-         str(port), corpus, out, str(NATIVE_CONNS), str(NATIVE_DEPTH)],
+         str(port), corpus, out, str(conns), str(NATIVE_DEPTH)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     return proc, out
@@ -2375,7 +2423,12 @@ def tenants_phase(work_docs: list, card: str) -> dict:
         shed0 = labelled_value(rp, "policy_server_tenant_shed_rows_total", 'tenant="team-b"')
         q_b = tenant_wave(work_docs, Q_WAVE, "q9b", ("team-b",), subsets)
         q_a = tenant_wave(work_docs, Q_WAVE // 2, "q9a", ("team-a",), subsets)
-        runs = [client_run(server.port, q_b, "qb"), client_run(server.port, q_a, "qa")]
+        # team-b's whole wave in flight at once (128 connections x depth
+        # 8): its overflow then does not hang on how fast the card's host
+        # answers (at 32 connections a wave slower than the bucket's
+        # refill was admitted whole)
+        runs = [client_run(server.port, q_b, "qb", conns=Q_WAVE // NATIVE_DEPTH),
+                client_run(server.port, q_a, "qa")]
         (res_b, wall_b), (res_a, _wall_a) = (
             finish_run(*runs[0], "wave Q team-b"), finish_run(*runs[1], "wave Q team-a")
         )
@@ -3363,7 +3416,10 @@ def audit_phase(work_docs: list, card: str) -> dict:
         with open(policies_path, "w") as f:
             json.dump(new_specs, f)
         status, body = admin_post(rp, "/policies/reload")
-        if status != 202 or body.get("status") != "reload started":
+        # the file watch's 1 s poll may have started the same reload first
+        if status != 202 or body.get("status") not in (
+            "reload started", "reload already in progress"
+        ):
             fail(f"POST /policies/reload answered {status} {body}")
         wait_until(lambda: lc.stats()["reloads"] >= 1 and not lc.reload_in_flight(),
                    300, "the promotion")
@@ -4877,7 +4933,7 @@ def print_wasm_phase(r: dict, card: str) -> None:
 FETCH_WAVE = 1024
 FETCH_NEGATIVE_WAVE = 256
 FETCH_DIR = os.path.join(REPO, "build", "chip_smoke_fetch")
-RELOAD_TAG_CYCLES = 20
+RELOAD_TAG_CYCLES = 8
 RELOAD_TAG_WAVE = 128
 CONTEXT_NAMESPACES = 200
 CONTEXT_NAMES = 220
@@ -4886,8 +4942,8 @@ CONTEXT_EVENTS = 20
 CONTEXT_OVERFLOW = 257
 CONTEXT_OVERFLOW_WAVE = 256
 CONTEXT_HOLD_NAMESPACES = (200, 256)
-WATCH_OBJECTS = AUDIT_OBJECTS
-WATCH_EVENTS = 2048
+WATCH_OBJECTS = 512
+WATCH_EVENTS = 512
 KEYLESS_SUBJECT = "release@example.com"
 KEYLESS_ISSUER = "https://issuer.example.com"
 KERNEL_ONLY_ARGS = [
@@ -5293,7 +5349,7 @@ def fetch_waves(rig: FetchRig, work_docs: list, card: str) -> dict:
             fail("phase13: a redirected blob carried Authorization, or none "
                  "was redirected")
 
-        # wave R: the moving policy between tags v1 and v2, 20 reloads
+        # wave R: the moving policy between tags v1 and v2, 8 reloads
         server = servers["native"]
         lc = server.lifecycle
         rp = server.readiness_port
@@ -5903,14 +5959,22 @@ def free_port() -> int:
 
 
 def recovery_server_main(argv: list[str]) -> int:
-    """Phase 14's server process: ``python -m policy_server_tpu_torch ARGS``
-    run in this process (``runpy``), with one addition: on SIGUSR1 it reads
-    the JSON command in CONTROL (``{"seq": n, "op": "counts" | "reset" |
-    "stall" | "kill-shard", ...}``), applies it (``reset`` sets the kernel
-    wrappers' launch counts to 0, ``stall`` arms a ``shard.dispatch`` sleep
-    (the dispatch loop stops popping its queue), ``kill-shard`` arms one ``shard.dispatch`` raise in a shard's scope) and
-    writes ``{"seq": n, "counts": ...}`` to COUNTS. ARGV is CONTROL COUNTS
-    then the server's arguments."""
+    """The server process of phases 14 and 15: ``python -m
+    policy_server_tpu_torch ARGS`` run in this process (``runpy``), with
+    one addition: on SIGUSR1 it reads the JSON command in CONTROL
+    (``{"seq": n, "op": ..., ...}``), applies it and writes ``{"seq": n,
+    "counts": ..., ...}`` (the kernel wrappers' launch counts and the op's
+    answer) to COUNTS. Ops: ``counts``; ``reset`` sets the launch counts
+    to 0; ``stall`` arms a ``shard.dispatch`` sleep (the dispatch loop
+    stops popping its queue); ``kill-shard`` arms one ``shard.dispatch``
+    raise in a shard's scope; ``audit`` answers the audit side's facts
+    (``audit_facts``), and with ``dump`` writes its rows, report rows and
+    matrix cells to that file; ``spill`` forces the matrix and snapshot
+    spills on a thread; ``otlp`` answers the span processor's drops. A
+    command with ``hold`` holds the cadence spills off (true) or lets them
+    run again (false). Where ``CHIP_SMOKE_KUBE_API`` is set, the in-cluster client reads that
+    API server with the service account in ``CHIP_SMOKE_KUBE_SA``. ARGV is
+    CONTROL COUNTS then the server's arguments."""
     import runpy
     import signal
 
@@ -5919,12 +5983,26 @@ def recovery_server_main(argv: list[str]) -> int:
     from policy_server_tpu_torch import failpoints
     from policy_server_tpu_torch.ops import cuda_kernels as ck
 
+    if os.environ.get("CHIP_SMOKE_KUBE_API"):
+        import pathlib
+
+        from policy_server_tpu_torch.context import service as ctx_service
+
+        ctx_service.KUBE_API_SERVER = os.environ["CHIP_SMOKE_KUBE_API"]
+        ctx_service.SERVICE_ACCOUNT_DIR = pathlib.Path(
+            os.environ["CHIP_SMOKE_KUBE_SA"]
+        )
+    facts = instrument_audit_side()
+
     def die() -> None:
         raise RuntimeError("chip smoke: shard killed")
 
     def on_signal(_signum, _frame) -> None:
         with open(control) as f:
             cmd = json.load(f)
+        answer: dict = {}
+        if "hold" in cmd:
+            facts["hold"] = cmd["hold"]
         if cmd["op"] == "reset":
             ck.reset_launch_counts()
         elif cmd["op"] == "stall":
@@ -5932,9 +6010,21 @@ def recovery_server_main(argv: list[str]) -> int:
         elif cmd["op"] == "kill-shard":
             failpoints.set_failpoint("shard.dispatch", die, count=1,
                                      scope=cmd["scope"])
+        elif cmd["op"] == "audit":
+            answer = audit_facts(facts, cmd.get("dump"))
+        elif cmd["op"] == "spill":
+            threading.Thread(target=force_spills, args=(facts,),
+                             daemon=True).start()
+        elif cmd["op"] == "otlp":
+            from policy_server_tpu_torch.telemetry import otlp
+
+            proc = otlp.processor()
+            answer = {"dropped": None if proc is None else proc.dropped,
+                      "tracer": otlp.tracer() is not None}
         tmp = counts_path + ".tmp"
         with open(tmp, "w") as f:
-            json.dump({"seq": cmd["seq"], "counts": ck.launch_counts()}, f)
+            json.dump({"seq": cmd["seq"], "counts": ck.launch_counts(),
+                       **answer}, f)
         os.replace(tmp, counts_path)
 
     signal.signal(signal.SIGUSR1, on_signal)
@@ -5945,31 +6035,39 @@ def recovery_server_main(argv: list[str]) -> int:
 
 
 class RecoveryServer:
-    """One phase 14 server process (``recovery_server_main``) on free ports,
-    waited for until /readiness answers 200: ``wall_ready_s`` runs from the
-    process's start to that answer."""
+    """One server process of phases 14 and 15 (``recovery_server_main``) on
+    free ports, waited for until /readiness answers 200: ``wall_ready_s``
+    runs from the process's start (``started``, on the perf_counter clock)
+    to that answer. ``env`` is added to this process's environment."""
 
-    def __init__(self, argv: list, label: str) -> None:
+    def __init__(self, argv: list, label: str, work_dir: str = RECOVERY_DIR,
+                 env: dict | None = None, wait: bool = True) -> None:
         self.label = label
         self.port, self.readiness_port = free_port(), free_port()
         tag = label.replace(" ", "-")
-        self.control = os.path.join(RECOVERY_DIR, f"{tag}.control")
-        self.counts = os.path.join(RECOVERY_DIR, f"{tag}.counts")
-        self.log = os.path.join(RECOVERY_DIR, f"{tag}.log")
+        self.control = os.path.join(work_dir, f"{tag}.control")
+        self.counts = os.path.join(work_dir, f"{tag}.counts")
+        self.log = os.path.join(work_dir, f"{tag}.log")
         self.seq = 0
-        t0 = time.perf_counter()
+        self.started = time.perf_counter()
         with open(self.log, "wb") as log:
             self.proc = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--recovery-server",
                  self.control, self.counts, *argv, "--port", str(self.port),
                  "--readiness-probe-port", str(self.readiness_port)],
                 stdin=subprocess.DEVNULL, stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, **(env or {})),
             )
+        if wait:
+            self.wait_ready()
+
+    def wait_ready(self) -> None:
+        """Wait until /readiness answers 200 (``wall_ready_s``)."""
         deadline = time.monotonic() + 300
         while True:
             if self.proc.poll() is not None:
-                fail(f"{label}: the server exited {self.proc.returncode}: "
-                     f"{self.tail()}")
+                fail(f"{self.label}: the server exited {self.proc.returncode}:"
+                     f" {self.tail()}")
             try:
                 if http_get(self.readiness_port, "/readiness")[0] == 200:
                     break
@@ -5977,9 +6075,10 @@ class RecoveryServer:
                 pass
             if time.monotonic() > deadline:
                 self.kill()
-                fail(f"{label}: /readiness never answered 200: {self.tail()}")
+                fail(f"{self.label}: /readiness never answered 200: "
+                     f"{self.tail()}")
             time.sleep(0.05)
-        self.wall_ready_s = time.perf_counter() - t0
+        self.wall_ready_s = time.perf_counter() - self.started
 
     def tail(self) -> str:
         with open(self.log, "rb") as f:
@@ -5988,19 +6087,23 @@ class RecoveryServer:
     def command(self, op: str, **kw) -> dict:
         """Send one command (``recovery_server_main``) → the launch counts
         it answered with."""
+        return self.ask(op, **kw)["counts"]
+
+    def ask(self, op: str, wait: float = 30.0, **kw) -> dict:
+        """Send one command → its whole answer (within ``wait`` seconds)."""
         import signal
 
         self.seq += 1
         with open(self.control, "w") as f:
             json.dump({"seq": self.seq, "op": op, **kw}, f)
         os.kill(self.proc.pid, signal.SIGUSR1)
-        deadline = time.monotonic() + 30
+        deadline = time.monotonic() + wait
         while time.monotonic() < deadline:
             try:
                 with open(self.counts) as f:
                     doc = json.load(f)
                 if doc["seq"] == self.seq:
-                    return doc["counts"]
+                    return doc
             except (OSError, ValueError):
                 pass
             time.sleep(0.02)
@@ -6277,6 +6380,884 @@ def print_recovery_phase(r: dict, card: str) -> None:
         f"wave policy_matrix {r['flipped']['shard_wave']['serving_launches']} "
         f"launches [{card}]"
     )
+
+
+# -- phase 15: the audit side's warm resume, and the OTLP export ---------------
+
+RESUME_DIR = os.path.join(REPO, "build", "chip_smoke_resume")
+RESUME_OBJECTS = 8192
+RESUME_MODIFIED = 64
+RESUME_DELETED = 8
+RESUME_SPILL_SECONDS = 5
+RESUME_LIVE_WAVE = 1024
+RESUME_KILL_WAVE = 128
+RESUME_SWEEP_TIMEOUT = 400
+OTLP_NATIVE_WAVE = 1024
+OTLP_STDLIB_WAVE = 256
+
+
+def instrument_audit_side() -> dict:
+    """In a server process of phases 14 and 15: the facts ``audit_facts``
+    answers. The server is captured where ``serve_forever`` starts (with
+    the launch counts then: the build's and the warmup's, before the
+    audit scanner starts); each spill is timed (its wall-clock start, its
+    seconds in all, the state store's write and the file's bytes), and so
+    is a warm boot's restore, with the rows it left dirty. While
+    ``facts["hold"]`` is set the cadence spills are skipped (a quiet wave's
+    baseline); a forced spill still runs. ``facts["active"]`` counts the
+    spills running now."""
+    from policy_server_tpu_torch import server as server_mod
+    from policy_server_tpu_torch import statestore
+    from policy_server_tpu_torch.audit import matrix as matrix_mod
+    from policy_server_tpu_torch.audit import snapshot as snapshot_mod
+    from policy_server_tpu_torch.audit import watch_feed as feed_mod
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    facts: dict = {"server": None, "launches_at_start": None, "spills": [],
+                   "restore": {}, "hold": False, "active": 0}
+    active_lock = threading.Lock()
+
+    def running(delta: int) -> None:
+        with active_lock:
+            facts["active"] += delta
+    serve = server_mod.PolicyServer.serve_forever
+
+    def serve_forever(self):
+        facts["server"] = self
+        facts["launches_at_start"] = ck.launch_counts()
+        return serve(self)
+
+    server_mod.PolicyServer.serve_forever = serve_forever
+    writes: dict = {}
+
+    def timed_write(name: str, rel: str) -> None:
+        orig = getattr(statestore.StateStore, name)
+
+        def write(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(self, *a, **kw)
+            try:
+                size = os.path.getsize(self.root / rel)
+            except OSError:
+                size = 0
+            writes[name] = (time.perf_counter() - t0, size)
+            return out
+
+        setattr(statestore.StateStore, name, write)
+
+    timed_write("spill_audit", statestore.StateStore.AUDIT_SPILL)
+    timed_write("spill_matrix", statestore.StateStore.MATRIX_SPILL)
+
+    def record(kind: str, start: float, t0: float, write: str,
+               forced: bool) -> None:
+        seconds, size = writes.pop(write, (0.0, 0))
+        facts["spills"].append({
+            "kind": kind, "start": start, "end": time.time(),
+            "seconds": time.perf_counter() - t0, "write_s": seconds,
+            "bytes": size, "forced": forced,
+        })
+
+    maybe_spill = matrix_mod.VerdictMatrix.maybe_spill
+
+    def matrix_spill(self, force=False):
+        if facts["hold"] and not force:
+            return False
+        start, t0 = time.time(), time.perf_counter()
+        running(1)
+        try:
+            spilled = maybe_spill(self, force)
+        finally:
+            running(-1)
+        if spilled:
+            record("matrix", start, t0, "spill_matrix", force)
+        return spilled
+
+    matrix_mod.VerdictMatrix.maybe_spill = matrix_spill
+    spill_once = feed_mod.WatchFeed._spill_once
+
+    def feed_spill(self, forced=False):
+        if facts["hold"] and not forced:
+            return None
+        start, t0 = time.time(), time.perf_counter()
+        running(1)
+        try:
+            spill_once(self)
+        finally:
+            running(-1)
+        if "spill_audit" in writes:
+            record("audit", start, t0, "spill_audit", forced)
+        return None
+
+    feed_mod.WatchFeed._spill_once = feed_spill
+    restore_rows = snapshot_mod.SnapshotStore.restore_rows
+
+    def timed_restore_rows(self, pairs):
+        t0 = time.perf_counter()
+        n = restore_rows(self, pairs)
+        facts["restore"].update(rows=n, rows_s=time.perf_counter() - t0)
+        return n
+
+    snapshot_mod.SnapshotStore.restore_rows = timed_restore_rows
+    restore = matrix_mod.VerdictMatrix.restore
+
+    def timed_restore(self):
+        t0 = time.perf_counter()
+        n = restore(self)
+        facts["restore"].update(
+            cells=n, cells_s=time.perf_counter() - t0,
+            uncovered_rows=len(self.snapshot.dirty_keys()),
+        )
+        return n
+
+    matrix_mod.VerdictMatrix.restore = timed_restore
+    return facts
+
+
+def force_spills(facts: dict) -> None:
+    """The ``spill`` op: the matrix spill, then the snapshot's."""
+    state = facts["server"].state
+    state.audit.matrix.maybe_spill(force=True)
+    if state.audit_watch is not None:
+        state.audit_watch._spill_once(forced=True)
+
+
+def audit_facts(facts: dict, dump: str | None) -> dict:
+    """The ``audit`` op: whether the scanner has settled (no row dirty and
+    no sweep running), its counters, the matrix's, the watch feed's, the
+    state store's, the boot report, the launch counts at the scanner's
+    start, the spills and the restore; with ``dump`` (settled only), the
+    snapshot's rows, the report rows and the matrix cells written there."""
+    server = facts["server"]
+    if server is None:
+        return {"ready": False}
+    state = server.state
+    scanner = state.audit
+    snap = scanner.snapshot
+    locked = (
+        scanner._sweep_lock.acquire(timeout=120) if dump
+        else scanner._sweep_lock.acquire(blocking=False)
+    )
+    try:
+        dirty = len(snap.dirty_keys())
+        out: dict = {"ready": True, "settled": bool(locked) and not dirty,
+                     "dirty": dirty, "resources": len(snap)}
+        if dump and out["settled"]:
+            doc = {
+                "rows": [[k, r.payload_json().decode()]
+                         for k, r in snap.rows_snapshot()],
+                "reports": [
+                    [r["resource"], r["policy_id"], r["allowed"], r["mutated"],
+                     r["message"], r["code"], r["error"], r["stale"]]
+                    for r in scanner.report_payload()["reports"]
+                ],
+                "cells": [[k, p, v[0], v[1], v[2]] for (k, p), v in
+                          scanner.matrix.cells_snapshot().items()],
+            }
+            with open(dump + ".tmp", "w") as f:
+                json.dump(doc, f)
+            os.replace(dump + ".tmp", dump)
+        out["dumped"] = bool(dump) and out["settled"]
+    finally:
+        if locked:
+            scanner._sweep_lock.release()
+    sstats = scanner.stats()
+    mstats = scanner.matrix.stats()
+    feed = state.audit_watch
+    fstats = feed.stats() if feed is not None else {}
+    store = state.statestore.stats() if state.statestore is not None else {}
+    out.update(
+        scanner={k: sstats[k] for k in (
+            "full_sweeps", "dirty_sweeps", "rows_scanned", "sweep_errors")},
+        matrix={k: mstats[k] for k in (
+            "cells_resident", "row_sweep_rows", "column_sweep_rows",
+            "cells_restored", "spills")},
+        feed={k: fstats.get(k) for k in (
+            "events_applied", "events_dropped", "resyncs", "replaces",
+            "queue_depth")},
+        store={k: store.get(k) for k in (
+            "audit_spills", "audit_rows_restored", "fsck_quarantined")},
+        boot=dict(state.boot_report or {}),
+        audit_batches=server.batcher.stats_snapshot()["audit_batches_dispatched"],
+        launches_at_start=facts["launches_at_start"], spilling=facts["active"],
+        spills=facts["spills"], restore=facts["restore"],
+    )
+    return out
+
+
+def audit_until(server: RecoveryServer, what: str, cond,
+                timeout: float) -> tuple[dict, float]:
+    """Ask a server's audit facts every 0.25 s until ``cond(facts)`` → the
+    facts and the seconds from the process's start to that answer."""
+    deadline = time.monotonic() + timeout
+    while True:
+        facts = server.ask("audit")
+        if facts.get("ready") and cond(facts):
+            return facts, time.perf_counter() - server.started
+        if server.proc.poll() is not None:
+            fail(f"{what}: the server exited: {server.tail()}")
+        if time.monotonic() > deadline:
+            fail(f"{what}: not within {timeout} s: "
+                 f"{json.dumps({k: v for k, v in facts.items() if k != 'spills'})}")
+        time.sleep(0.25)
+
+
+def audit_dump(server: RecoveryServer, label: str) -> dict:
+    """The settled server's rows, report rows and matrix cells."""
+    path = os.path.join(RESUME_DIR, label.replace(" ", "-") + ".dump.json")
+    facts = server.ask("audit", wait=300, dump=path)
+    if not facts.get("dumped"):
+        fail(f"{label}: the server had not settled for the dump")
+    with open(path) as f:
+        doc = json.load(f)
+    os.unlink(path)
+    return doc
+
+
+def check_compliance(label: str, doc: dict, judges: list, policy_ids: list,
+                     want_keys: set, report_keys: set) -> dict:
+    """Every snapshot row present (its keys ``want_keys``), every matrix
+    cell the oracle's verdict of its row (no cell where the oracle errs),
+    and the report rows of ``report_keys`` exactly the oracle's, none
+    stale. ``judges`` is ``[(oracle, cache, keys), ...]``: the oracle that
+    judges the rows of ``keys``, as its pre-eval hooks have run (the
+    signature policies' audit verdicts name the images that no hook has
+    verified in the judging process yet)."""
+    from policy_server_tpu_torch.models import AdmissionRequest, ValidateRequest
+
+    rows = [
+        (k, ValidateRequest.from_admission(
+            AdmissionRequest.from_dict(json.loads(p))))
+        for k, p in doc["rows"]
+    ]
+    keys = {k for k, _r in rows}
+    if keys != want_keys:
+        fail(f"{label}: the snapshot holds {len(keys)} rows: "
+             f"{len(keys - want_keys)} unexpected, {len(want_keys - keys)} "
+             f"missing (e.g. {sorted(keys ^ want_keys)[:2]})")
+    t0 = time.perf_counter()
+    want: dict = {}
+    for oracle, cache, judged in judges:
+        want.update(oracle_verdicts(
+            oracle, [(k, r) for k, r in rows if k in judged], policy_ids, cache,
+        ))
+    oracle_s = time.perf_counter() - t0
+    cells = {(k, p): (a, c, m) for k, p, a, c, m in doc["cells"]}
+    want_cells = {kp: (v[0], v[3], v[2]) for kp, v in want.items() if not v[4]}
+    if cells != want_cells:
+        bad = [kp for kp in want_cells if cells.get(kp) != want_cells[kp]]
+        extra = [kp for kp in cells if kp not in want_cells]
+        first = (bad or extra)[0]
+        fail(f"{label}: {len(bad)} matrix cells differ from the oracle, "
+             f"{len(extra)} extra (first {first}: {cells.get(first)} against "
+             f"{want_cells.get(first)})")
+    reports = {(r[0], r[1]): tuple(r[2:7]) for r in doc["reports"]}
+    if any(r[7] for r in doc["reports"]):
+        fail(f"{label}: a report row is stale")
+    want_reports = {kp: v for kp, v in want.items() if kp[0] in report_keys}
+    if reports != want_reports:
+        bad = [kp for kp in want_reports if reports.get(kp) != want_reports[kp]]
+        extra = [kp for kp in reports if kp not in want_reports]
+        fail(f"{label}: {len(bad)} report rows differ from the oracle, "
+             f"{len(extra)} extra")
+    return {"rows": len(rows), "cells": len(cells), "report_rows": len(reports),
+            "errors": sum(1 for v in want.values() if v[4]),
+            "oracle_s": oracle_s}
+
+
+def spill_numbers(spills: list, kind: str, since: float = 0.0) -> dict | None:
+    """The newest spill of ``kind`` that started after ``since``."""
+    rows = [s for s in spills if s["kind"] == kind and s["start"] >= since]
+    return rows[-1] if rows else None
+
+
+def resume_live_wave(server: RecoveryServer, wave: list, exp: list,
+                     label: str, spill: bool) -> dict:
+    """A live wave of kernel-only reviews with the cadence spills held off,
+    and with ``spill`` one forced matrix and snapshot spill inside it.
+    Every body is the oracle's; inside a spill a request may instead be
+    answered the in-band "execution deadline exceeded" (the matrix spill
+    holds the GIL for seconds, as the JAX package's does, past the 2 s
+    policy timeout), and those answers are counted."""
+    server.ask("audit", hold=True)
+    # a spill that was running when the hold came ends first
+    audit_until(server, f"{label}: the running spills",
+                lambda f: not f["spilling"], 60)
+    server.command("reset")
+    start_wall = time.time()
+    t0 = time.perf_counter()
+    proc, out = start_client(server.port, wave, label.replace(" ", "-"),
+                             work_dir=RESUME_DIR)
+    if spill:
+        time.sleep(0.3)
+        server.ask("spill")
+    results = finish_client(proc, out, label)
+    wall = time.perf_counter() - t0
+    end_wall = time.time()
+    counts = server.command("counts")
+    facts = server.ask("audit", hold=False)
+    expectations = [exp]
+    if spill:
+        expectations.append([
+            (200, in_band_body(b, "execution deadline exceeded", 500))
+            for _p, b in wave
+        ])
+    run = check_wave(label, results, wave, expectations)
+    run["deadline_answers"] = run["only"][1] if spill else 0
+    inside = [s for s in facts["spills"]
+              if s["start"] < end_wall and s["end"] > start_wall]
+    if spill and sorted((s["kind"], s["forced"]) for s in inside) != [
+        ("audit", True), ("matrix", True)
+    ]:
+        fail(f"{label}: not the two forced spills inside the wave: {inside}")
+    if not spill and inside:
+        fail(f"{label}: a spill ran inside the quiet wave: {inside}")
+    run.update(req_s=len(wave) / wall, launches=counts["policy_matrix"],
+               spills=inside)
+    return run
+
+
+def resume_phase(work_docs: list, card: str) -> dict:
+    """Phase 15 wave A (see the module docstring) → its numbers."""
+    import pathlib
+    import shutil
+
+    import torch_fetch_fixtures as fx
+    from policy_server_tpu_torch.audit import resource_key, synthesize_review
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    os.makedirs(RESUME_DIR)
+    work = pathlib.Path(RESUME_DIR)
+    specs = flagship_policy_specs()
+    policies = work / "policies.json"
+    policies.write_text(json.dumps(specs))
+    policy_ids = sorted(specs)
+    # two oracles: ``oracle`` answers the live waves (running their pre-eval
+    # hooks, as the server does); ``audit_oracle`` runs no hook, as a
+    # server process that has answered no live request
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        parse_policies(specs)
+    )
+    audit_oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        parse_policies(specs)
+    )
+    objects = audit_inventory(RESUME_OBJECTS, seed=15)
+    for obj in objects:
+        obj["metadata"]["uid"] = f"uid-{obj['metadata']['name']}"
+    path = fx.list_path("v1", "Pod")
+    api = fx.KubeApi(work / "kube")
+    api.register(path, copy.deepcopy(objects))
+    sa = api.write_service_account(work / "sa")
+
+    def key_of(obj: dict) -> str:
+        return resource_key(synthesize_review(obj, "UPDATE"))
+
+    inventory = {key_of(o): o for o in objects}
+    live_q = wave_of(work_docs, RESUME_LIVE_WAVE, "q15")
+    live_s = wave_of(work_docs, RESUME_LIVE_WAVE, "s15")
+    # the firehose's DELETE reviews evict their keys (none is in the
+    # inventory); the others are recorded as rows of their own
+    live_keys = {
+        resource_key(request_of(b)) for _p, b in live_q
+        if json.loads(b)["request"]["operation"] != "DELETE"
+    }
+    exp_q = [expected_answer(oracle, p, b) for p, b in live_q]
+    exp_s = [expected_answer(oracle, p, b) for p, b in live_s]
+    state = str(work / "state")
+    argv = [
+        "--policies", str(policies), "--addr", "127.0.0.1", "--enable-metrics",
+        "--state-dir", state, "--audit-mode", "interval",
+        "--audit-interval-seconds", "1", "--audit-matrix", "--audit-watch",
+        "--audit-watch-resources", "v1/Pod",
+        # a long refresh: no interval re-LIST (10 refreshes) in a process
+        "--context-refresh-seconds", "60",
+        "--state-audit-spill-seconds", str(RESUME_SPILL_SECONDS),
+        "--audit-matrix-spill-seconds", str(RESUME_SPILL_SECONDS),
+        *KERNEL_ONLY_ARGS,
+    ]
+    env = {"CHIP_SMOKE_KUBE_API": api.url, "CHIP_SMOKE_KUBE_SA": str(sa)}
+    cold_cache: dict = {}
+    live_cache: dict = {}
+    out: dict = {}
+    servers: list = []
+
+    def boot(label: str) -> RecoveryServer:
+        server = RecoveryServer(argv, label, work_dir=RESUME_DIR, env=env)
+        servers.append(server)
+        return server
+
+    def audit_launches(facts: dict, counts: dict) -> int:
+        return counts["policy_matrix"] - facts["launches_at_start"]["policy_matrix"]
+
+    # the audit oracle judges the inventory as the feed's LIST records it
+    # (CREATE reviews) while the cold server boots and sweeps: the check
+    # after the boot then finds each row's verdicts in the cache (keyed by
+    # the payload hash, which ignores the uid)
+    warm_oracle = threading.Thread(
+        target=oracle_verdicts,
+        args=(audit_oracle,
+              [(key_of(o), synthesize_review(o, "CREATE")) for o in objects],
+              policy_ids, cold_cache),
+        daemon=True,
+    )
+    try:
+        # 1-2. the cold boot LISTs the 8,192 pods and judges every cell
+        cold = boot("phase15 cold")
+        warm_oracle.start()
+        facts, ttc = audit_until(
+            cold, "phase15 cold: the boot sweep",
+            lambda f: f["settled"] and f["resources"] == RESUME_OBJECTS
+            and f["scanner"]["full_sweeps"] >= 1, RESUME_SWEEP_TIMEOUT,
+        )
+        counts = cold.command("counts")
+        warm_oracle.join()
+        t0 = time.perf_counter()
+        doc = audit_dump(cold, "phase15 cold")
+        comp = check_compliance(
+            "phase15 cold", doc, [(audit_oracle, cold_cache, set(inventory))],
+            policy_ids, set(inventory), set(inventory),
+        )
+        comp["check_s"] = time.perf_counter() - t0
+        out["cold"] = {
+            "ttr_wall_s": cold.wall_ready_s, "compliance_s": ttc,
+            "lists": api.lists.get(path, 0), "rows_scanned": facts["scanner"]["rows_scanned"],
+            "audit_batches": facts["audit_batches"],
+            "audit_launches": audit_launches(facts, counts),
+            "build_launches": facts["launches_at_start"], "check": comp,
+        }
+        # 3. a spill of each kind on the cadence, then the live waves: a
+        # quiet one and one with a forced spill inside it
+        spilled, _s = audit_until(
+            cold, "phase15: a cadence spill of each kind",
+            lambda f: spill_numbers(f["spills"], "matrix")
+            and spill_numbers(f["spills"], "audit"), 60,
+        )
+        out["cadence_spills"] = {
+            k: spill_numbers(spilled["spills"], k) for k in ("matrix", "audit")
+        }
+        out["quiet"] = resume_live_wave(cold, live_q, exp_q,
+                                        "phase15 quiet wave", spill=False)
+        audit_until(cold, "phase15: the quiet wave's rows",
+                    lambda f: f["settled"] and f["resources"]
+                    == RESUME_OBJECTS + len(live_keys), RESUME_SWEEP_TIMEOUT)
+        out["spill_wave"] = resume_live_wave(cold, live_s, exp_s,
+                                             "phase15 spill wave", spill=True)
+        audit_until(
+            cold, "phase15: the spill wave's rows",
+            lambda f: f["settled"] and f["resources"]
+            == RESUME_OBJECTS + len(live_keys), RESUME_SWEEP_TIMEOUT,
+        )
+        # 4. once a cadence spill of each kind has covered the settled
+        # state, SIGKILL with a wave in flight
+        since = time.time()
+        final, _s = audit_until(
+            cold, "phase15: the spills after the live rows' sweep",
+            lambda f: spill_numbers(f["spills"], "matrix", since)
+            and spill_numbers(f["spills"], "audit", since)
+            and f["settled"], 60,
+        )
+        spilled_rows = final["resources"]
+        spilled_cells = final["matrix"]["cells_resident"]
+        # CREATE reviews: an UPDATE the matrix has judged is answered at
+        # admission (lookup admission), never queued
+        kill_wave = []
+        for pid, body in wave_of(work_docs, RESUME_KILL_WAVE, "k15"):
+            d = json.loads(body)
+            d["request"]["operation"] = "CREATE"
+            kill_wave.append((pid, json.dumps(d).encode()))
+        cold.command("stall", seconds=RECOVERY_STALL_SECONDS)
+        time.sleep(0.2)
+        proc, kpath = start_client(cold.port, kill_wave, "phase15-kill",
+                                   tolerate_close=True, work_dir=RESUME_DIR,
+                                   conns=RESUME_KILL_WAVE, depth=1)
+        deadline = time.monotonic() + 20
+        admitted = 0.0
+        while time.monotonic() < deadline:
+            admitted = cold.metric("policy_server_queue_depth")
+            if admitted >= RESUME_KILL_WAVE:
+                break
+            time.sleep(0.02)
+        cold.kill()
+        killed = finish_client(proc, kpath, "phase15 kill wave")
+        out["kill"] = {"admitted": admitted,
+                       "answered": sum(r is not None for r in killed)}
+        if out["kill"]["answered"]:
+            fail(f"phase15: {out['kill']['answered']} requests of the kill "
+                 "wave were answered before the SIGKILL")
+        # while the server is down: 64 MODIFIED and 8 DELETED events
+        rng = random.Random(15)
+        names = rng.sample(sorted(inventory), RESUME_MODIFIED + RESUME_DELETED)
+        modified, deleted = names[:RESUME_MODIFIED], names[RESUME_MODIFIED:]
+        for key in modified:
+            obj = copy.deepcopy(inventory[key])
+            obj["metadata"].setdefault("labels", {})["p15"] = "modified"
+            api.modify(path, obj)
+            inventory[key] = obj
+        for key in deleted:
+            api.delete(path, inventory.pop(key))
+        api.lists.clear()
+        # 5. the warm boot: every row and cell restored, no LIST, the 64
+        # modified pods re-judged and the 8 deleted ones evicted
+        warm = boot("phase15 warm")
+        events = RESUME_MODIFIED + RESUME_DELETED
+        facts, ttc = audit_until(
+            warm, "phase15 warm: the resumed watch and the re-judge",
+            lambda f: f["settled"] and f["feed"]["events_applied"] == events
+            and f["feed"]["queue_depth"] == 0, RESUME_SWEEP_TIMEOUT,
+        )
+        counts = warm.command("counts")
+        boot_report = facts["boot"]
+        want_keys = set(inventory) | live_keys
+        doc = audit_dump(warm, "phase15 warm")
+        # the live rows' cells were judged after the live waves' hooks ran
+        # in the killed process; the rest by processes that ran none
+        comp = check_compliance(
+            "phase15 warm", doc,
+            [(oracle, live_cache, live_keys),
+             (audit_oracle, cold_cache, set(inventory))],
+            policy_ids, want_keys, set(modified),
+        )
+        uncovered = facts["restore"].get("uncovered_rows")
+        rejudged = facts["matrix"]["row_sweep_rows"] // len(policy_ids)
+        out["warm"] = {
+            "ttr_wall_s": warm.wall_ready_s, "compliance_s": ttc,
+            "lists": api.lists.get(path, 0),
+            "rows_restored": boot_report.get("audit_rows_restored"),
+            "cells_restored": boot_report.get("matrix_cells_restored"),
+            "uncovered_rows": uncovered, "restore": facts["restore"],
+            "rejudged_rows": rejudged, "matrix": facts["matrix"],
+            "rows_scanned": facts["scanner"]["rows_scanned"],
+            "feed": facts["feed"], "audit_batches": facts["audit_batches"],
+            "audit_launches": audit_launches(facts, counts),
+            "build_launches": facts["launches_at_start"], "check": comp,
+        }
+        w = out["warm"]
+        if (w["lists"] or w["rows_restored"] != spilled_rows
+                or w["cells_restored"] != spilled_cells or uncovered != 0
+                or rejudged != RESUME_MODIFIED
+                or w["rows_scanned"] != RESUME_MODIFIED * len(policy_ids)
+                or w["matrix"]["column_sweep_rows"]
+                or w["audit_launches"] < 1):
+            fail(f"phase15 warm boot: spilled {spilled_rows} rows and "
+                 f"{spilled_cells} cells, then {json.dumps(w)}")
+        # 6. a flipped byte in the matrix journal's head record: the file
+        # is quarantined, nothing restores, the boot sweeps everything
+        warm.stop()
+        journal = work / "state" / "audit" / "matrix.journal"
+        data = bytearray(journal.read_bytes())
+        data[24] ^= 0x01
+        journal.write_bytes(bytes(data))
+        api.lists.clear()
+        flipped = boot("phase15 flipped")
+        rows = len(want_keys)
+        facts, ttc = audit_until(
+            flipped, "phase15 flipped: the full sweep",
+            lambda f: f["settled"] and f["scanner"]["full_sweeps"] >= 1
+            and f["resources"] == rows, RESUME_SWEEP_TIMEOUT,
+        )
+        counts = flipped.command("counts")
+        doc = audit_dump(flipped, "phase15 flipped")
+        comp = check_compliance(
+            "phase15 flipped", doc, [(audit_oracle, cold_cache, want_keys)],
+            policy_ids, want_keys, want_keys,
+        )
+        out["flipped"] = {
+            "ttr_wall_s": flipped.wall_ready_s, "compliance_s": ttc,
+            "lists": api.lists.get(path, 0),
+            "quarantined": facts["store"]["fsck_quarantined"],
+            "rows_restored": facts["boot"].get("audit_rows_restored"),
+            "cells_restored": facts["boot"].get("matrix_cells_restored"),
+            "rows_scanned": facts["scanner"]["rows_scanned"],
+            "audit_batches": facts["audit_batches"],
+            "audit_launches": audit_launches(facts, counts),
+            "build_launches": facts["launches_at_start"], "check": comp,
+        }
+        fl = out["flipped"]
+        if (fl["quarantined"] < 1 or fl["cells_restored"] != 0
+                or fl["lists"] or fl["rows_restored"] != rows
+                or fl["rows_scanned"] != rows * len(policy_ids)):
+            fail(f"phase15 flipped matrix journal: {json.dumps(fl)}")
+        flipped.stop()
+    finally:
+        for server in servers:
+            server.kill()
+        api.stop()
+    return out
+
+
+def otlp_phase(work_docs: list, card: str) -> dict:
+    """Phase 15 wave O (see the module docstring) → its numbers."""
+    import pathlib
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models.policy import parse_policies
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    work = pathlib.Path(RESUME_DIR) / "otlp"
+    work.mkdir(parents=True, exist_ok=True)
+    specs = flagship_policy_specs()
+    policies = work / "policies.json"
+    policies.write_text(json.dumps(specs))
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        parse_policies(specs)
+    )
+    rng = random.Random(151)
+
+    def traced(n: int, tag: str) -> list:
+        wave = []
+        for pid, body in wave_of(work_docs, n, tag):
+            tid, sid = f"{rng.getrandbits(128):032x}", f"{rng.getrandbits(64):016x}"
+            wave.append((pid, body, f"traceparent: 00-{tid}-{sid}-01\r\n".encode(),
+                         tid, sid))
+        return wave
+
+    waves = {"native": traced(OTLP_NATIVE_WAVE, "o15n"),
+             "python": traced(OTLP_STDLIB_WAVE, "o15p")}
+    exps = {fe: [expected_answer(oracle, p, b) for p, b, *_ in wave]
+            for fe, wave in waves.items()}
+    try:
+        import grpc  # noqa: F401 — the export's transport
+        import google.protobuf  # noqa: F401
+
+        from policy_server_tpu_torch.telemetry import otlp_pb2
+        from torch_otlp_collector import Collector
+
+        collector = Collector(otlp_pb2)
+    except ImportError as e:
+        collector = None
+        missing = str(e)
+    out: dict = {"grpc": collector is not None, "runs": {}}
+    servers: dict = {}
+
+    def spawn(fmt: str, fe: str) -> RecoveryServer:
+        env = None
+        if fmt == "otlp":
+            env = {"OTEL_EXPORTER_OTLP_ENDPOINT": (
+                collector.endpoint if collector is not None
+                else "http://127.0.0.1:9")}
+        servers[fmt, fe] = RecoveryServer(
+            ["--policies", str(policies), "--addr", "127.0.0.1",
+             "--enable-metrics", "--frontend", fe, "--log-fmt", fmt,
+             *KERNEL_ONLY_ARGS],
+            f"phase15 {fmt} {fe}", work_dir=str(work), env=env, wait=False,
+        )
+        return servers[fmt, fe]
+
+    # two servers boot side by side (a process start is most of a boot),
+    # one of each log format, so one exporter at a time pushes to the
+    # collector; each wave runs alone, the other server idle
+    pairs = ((("json", "native"), ("otlp", "python")),
+             (("json", "python"), ("otlp", "native")))
+    try:
+        for pair in pairs:
+            booted = [spawn(fmt, fe) for fmt, fe in pair]
+            for server in booted:
+                server.wait_ready()
+            for (fmt, fe), server in zip(pair, booted):
+                one_otlp_run(out, fmt, fe, server, waves[fe], exps[fe],
+                             collector, work)
+    finally:
+        for server in servers.values():
+            server.kill()
+        if collector is not None:
+            collector.stop()
+    if collector is None:
+        out["missing"] = missing
+    return out
+
+
+def one_otlp_run(out: dict, fmt: str, fe: str, server: RecoveryServer,
+                 wave: list, exp: list, collector, work) -> None:
+    """One wave of wave O on its server, then the server stopped (its
+    spans flushed, its last metrics pushed) and the export checked."""
+    label = server.label
+    try:
+        mark = collector.mark() if collector is not None else None
+        server.command("reset")
+        t0 = time.perf_counter()
+        results = finish_client(*start_client(
+            server.port, [w[:3] for w in wave], label.replace(" ", "-"),
+            work_dir=str(work),
+        ), label)
+        wall = time.perf_counter() - t0
+        counts = server.command("counts")
+        run = check_wave(label, results, wave, [exp])
+        run.update(req_s=len(wave) / wall, launches=counts["policy_matrix"])
+        if run["launches"] < 1:
+            fail(f"{label}: policy_matrix was not launched")
+        pulled = evaluation_counts(server.readiness_port)[0]
+        answer = server.ask("otlp")
+    finally:
+        server.stop()
+    if fmt == "otlp" and collector is not None:
+        run.update(check_export(label, collector, mark, wave, fe, answer,
+                                pulled))
+    elif fmt == "otlp":
+        errors = [
+            json.loads(line)["message"]
+            for line in open(server.log, encoding="utf-8")
+            if line.startswith("{") and '"ERROR"' in line
+        ]
+        if len(errors) != 2 or not all(
+            "grpcio/protobuf are not available" in m for m in errors
+        ):
+            fail(f"{label}: without grpc the log says {errors}")
+        run["errors"] = errors
+    out["runs"][fmt, fe] = run
+
+
+def check_export(label: str, collector, mark, wave: list, frontend: str,
+                 answer: dict, pulled: float) -> dict:
+    """The spans and the pushed metrics of one wave: each request's
+    ``traceparent`` parents the spans the JAX package's rule emits for it
+    (native: one ``policy_evaluation``; stdlib: ``validation`` with a
+    ``policy_evaluation`` child), received + dropped = emitted, and the
+    last push's evaluation counter equals the /metrics pull after the
+    wave."""
+    from torch_otlp_collector import counter_total
+
+    spans = collector.spans(mark)
+    by_trace: dict = {}
+    for s in spans:
+        by_trace.setdefault(s.trace_id.hex(), []).append(s)
+    per_request = 1 if frontend == "native" else 2
+    emitted = per_request * len(wave)
+    dropped = answer.get("dropped") or 0
+    if len(spans) + dropped != emitted:
+        fail(f"{label}: {len(spans)} spans received + {dropped} dropped, "
+             f"{emitted} emitted")
+    for pid, _b, _h, tid, sid in wave:
+        mine = by_trace.get(tid, [])
+        if dropped == 0 and len(mine) != per_request:
+            fail(f"{label}: trace {tid} has {len(mine)} spans")
+        attrs = {s.name: {kv.key: kv.value.string_value for kv in s.attributes}
+                 for s in mine}
+        if frontend == "native":
+            ok = all(s.name == "policy_evaluation"
+                     and s.parent_span_id.hex() == sid for s in mine)
+        else:
+            val = [s for s in mine if s.name == "validation"]
+            child = [s for s in mine if s.name == "policy_evaluation"]
+            ok = (len(val) == len(child) == 1
+                  and val[0].parent_span_id.hex() == sid
+                  and child[0].parent_span_id == val[0].span_id)
+        if mine and (not ok or any(a.get("policy_id") != pid
+                                   for a in attrs.values())):
+            fail(f"{label}: the spans of trace {tid} are not the rule's: "
+                 f"{[(s.name, s.parent_span_id.hex()) for s in mine]}")
+    pushed = [m for m in collector.metrics(mark)
+              if m.name == "kubewarden_policy_evaluations_total"]
+    if not pushed or counter_total(pushed[-1]) != pulled:
+        fail(f"{label}: the last push counts "
+             f"{counter_total(pushed[-1]) if pushed else None} evaluations, "
+             f"the pull {pulled}")
+    return {"spans": len(spans), "dropped": dropped, "emitted": emitted,
+            "pushed": counter_total(pushed[-1]), "pulled": pulled,
+            "pushes": len(pushed)}
+
+
+def print_phase15(r: dict, card: str) -> None:
+    a = r["A"]
+    print(
+        f"phase15 wave A: kernel-only, spill cadences {RESUME_SPILL_SECONDS} s "
+        f"(--state-audit-spill-seconds, --audit-matrix-spill-seconds); "
+        f"{RESUME_OBJECTS} pods over the watch feed [{card}]"
+    )
+    for step in ("cold", "warm", "flipped"):
+        b = a[step]
+        c = b["check"]
+        extra = ""
+        if step == "warm":
+            extra = (
+                f"; rows restored {b['rows_restored']}, cells restored "
+                f"{b['cells_restored']} (rows {b['restore'].get('rows_s', 0):.3f}"
+                f" s, cells {b['restore'].get('cells_s', 0):.3f} s), rows the "
+                f"restore left dirty {b['uncovered_rows']}; re-judged "
+                f"{b['rejudged_rows']} modified pods ({b['rows_scanned']} "
+                f"pairs), {RESUME_DELETED} deleted evicted; feed "
+                f"{json.dumps(b['feed'])}"
+            )
+        elif step == "flipped":
+            extra = (
+                f"; quarantined {b['quarantined']}, rows restored "
+                f"{b['rows_restored']}, cells restored {b['cells_restored']}, "
+                f"full sweep {b['rows_scanned']} pairs"
+            )
+        print(
+            f"phase15 {step} boot: /readiness {b['ttr_wall_s']:.3f} s, time to "
+            f"compliance {b['compliance_s']:.3f} s from the process's start; "
+            f"LIST requests v1/Pod {b['lists']}; audit lane "
+            f"{b['audit_batches']} batches, policy_matrix "
+            f"{b['audit_launches']} launches (K2 {b['build_launches']['probe']} "
+            f"at the build){extra}; {c['rows']} rows, {c['cells']} matrix "
+            f"cells and {c['report_rows']} report rows the oracle's "
+            f"({c['errors']} oracle errors; oracle {c['oracle_s']:.1f} s) "
+            f"[{card}]"
+        )
+    for kind, s in a["cadence_spills"].items():
+        print(
+            f"phase15 {kind} spill (cadence): {s['seconds']:.3f} s, of which "
+            f"the write {s['write_s']:.3f} s, {s['bytes']} B [{card}]"
+        )
+    q, sw = a["quiet"], a["spill_wave"]
+    for s in sw["spills"]:
+        print(
+            f"phase15 {s['kind']} spill (forced, inside the spill wave): "
+            f"{s['seconds']:.3f} s, of which the write {s['write_s']:.3f} s, "
+            f"{s['bytes']} B [{card}]"
+        )
+    print(
+        f"phase15 live waves of {RESUME_LIVE_WAVE} kernel-only reviews: "
+        f"quiet (every body the oracle's) {q['req_s']:.1f} req/s p50 {q['p50']:.3f} "
+        f"p99 {q['p99']:.3f} ms; with a spill of each kind inside "
+        f"{sw['req_s']:.1f} req/s p50 {sw['p50']:.3f} p99 {sw['p99']:.3f} ms "
+        f"({sw['p99'] / q['p99']:.2f}x the quiet p99), "
+        f"{sw['deadline_answers']} answered \"execution deadline exceeded\" "
+        f"(the 2 s policy timeout) and the rest the oracle's; policy_matrix "
+        f"{q['launches']} / {sw['launches']} launches [{card}]"
+    )
+    k = a["kill"]
+    print(
+        f"phase15 SIGKILL: {k['admitted']:.0f} of {RESUME_KILL_WAVE} requests "
+        f"in flight, {k['answered']} answered; warm time to compliance "
+        f"{a['warm']['compliance_s']:.3f} s against cold "
+        f"{a['cold']['compliance_s']:.3f} s [{card}]"
+    )
+    o = r["O"]
+    if not o["grpc"]:
+        print(
+            f"phase15 wave O: grpc or protobuf is absent here ({o['missing']}): "
+            f"each --log-fmt otlp server logged the ERROR lines and served "
+            f"every body; the export was verified by the CPU tests only "
+            f"[{card}]"
+        )
+    for (fmt, fe), run in o["runs"].items():
+        tail = ""
+        if fmt == "otlp" and o["grpc"]:
+            tail = (
+                f"; spans received {run['spans']} + dropped {run['dropped']} ="
+                f" emitted {run['emitted']}; pushed evaluations "
+                f"{run['pushed']:.0f} = pulled {run['pulled']:.0f} "
+                f"({run['pushes']} pushes)"
+            )
+        print(
+            f"phase15 wave O {fe} --log-fmt {fmt}: {run['answered']} reviews, "
+            f"every body the oracle's; {run['req_s']:.1f} req/s p50 "
+            f"{run['p50']:.3f} p99 {run['p99']:.3f} ms; policy_matrix "
+            f"{run['launches']} launches{tail} [{card}]"
+        )
+    for fe in ("native", "python"):
+        j, t = o["runs"]["json", fe], o["runs"]["otlp", fe]
+        print(
+            f"phase15 wave O {fe}: otlp / json rate {t['req_s'] / j['req_s']:.3f}x,"
+            f" p99 {t['p99'] / j['p99']:.3f}x [{card}]"
+        )
 
 
 def main() -> int:
@@ -6792,6 +7773,13 @@ def main() -> int:
     print_recovery_phase(r14, card)
     print(f"phase14 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 15: the audit side's warm resume and the OTLP export ---------
+    t_phase = time.perf_counter()
+    r15 = {"A": resume_phase(work_docs, card)}
+    r15["O"] = otlp_phase(work_docs, card)
+    print_phase15(r15, card)
+    print(f"phase15 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -6858,7 +7846,8 @@ def main() -> int:
                         run["serving_launches"]
                     for fe, run in r13["fetch"]["F"].items()
                 },
-                "phase13 wave R, 20 tag reloads, kernel-only waves": sum(
+                f"phase13 wave R, {RELOAD_TAG_CYCLES} tag reloads, kernel-only "
+                "waves": sum(
                     c["launches"] for c in r13["fetch"]["R"]["cycles"]
                 ),
                 **{
@@ -6877,6 +7866,20 @@ def main() -> int:
                 },
                 "phase14 fenced-shard wave":
                     r14["flipped"]["shard_wave"]["serving_launches"],
+                **{
+                    f"phase15 wave A {step} boot: audit lane to compliance":
+                        r15["A"][step]["audit_launches"]
+                    for step in ("cold", "warm", "flipped")
+                },
+                "phase15 wave A quiet live wave (with the audit lane)":
+                    r15["A"]["quiet"]["launches"],
+                "phase15 wave A live wave with the spills (with the audit "
+                "lane)": r15["A"]["spill_wave"]["launches"],
+                **{
+                    f"phase15 wave O --frontend {fe} --log-fmt {fmt}, "
+                    "kernel-only": run["launches"]
+                    for (fmt, fe), run in r15["O"]["runs"].items()
+                },
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -6949,7 +7952,8 @@ def main() -> int:
                         run["boot"]["launches"]["probe"]
                     for fe, run in r13["fetch"]["F"].items()
                 },
-                "phase13 wave R (20 reloads: each candidate's build and the "
+                f"phase13 wave R ({RELOAD_TAG_CYCLES} reloads: each candidate's "
+                "build and the "
                 "file watch's)": sum(
                     c["reload_launches"]["probe"]
                     for c in r13["fetch"]["R"]["cycles"]
@@ -6960,6 +7964,11 @@ def main() -> int:
                     f"phase14 {step} boot (its build)":
                         r14[step]["build_launches"]["probe"]
                     for step in ("cold", "warm", "changed", "flipped", "again")
+                },
+                **{
+                    f"phase15 wave A {step} boot (its build)":
+                        r15["A"][step]["build_launches"]["probe"]
+                    for step in ("cold", "warm", "flipped")
                 },
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],

@@ -13,12 +13,15 @@ the policies file is watched and a changed digest, SIGHUP or ``POST
 serves named tenants beside the default one and ``--serving-shards`` serves
 each from several stacks; ``--audit-mode interval|on-promote`` runs the
 background audit scanner (``--audit-matrix`` its verdict matrix,
-``--audit-watch`` the live list+watch feed; ``--audit-matrix-spill-seconds``
-is read only by the spill, which waits for A11b). ``--state-dir DIR`` keeps
+``--audit-watch`` the live list+watch feed). ``--state-dir DIR`` keeps
 the durable last-good state (``statestore.py``): the artifact cache, the
-per-tenant manifests, the boot report and the shard incident log, so a
-restart boots warm; with the audit scanner on it is refused until the
-audit spill is ported (ROADMAP A11b). Modules that are not
+per-tenant manifests, the boot report, the shard incident log and, with
+the audit scanner on, the audit snapshot spill (``--state-audit-spill-
+seconds``) and the verdict matrix journal (``--audit-matrix-spill-
+seconds``), so a restart boots warm and resumes compliance.
+``--log-fmt otlp`` exports spans, and ``--enable-metrics`` pushes the
+metrics, over OTLP/gRPC to ``OTEL_EXPORTER_OTLP_ENDPOINT`` where it is set
+(``telemetry/otlp.py``). Modules that are not
 builtins are fetched (``--policies-download-dir``, ``--sources-path``,
 ``--docker-config-json-path``) and verified (``--verification-path``,
 ``--sigstore-cache-dir``); the sources and verification files are JSON, or
@@ -190,8 +193,7 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
         ("--log-fmt", "KUBEWARDEN_LOG_FMT",
          dict(default="text", metavar="LOG_FMT",
               choices=["text", "json", "otlp"],
-              help="Log output format (text, json, otlp; otlp logs JSON "
-                   "lines and exports no span)")),
+              help="Log output format (text, json, otlp)")),
         ("--log-no-color", "KUBEWARDEN_LOG_NO_COLOR",
          dict(action="store_true", help="Disable colored output for logs")),
         ("--daemon", "KUBEWARDEN_DAEMON",
@@ -410,10 +412,13 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "of fail-closing. Corrupt or torn entries are "
                    "quarantined by the boot fsck pass, never fatal. "
                    "Unset = amnesiac "
-                   "restarts (every boot refetches and re-LISTs). This "
-                   "package does not spill the audit state yet (ROADMAP "
-                   "A11b): --state-dir with --audit-mode other than off, "
-                   "--audit-watch or --audit-matrix is refused")),
+                   "restarts (every boot refetches and re-LISTs)")),
+        ("--state-audit-spill-seconds", "KUBEWARDEN_STATE_AUDIT_SPILL_SECONDS",
+         dict(type=float, default=30.0, metavar="SECONDS",
+              help="Cadence of the audit snapshot spill into the state "
+                   "dir (one atomic journal replace per tick; also "
+                   "spilled on clean shutdown). Only with --state-dir "
+                   "and --audit-watch")),
         ("--selfheal-interval-seconds", "KUBEWARDEN_SELFHEAL_INTERVAL_SECONDS",
          dict(type=float, default=DEFAULT_SELFHEAL_INTERVAL_SECONDS,
               metavar="SECONDS",
@@ -763,6 +768,8 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--audit-matrix-spill-seconds must be > 0")
     if args.audit_matrix_whatif and not args.audit_matrix:
         raise ValueError("--audit-matrix-whatif requires --audit-matrix")
+    if args.state_audit_spill_seconds <= 0:
+        raise ValueError("--state-audit-spill-seconds must be > 0")
 
 
 def tls_config_of(args: argparse.Namespace) -> TlsConfig:
@@ -828,6 +835,7 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         audit_matrix=args.audit_matrix,
         audit_stream_max_clients=args.audit_stream_max_clients,
         audit_matrix_whatif=args.audit_matrix_whatif,
+        audit_matrix_spill_seconds=args.audit_matrix_spill_seconds,
         tls_config=tls_config_of(args),
         native_tls=args.native_tls,
         native_tls_handshake_timeout_seconds=(
@@ -857,6 +865,7 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         audit_watch_resources=args.audit_watch_resources,
         audit_watch_max_queue_events=args.audit_watch_max_queue_events,
         state_dir=args.state_dir,
+        state_audit_spill_seconds=args.state_audit_spill_seconds,
     )
 
 

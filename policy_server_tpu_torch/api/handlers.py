@@ -59,7 +59,9 @@ batcher, inside a 200 AdmissionReview. Bodies are ``json.dumps`` of the response
 separators, byte for byte what the JAX package's aiohttp frontend writes;
 a ``FragVerdict`` (a cache hit answered from a pre-built template) writes
 the bytes of ``FragTemplate.to_response(uid)``. Each evaluation runs in a
-request span (``telemetry.tracing.span``) with the JAX package's fields.
+request span (``telemetry.tracing.span``) with the JAX package's fields;
+where the OTLP span pipeline is installed, a W3C ``traceparent`` header
+parents it (``_incoming_trace``).
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ from policy_server_tpu_torch.models import (
     ValidateRequest,
 )
 from policy_server_tpu_torch.models.admission import FragVerdict
-from policy_server_tpu_torch.telemetry import default_registry, flightrec
+from policy_server_tpu_torch.telemetry import default_registry, flightrec, otlp
 from policy_server_tpu_torch.telemetry.tracing import logger, span
 from policy_server_tpu_torch.tenancy import lookup_tenant, unknown_tenant_message
 
@@ -160,11 +162,22 @@ def evaluation_answer(
     return 200, json.dumps(envelope.to_dict()).encode(), None
 
 
+def _incoming_trace(traceparent: str | None) -> Any:
+    """The W3C ``traceparent`` parent of a request's span where the span
+    pipeline is installed, else None (no tracer: the header is not even
+    parsed). A malformed header gives None: a fresh root, never a raise."""
+    if otlp.tracer() is None:
+        return None
+    return otlp.parse_traceparent(traceparent)
+
+
 def evaluate_body(
-    batcher: Any, kind: str, policy_id: str, body: bytes, hostname: str = ""
+    batcher: Any, kind: str, policy_id: str, body: bytes, hostname: str = "",
+    traceparent: str | None = None,
 ) -> tuple[int, bytes, dict[str, str] | None]:
     """One POST body → (status, response body, headers). ``kind`` is
-    ``validate``, ``validate_raw`` or ``audit``. The headers are a shed or
+    ``validate``, ``validate_raw`` or ``audit``; ``traceparent`` is the
+    request's header, the parent of its span. The headers are a shed or
     fenced answer's Retry-After, else None."""
     span_name, origin = EVALUATION_ROUTES[kind]
     try:
@@ -179,7 +192,8 @@ def evaluate_body(
     except BodyError as e:
         return 422, api_error_body(422, e.message), None
     with span(
-        span_name, host=hostname, policy_id=policy_id, **fields,
+        span_name, parent_ctx=_incoming_trace(traceparent),
+        host=hostname, policy_id=policy_id, **fields,
     ) as span_fields:
         return evaluation_answer(
             kind,
@@ -456,7 +470,8 @@ class ApiHandler(_Handler):
         else:
             batcher = state.batcher
         self._send_json(*evaluate_body(
-            batcher, parts[0], parts[-1], body, state.hostname
+            batcher, parts[0], parts[-1], body, state.hostname,
+            self.headers.get("traceparent"),
         ))
 
 

@@ -32,9 +32,13 @@ mutator, static messages), and the batcher also requires a hookless
 target, so the audit lane's raw verdict and the live verdict are the same
 bytes.
 
-Without a state store (the spill and the warm resume wait for ROADMAP
-A11b) :meth:`maybe_spill` spills nothing and :meth:`restore` restores
-nothing, as the JAX package's matrix does without ``--state-dir``.
+Durability: the matrix spills through the state store beside the audit
+snapshot (the same CRC-framed journal and fsck contract,
+``audit/matrix.journal``). The spill's head carries the column
+fingerprints, so a warm boot restores only cells whose policy content AND
+object payload still match (:meth:`restore`), then clears the snapshot's
+dirty marks for the rows it fully covers: the boot sweep re-judges nothing
+that is provably current.
 
 Thread-safety: one lock guards all matrix state. Publishers append to
 subscriber queues under it; handlers drain through :meth:`drain`.
@@ -48,6 +52,7 @@ import collections
 import hashlib
 import json
 import threading
+import time
 from typing import Any, Iterable, Mapping
 
 from policy_server_tpu_torch.audit.snapshot import SnapshotStore, resource_key
@@ -161,17 +166,22 @@ class MatrixSubscription:
 class VerdictMatrix:
     """The persistent (object × policy) verdict matrix (module
     docstring). Fed by the audit scanner's sweeps, trimmed by the same
-    deletion and retention passes that bound the report store, and
-    consulted by the batcher's submit paths for lookup admission."""
+    deletion and retention passes that bound the report store, spilled
+    through the state store, and consulted by the batcher's submit paths
+    for lookup admission."""
 
     def __init__(
         self,
         *,
         snapshot: SnapshotStore,
+        statestore: Any = None,
         changelog_capacity: int = 4096,
         client_queue_capacity: int = 1024,
+        spill_interval_seconds: float = 30.0,
     ) -> None:
         self.snapshot = snapshot
+        self.statestore = statestore
+        self.spill_interval = max(0.5, float(spill_interval_seconds))
         self.client_queue_capacity = max(16, int(client_queue_capacity))
         self._lock = threading.Lock()
         # (resource_key, policy_id) -> _Cell
@@ -196,6 +206,9 @@ class VerdictMatrix:
         self._row_sweep_rows = 0  # guarded-by: _lock
         self._column_sweep_rows = 0  # guarded-by: _lock
         self._last_whatif: dict | None = None  # guarded-by: _lock
+        self._spills = 0  # guarded-by: _lock
+        self._cells_restored = 0  # guarded-by: _lock
+        self._last_spill = 0.0  # guarded-by: _lock
 
     # -- columns (epoch lifecycle) -----------------------------------------
 
@@ -536,15 +549,102 @@ class VerdictMatrix:
     # -- durability ---------------------------------------------------------
 
     def maybe_spill(self, force: bool = False) -> bool:
-        """Spill the matrix when the cadence (or ``force``) says so → False:
-        there is no state store to spill through (ROADMAP A11b), as in the
-        JAX package without ``--state-dir``."""
-        return False
+        """Spill the matrix through the state store when the cadence (or
+        ``force``) says so. Called from the scanner's sweep tail and the
+        server's shutdown path, never from the serving path. The cells are
+        copied under the matrix lock, as in the JAX package."""
+        store = self.statestore
+        if store is None:
+            return False
+        now = time.monotonic()
+        with self._lock:
+            if not force and now - self._last_spill < self.spill_interval:
+                return False
+            self._last_spill = now
+            head = {
+                "epoch": self._epoch,
+                "version": self._version,
+                "cols": dict(self._cols),
+            }
+            cells = [
+                {
+                    "k": key,
+                    "p": pid,
+                    "a": cell.allowed,
+                    "c": cell.code,
+                    "m": cell.message,
+                    "x": cell.causes,
+                    "e": cell.epoch,
+                    "f": cell.col_fp,
+                    "h": cell.phash.hex() if cell.phash else None,
+                    "v": cell.version,
+                }
+                for (key, pid), cell in self._cells.items()
+            ]
+            self._spills += 1
+        store.spill_matrix(head, cells)
+        return True
 
     def restore(self) -> int:
-        """Warm-boot restore from the spill → 0: there is no state store
-        (ROADMAP A11b)."""
-        return 0
+        """Warm-boot restore → the cells installed: a spilled cell is
+        installed only where its column's fingerprint still matches the
+        SERVING policy set and its payload hash still matches the restored
+        snapshot row. Fingerprint-matched columns leave the dirty set, and
+        rows covered for EVERY serving column lose their snapshot dirty
+        mark. Call AFTER ``set_columns`` and after the snapshot is restored
+        and seeded: the row hashes are read from it."""
+        store = self.statestore
+        if store is None:
+            return 0
+        spill = store.load_matrix_spill()
+        if spill is None:
+            return 0
+        row_hashes = {
+            key: normalized_payload_hash(req)
+            for key, req in self.snapshot.rows_snapshot()
+        }
+        installed = 0
+        with self._lock:
+            self._version = max(self._version, int(spill.get("version", 0)))
+            for c in spill.get("cells", []):
+                key, pid = c.get("k"), c.get("p")
+                fp = c.get("f")
+                if self._cols.get(pid) != fp:
+                    continue  # the policy's content changed since the spill
+                h = bytes.fromhex(c["h"]) if c.get("h") else None
+                if h is None or row_hashes.get(key) != h:
+                    continue  # the object changed, or is gone
+                causes = c.get("x")
+                self._cells[(key, pid)] = _Cell(
+                    bool(c.get("a")), c.get("c"), c.get("m"),
+                    tuple(tuple(x) for x in causes) if causes else None,
+                    int(c.get("e", 0)), fp, h,
+                    int(c.get("v", 0)) or self._version,
+                )
+                installed += 1
+            self._cells_restored += installed
+            # a changed row stayed dirty (the snapshot restore dirtied it),
+            # so a fingerprint-matched column needs no whole-cluster re-judge
+            spill_cols = spill.get("cols") or {}
+            self._dirty_cols -= {
+                pid for pid, fp in self._cols.items()
+                if spill_cols.get(pid) == fp
+            }
+            cols = set(self._cols)
+            covered = [
+                key for key in row_hashes
+                if cols and all((key, pid) in self._cells for pid in cols)
+            ]
+        if covered:
+            self.snapshot.clear_dirty(covered)
+        if installed:
+            logger.info(
+                "verdict matrix restored from the state-store spill",
+                extra={"span_fields": {
+                    "cells": installed, "covered_rows": len(covered),
+                }},
+            )
+        return installed
 
     # -- what-if (--audit-matrix-whatif) -------------------------------------
 
@@ -652,9 +752,8 @@ class VerdictMatrix:
                 "columns_invalidated": self._columns_invalidated,
                 "row_sweep_rows": self._row_sweep_rows,
                 "column_sweep_rows": self._column_sweep_rows,
-                # no state store (ROADMAP A11b): nothing spilled or restored
-                "spills": 0,
-                "cells_restored": 0,
+                "spills": self._spills,
+                "cells_restored": self._cells_restored,
             }
 
     def cells_snapshot(self) -> dict[tuple[str, str], tuple]:

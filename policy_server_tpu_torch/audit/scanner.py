@@ -134,7 +134,8 @@ class AuditScanner:
             self._thread.join(timeout=5)
             self._thread = None
         if self.matrix is not None:
-            # the final spill (nothing without a state store, ROADMAP A11b)
+            # the final spill, so the next boot resumes compliance from the
+            # freshest verdicts rather than the last cadence tick's
             self.matrix.maybe_spill(force=True)
 
     # -- triggers ----------------------------------------------------------
@@ -144,6 +145,15 @@ class AuditScanner:
             self._full_pending = True
         self._wake.set()
         logger.info("audit full sweep requested (%s)", reason)
+
+    def skip_boot_full_sweep(self) -> None:
+        """Warm-boot downgrade: a matrix restore proved the rows it covers
+        current under the serving column fingerprints, so the pending boot
+        FULL sweep becomes a dirty sweep of what the restore could not
+        validate."""
+        with self._lock:
+            self._full_pending = False
+            self._kick_pending = True
 
     def request_dirty_sweep(self, reason: str) -> None:
         """Kick one dirty sweep out of cadence (matrix column-diff
@@ -406,8 +416,9 @@ class AuditScanner:
             else:
                 self._dirty_sweeps += 1
         if matrix is not None:
-            # the spill rides the sweep tail, never the serving path
-            # (nothing without a state store, ROADMAP A11b)
+            # the spill rides the sweep tail on its cadence, never the
+            # serving path; the scanner drives it, so a server without a
+            # kube API still spills
             matrix.maybe_spill()
         return scanned
 

@@ -173,6 +173,36 @@ class SnapshotStore:
             self._dirty.discard(key)
             self._evicted += 1
 
+    # -- durable spill (statestore.py) -------------------------------------
+
+    def export_rows(self) -> list[tuple[str, bytes]]:
+        """One locked snapshot of the inventory as ``(key, payload_json)``
+        pairs: the audit spill's corpus (payload_json is memoized)."""
+        with self._lock:
+            items = list(self._rows.items())
+        return [(key, req.payload_json()) for key, (req, _n) in items]
+
+    def restore_rows(self, pairs: Iterable[tuple[str, bytes]]) -> int:
+        """Rebuild rows from a spill's encoded payloads (a warm boot's seed:
+        the watch feed then resumes from its spilled resourceVersion instead
+        of re-LISTing) → the rows restored. Undecodable rows are skipped and
+        counted at WARNING; the next full re-LIST repairs what they lost."""
+        restored: list[ValidateRequest] = []
+        skipped = 0
+        for _key, payload in pairs:
+            try:
+                req = AdmissionRequest.from_dict(json.loads(payload))
+                restored.append(ValidateRequest.from_admission(req))
+            except Exception:  # noqa: BLE001 — a damaged row must not
+                skipped += 1  # fail the boot; the resync repairs it
+        self.observe(restored)
+        if skipped:
+            logger.warning(
+                "audit spill restore skipped %d undecodable row(s); the "
+                "next full re-LIST resync repairs the inventory", skipped,
+            )
+        return len(restored)
+
     # -- seeding -----------------------------------------------------------
 
     def seed_from_file(self, path: str) -> int:

@@ -38,6 +38,14 @@ batch's id (``flightrec.batch_scope``) on the worker. Per-row recorder
 work is batch-granular: one exemplar offer and one stride reservation per
 batch.
 
+Each row carries a trace context: the span current at submission (the
+handler's request span), or the parent ``submit_many`` was given for it
+(the native frontend's ``traceparent``). Where the OTLP pipeline is
+installed (``telemetry/otlp.py``), an answered row with a context emits a
+``policy_evaluation`` child span, as the JAX package's batcher does: at an
+evaluated or fragment result (``policy_id``, ``batch_size``, ``allowed``)
+and at the watchdog's deadline answer (``policy_id`` and the error).
+
 While the environment's breaker is fully open, ``degraded_mode`` other
 than ``oracle`` answers accept-all (``monitor``) or in-band 503s
 (``reject``) instead of evaluating.
@@ -125,7 +133,7 @@ from policy_server_tpu_torch.evaluation.policy_id import PolicyID
 from policy_server_tpu_torch.models import AdmissionResponse, ValidateRequest
 from policy_server_tpu_torch.models.admission import FragVerdict
 from policy_server_tpu_torch.runtime.workers import DaemonExecutor
-from policy_server_tpu_torch.telemetry import flightrec
+from policy_server_tpu_torch.telemetry import flightrec, otlp
 
 logger = logging.getLogger("kubewarden-policy-server")
 
@@ -152,7 +160,7 @@ PIPELINE_WORKERS = 4
 class _Pending:
     __slots__ = (
         "policy_id", "request", "origin", "future", "enqueued_at", "sink",
-        "token", "answered", "deadline", "quota_token", "owner",
+        "token", "answered", "deadline", "quota_token", "owner", "trace_ctx",
     )
 
     def __init__(
@@ -164,6 +172,7 @@ class _Pending:
         enqueued_at: float | None = None,
         sink: Any = None,
         token: Any = None,
+        trace_ctx: Any = None,
     ) -> None:
         self.policy_id = policy_id
         self.request = request
@@ -190,6 +199,11 @@ class _Pending:
         # stamped at every enqueue, cleared by fence_drain under the queue
         # mutex, stamped again by the sibling a fenced row is re-routed to
         self.owner: Any = None
+        # the parent of the row's policy_evaluation span: captured on the
+        # submitting thread (the handler's span), or given by submit_many
+        self.trace_ctx = (
+            otlp.current_span_context() if trace_ctx is None else trace_ctx
+        )
 
 
 class _DeliveryBatch:
@@ -741,6 +755,7 @@ class MicroBatcher:
         origin: RequestOrigin = RequestOrigin.VALIDATE,
         sink: Any = None,
         tokens: list | None = None,
+        trace_ctxs: list | None = None,
     ) -> list[Future] | None:
         """Queue a burst under one admission stamp, one shed estimate and
         one quota charge. Without ``sink``: one Future per item. With
@@ -748,21 +763,29 @@ class MicroBatcher:
         None); ``sink.deliver_many([(token, response, exc), ...])`` answers
         the rows batch by batch. A shed burst answers every row ShedError
         (a bulk call cannot raise per row). Rows that do not fit the queue
-        wait on the overload pool; never blocks."""
+        wait on the overload pool; never blocks. ``trace_ctxs``, a parallel
+        list of ``otlp.SpanContext`` or None, parents each row's span (the
+        native frontend's ``traceparent`` headers); a row with None keeps
+        the caller's current span."""
         if sink is not None and (tokens is None or len(tokens) != len(items)):
             raise ValueError("a sink needs one token per item")
         now = time.perf_counter()
+        ambient = otlp.current_span_context()
+        ctxs = (
+            [c if c is not None else ambient for c in trace_ctxs]
+            if trace_ctxs is not None else [ambient] * len(items)
+        )
         if sink is None:
             futures: list[Future] | None = [Future() for _ in items]
             pendings = [
-                _Pending(pid, req, origin, fut, now)
-                for (pid, req), fut in zip(items, futures)
+                _Pending(pid, req, origin, fut, now, trace_ctx=ctx)
+                for (pid, req), fut, ctx in zip(items, futures, ctxs)
             ]
         else:
             futures = None
             pendings = [
-                _Pending(pid, req, origin, None, now, sink, token)
-                for (pid, req), token in zip(items, tokens)
+                _Pending(pid, req, origin, None, now, sink, token, ctx)
+                for (pid, req), token, ctx in zip(items, tokens, ctxs)
             ]
         if self.request_timeout is not None:
             deadline = now + self.request_timeout
@@ -1159,6 +1182,10 @@ class MicroBatcher:
             AdmissionResponse.reject(p.request.uid(), DEADLINE_MESSAGE, 500),
             delivery,
         )
+        otlp.emit_span(
+            "policy_evaluation", p.trace_ctx, None,
+            {"policy_id": p.policy_id}, error=DEADLINE_MESSAGE,
+        )
 
     # -- one batch ---------------------------------------------------------
 
@@ -1310,6 +1337,7 @@ class MicroBatcher:
         else:
             fn, args = self._fused_validate, (pairs,)
         bid = brec.bid if brec is not None else -1
+        dispatch_start_ns = time.time_ns()
         start = time.perf_counter()
         live = runnable
         # the pool hand-off gaps (submit → worker pickup, work end → wake)
@@ -1373,15 +1401,22 @@ class MicroBatcher:
                     # a fragment verdict passes post_evaluate unchanged:
                     # its eligibility proved the constraints the identity
                     hit_rows += type(result) is FragVerdict
-                    self._resolve(
-                        p,
-                        post_evaluate(
-                            self.env, p.policy_id, p.request, p.origin,
-                            result, p.enqueued_at, metrics_sink=metrics_sink,
-                            now=done_at,
-                        ),
-                        delivery,
+                    response = post_evaluate(
+                        self.env, p.policy_id, p.request, p.origin,
+                        result, p.enqueued_at, metrics_sink=metrics_sink,
+                        now=done_at,
                     )
+                    self._resolve(p, response, delivery)
+                    if p.trace_ctx is not None:
+                        otlp.emit_span(
+                            "policy_evaluation", p.trace_ctx,
+                            dispatch_start_ns,
+                            {
+                                "policy_id": p.policy_id,
+                                "batch_size": n,
+                                "allowed": response.allowed,
+                            },
+                        )
             except Exception as e:  # noqa: BLE001 — never kill the worker
                 self._fail(p, e, delivery)
         delivery.flush()

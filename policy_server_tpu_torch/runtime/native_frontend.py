@@ -1032,17 +1032,22 @@ class BatcherSink:
     def handle_burst(self, frontend: NativeFrontend, burst: list[tuple]) -> None:
         """One poll burst → at most one submit_many per (tenant batcher,
         origin); fallback records (the Python parse oracle, raw shapes)
-        keep their per-record path."""
+        keep their per-record path. Where the OTLP span pipeline is
+        installed, each record's ``traceparent`` parents its row's spans;
+        a malformed header gives no parent (a fresh root), never a raise."""
         from policy_server_tpu_torch.api.service import RequestOrigin
         from policy_server_tpu_torch.runtime.frontend import WireValidateRequest
+        from policy_server_tpu_torch.telemetry import otlp
 
         rec = flightrec.recorder()
         t_admit = time.perf_counter_ns() if rec is not None else 0
-        # (id(batcher), origin) → [batcher, origin, items, tokens]
+        # the header is parsed only when there is a tracer to parent to
+        tp_enabled = otlp.tracer() is not None
+        # (id(batcher), origin) → [batcher, origin, items, tokens, ctxs]
         groups: dict = {}
         for (
             req_id, kind, policy_id, uid, ns, op, gvk, payload,
-            _tp, _tf, _tpr, _tpu,
+            tp, _tf, _tpr, _tpu,
         ) in burst:
             if kind in (K_VALIDATE, K_AUDIT):
                 batcher, pid, not_found = route_policy(self.state, policy_id)
@@ -1060,10 +1065,13 @@ class BatcherSink:
                     else RequestOrigin.VALIDATE
                 )
                 g = groups.setdefault(
-                    (id(batcher), origin), [batcher, origin, [], []]
+                    (id(batcher), origin), [batcher, origin, [], [], []]
                 )
                 g[2].append((pid, WireValidateRequest(header, payload)))
                 g[3].append((frontend, req_id, False))
+                g[4].append(
+                    otlp.parse_traceparent(tp) if tp_enabled and tp else None
+                )
             else:
                 try:
                     self._handle_fallback(
@@ -1076,9 +1084,14 @@ class BatcherSink:
                         _api_error_body(500, "Something went wrong"),
                     )
         # a failure admitting one group answers only its records
-        for batcher, origin, g_items, g_tokens in groups.values():
+        for batcher, origin, g_items, g_tokens, g_ctxs in groups.values():
             try:
-                batcher.submit_many(g_items, origin, sink=self, tokens=g_tokens)
+                batcher.submit_many(
+                    g_items, origin, sink=self, tokens=g_tokens,
+                    trace_ctxs=(
+                        g_ctxs if any(c is not None for c in g_ctxs) else None
+                    ),
+                )
             except Exception as e:  # noqa: BLE001 — answer, never hang
                 logger.error("bulk submission failed: %s", e)
                 body = _api_error_body(500, "Something went wrong")

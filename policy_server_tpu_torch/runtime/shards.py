@@ -253,11 +253,12 @@ class ShardRouter:
     def evaluate(self, policy_id, request, origin):
         return self._pick().batcher.evaluate(policy_id, request, origin)
 
-    def submit_many(self, items, origin, sink=None, tokens=None):
+    def submit_many(self, items, origin, sink=None, tokens=None,
+                    trace_ctxs=None):
         # a whole burst lands on one shard: M queue-depth reads per burst,
         # nothing per row
         return self._pick().batcher.submit_many(
-            items, origin, sink=sink, tokens=tokens
+            items, origin, sink=sink, tokens=tokens, trace_ctxs=trace_ctxs
         )
 
     def submit_audit(self, pairs):

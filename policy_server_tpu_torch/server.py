@@ -85,8 +85,15 @@ cannot be read boots on its manifest. Every boot, promotion and rollback
 persists its manifest; shard fences and respawns are journaled; the boot
 report (warm or cold, time to ready, cache hits, degraded sources,
 quarantined files) goes to ``last_boot.json`` and /metrics. With the audit
-scanner on the combination raises (the audit spill waits for ROADMAP
-A11b).
+scanner on, the boot keeps the JAX package's order: the audit spill's rows
+are restored into the snapshot, then the seed file is read, then the
+verdict matrix gets its columns and restores the spilled cells that its
+column fingerprints and the restored rows' payloads still validate (where
+any were, the boot's full sweep becomes a dirty sweep), and last the watch
+feed starts from the spilled resourceVersion cursors, so a kind with a
+cursor is not re-LISTed. The feed spills the snapshot every
+``state_audit_spill_seconds``; the scanner spills the matrix every
+``audit_matrix_spill_seconds`` at a sweep's tail and once at its stop.
 
 ``stop()`` follows the JAX package's order: the watchdog, then the native
 frontend stops accepting, the worker supervisor stops, the workers are
@@ -97,7 +104,14 @@ then the named tenants' epochs, then every epoch of the default tenant:
 each batcher answers what it holds (503 for rows not yet in a batch) and
 its environments close, then the native TLS manager stops and the native
 frontend flushes and frees, the certificate watcher ends and, last, the
-context snapshot service (the environments read it until they close).
+context snapshot service (the environments read it until they close),
+and the OTLP pipeline is flushed and torn down (``telemetry/otlp.py``).
+
+``enable_metrics`` with ``OTEL_EXPORTER_OTLP_ENDPOINT`` set also pushes the
+registry over OTLP every 10 s; ``--log-fmt otlp`` (``setup_tracing``)
+exports the request spans, and the batcher's ``policy_evaluation`` child
+spans, parented to a request's ``traceparent`` on either frontend. Prefork
+workers log JSON lines: the spans stay in this process.
 
 ``tls_config`` (``--cert-file``, ``--key-file``, ``--client-ca-file``)
 serves the API port over HTTPS, with mTLS when client CAs are given
@@ -210,6 +224,7 @@ from policy_server_tpu_torch.telemetry import (
     default_registry,
     flightrec,
     metrics as names,
+    otlp,
     setup_metrics,
 )
 
@@ -1039,6 +1054,7 @@ class PolicyServer:
         audit_matrix: bool = False,
         audit_stream_max_clients: int = DEFAULT_AUDIT_STREAM_MAX_CLIENTS,
         audit_matrix_whatif: bool = False,
+        audit_matrix_spill_seconds: float = 30.0,
         tls_config: TlsConfig | None = None,
         native_tls: str = "auto",
         native_tls_handshake_timeout_seconds: float = (
@@ -1064,6 +1080,7 @@ class PolicyServer:
         audit_watch_resources: str = DEFAULT_AUDIT_WATCH_RESOURCES,
         audit_watch_max_queue_events: int = DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
         state_dir: str | None = None,
+        state_audit_spill_seconds: float = 30.0,
     ) -> None:
         boot_t0 = time.monotonic()
         if frontend not in FRONTENDS:
@@ -1102,16 +1119,13 @@ class PolicyServer:
                 f"invalid policy reload mode {policy_reload_mode!r} "
                 "(expected off, auto, or manual)"
             )
-        if state_dir and (audit_mode != "off" or audit_watch or audit_matrix):
-            raise ValueError(
-                "--state-dir with the audit scanner (--audit-mode, "
-                "--audit-watch, --audit-matrix): this package does not yet "
-                "spill or resume the audit state through the state store "
-                "(ROADMAP A11b); run --state-dir with --audit-mode off, or "
-                "the audit scanner without --state-dir"
-            )
         if enable_metrics:
-            setup_metrics()
+            registry = setup_metrics()
+            # the push goes where a collector is configured; the
+            # Prometheus pull stays on either way, and both read the one
+            # registry
+            if os.environ.get(otlp.ENDPOINT_ENV):
+                otlp.install_metrics_pusher(registry)
         # the durable last-good store, opened before any fetch: its fsck
         # quarantines torn state (never fatal), and the last-good
         # manifests pin the artifact digests of every tenant whose
@@ -1249,11 +1263,34 @@ class PolicyServer:
         self._watch_feed = None
         if audit_mode != "off":
             snapshot = SnapshotStore(max_bytes=audit_max_snapshot_bytes)
+            audit_resume = (
+                statestore.load_audit_spill() if statestore is not None
+                else None
+            )
+            if audit_resume is not None:
+                # a warm boot rebuilds the inventory from the spill, so the
+                # watch feed resumes from its cursors instead of re-LISTing
+                restored = snapshot.restore_rows(audit_resume["rows"])
+                boot_report["audit_rows_restored"] = restored
+                logger.info(
+                    "audit snapshot restored from the state-store spill",
+                    extra={"span_fields": {
+                        "rows": restored,
+                        "kinds_with_cursor": len(audit_resume["rvs"]),
+                    }},
+                )
             if audit_resources_file:
                 snapshot.seed_from_file(audit_resources_file)
             if audit_matrix:
-                matrix = VerdictMatrix(snapshot=snapshot)
+                # restored after the snapshot: its cells are validated
+                # against the restored rows' payload hashes
+                matrix = VerdictMatrix(
+                    snapshot=snapshot, statestore=statestore,
+                    spill_interval_seconds=audit_matrix_spill_seconds,
+                )
                 matrix.set_columns(policies, 0)
+                if statestore is not None:
+                    boot_report["matrix_cells_restored"] = matrix.restore()
             if audit_watch:
                 # the live feed: list+watch events populate the snapshot
                 # the scanner sweeps (audit/watch_feed.py)
@@ -1267,6 +1304,9 @@ class PolicyServer:
                         ignore_connection_failure=(
                             ignore_kubernetes_connection_failure
                         ),
+                        statestore=statestore,
+                        spill_interval_seconds=state_audit_spill_seconds,
+                        resume=audit_resume,
                     )
                 except BaseException:
                     self._stop_feeds()
@@ -1494,6 +1534,10 @@ class PolicyServer:
                 batch_size=audit_batch_size,
                 matrix=matrix,
             )
+            if boot_report.get("matrix_cells_restored", 0) > 0:
+                # the restore proved the rows it covers current, so the
+                # boot's sweep is a dirty sweep of the rest
+                scanner.skip_boot_full_sweep()
             if self.lifecycle is not None:
                 # a promotion re-judges under the new set; a rollback
                 # stales the revoked epoch's rows
@@ -1976,6 +2020,8 @@ class PolicyServer:
             self._context_service.stop()
         if self._recorder is not None and flightrec.recorder() is self._recorder:
             flightrec.install(None)
+        # the buffered spans and the last metric state reach the collector
+        otlp.shutdown_pipeline()
 
 
 def _needs_fetch(policies: Mapping[str, Any]) -> bool:
@@ -2042,12 +2088,15 @@ def _build_context_service(
 def _build_audit_watch_feed(
     snapshot: SnapshotStore, resources: str, refresh_seconds: float,
     max_queue_events: int, insecure_skip_tls_verify: bool,
-    ignore_connection_failure: bool,
+    ignore_connection_failure: bool, statestore: Any = None,
+    spill_interval_seconds: float = 30.0, resume: dict | None = None,
 ) -> Any:
     """``--audit-watch``: the in-cluster list+watch client feeding the
-    audit snapshot store, started. A connection failure fails the boot
-    unless ``ignore_connection_failure``, which leaves the store to the
-    /validate traffic and the seed file (None)."""
+    audit snapshot store, started; with a state store it spills the
+    snapshot on its cadence and resumes from a warm boot's cursors
+    (``resume``: the audit spill's ``rvs`` and ``fed``). A connection
+    failure fails the boot unless ``ignore_connection_failure``, which
+    leaves the store to the /validate traffic and the seed file (None)."""
     from policy_server_tpu_torch.context import KubeApiFetcher, KubeConnectionError
 
     kinds = parse_watch_resources(resources)
@@ -2072,6 +2121,10 @@ def _build_audit_watch_feed(
         fetcher, kinds, snapshot,
         refresh_seconds=refresh_seconds,
         max_queue_events=max_queue_events,
+        statestore=statestore,
+        spill_interval_seconds=spill_interval_seconds,
+        resume_rvs=(resume or {}).get("rvs"),
+        resume_fed=(resume or {}).get("fed"),
     ).start()
 
 

@@ -7,7 +7,9 @@ names, label keys, units, buckets and registry API. The exposition (text
 format 0.0.4) is written here with the standard library, since the card's
 machine has no ``prometheus_client``: counters as ``<name>_total``, gauges
 bare, histograms as ``_bucket{le=...}`` (cumulative), ``_count`` and
-``_sum``. No ``_created`` samples are written.
+``_sum``. No ``_created`` samples are written. ``MetricsRegistry.collect()``
+is the one source that the pull's text and the OTLP push
+(``telemetry/otlp.py``) both read.
 
 Label structs:
 
@@ -26,7 +28,7 @@ import collections
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable, Mapping
+from typing import Any, Callable, Iterable, Mapping, NamedTuple
 
 METER_NAME = "kubewarden"
 # Kubewarden's instruments
@@ -368,6 +370,32 @@ def _family_name(name: str, kind: str) -> str:
     return name if name.endswith("_total") else name + "_total"
 
 
+def _base_name(name: str, kind: str) -> str:
+    """A family's ``prometheus_client`` name: a counter's without
+    ``_total``."""
+    return name[: -len("_total")] if kind == "counter" else name
+
+
+class Sample(NamedTuple):
+    """One sample of a family: its full name (``<base>_total``,
+    ``<name>_bucket``, ...), its labels and its value."""
+
+    name: str
+    labels: dict[str, str]
+    value: float
+
+
+@dataclass
+class MetricFamily:
+    """One family as ``prometheus_client`` collects it: a counter's ``name``
+    without its ``_total`` suffix, which its samples carry."""
+
+    name: str
+    type: str
+    documentation: str
+    samples: list[Sample]
+
+
 class MetricsRegistry:
     """Thread-safe metrics sink: counters, latency histograms and a
     bounded window of recent latency samples per label set (the test
@@ -467,47 +495,62 @@ class MetricsRegistry:
 
     # -- exposition ----------------------------------------------------------
 
-    def exposition(self) -> bytes:
-        """Prometheus text format 0.0.4 for the /metrics endpoint."""
-        out: list[str] = []
+    def collect(self) -> list[MetricFamily]:
+        """Every family with its samples: the serving runtime's (from the
+        attached provider), then the instruments (a labelled family with
+        no sample yet comes out empty)."""
+        out: list[MetricFamily] = []
         fn = self._runtime_stats_fn
         for item in fn() if fn is not None else ():
             name, kind, help_text, value = item[:4]
             fam = _family_name(name, kind)
-            out.append(_header(fam, kind, help_text))
             if len(item) > 4:
                 keys = item[4]
-                for label_values, v in value:
-                    out.append(
-                        _sample(fam, zip(keys, map(str, label_values)), v)
-                    )
+                samples = [
+                    Sample(fam, dict(zip(keys, map(str, label_values))), v)
+                    for label_values, v in value
+                ]
             else:
-                out.append(_sample(fam, (), value))
+                samples = [Sample(fam, {}, value)]
+            out.append(MetricFamily(_base_name(fam, kind), kind, help_text,
+                                    samples))
         with self._lock:
             counters = dict(self._counters)
             hists = {k: list(v) for k, v in self._hists.items()}
         for name, kind, help_text, _keys, buckets in _FAMILIES:
             fam = _family_name(name, kind)
-            out.append(_header(fam, kind, help_text))
+            samples = []
             if kind == "counter":
-                for (family, key), v in sorted(counters.items()):
-                    if family == name:
-                        out.append(_sample(fam, key, v))
-                continue
+                samples = [
+                    Sample(fam, dict(key), v)
+                    for (family, key), v in sorted(counters.items())
+                    if family == name
+                ]
             for (family, key), slot in sorted(hists.items()):
                 if family != name:
                     continue
+                labels = dict(key)
                 running = 0.0
                 for bound, n in zip((*buckets, math.inf), slot[:-1]):
                     running += n
-                    out.append(
-                        _sample(
-                            f"{fam}_bucket", key + (("le", _go_float(bound)),),
-                            running,
-                        )
-                    )
-                out.append(_sample(f"{fam}_count", key, running))
-                out.append(_sample(f"{fam}_sum", key, slot[-1]))
+                    samples.append(Sample(
+                        f"{fam}_bucket", {**labels, "le": _go_float(bound)},
+                        running,
+                    ))
+                samples.append(Sample(f"{fam}_count", labels, running))
+                samples.append(Sample(f"{fam}_sum", labels, slot[-1]))
+            out.append(MetricFamily(_base_name(fam, kind), kind, help_text,
+                                    samples))
+        return out
+
+    def exposition(self) -> bytes:
+        """Prometheus text format 0.0.4 of ``collect()`` for /metrics."""
+        out: list[str] = []
+        for family in self.collect():
+            fam = _family_name(family.name, family.type)
+            out.append(_header(fam, family.type, family.documentation))
+            for s in family.samples:
+                out.append(_sample(s.name, s.labels.items(), s.value))
         return "".join(out).encode()
 
     # -- test/introspection surface ----------------------------------------

@@ -1,14 +1,17 @@
 """Structured logging setup and request spans.
 
 Counterpart of ``policy_server_tpu/telemetry/tracing.py``: the log formats
-``text`` and ``json``, a level filter that keeps noisy dependencies at
-WARNING, and ``span`` — a per-request field dict logged as one structured
-line with its elapsed time. The service name is
+``text``, ``json`` and ``otlp``, a level filter that keeps noisy
+dependencies at WARNING, and ``span`` — a per-request field dict logged as
+one structured line with its elapsed time. The service name is
 ``kubewarden-policy-server``.
 
-The JAX package's ``otlp`` format also exports spans over OTLP gRPC; that
-exporter is not ported (``ROADMAP.md``), so ``--log-fmt otlp`` logs the
-same JSON lines and warns once that no span is exported.
+``otlp`` logs the same JSON lines and also installs the OTLP span pipeline
+(``telemetry/otlp.py``): every ``span`` then exports a real span to the
+collector at ``OTEL_EXPORTER_OTLP_ENDPOINT``, parented to the caller's
+``parent_ctx`` (a request's ``traceparent``), with its trace id added to
+the log line. Where grpcio or protobuf is not installed, the install logs
+one ERROR line and logging carries on alone.
 """
 
 from __future__ import annotations
@@ -121,29 +124,50 @@ def setup_tracing(
     atexit.register(stop_listener)
     queue_handler._span_listener_stop = stop_listener  # type: ignore[attr-defined]
     root.addHandler(queue_handler)
+    if log_fmt == "otlp":
+        # the span pipeline (exporter → batch processor → tracer); the
+        # JSON lines above stay on for correlation
+        from policy_server_tpu_torch.telemetry import otlp
+
+        otlp.install_tracer()
     for name in _NOISY_LOGGERS:
         logging.getLogger(name).setLevel(max(level, logging.WARNING))
-    log = logging.getLogger(SERVICE_NAME)
-    if log_fmt == "otlp":
-        log.warning(
-            "--log-fmt otlp: the OTLP span exporter is not part of this "
-            "package; logging JSON lines, exporting no span"
-        )
-    return log
+    return logging.getLogger(SERVICE_NAME)
 
 
 logger = logging.getLogger(SERVICE_NAME)
 
 
 @contextlib.contextmanager
-def span(span_name: str, **fields: Any) -> Iterator[dict[str, Any]]:
+def span(
+    span_name: str, parent_ctx: Any = None, **fields: Any
+) -> Iterator[dict[str, Any]]:
     """A request span: yields a mutable field dict (the handlers record
     the verdict's fields into it) and logs one structured line on exit
-    with the elapsed milliseconds."""
+    with the elapsed milliseconds. Where the OTLP pipeline is installed, a
+    real span of the same name and fields is exported, parented to
+    ``parent_ctx`` (an ``otlp.SpanContext``; None parents it to the
+    current span, if any), and its trace id joins the log line. The
+    exported end time is pinned to start + ``elapsed_ms``, so the exported
+    duration and the logged one agree."""
+    from policy_server_tpu_torch.telemetry import otlp
+
     start = time.perf_counter()
     data = dict(fields)
-    try:
-        yield data
-    finally:
-        data["elapsed_ms"] = round((time.perf_counter() - start) * 1e3, 3)
-        logger.info(span_name, extra={"span_fields": data})
+    tr = otlp.tracer()
+    active = (
+        tr.start_span(span_name, parent=parent_ctx) if tr is not None else None
+    )
+    with active if active is not None else contextlib.nullcontext():
+        try:
+            yield data
+        finally:
+            elapsed_ms = round((time.perf_counter() - start) * 1e3, 3)
+            data["elapsed_ms"] = elapsed_ms
+            if active is not None:
+                active.set_attributes(data)
+                data["trace_id"] = active.context.trace_id.hex()
+                active.data.end_unix_nano = (
+                    active.data.start_unix_nano + int(elapsed_ms * 1e6)
+                )
+            logger.info(span_name, extra={"span_fields": data})

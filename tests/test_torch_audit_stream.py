@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import threading
 from http.client import HTTPConnection
+from types import SimpleNamespace
 
 import pytest
 
@@ -362,9 +363,9 @@ def test_deleted_object_evicts_matrix_row_and_report_rows(envs):
 
 
 def test_spill_and_restore_without_a_state_store(envs):
-    """The JAX package's matrix without ``--state-dir`` (its statestore
-    None) spills nothing and restores nothing; the port's matrix, which
-    has no state store yet, does the same, with the same counters."""
+    """Without ``--state-dir`` (a matrix with no state store) both
+    packages' matrices spill nothing and restore nothing, with the same
+    counters."""
 
     def case(side):
         snapshot = side.audit.SnapshotStore()
@@ -377,6 +378,74 @@ def test_spill_and_restore_without_a_state_store(envs):
         return out, stats["spills"], stats["cells_restored"], snapshot.dirty_keys()
 
     assert both(case)[:3] == ([False, False, 0], 0, 0)
+
+
+def test_spill_restore_roundtrip_validates_columns_and_payloads(envs, tmp_path):
+    """``tests/test_audit_stream.py``'s case: a swept matrix spills through
+    the state store; a warm boot whose snapshot holds one CHANGED row and
+    one identical row restores only the identical row's cells, clears that
+    row's dirty mark, keeps the version cursor, and a serving set whose
+    ``ns`` policy changed restores only the ``priv`` column. Both packages
+    observe the same, and each restores the other's journal the same."""
+    from policy_server_tpu.statestore import StateStore as JStore
+    from policy_server_tpu_torch.statestore import StateStore as PStore
+
+    stores = {"jax": JStore, "port": PStore}
+
+    def case(side):
+        state = tmp_path / side.name
+        store = stores[side.name](str(state))
+        env = envs[side.name]
+        rows = [pod_review(side, "a", privileged=True), pod_review(side, "b")]
+        batcher = side.Batcher(env, max_batch_size=8, policy_timeout=10.0).start()
+        snapshot = side.audit.SnapshotStore()
+        matrix = side.audit.VerdictMatrix(snapshot=snapshot, statestore=store)
+        scanner = side.audit.AuditScanner(
+            state=SimpleNamespace(
+                evaluation_environment=env, batcher=batcher, lifecycle=None
+            ),
+            snapshot=snapshot, reports=side.audit.PolicyReportStore(),
+            matrix=matrix, mode="interval", interval_seconds=30.0,
+            batch_size=8,
+        )
+        try:
+            snapshot.observe(rows)
+            scanner.sweep(full=True)
+            before = matrix.cells_snapshot()
+            spilled = matrix.maybe_spill(force=True)
+        finally:
+            batcher.shutdown()
+        key_b = side.audit.resource_key(rows[1])
+        out = [spilled]
+        for reader in stores.values():
+            snapshot2 = side.audit.SnapshotStore()
+            changed_a = pod_review(side, "a", privileged=False)
+            snapshot2.observe([changed_a, pod_review(side, "b")])
+            m2 = side.audit.VerdictMatrix(
+                snapshot=snapshot2, statestore=reader(str(state))
+            )
+            m2.set_columns(_policies(side), 0)
+            restored = m2.restore()
+            cells = m2.cells_snapshot()
+            assert set(cells) == {(key_b, "priv"), (key_b, "ns")}
+            assert cells[(key_b, "priv")] == before[(key_b, "priv")]
+            assert snapshot2.dirty_keys() == {side.audit.resource_key(changed_a)}
+            assert m2.version >= matrix.version
+            snapshot3 = side.audit.SnapshotStore()
+            snapshot3.observe([pod_review(side, "b")])
+            m3 = side.audit.VerdictMatrix(
+                snapshot=snapshot3, statestore=reader(str(state))
+            )
+            m3.set_columns(_policies(side, denied=("other",)), 0)
+            out.append((restored, _cells(side, m2), m2.stats()["cells_restored"],
+                        m3.restore(), _cells(side, m3)))
+        return out
+
+    spilled, *restores = both(case)
+    assert spilled is True and restores[0] == restores[1]
+    restored, cells, counted, stale, stale_cells = restores[0]
+    assert restored == 2 and counted == 2 and len(cells) == 2
+    assert stale == 1 and list(stale_cells) == ["/v1/Pod/default/b|priv"]
 
 
 # ---------------------------------------------------------------------------

@@ -31,24 +31,19 @@ SLICE_FLAGS = (
     "--kube-insecure-skip-tls-verify", "--ignore-kubernetes-connection-failure",
     "--predicate-opt", "--daemon", "--daemon-pid-file", "--daemon-stdout-file",
     "--daemon-stderr-file", "--evaluation-backend", "--state-dir",
+    "--state-audit-spill-seconds",
 )
-# the JAX flags whose items have not come yet (ROADMAP A11b, A13, A14, A9)
+# the JAX flags whose items have not come yet (ROADMAP A13, A14)
 NOT_YET = {
     "--kernel", "--columnar", "--donate-buffers", "--compilation-cache-dir",
     "--mesh", "--mesh-dispatch", "--distributed-coordinator",
     "--distributed-num-processes", "--distributed-process-id",
-    "--state-audit-spill-seconds",
 }
 # --state-dir's help drops the JAX package's compile-cache sentence (the
-# port has no --compilation-cache-dir) and says what the port refuses
+# port has no --compilation-cache-dir)
 STATE_DIR_DROPPED = (
     "Pair with --compilation-cache-dir inside it so compiled programs "
     "survive too. "
-)
-STATE_DIR_ADDED = (
-    ". This package does not spill the audit state yet (ROADMAP A11b): "
-    "--state-dir with --audit-mode other than off, --audit-watch or "
-    "--audit-matrix is refused"
 )
 
 
@@ -67,7 +62,7 @@ def test_slice_flags_are_the_jax_packages(flag):
     elif flag == "--state-dir":
         want = jax[1]["help"].replace(STATE_DIR_DROPPED, "")
         assert want != jax[1]["help"]
-        assert port[1]["help"] == want + STATE_DIR_ADDED
+        assert port[1]["help"] == want
     else:
         assert port[1]["help"] == jax[1]["help"]
 
@@ -89,6 +84,8 @@ def test_port_has_every_jax_flag_but_those_still_to_come():
      "context_refresh_seconds", 5.0),
     ("--state-dir", "KUBEWARDEN_STATE_DIR", "/var/lib/kw", "state_dir",
      "/var/lib/kw"),
+    ("--state-audit-spill-seconds", "KUBEWARDEN_STATE_AUDIT_SPILL_SECONDS", "5",
+     "state_audit_spill_seconds", 5.0),
 ])
 def test_environment_variables_read_as_the_jax_cli(monkeypatch, flag, env, value,
                                                    attr, want):
@@ -105,6 +102,8 @@ def test_validation_texts_are_the_jax_packages(tmp_path):
         ["--audit-watch"],
         ["--audit-mode", "interval", "--audit-watch", "--audit-watch-resources", ","],
         ["--audit-mode", "interval", "--audit-watch", "--audit-watch-resources", "Pod"],
+        ["--state-audit-spill-seconds", "0"],
+        ["--audit-matrix-spill-seconds", "-1"],
     ]
     for extra in cases:
         argv = ["--policies", str(policies)] + extra

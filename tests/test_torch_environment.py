@@ -262,6 +262,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not {n for n in imported if n.split(".")[0] in _NOT_ON_THE_CARD}
 
 
+def test_importing_the_server_loads_neither_grpc_nor_protobuf():
+    """The OTLP export stack is imported on the first install only: a fresh
+    interpreter that imports the server, the command line, the batcher
+    and the telemetry modules (``otlp`` included), and serves no OTLP, has
+    loaded neither ``grpc`` nor ``google.protobuf``."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import policy_server_tpu_torch.__main__
+        import policy_server_tpu_torch.server
+        import policy_server_tpu_torch.runtime.batcher
+        import policy_server_tpu_torch.runtime.native_frontend
+        from policy_server_tpu_torch.telemetry import otlp, setup_tracing
+        setup_tracing("info", "json")
+        assert otlp.tracer() is None
+        print(sorted(n for n in sys.modules
+                     if n.split(".")[0] == "grpc" or n.startswith("google.protobuf")))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_prefork_worker_imports_no_torch_jax_or_what_the_card_lacks():
     """A prefork worker never touches the card and boots in milliseconds:
     its module, with the native frontend it owns under ``--frontend

@@ -3,8 +3,7 @@ statestore.py`` and its callers: the boot, the resolver's artifact cache,
 the lifecycle's manifests and the shard router's incident journal) against
 the JAX package's (``policy_server_tpu/statestore.py``).
 
-Each case of ``tests/test_statestore.py`` but the two audit-spill ones
-(their callers come with the audit spill) and the three supervision ones
+Each case of ``tests/test_statestore.py`` but the three supervision ones
 (``tests/test_torch_supervision.py`` holds those) runs ``case(pkg, dir)``
 through the JAX package, then the port, each in a directory of its own,
 and the two observations must be equal (tolerance 0: bytes, integers and
@@ -12,10 +11,13 @@ verdicts). Both packages' clocks are pinned where a record carries the
 time, so their journals are compared byte for byte. Then the cases this
 port adds: journals framed by both packages byte-equal, a state directory
 written by either package opening in the other, the fingerprint that
-differs across packages, the startup refusal of ``--state-dir`` with the
-audit scanner, the store errors that are logged and never raised, and a
-warm restart over HTTP with the source gone and the network failpoint
-armed, the port's bodies held against the JAX server's."""
+differs across packages, ``--state-dir`` with the audit scanner (an audit
+spill and a matrix journal written by either package restoring the same
+rows, cells and cursors in the other; a warm audit reboot over a local
+Kubernetes API held against the JAX server's, and its /metrics values),
+the store errors that are logged and never raised, and a warm restart over
+HTTP with the source gone and the network failpoint armed, the port's
+bodies held against the JAX server's."""
 
 from __future__ import annotations
 
@@ -28,14 +30,18 @@ from pathlib import Path
 
 import pytest
 
+import policy_server_tpu.audit as j_audit
 import policy_server_tpu.failpoints as j_failpoints
 import policy_server_tpu.fetch as j_fetch
+import policy_server_tpu.models as j_models
 import policy_server_tpu.ops.compiler as j_compiler
 import policy_server_tpu.ops.ir as j_ir
 import policy_server_tpu.statestore as j_ss
 from policy_server_tpu.models.policy import parse_policy_entry as j_parse
+import policy_server_tpu_torch.audit as p_audit
 import policy_server_tpu_torch.failpoints as p_failpoints
 import policy_server_tpu_torch.fetch as p_fetch
+import policy_server_tpu_torch.models as p_models
 import policy_server_tpu_torch.ops.compiler as p_compiler
 import policy_server_tpu_torch.ops.ir as p_ir
 import policy_server_tpu_torch.statestore as p_ss
@@ -43,11 +49,13 @@ from policy_server_tpu_torch.models.policy import parse_policy_entry as p_parse
 
 JAX = types.SimpleNamespace(
     name="jax", ss=j_ss, failpoints=j_failpoints, fetch=j_fetch,
-    compiler=j_compiler, ir=j_ir,
+    compiler=j_compiler, ir=j_ir, audit=j_audit, parse=j_parse,
+    models=j_models,
 )
 PORT = types.SimpleNamespace(
     name="port", ss=p_ss, failpoints=p_failpoints, fetch=p_fetch,
-    compiler=p_compiler, ir=p_ir,
+    compiler=p_compiler, ir=p_ir, audit=p_audit, parse=p_parse,
+    models=p_models,
 )
 PINNED_TIME = 1_700_000_000.25
 ARTIFACT_URL = "http://r/p.tpp.json"
@@ -339,6 +347,186 @@ def test_quarantined_temp_files_are_not_requarantined(tmp_path):
         return counts, quarantined(d)
 
     assert both(case, tmp_path) == ([1, 0, 0], ["manifests.journal.tmp.1.0"])
+
+
+# -- audit spill ---------------------------------------------------------------
+
+
+def _pod_object(i: int, privileged: bool = False, namespace: str = "ns") -> dict:
+    return {
+        "apiVersion": "v1", "kind": "Pod",
+        "metadata": {"name": f"p{i}", "namespace": namespace, "uid": f"u{i}"},
+        "spec": {"containers": [{
+            "name": "c", "image": "nginx:1.25",
+            "securityContext": {"privileged": privileged},
+        }]},
+    }
+
+
+def test_audit_spill_roundtrip_with_snapshot_store(tmp_path, pinned_clock):
+    """``tests/test_statestore.py``'s case: five synthetic rows spill with
+    their cursor and fed map, and restore with byte-identical payloads;
+    the journals the two packages write are the same bytes."""
+    def case(pkg, d):
+        snapshot = pkg.audit.snapshot
+        store = snapshot.SnapshotStore()
+        store.observe([
+            snapshot.synthesize_review(
+                {"apiVersion": "v1", "kind": "Pod",
+                 "metadata": {"name": f"p{i}", "namespace": "ns"}},
+                "CREATE", uid=f"u{i}",
+            )
+            for i in range(5)
+        ])
+        s = pkg.ss.StateStore(d)
+        n = s.spill_audit(
+            {"v1/Pod": "1234"},
+            {"v1/Pod": {("uid", "u0"): "/v1/Pod/ns/p0"}},
+            store.export_rows(),
+        )
+        loaded = pkg.ss.StateStore(d).load_audit_spill()
+        restored = snapshot.SnapshotStore()
+        count = restored.restore_rows(loaded["rows"])
+        assert dict(restored.export_rows()) == dict(store.export_rows())
+        return (n, loaded["rvs"], loaded["fed"], count,
+                sorted(restored.export_rows()), tree(d))
+
+    n, rvs, fed, count, rows, _files = both(case, tmp_path)
+    assert n == 5 and count == 5 and len(rows) == 5
+    assert rvs == {"v1/Pod": "1234"}
+    assert fed["v1/Pod"] == {("uid", "u0"): "/v1/Pod/ns/p0"}
+
+
+def test_audit_spill_torn_tail_keeps_prefix(tmp_path, pinned_clock):
+    """A torn last record loses that row only; the head (the cursors)
+    survives."""
+    def case(pkg, d):
+        s = pkg.ss.StateStore(d)
+        s.spill_audit({"v1/Pod": "9"}, {}, [
+            (f"k{i}", json.dumps({"i": i}).encode()) for i in range(4)
+        ])
+        spill = d / pkg.ss.StateStore.AUDIT_SPILL
+        data = spill.read_bytes()
+        spill.write_bytes(data[:-5])
+        loaded = pkg.ss.StateStore(d).load_audit_spill()
+        return data, loaded["rvs"], loaded["rows"]
+
+    _data, rvs, rows = both(case, tmp_path)
+    assert rvs == {"v1/Pod": "9"} and len(rows) == 3
+
+
+def test_restore_skips_undecodable_rows_at_warning(tmp_path, caplog):
+    """A spilled row that does not decode is skipped and counted in one
+    WARNING line, in both packages; the rest restore."""
+    def case(pkg, d):
+        snapshot = pkg.audit.snapshot
+        good = snapshot.synthesize_review(_pod_object(1), "CREATE", uid="u1")
+        pairs = [("k-bad", b"{not json"), ("k-1", good.payload_json()),
+                 ("k-bad2", json.dumps({"uid": 3}).encode())]
+        store = snapshot.SnapshotStore()
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            n = store.restore_rows(pairs)
+        return n, [r.getMessage() for r in caplog.records
+                   if r.levelno == logging.WARNING]
+
+    n, warnings = both(case, tmp_path)
+    assert n == 1
+    assert warnings == [
+        "audit spill restore skipped 2 undecodable row(s); the next full "
+        "re-LIST resync repairs the inventory"
+    ]
+
+
+def _audit_state(pkg, d: Path) -> None:
+    """An audit spill and a matrix journal, written through the package's
+    own snapshot store and verdict matrix: eight pods judged by two
+    policies, one of them since changed."""
+    specs = {
+        "priv": {"module": "builtin://pod-privileged"},
+        "ns": {"module": "builtin://namespace-validate",
+               "settings": {"denied_namespaces": ["blocked"]}},
+    }
+    policies = {k: pkg.parse(k, v) for k, v in specs.items()}
+    store = pkg.ss.StateStore(d)
+    snapshot = pkg.audit.SnapshotStore()
+    rows = [
+        pkg.audit.snapshot.synthesize_review(
+            _pod_object(i, i % 3 == 0, "blocked" if i % 4 == 0 else "ns"),
+            "CREATE", uid=f"u{i}",
+        )
+        for i in range(8)
+    ]
+    snapshot.observe(rows)
+    matrix = pkg.audit.VerdictMatrix(snapshot=snapshot, statestore=store)
+    matrix.set_columns(policies, 0)
+    for i, req in enumerate(rows):
+        key = pkg.audit.snapshot.resource_key(req)
+        for pid in ("priv", "ns"):
+            allowed = not (pid == "priv" and i % 3 == 0) and not (
+                pid == "ns" and i % 4 == 0
+            )
+            matrix.record_rows([(key, pid, req, _response(pkg, allowed))], 0)
+    store.spill_audit({"v1/Pod": "41"},
+                      {"v1/Pod": {("uid", "u0"): "/v1/Pod/blocked/p0"}},
+                      snapshot.export_rows())
+    assert matrix.maybe_spill(force=True) is True
+
+
+def _response(pkg, allowed: bool):
+    if allowed:
+        return pkg.models.AdmissionResponse(uid="u", allowed=True)
+    return pkg.models.AdmissionResponse.reject("u", "denied", 400)
+
+
+def _audit_resume(pkg, d: Path, changed: bool = False) -> tuple:
+    """What a warm boot restores from ``d``: the rows, the cursors, and the
+    cells a matrix over the serving policies validates (``changed``: the
+    ``ns`` policy's settings differ from the spilled ones)."""
+    specs = {
+        "priv": {"module": "builtin://pod-privileged"},
+        "ns": {"module": "builtin://namespace-validate",
+               "settings": {"denied_namespaces": (
+                   ["other"] if changed else ["blocked"]
+               )}},
+    }
+    store = pkg.ss.StateStore(d)
+    spill = store.load_audit_spill()
+    snapshot = pkg.audit.SnapshotStore()
+    restored = snapshot.restore_rows(spill["rows"])
+    matrix = pkg.audit.VerdictMatrix(snapshot=snapshot, statestore=store)
+    matrix.set_columns({k: pkg.parse(k, v) for k, v in specs.items()}, 0)
+    cells = matrix.restore()
+    return (
+        store.stats()["fsck_quarantined"], restored, spill["rvs"],
+        spill["fed"], sorted(snapshot.export_rows()), cells,
+        matrix.cells_snapshot(), sorted(snapshot.dirty_keys()),
+        matrix.stats()["cells_restored"], matrix.version,
+    )
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_an_audit_state_directory_resumes_in_the_other_package(
+    tmp_path, pinned_clock, writer,
+):
+    """An audit spill and a matrix journal written by either package
+    restore the same rows, cursors and cells in the other, and the same
+    journals come out of both packages byte for byte. A changed policy
+    loses its column's cells in both."""
+    w, r = (JAX, PORT) if writer == "jax" else (PORT, JAX)
+    _audit_state(w, tmp_path / "w")
+    other = tmp_path / "other"
+    _audit_state(r, other)
+    assert tree(tmp_path / "w") == tree(other)
+    written = _audit_resume(w, tmp_path / "w")
+    read = _audit_resume(r, tmp_path / "w")
+    assert read == written
+    assert read[0] == 0 and read[1] == 8 and read[5] == 16
+    assert read[2] == {"v1/Pod": "41"} and read[7] == []
+    stale = _audit_resume(r, tmp_path / "w", changed=True)
+    assert stale == _audit_resume(w, tmp_path / "w", changed=True)
+    assert stale[5] == 8 and {p for _k, p in stale[6]} == {"priv"}
+    assert len(stale[7]) == 8  # every row still lacks its ns cell
 
 
 # -- the servers: warm boot, degraded loads, manifests -----------------------
@@ -720,7 +908,7 @@ def test_the_fingerprint_differs_across_packages(tmp_path):
     assert second_port[0]["artifacts_from_cache"] == 1
 
 
-# -- the startup refusal (ROADMAP A11b) --------------------------------------
+# -- --state-dir with the audit scanner ---------------------------------------
 
 
 @pytest.mark.parametrize("audit_flags", [
@@ -730,28 +918,271 @@ def test_the_fingerprint_differs_across_packages(tmp_path):
     ["--audit-mode", "interval", "--audit-matrix"],
 ])
 def test_state_dir_with_the_audit_scanner_is_refused(tmp_path, audit_flags):
-    """The JAX package would spill and resume the audit state through the
-    store; the port cannot yet, so the combination raises at startup and
-    names the roadmap item, before anything is built or written."""
+    """The combination the port refused until its audit spill was ported
+    now boots, as the JAX package's does: a cold boot judges the seeded
+    pod, and a second boot on the same directory is warm; with
+    ``--audit-matrix`` it restores the spilled cell (the scanner's stop
+    spilled it) and its boot sweep judges nothing. Without a Kubernetes
+    API, ``--audit-watch`` boots with the ignore flag and no feed."""
     from policy_server_tpu_torch import __main__ as cli
 
     policies = tmp_path / "p.json"
     policies.write_text(json.dumps({"p": {"module": "builtin://pod-privileged"}}))
+    seed = tmp_path / "seed.json"
+    seed.write_text(json.dumps([_pod_object(1, privileged=True)]))
     state = tmp_path / "state"
     argv = ["--policies", str(policies), "--port", "0",
-            "--readiness-probe-port", "0", "--device", "cpu",
-            "--state-dir", str(state)] + audit_flags
-    with pytest.raises(ValueError, match="A11b"):
-        cli.server_from_args(cli.build_cli().parse_args(argv))
-    assert not state.exists()
-    # without the audit flags the same command line boots
-    server = cli.server_from_args(cli.build_cli().parse_args(argv[:10]))
-    try:
-        server.start()
-        assert server.state.boot_report["warm"] is False
-        assert (state / "last_boot.json").exists()
-    finally:
-        server.stop()
+            "--readiness-probe-port", "0", "--device", "cpu", "--no-warmup",
+            "--state-dir", str(state), "--audit-resources-file", str(seed),
+            "--audit-interval-seconds", "0.2"] + audit_flags
+    if "--audit-watch" in audit_flags:
+        argv.append("--ignore-kubernetes-connection-failure")
+    reports, scanned = [], []
+    for _boot in ("cold", "warm"):
+        server = cli.server_from_args(cli.build_cli().parse_args(argv))
+        try:
+            server.start()
+            scanner = server.state.audit
+
+            def swept() -> bool:
+                stats = scanner.stats()
+                return (stats["full_sweeps"] + stats["dirty_sweeps"] >= 1
+                        and not scanner.snapshot.dirty_keys())
+
+            assert wait_until(swept)
+            reports.append(dict(server.state.boot_report))
+            scanned.append(scanner.stats()["rows_scanned"])
+        finally:
+            server.stop()
+    cold, warm = reports
+    assert cold["warm"] is False and warm["warm"] is True
+    assert (state / "last_boot.json").exists()
+    assert "audit_rows_restored" not in warm  # no feed, no audit spill
+    if "--audit-matrix" in audit_flags:
+        assert cold["matrix_cells_restored"] == 0
+        assert warm["matrix_cells_restored"] == 1
+        assert (state / "audit" / "matrix.journal").exists()
+        assert scanned == [1, 0]
+    else:
+        assert "matrix_cells_restored" not in warm
+        assert scanned == [1, 1]
+
+
+def wait_until(cond, timeout=30.0, interval=0.05) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(interval)
+    return bool(cond())
+
+
+AUDIT_SPECS = {
+    "priv": {"module": "builtin://pod-privileged"},
+    "ns": {"module": "builtin://namespace-validate",
+           "settings": {"denied_namespaces": ["blocked"]}},
+}
+AUDIT_PODS = 24
+CHANGED_WHILE_DOWN = (1, 2, 5)
+DELETED_WHILE_DOWN = 7
+
+
+class AuditServer:
+    """One package's server with the audit scanner, its verdict matrix and
+    the live watch feed on ``d/state``, from its configuration (the JAX
+    package's) or its command line (the port's, on the CPU); no spill
+    cadence fires (3,600 s), so only a stop spills the snapshot and only
+    the first sweep's tail and the stop spill the matrix."""
+
+    def __init__(self, pkg, d: Path, policies_path: Path) -> None:
+        self.pkg = pkg
+        if pkg is JAX:
+            from torch_port_support import JaxServer
+
+            self.handle = JaxServer(
+                AUDIT_SPECS, state_dir=str(d / "state"), enable_metrics=True,
+                policies_path=str(policies_path),
+                audit_mode="interval", audit_interval_seconds=0.2,
+                audit_matrix=True, audit_watch=True,
+                audit_watch_resources="v1/Pod", context_refresh_seconds=1.0,
+                state_audit_spill_seconds=3600.0,
+                audit_matrix_spill_seconds=3600.0,
+            )
+            self.server = self.handle.server
+            self.readiness_port = self.handle.readiness_port
+        else:
+            from policy_server_tpu_torch import __main__ as cli
+
+            self.server = cli.server_from_args(cli.build_cli().parse_args([
+                "--policies", str(policies_path), "--port", "0",
+                "--readiness-probe-port", "0", "--device", "cpu",
+                "--no-warmup", "--enable-metrics",
+                "--state-dir", str(d / "state"),
+                "--audit-mode", "interval", "--audit-interval-seconds", "0.2",
+                "--audit-matrix", "--audit-watch",
+                "--audit-watch-resources", "v1/Pod",
+                "--context-refresh-seconds", "1",
+                "--state-audit-spill-seconds", "3600",
+                "--audit-matrix-spill-seconds", "3600",
+            ]))
+            self.server.start()
+            self.readiness_port = self.server.readiness_port
+        self.state = self.server.state
+        self.scanner = self.state.audit
+
+    def settled(self, rows: int, scanned: int) -> bool:
+        """The scanner has swept at least once, the matrix holds every
+        row's two cells, nothing is dirty, and the scanner has judged
+        ``scanned`` (row, policy) pairs."""
+        snap = self.scanner.snapshot
+        stats = self.scanner.stats()
+        return (
+            stats["full_sweeps"] + stats["dirty_sweeps"] >= 1
+            and len(snap) == rows and not snap.dirty_keys()
+            and self.scanner.matrix.stats()["cells_resident"] == 2 * rows
+            and stats["rows_scanned"] == scanned
+        )
+
+    def families(self) -> dict:
+        import urllib.request
+
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{self.readiness_port}/metrics", timeout=10
+        ).read().decode()
+        names = ("policy_server_statestore_audit_spills_total",
+                 "policy_server_statestore_audit_rows_restored",
+                 "policy_server_audit_matrix_spills_total",
+                 "policy_server_audit_matrix_cells_restored")
+        return {
+            line.split(" ")[0]: float(line.split(" ")[1])
+            for line in text.splitlines() if line.split(" ")[0] in names
+        }
+
+    def stop(self) -> None:
+        (self.handle if self.pkg is JAX else self.server).stop()
+
+
+def _audit_view(srv: AuditServer) -> tuple:
+    """The compliance a server holds: its matrix cells and report rows."""
+    cells = {
+        f"{k}|{p}": v[0]
+        for (k, p), v in srv.scanner.matrix.cells_snapshot().items()
+    }
+    reports = sorted(
+        (r["name"], r["policy_id"], r["allowed"], r["stale"])
+        for r in srv.scanner.report_payload()["reports"]
+    )
+    return cells, reports
+
+
+@pytest.mark.parametrize("changed", [False, True],
+                         ids=["unchanged", "changed"])
+def test_warm_audit_reboot_resumes_from_the_spill(tmp_path, monkeypatch,
+                                                  changed):
+    """A warm reboot with the audit scanner, its matrix and the watch feed
+    over a local Kubernetes API, through each package: the cold boot LISTs
+    and judges every (pod, policy) cell; a clean stop spills the snapshot
+    with its cursor and the matrix; while the server is down the API takes
+    nothing, or three MODIFIED events and one DELETED. The warm boot
+    restores every row and every cell, LISTs nothing, resumes the watch
+    from the cursor and re-judges exactly the changed pods (none over an
+    unchanged inventory); its matrix, report rows, counters and /metrics
+    values are the JAX server's, and its cells are the verdicts of a JAX
+    oracle over the API's objects."""
+    modified = CHANGED_WHILE_DOWN if changed else ()
+    import policy_server_tpu.context.service as j_service
+    import policy_server_tpu_torch.context.service as p_service
+    import torch_fetch_fixtures as fx
+
+    def case(pkg, d):
+        api = fx.KubeApi(d / "kube")
+        path = fx.list_path("v1", "Pod")
+        pods = [_pod_object(i, i % 3 == 0, "blocked" if i % 4 == 0 else "ns")
+                for i in range(AUDIT_PODS)]
+        api.register(path, pods)
+        sa = api.write_service_account(d / "sa")
+        monkeypatch.setattr(p_service, "SERVICE_ACCOUNT_DIR", sa)
+        monkeypatch.setattr(p_service, "KUBE_API_SERVER", api.url)
+        monkeypatch.setattr(j_service, "SERVICE_ACCOUNT_DIR", sa)
+        monkeypatch.setattr(
+            j_service.KubeApiFetcher.__init__, "__defaults__",
+            (api.url, None, None, False),
+        )
+        policies_path = d / "policies.json"
+        policies_path.write_text(json.dumps(AUDIT_SPECS))
+        seen = []
+        try:
+            srv = AuditServer(pkg, d, policies_path)
+            try:
+                assert wait_until(
+                    lambda: srv.settled(AUDIT_PODS, 2 * AUDIT_PODS)
+                ), srv.scanner.stats()
+                cold = _audit_view(srv)
+                seen.append(api.lists.get(path, 0))
+            finally:
+                srv.stop()
+            for i in modified:
+                api.modify(path, _pod_object(i, True, "ns"))
+            if changed:
+                api.delete(path, pods[DELETED_WHILE_DOWN])
+            api.lists.clear()
+            srv = AuditServer(pkg, d, policies_path)
+            try:
+                report = srv.state.boot_report
+                seen.append({k: report.get(k) for k in (
+                    "warm", "audit_rows_restored", "matrix_cells_restored",
+                )})
+                assert wait_until(lambda: srv.settled(
+                    AUDIT_PODS - changed, 2 * len(modified)
+                )), srv.scanner.stats()
+                warm = _audit_view(srv)
+                stats = srv.scanner.matrix.stats()
+                seen += [
+                    api.lists.get(path, 0),
+                    srv.scanner.stats()["rows_scanned"],
+                    {k: stats[k] for k in (
+                        "cells_restored", "row_sweep_rows",
+                        "column_sweep_rows", "cells_resident", "spills",
+                    )},
+                    srv.state.audit_watch.stats()["events_applied"],
+                    warm, srv.families(),
+                ]
+            finally:
+                srv.stop()
+        finally:
+            api.stop()
+        return cold, seen, api.list(path)[0]
+
+    cold, seen, objects = both(case, tmp_path)
+    from policy_server_tpu.audit.snapshot import resource_key, synthesize_review
+    from torch_port_support import jax_env
+
+    oracle = jax_env(AUDIT_SPECS, backend="oracle")
+    want = {}
+    for obj in objects:
+        req = synthesize_review(obj, "UPDATE")
+        for pid in AUDIT_SPECS:
+            want[f"{resource_key(req)}|{pid}"] = oracle.validate(pid, req).allowed
+    cold_lists, report, warm_lists, scanned, mstats, applied, warm, fams = seen
+    assert cold_lists == 1 and warm_lists == 0
+    assert report == {"warm": True, "audit_rows_restored": AUDIT_PODS,
+                      "matrix_cells_restored": 2 * AUDIT_PODS}
+    assert scanned == 2 * len(modified)
+    assert applied == (len(modified) + 1 if changed else 0)
+    assert mstats["row_sweep_rows"] == 2 * len(modified)
+    assert mstats["column_sweep_rows"] == 0
+    assert mstats["cells_restored"] == 2 * AUDIT_PODS
+    assert len(cold[0]) == 2 * AUDIT_PODS and len(cold[1]) == 2 * AUDIT_PODS
+    assert warm[0] == want
+    # only the re-judged pods have report rows: the report store is not
+    # spilled (in either package); the matrix carries the rest
+    assert {name for name, *_ in warm[1]} == {f"p{i}" for i in modified}
+    assert fams == {
+        "policy_server_statestore_audit_spills_total": 0.0,
+        "policy_server_statestore_audit_rows_restored": float(AUDIT_PODS),
+        "policy_server_audit_matrix_spills_total": float(mstats["spills"]),
+        "policy_server_audit_matrix_cells_restored": float(2 * AUDIT_PODS),
+    }
 
 
 # -- the store errors that are logged, never raised --------------------------

@@ -1,10 +1,10 @@
 """The audit watch feed in the PyTorch port (``audit/watch_feed.py`` over
 ``context/service.run_watch_loop``) against the JAX package: every case of
-``tests/test_watch_feed.py`` but the state-store spill (which waits for
-the port's state store) drives both packages' feeds with synthetic
+``tests/test_watch_feed.py`` drives both packages' feeds with synthetic
 clusters made from the same seed (``tools/soak/cluster.SyntheticCluster``)
 and compares what the stores converge to: their keys, their sizes, the
-rows' payloads and the feeds' counters. Then the port's own: the feed
+rows' payloads and the feeds' counters (the state-store spill: the spilled
+cursors, rows and journal bytes). Then the port's own: the feed
 through ``--audit-watch`` on a server against a local Kubernetes API
 server, with the watch families on ``/metrics``."""
 
@@ -17,11 +17,14 @@ import pytest
 
 import policy_server_tpu.audit as j_audit
 import policy_server_tpu.audit.snapshot as j_snapshot
+import policy_server_tpu.statestore as j_statestore
 import policy_server_tpu_torch.audit as p_audit
 import policy_server_tpu_torch.audit.snapshot as p_snapshot
+import policy_server_tpu_torch.statestore as p_statestore
 from tools.soak.cluster import SyntheticCluster
 
 PACKAGES = ((j_audit, j_snapshot), (p_audit, p_snapshot))
+STATESTORES = {j_audit: j_statestore, p_audit: p_statestore}
 
 
 def wait_until(cond, timeout=10.0, interval=0.05):
@@ -282,6 +285,50 @@ def test_churning_cluster_bounded_bytes():
     assert both(case, seed=13, max_bytes=256 * 1024 * 1024)[:3] == (
         True, True, True
     )
+
+
+def test_spill_cursor_never_ahead_of_applied_inventory(tmp_path, monkeypatch):
+    """``tests/test_watch_feed.py``'s case: an event ENQUEUED but not yet
+    applied to the snapshot must not advance the spilled resume cursor (a
+    crash between the spill and the apply would resume past an event the
+    inventory never saw); an applied event advances cursor and inventory
+    together. The two packages' spills are the same bytes (the stores'
+    clocks pinned)."""
+    for ss in STATESTORES.values():
+        monkeypatch.setattr(ss, "time", type("Clock", (), {
+            "time": staticmethod(lambda: 1_700_000_000.25)})())
+
+    def pod(rv):
+        return {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {"uid": f"u{rv}", "name": f"p{rv}",
+                         "namespace": "ns", "resourceVersion": str(rv)},
+            "spec": {"containers": []},
+        }
+
+    def case(s):
+        ss = STATESTORES[s.audit]
+        state = tmp_path / s.audit.__name__
+        feed = s.make_feed(
+            statestore=ss.StateStore(state), spill_interval_seconds=3600.0
+        )  # not started: the test drives the applier and the spiller
+        key = "v1/Pod"
+        spill = state / ss.StateStore.AUDIT_SPILL
+        feed._enqueue_event(key, "ADDED", pod(7))
+        feed._spill_once()
+        before = ss.StateStore(state).load_audit_spill()
+        first = spill.read_bytes()
+        assert before["rvs"].get(key) is None and before["rows"] == []
+        with feed._cond:
+            batch = list(feed._queue)
+            feed._queue.clear()
+        feed._apply_batch(batch)
+        feed._spill_once()
+        after = ss.StateStore(state).load_audit_spill()
+        assert after["rvs"][key] == "7" and len(after["rows"]) == 1
+        return before, after, first, spill.read_bytes()
+
+    both(case)
 
 
 # -- --audit-watch on a server ------------------------------------------------

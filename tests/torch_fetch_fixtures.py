@@ -413,7 +413,8 @@ class KubeApi:
     """A Kubernetes API server over HTTPS: ``/version``, LIST of each
     registered kind with the collection's ``resourceVersion``, and watch
     streams (chunked, one JSON event a line) that replay the events after
-    the client's ``resourceVersion`` and then follow new ones.
+    the client's ``resourceVersion`` and then follow new ones. ``lists``
+    counts the LIST requests of each kind's path.
 
     ``add``/``modify``/``delete`` change a kind's objects and append the
     event (each bumps the global resourceVersion; ``sent_at[rv]`` is the
@@ -433,6 +434,7 @@ class KubeApi:
         # how a kind's streams ended at its last generation bump
         self._ended: dict[str, str] = {}
         self.rv = 1
+        self.lists: dict[str, int] = {}
         self.sent_at: dict[int, float] = {}
         self.sent_wall: dict[int, float] = {}
         self._cond = threading.Condition()
@@ -493,6 +495,7 @@ class KubeApi:
 
     def list(self, path: str) -> tuple[list[dict], int]:
         with self._cond:
+            self.lists[path] = self.lists.get(path, 0) + 1
             return [json.loads(json.dumps(o)) for o in self.kinds[path].values()], self.rv
 
     def stream_generation(self, path: str) -> int:
