@@ -313,7 +313,7 @@ card's name and power limit:
    ``--state-dir --audit-mode interval --audit-matrix --audit-watch``,
    kernel-only, with both spill cadences at 5 s
    (``--state-audit-spill-seconds``, ``--audit-matrix-spill-seconds``),
-   over phase 13's fake Kubernetes API listing 8,192 pods. The cold boot's
+   over phase 13's fake Kubernetes API listing 4,096 pods. The cold boot's
    time to compliance runs from the process's start until no row is dirty
    and no sweep runs; then every snapshot row, matrix cell and report row
    is checked against the oracle. Each kind of spill's seconds and bytes
@@ -347,7 +347,36 @@ card's name and power limit:
    the oracle's, and a line saying the export was verified by the CPU
    tests only. For the time limit, phase 10's inventory is 1,024 pods,
    phase 13's wave W lists 512 pods and sends 512 events (8,192 and 2,048
-   before this phase) and its wave R makes 8 reloads (20 before).
+   before this phase) and its wave R makes 8 reloads (20 before); phase
+   16 cut this phase's inventory to 4,096 pods (8,192 before).
+
+16. the columnar delta-plane path, the compile cache and the lock-order
+   sanitizer. Wave X: the flagship set built from the command line under
+   ``--frontend native``, kernel-only, once each at ``--kernel xla``,
+   ``--kernel xla --columnar off``, ``--kernel xla --donate-buffers off``
+   and ``--kernel pallas --no-warmup``, each answering phase 7's 1,024
+   reviews (one in eight large; twice, with new uids, without the warmup)
+   with every body the oracle's; under
+   ``xla`` no ``policy_matrix`` launch, under ``pallas`` every bucket
+   armed and one launch per K1 dispatch; each run's seven columnar
+   families, ``plane_program_compiles``, ``pallas_stats``, shipped bytes
+   per row against the transport form's, delta columns shipped against
+   available, and peak ``memory_allocated`` over the wave. The device step
+   at B = 128 and 1,024 in each bucket, one environment, the same rows:
+   the columnar program (delta planes, rebuild, the non-Pallas program),
+   the packed non-Pallas program and K1's step, their outputs equal, each
+   with stream ms per step (CUDA events around the enqueue and its fetch),
+   host wall ms, and the kernels and copies of one step in a
+   ``torch.profiler`` trace. Wave C: two server processes (this script
+   re-invoked with ``--cache-boot``) over one fresh
+   ``--compilation-cache-dir``: the first builds the kernel library, the
+   encoder, the native frontend and the wasm core there (each one's build
+   seconds), the second builds none; both answer 128 reviews with the
+   oracle's bodies. Wave L: ``tests/torch_locksan_drive.py`` on the card,
+   the port's sanitizer armed before the package is imported: 512 reviews
+   through the native frontend and 128 through the standard library's,
+   one reload; its acquisitions, order edges and long holds; any
+   lock-order inversion fails.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -361,6 +390,8 @@ of failing the run; ``tls``: HTTPS, with a client certificate for mTLS).
 ``python3 chip_smoke.py --stream-client PORT CURSOR OUT STOP`` is phase
 10's ``/audit/stream`` reader. ``python3 chip_smoke.py --recovery-server
 CONTROL COUNTS ARGS...`` is the server process of phases 14 and 15.
+``python3 chip_smoke.py --cache-boot DIR POLICIES CORPUS OUT [ARGS...]``
+is phase 16's wave C server process.
 """
 
 from __future__ import annotations
@@ -1137,6 +1168,8 @@ def native_phase(reviews, policy_ids, oracle, enc_build, card: str) -> None:
         device="cuda", verdict_cache_size=0,
         breaker_config={"cooldown_seconds": cooldown},
     ).build(flagship_policies())
+    # every bucket armed, as after a server's boot: the probe is K1's
+    benv.warmup((1,))
     items = items_of(reviews[:64])
     # the environment's own answers (no service-layer constraints): the
     # oracle backend's validate_batch on the same items
@@ -2277,7 +2310,7 @@ class EnvLedger:
         """One row per serving environment of ``server``: its tenant and
         shard, build and warmup seconds, the bytes both allocated, K1
         program build seconds, K2 launches at the build, and K1 launches in
-        the warmup and in serving (the environment's device dispatches)
+        the warmup and in serving (its K1 dispatches past the warmup)
         so far."""
         out = []
         for t in server.state.tenants.all():
@@ -2296,7 +2329,10 @@ class EnvLedger:
                     "memory_allocated": row["build_bytes"] + row["warmup_bytes"],
                     "probe_launches": row["probe"],
                     "policy_matrix_warmup_launches": row["warmup_k1"],
-                    "policy_matrix_serving_launches": env.kernel_stats["dispatches"],
+                    # K1's dispatches past those of the warmup
+                    "policy_matrix_serving_launches": (
+                        env.pallas_stats["dispatches"] - row["warmup_k1"]
+                    ),
                 })
         return out
 
@@ -6385,7 +6421,7 @@ def print_recovery_phase(r: dict, card: str) -> None:
 # -- phase 15: the audit side's warm resume, and the OTLP export ---------------
 
 RESUME_DIR = os.path.join(REPO, "build", "chip_smoke_resume")
-RESUME_OBJECTS = 8192
+RESUME_OBJECTS = 4096
 RESUME_MODIFIED = 64
 RESUME_DELETED = 8
 RESUME_SPILL_SECONDS = 5
@@ -6805,7 +6841,7 @@ def resume_phase(work_docs: list, card: str) -> dict:
         daemon=True,
     )
     try:
-        # 1-2. the cold boot LISTs the 8,192 pods and judges every cell
+        # 1-2. the cold boot LISTs the pods and judges every cell
         cold = boot("phase15 cold")
         warm_oracle.start()
         facts, ttc = audit_until(
@@ -7258,6 +7294,451 @@ def print_phase15(r: dict, card: str) -> None:
             f"phase15 wave O {fe}: otlp / json rate {t['req_s'] / j['req_s']:.3f}x,"
             f" p99 {t['p99'] / j['p99']:.3f}x [{card}]"
         )
+
+
+COLUMNAR_DIR = os.path.join(REPO, "build", "chip_smoke_columnar")
+COLUMNAR_WAVE = 1024
+# wave X: the device path's forms, each kernel-only
+COLUMNAR_CONFIGS = (
+    ("xla", ["--kernel", "xla"]),
+    ("xla columnar off", ["--kernel", "xla", "--columnar", "off"]),
+    ("xla donate off", ["--kernel", "xla", "--donate-buffers", "off"]),
+    ("pallas no warmup", ["--kernel", "pallas", "--no-warmup"]),
+)
+COLUMNAR_STEP_BATCHES = (128, 1024)
+COLUMNAR_STEP_ITERS = 5
+CACHE_WAVE = 128
+LOCKSAN_NATIVE = 512
+LOCKSAN_STDLIB = 128
+COLUMNAR_FAMILIES = (
+    "policy_server_wire_bytes_shipped_total",
+    "policy_server_wire_bytes_packed_equivalent_total",
+    "policy_server_wire_rows_total",
+    "policy_server_delta_columns_shipped_total",
+    "policy_server_delta_columns_available_total",
+    "policy_server_donated_buffer_dispatches_total",
+    "policy_server_device_resident_constant_bytes_total",
+)
+
+
+def columnar_wave(policies: str, waves: list, name: str, flags: list,
+                  card: str) -> dict:
+    """One wave X server: built from the command line, kernel-only, under
+    ``flags``; each of ``waves`` ((requests, the oracle's answers)) from
+    the native client, every body the oracle's; the columnar families,
+    the environment's counters and peak ``memory_allocated`` over the
+    waves."""
+    import torch
+
+    argv = ["--policies", policies, "--port", "0", "--readiness-probe-port",
+            "0", "--enable-metrics", "--frontend", "native",
+            *KERNEL_ONLY_ARGS, *flags]
+    server, boot = boot_server(argv, f"phase16 wave X {name}")
+    try:
+        env = server.env
+        hp0 = env.host_profile
+        ps0 = env.pallas_stats
+        compiles0 = env.plane_program_compiles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs = [
+            served_wave(server, wave, [exp], f"phase16 wave X {name} {k}",
+                        kernel_only=False)
+            for k, (wave, exp) in enumerate(waves)
+        ]
+        run = dict(runs[0])
+        for key in ("serving_launches", "batches", "rows", "host_batches"):
+            run[key] = sum(r[key] for r in runs)
+        run["req_s_by_wave"] = [r["req_s"] for r in runs]
+        run["p99_by_wave"] = [r["p99"] for r in runs]
+        torch.cuda.synchronize()
+        run["peak_allocated_over_base"] = torch.cuda.max_memory_allocated() - base
+        hp, ps = env.host_profile, env.pallas_stats
+        run["profile"] = {k: hp[k] - hp0[k] for k in (
+            "wire_bytes_shipped", "wire_bytes_packed_equiv", "wire_rows",
+            "delta_cols_shipped", "delta_cols_total", "donated_dispatches",
+            "resident_const_bytes", "dispatched_chunks", "dispatched_rows",
+        )}
+        run["pallas"] = {
+            "dispatches": ps["dispatches"] - ps0["dispatches"],
+            "buckets_armed": ps["buckets_armed"],
+            "interpret_mode": ps["interpret_mode"],
+        }
+        run["plane_program_compiles"] = env.plane_program_compiles - compiles0
+        run["families"] = {
+            n: metric_value(server.readiness_port, n) for n in COLUMNAR_FAMILIES
+        }
+        run["boot"] = boot
+        run["buckets"] = len(env.schemas)
+    finally:
+        server.stop()
+    k1 = run["serving_launches"]
+    if name.startswith("xla"):
+        if k1 or run["pallas"]["dispatches"]:
+            fail(f"phase16 wave X {name}: --kernel xla launched policy_matrix "
+                 f"{k1} times")
+    else:
+        if run["pallas"]["buckets_armed"] != run["buckets"]:
+            fail(f"phase16 wave X {name}: {run['pallas']['buckets_armed']} "
+                 f"of {run['buckets']} buckets armed")
+        if k1 != run["pallas"]["dispatches"] or not k1:
+            fail(f"phase16 wave X {name}: {k1} policy_matrix launches for "
+                 f"{run['pallas']['dispatches']} K1 dispatches")
+    if boot["launches"]["probe"] != 1:
+        fail(f"phase16 wave X {name}: the build launched probe "
+             f"{boot['launches']['probe']} times")
+    p = run["profile"]
+    if name != "xla columnar off" and not p["wire_rows"]:
+        fail(f"phase16 wave X {name}: no batch took the columnar path")
+    if name == "xla columnar off" and p["wire_rows"]:
+        fail("phase16 wave X --columnar off shipped delta planes")
+    return run
+
+
+STEP_PROFILE_TRIES = 4
+
+
+def step_trace_counts(fn, launches_k1: bool) -> dict:
+    """The kernels and copies one step launches, from a ``torch.profiler``
+    trace of one step. A trace with no kernel event (CUPTI can drop a
+    session's device records), or, for a step that launched K1 by its
+    count, none named ``policy_matrix_kernel``, is taken again, up to
+    ``STEP_PROFILE_TRIES`` traces; then the phase fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    trace = os.path.join(COLUMNAR_DIR, "step_trace.json")
+    for attempt in range(1, STEP_PROFILE_TRIES + 1):
+        before = ck.policy_matrix.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn().wait()
+            torch.cuda.synchronize()
+        k1_moved = ck.policy_matrix.launches - before
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        os.unlink(trace)
+        kinds: dict = {}
+        k1_kernels = 0
+        for ev in events:
+            cat = ev.get("cat", "")
+            if ev.get("ph") == "X" and cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+                kinds[cat] = kinds.get(cat, 0) + 1
+                if cat == "kernel" and "policy_matrix_kernel" in ev.get("name", ""):
+                    k1_kernels += 1
+        if bool(k1_moved) != launches_k1:
+            fail(f"phase16 device step: K1 launched {k1_moved} times in a "
+                 f"step that should launch it {int(launches_k1)} times")
+        if kinds.get("kernel") and k1_kernels == k1_moved:
+            return {"kernels": kinds["kernel"],
+                    "copies": kinds.get("gpu_memcpy", 0) + kinds.get("gpu_memset", 0),
+                    "profile_tries": attempt}
+        print(f"phase16 device step: trace {attempt} held "
+              f"{kinds.get('kernel', 0)} kernel events, {k1_kernels} of K1 "
+              f"for {k1_moved} K1 launches; tracing again")
+    fail(f"phase16 device step: {STEP_PROFILE_TRIES} traces of a step held "
+         "no usable kernel count")
+
+
+def step_numbers(fn, card: str, launches_k1: bool) -> dict:
+    """One device step form: ``fn()`` enqueues and returns the step →
+    stream ms per step (CUDA events around the enqueue and its fetch,
+    back to back), host wall ms, and the kernels and copies one step
+    launches (``step_trace_counts``)."""
+    import torch
+
+    ms = time_cuda(lambda: fn().wait(), COLUMNAR_STEP_ITERS, reps=3, warmup=2)
+    walls = []
+    for _ in range(COLUMNAR_STEP_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn().wait()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"stream_ms": ms, "host_wall_ms": statistics.median(walls),
+            **step_trace_counts(fn, launches_k1)}
+
+
+def device_steps(work_docs: list, card: str) -> list:
+    """The columnar program, the packed non-Pallas program and K1's step
+    at B = 128 and 1,024 in each bucket, one environment, the same rows:
+    the three outputs equal, then each form's numbers."""
+    import numpy as np
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+    from policy_server_tpu_torch.policies.flagship import (
+        flagship_policies,
+        synthetic_firehose,
+    )
+
+    env = EvaluationEnvironmentBuilder(device="cuda", kernel="xla").build(
+        flagship_policies()
+    )
+    docs = synthetic_firehose(max(COLUMNAR_STEP_BATCHES), seed=16)
+    rows = []
+    for idx, schema in enumerate(env.schemas):
+        encs = []
+        for d in docs:
+            d = widen(d) if idx == 1 else d
+            payload = AdmissionReviewRequest.from_dict(d).request.to_dict()
+            got, enc = env.encode_bucketed(payload)
+            if got != idx:
+                fail(f"phase16 doc encoded into bucket {got}, not {idx}")
+            encs.append(enc)
+        for batch in COLUMNAR_STEP_BATCHES:
+            wide = schema.pack(schema.stack(encs[:batch], batch_size=batch))
+            feats = {"__packed__": wide["__packed__"]}
+            tbuf = np.asarray(env._transport(feats)["__packed__"])
+            forms = {
+                "columnar": lambda: env._enqueue_planes(idx, feats),
+                "packed": lambda: env._enqueue_unpacked(tbuf),
+                "k1": lambda: env.enqueue_packed(tbuf),
+            }
+            outs = {name: fn().wait() for name, fn in forms.items()}
+            for name, out in outs.items():
+                if not np.array_equal(out, outs["k1"]):
+                    fail(f"phase16 device step {name} disagrees with K1's at "
+                         f"bucket {idx} B={batch}")
+            _spec, delta = env._build_delta(idx, feats)
+            shipped = sum(a.nbytes for a in delta.values())
+            for name, fn in forms.items():
+                row = {"bucket": idx, "batch": batch, "form": name,
+                       **step_numbers(fn, card, launches_k1=name == "k1")}
+                if name == "columnar":
+                    row["shipped_bytes"] = shipped
+                    row["planes"] = sorted(delta)
+                else:
+                    row["shipped_bytes"] = int(tbuf.nbytes)
+                rows.append(row)
+                print(f"phase16 device step: {json.dumps(row)} [{card}]")
+    env.close()
+    return rows
+
+
+def cache_boot_main(argv: list[str]) -> int:
+    """Wave C's server process: ``python3 chip_smoke.py --cache-boot DIR
+    POLICIES CORPUS OUT [ARGS...]``. Boots the server from the command
+    line with ``--compilation-cache-dir DIR --frontend native``
+    (kernel-only, then ARGS), builds (or finds) the four native libraries,
+    answers the corpus's requests, stops, and writes each library's file
+    and build seconds, the boot's seconds and the bodies to OUT."""
+    cache, policies, corpus, out_path = argv[:4]
+    t0 = time.perf_counter()
+    sys.path.insert(0, REPO)
+    from policy_server_tpu_torch.__main__ import build_cli, server_from_args
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.ops import fastenc
+    from policy_server_tpu_torch.runtime import native_frontend as nf
+    from policy_server_tpu_torch.wasm import native_exec
+
+    args = build_cli().parse_args([
+        "--policies", policies, "--port", "0", "--readiness-probe-port", "0",
+        "--frontend", "native", "--compilation-cache-dir", cache,
+        *KERNEL_ONLY_ARGS, *argv[4:],
+    ])
+    server = server_from_args(args)
+    server.start()
+    boot_s = time.perf_counter() - t0
+    try:
+        kernels = ck.build_library()
+        enc = fastenc.build_library()
+        front = nf.build_library()
+        native_exec.build_library()
+        libs = {
+            "kernels": [str(kernels.path), kernels.build_seconds],
+            "encoder": [str(enc.path), enc.build_seconds],
+            "frontend": [str(front.path), front.build_seconds],
+            "wasm core": [str(native_exec.library_path()),
+                          native_exec.build_seconds],
+        }
+        with open(corpus) as f:
+            work = [(pid, body.encode("latin-1")) for pid, body in json.load(f)]
+        bodies = [None] * len(work)
+
+        def post(part: list) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+            try:
+                for i, (pid, body) in part:
+                    conn.request("POST", f"/validate/{pid}", body=body,
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    bodies[i] = [resp.status, resp.read().decode("latin-1")]
+            finally:
+                conn.close()
+
+        indexed = list(enumerate(work))
+        threads = [threading.Thread(target=post, args=(indexed[k::8],))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        server.stop()
+    with open(out_path, "w") as f:
+        json.dump({"libs": libs, "boot_s": boot_s, "bodies": bodies}, f)
+    return 0
+
+
+def cache_wave(work_docs: list, card: str) -> dict:
+    """Wave C: two server processes over one fresh
+    ``--compilation-cache-dir``; the first builds the four libraries there,
+    the second none; both answer the same reviews with the oracle's
+    bodies."""
+    import shutil
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+
+    cache = os.path.join(COLUMNAR_DIR, "compile-cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    policies = os.path.join(COLUMNAR_DIR, "policies.json")
+    wave = wave_of(work_docs, CACHE_WAVE, "c16")
+    corpus = os.path.join(COLUMNAR_DIR, "cache_corpus.json")
+    with open(corpus, "w") as f:
+        json.dump([(pid, body.decode("latin-1")) for pid, body in wave], f)
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    exp = [list(expected_answer(oracle, pid, body)) for pid, body in wave]
+    exp = [[s, b.decode("latin-1")] for s, b in exp]
+    boots = []
+    for k in range(2):
+        out = os.path.join(COLUMNAR_DIR, f"cache_boot_{k}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cache-boot", cache,
+             policies, corpus, out],
+            capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase16 wave C boot {k + 1} failed: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            doc = json.load(f)
+        doc["process_wall_s"] = wall
+        bad = [i for i, (g, w) in enumerate(zip(doc["bodies"], exp)) if g != w]
+        if bad:
+            fail(f"phase16 wave C boot {k + 1}: {len(bad)} bodies differ from "
+                 f"the oracle's (first {bad[0]}: {doc['bodies'][bad[0]]})")
+        boots.append(doc)
+    first, second = boots
+    real = os.path.realpath(cache)
+    for name, (path, seconds) in first["libs"].items():
+        if os.path.dirname(path) != real or seconds <= 0:
+            fail(f"phase16 wave C: the first boot did not build the {name} "
+                 f"into the cache ({path}, {seconds} s)")
+        if second["libs"][name] != [path, 0.0]:
+            fail(f"phase16 wave C: the second boot rebuilt the {name}: "
+                 f"{second['libs'][name]}")
+    print(
+        "phase16 wave C --compilation-cache-dir: first boot builds s "
+        + json.dumps({n: round(s, 3) for n, (_p, s) in first["libs"].items()})
+        + f"; second boot 0 builds; process walls {first['process_wall_s']:.2f}"
+        f" / {second['process_wall_s']:.2f} s, boots {first['boot_s']:.2f} / "
+        f"{second['boot_s']:.2f} s; {2 * CACHE_WAVE} bodies the oracle's "
+        f"[{card}]"
+    )
+    return {"first": first["libs"], "walls": [b["process_wall_s"] for b in boots],
+            "boots": [b["boot_s"] for b in boots]}
+
+
+def locksan_wave(card: str) -> dict:
+    """Wave L: ``tests/torch_locksan_drive.py`` on the card in a process
+    of its own, the sanitizer armed before the package is imported: 512
+    reviews through the native frontend and 128 through the standard
+    library's, one reload; any inversion fails."""
+    out = os.path.join(COLUMNAR_DIR, "locksan.json")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tests", "torch_locksan_drive.py"),
+         out, "--device", "cuda", "--native", str(LOCKSAN_NATIVE), "--stdlib",
+         str(LOCKSAN_STDLIB)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    if proc.returncode != 0:
+        fail(f"phase16 wave L failed: {proc.stderr[-3000:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    print(f"phase16 wave L: {rep['report']} [{card}]")
+    facts = rep["facts"]
+    if rep["inversions"]:
+        fail(f"phase16 wave L: lock-order inversion(s): {rep['inversions']}")
+    if facts["native"] != {"200": LOCKSAN_NATIVE} or facts["stdlib"] != {
+        "200": LOCKSAN_STDLIB
+    } or facts["reload"] != "promoted":
+        fail(f"phase16 wave L: {facts}")
+    print(
+        f"phase16 wave L: {rep['acquisitions']} acquisitions, {rep['edges']} "
+        f"order edges, 0 inversions, {len(rep['long_holds'])} long holds "
+        f"(longest hold {rep['max_hold_ms']:.1f} ms), {rep['seconds']:.1f} s "
+        f"[{card}]"
+    )
+    return rep
+
+
+def columnar_phase(work_docs: list, card: str) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.policies.flagship import (
+        flagship_policies,
+        flagship_policy_specs,
+    )
+
+    os.makedirs(COLUMNAR_DIR, exist_ok=True)
+    policies = os.path.join(COLUMNAR_DIR, "policies.json")
+    with open(policies, "w") as f:
+        json.dump(flagship_policy_specs(), f)
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    waves = []
+    for tag in ("x16", "x16b"):
+        wave = wave_of(work_docs, COLUMNAR_WAVE, tag)
+        waves.append(
+            (wave, [expected_answer(oracle, pid, body) for pid, body in wave])
+        )
+    out: dict = {"X": {}}
+    for name, flags in COLUMNAR_CONFIGS:
+        # without a warmup, a second wave (new uids) makes sure every
+        # bucket crosses the hotness threshold
+        run = columnar_wave(
+            policies, waves if "no warmup" in name else waves[:1], name,
+            flags, card,
+        )
+        out["X"][name] = run
+        p = run["profile"]
+        rows = max(1, p["wire_rows"])
+        print(
+            f"phase16 wave X --{name}: {run['rows']} bodies the oracle's in "
+            f"{len(run['req_s_by_wave'])} wave(s), req/s "
+            f"{[round(r, 1) for r in run['req_s_by_wave']]} p99 "
+            f"{[round(p, 3) for p in run['p99_by_wave']]} ms; "
+            f"{run['batches']} batches; K1 launches "
+            f"{run['serving_launches']}, pallas_stats {json.dumps(run['pallas'])}"
+            f", plane_program_compiles {run['plane_program_compiles']}; wire "
+            f"bytes per row {p['wire_bytes_shipped'] / rows:.1f} against the "
+            f"transport form's {p['wire_bytes_packed_equiv'] / rows:.1f} over "
+            f"{p['wire_rows']} rows; delta columns {p['delta_cols_shipped']} of "
+            f"{p['delta_cols_total']}; donated {p['donated_dispatches']} of "
+            f"{p['dispatched_chunks']} dispatches; peak memory_allocated over "
+            f"the wave {run['peak_allocated_over_base']} B [{card}]"
+        )
+        print(f"phase16 wave X --{name} columnar families: "
+              f"{json.dumps(run['families'])} [{card}]")
+    out["steps"] = device_steps(work_docs, card)
+    out["C"] = cache_wave(work_docs, card)
+    out["L"] = locksan_wave(card)
+    return out
 
 
 def main() -> int:
@@ -7780,6 +8261,11 @@ def main() -> int:
     print_phase15(r15, card)
     print(f"phase15 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 16: the columnar delta-plane path, the compile cache, locksan -
+    t_phase = time.perf_counter()
+    r16 = columnar_phase(work_docs, card)
+    print(f"phase16 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -7880,6 +8366,11 @@ def main() -> int:
                     "kernel-only": run["launches"]
                     for (fmt, fe), run in r15["O"]["runs"].items()
                 },
+                **{
+                    f"phase16 wave X --{name}, kernel-only (0 under xla)":
+                        run["serving_launches"]
+                    for name, run in r16["X"].items()
+                },
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -7970,6 +8461,11 @@ def main() -> int:
                         r15["A"][step]["build_launches"]["probe"]
                     for step in ("cold", "warm", "flipped")
                 },
+                **{
+                    f"phase16 wave X --{name} (its build)":
+                        run["boot"]["launches"]["probe"]
+                    for name, run in r16["X"].items()
+                },
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],
             "max_abs_err": probe_err,
@@ -8003,4 +8499,6 @@ if __name__ == "__main__":
         sys.exit(stream_client_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--recovery-server"]:
         sys.exit(recovery_server_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cache-boot"]:
+        sys.exit(cache_boot_main(sys.argv[2:]))
     sys.exit(main())

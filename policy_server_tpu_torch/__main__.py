@@ -233,6 +233,24 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "measured device round trip would exceed the oldest "
                    "request's remaining budget is answered by the host "
                    "oracle (0 disables)")),
+        ("--columnar", "KUBEWARDEN_COLUMNAR",
+         dict(default="on", metavar="MODE", choices=["on", "off"],
+              help="Columnar device transport (round 12): ship encoded "
+                   "batches as bit-packed / dictionary-narrowed column "
+                   "PLANES with all-zero columns elided (steady-state "
+                   "traffic ships only delta columns; elided planes are "
+                   "reconstructed from device-resident zero constants). "
+                   "'off' restores the row-packed transport. Mesh-sharded "
+                   "programs always use the packed transport")),
+        ("--donate-buffers", "KUBEWARDEN_DONATE_BUFFERS",
+         dict(default="on", metavar="MODE", choices=["on", "off"],
+              help="Columnar dispatches hand their device planes back to "
+                   "the allocator once the plane rebuild is enqueued, so "
+                   "the next enqueue can reuse their blocks in stream "
+                   "order (PyTorch has no donate_argnums; this is its "
+                   "counterpart); 'off' keeps each dispatch's planes "
+                   "until its fetch (diagnostic). Bodies are the same "
+                   "under both")),
         ("--predicate-opt", "KUBEWARDEN_PREDICATE_OPT",
          dict(default="on", metavar="MODE", choices=["on", "off"],
               help="Predicate-program optimizer (round 15): before "
@@ -247,6 +265,22 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "their mask lanes). Purely structural — bit-exact vs "
                    "the unoptimized program and the host oracle. 'off' "
                    "restores the naive per-policy lowering")),
+        ("--kernel", "KUBEWARDEN_KERNEL",
+         dict(default="pallas", metavar="KERNEL", choices=["xla", "pallas"],
+              help="Device program form: 'pallas' (default) sends each "
+                   "schema bucket's batches to the hand-written "
+                   "policy_matrix CUDA kernel (the counterpart of the "
+                   "JAX package's fused gather→predicate→reduce Pallas "
+                   "kernel) once the bucket turns hot (8 dispatches, "
+                   "warmup dispatches included, so the default warmup "
+                   "arms every bucket); armed buckets ship the packed "
+                   "transport form (the kernel fuses the unpack), and "
+                   "cold buckets run the non-Pallas program. 'xla' "
+                   "serves every batch with the non-Pallas program: the "
+                   "compiled predicates as PyTorch ops on the card, over "
+                   "the columnar delta planes (or the packed transport "
+                   "form with --columnar off). The JAX package's default "
+                   "is 'xla'; this package's is 'pallas', its main path")),
         ("--breaker-failure-threshold", "KUBEWARDEN_BREAKER_FAILURE_THRESHOLD",
          dict(type=int, default=5, metavar="N",
               help="Device faults or watchdog trips within the window that "
@@ -411,7 +445,8 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "a failed fetch degrades loudly to last-good instead "
                    "of fail-closing. Corrupt or torn entries are "
                    "quarantined by the boot fsck pass, never fatal. "
-                   "Unset = amnesiac "
+                   "Pair with --compilation-cache-dir inside it so "
+                   "compiled programs survive too. Unset = amnesiac "
                    "restarts (every boot refetches and re-LISTs)")),
         ("--state-audit-spill-seconds", "KUBEWARDEN_STATE_AUDIT_SPILL_SECONDS",
          dict(type=float, default=30.0, metavar="SECONDS",
@@ -585,6 +620,17 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
          dict(action="store_true",
               help="Skip the warmup of every batch bucket at boot and for "
                    "each reload candidate")),
+        ("--compilation-cache-dir", "KUBEWARDEN_COMPILATION_CACHE_DIR",
+         dict(default=None, metavar="DIR",
+              help="Build directory of the native libraries (the CUDA "
+                   "kernels, the native encoder, the native HTTP frontend "
+                   "and the native wasm core): each is built there at "
+                   "first use under a name that hashes its sources, "
+                   "compiler flags and ABI, and reused from there by "
+                   "every later boot, so compiled programs survive "
+                   "restarts. A directory that cannot be written is "
+                   "refused. Unset = build/torch_kernels/ beside the "
+                   "package")),
         ("--device", None,
          dict(default=None,
               help="torch device (default: the CUDA card; 'cpu' runs the "
@@ -847,6 +893,10 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         log_fmt=args.log_fmt,
         backend="torch" if args.evaluation_backend == "jax" else "oracle",
         predicate_opt=args.predicate_opt == "on",
+        kernel=args.kernel,
+        columnar=args.columnar == "on",
+        donate_buffers=args.donate_buffers == "on",
+        compilation_cache_dir=args.compilation_cache_dir,
         sources=read_sources_file(args.sources_path) if args.sources_path else None,
         verification_config=(
             read_verification_file(args.verification_path)

@@ -25,6 +25,19 @@ The serving path (``validate_batch`` → ``_validate_batch_native``):
   that event. ``validate_batch_begin`` / ``validate_batch_finish`` expose
   the split, so the batcher encodes batch N+1 while batch N runs.
 
+Which device program a batch gets is the JAX package's choice
+(``_enqueue_features``, its ``_dispatch_features``): under ``kernel=
+"pallas"`` (this package's default) a schema bucket's batches go to the
+``policy_matrix`` kernel once the bucket has seen ``PALLAS_HOT_DISPATCHES``
+dispatches, warmup included; every other batch runs the non-Pallas
+program (``_eval_features``: each policy's compiled function as PyTorch
+ops, then the combine), over the columnar delta planes (``columnar``: the
+host ships only the nonzero columns of a bit-packed, a uint16 and an int32
+plane in one page-locked copy, and the card rebuilds the rest from
+resident zero tensors, ``_features_from_planes``) or over the transport
+form's ``unpack_rows``. ``donate_buffers`` lets a columnar step drop its
+device planes once the rebuild is enqueued.
+
 A per-environment circuit breaker (``resilience.py``) guards every device
 call and fetch; while it is open, batches are answered by the bit-exact
 host oracle and counted. It counts raises at dispatch and fetch (failpoint
@@ -118,6 +131,7 @@ from policy_server_tpu_torch.models.policy import (
 )
 from policy_server_tpu_torch.ops import cuda_kernels, fastenc
 from policy_server_tpu_torch.ops.codec import (
+    BATCH_KEY,
     DEFAULT_AXIS_CAP,
     DEFAULT_NESTED_AXIS_CAP,
     PACKED_KEY,
@@ -125,6 +139,7 @@ from policy_server_tpu_torch.ops.codec import (
     SchemaOverflow,
     ensure_unique_packed_widths,
     mask_key_for,
+    unpack_rows,
 )
 from policy_server_tpu_torch.ops.compiler import compile_constant, compile_program
 from policy_server_tpu_torch.ops.optimizer import (
@@ -150,10 +165,33 @@ _BUDGET_UNSET = object()
 # join the device group combine
 WASM_BITS_KEY = "__wasm_bits__"
 
+# The device program forms (``--kernel``): ``pallas`` sends a schema
+# bucket's batches to the policy_matrix kernel (K1) once the bucket is hot,
+# and the non-Pallas program (PyTorch ops) serves the rest; ``xla`` serves
+# every batch with the non-Pallas program. The port's default is
+# ``pallas``, where the JAX package's is ``xla``: K1 is this package's
+# main path.
+KERNELS = ("xla", "pallas")
+DEFAULT_KERNEL = "pallas"
+
+# A schema bucket arms for K1 once this many batches have dispatched into
+# it (warmup dispatches count, so the default warmup arms every bucket)
+PALLAS_HOT_DISPATCHES = 8
+
 # element-axis caps of the small schema bucket (the large bucket uses the
 # codec's defaults, 64 and 32); the JAX package's defaults
 SMALL_AXIS_CAP = 8
 SMALL_NESTED_AXIS_CAP = 4
+
+# How a delta plane's numpy dtype is viewed on the card: uint16 ids as
+# int16 (PyTorch's uint16 supports few ops; the rebuild widens them without
+# the sign), the rest as themselves
+_PLANE_DTYPES = {
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+}
 
 # Verdict-cache budget in BYTES, split evenly between the blob tier
 # (pre-encode exact-replay dedup) and the row tier (post-encode
@@ -265,10 +303,12 @@ class PinnedBuffers:
 class InflightStep:
     """One enqueued device step: the CUDA event recorded after its copy
     back, and the page-locked input and output buffers it holds until
-    :meth:`wait` has read the output. On the CPU the output is ready at
-    enqueue and ``wait`` returns it at once."""
+    :meth:`wait` has read the output. ``device_in``, when set, is the
+    step's device input, held until the fetch (``--donate-buffers off``).
+    On the CPU the output is ready at enqueue and ``wait`` returns it at
+    once."""
 
-    __slots__ = ("event", "host_in", "host_out", "pool", "ready")
+    __slots__ = ("event", "host_in", "host_out", "pool", "ready", "device_in")
 
     def __init__(
         self,
@@ -277,12 +317,14 @@ class InflightStep:
         host_out: torch.Tensor | None = None,
         pool: PinnedBuffers | None = None,
         ready: np.ndarray | None = None,
+        device_in: torch.Tensor | None = None,
     ) -> None:
         self.event = event
         self.host_in = host_in
         self.host_out = host_out
         self.pool = pool
         self.ready = ready
+        self.device_in = device_in
 
     def wait(self) -> np.ndarray:
         if self.ready is not None:
@@ -290,6 +332,7 @@ class InflightStep:
         self.event.synchronize()
         out = self.host_out.numpy().copy()
         self.pool.give(self.host_in, self.host_out)
+        self.device_in = None
         self.ready = out
         return out
 
@@ -370,7 +413,10 @@ class EvaluationEnvironmentBuilder:
     handed to every wasm module for the keyless ``v2/verify`` and the
     ``oci/v1/manifest_digest`` capabilities. ``context_service`` (a
     ``context.ContextSnapshotService``) gives every context-aware policy
-    the capability-filtered cluster snapshot under ``__context__``."""
+    the capability-filtered cluster snapshot under ``__context__``.
+    ``kernel``, ``columnar`` and ``donate_buffers`` are the device path's
+    forms (``--kernel``, ``--columnar``, ``--donate-buffers``; see
+    :class:`EvaluationEnvironment`)."""
 
     def __init__(
         self,
@@ -386,10 +432,18 @@ class EvaluationEnvironmentBuilder:
         wasm_trust_root: Any = None,
         wasm_oci_digest_source: Callable[[str], str] | None = None,
         context_service: Any = None,
+        kernel: str = DEFAULT_KERNEL,
+        columnar: bool = True,
+        donate_buffers: bool = True,
     ) -> None:
         if backend not in ("torch", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r} (expected one of {KERNELS})")
         self.backend = backend
+        self.kernel = kernel
+        self.columnar = columnar
+        self.donate_buffers = donate_buffers
         self.device = resolve_device(device) if backend == "torch" else None
         self.continue_on_errors = continue_on_errors
         self.always_accept_namespace = always_accept_admission_reviews_on_namespace
@@ -529,6 +583,9 @@ class EvaluationEnvironmentBuilder:
             verdict_cache_size=self.verdict_cache_size,
             breaker_config=self.breaker_config,
             context_service=self.context_service,
+            kernel=self.kernel,
+            columnar=self.columnar,
+            donate_buffers=self.donate_buffers,
         )
         # the mapping it was built from: the shard router rebuilds sibling
         # environments from it (runtime/shards.py); the serving path never
@@ -568,9 +625,16 @@ class EvaluationEnvironment:
         verdict_cache_size: int = DEFAULT_VERDICT_CACHE_SIZE,
         breaker_config: Mapping[str, Any] | None = None,
         context_service: Any = None,
+        kernel: str = DEFAULT_KERNEL,
+        columnar: bool = True,
+        donate_buffers: bool = True,
     ) -> None:
         self.backend = backend
         self.device = device
+        # the device program forms; the oracle backend has no device path
+        self.kernel = kernel if backend == "torch" else "xla"
+        self.columnar = bool(columnar) and backend == "torch"
+        self.donate_buffers = bool(donate_buffers)
         self.always_accept_namespace = always_accept_namespace
         self.context_service = context_service
         self._bound = bound
@@ -720,7 +784,29 @@ class EvaluationEnvironment:
             "dispatch_wait_ns": 0,  # blocked in the fetch
             "dispatched_rows": 0,  # unique rows sent to the device
             "dispatched_chunks": 0,
+            # the columnar transport
+            "wire_bytes_shipped": 0,  # bytes of the shipped planes
+            "wire_bytes_packed_equiv": 0,  # what the transport form ships
+            "wire_rows": 0,
+            "delta_cols_shipped": 0,  # 32-bit columns shipped
+            "delta_cols_total": 0,  # 32-bit columns in the schema
+            "donated_dispatches": 0,
+            "resident_const_bytes": 0,  # zero planes rebuilt on the device
         }
+        # --kernel pallas: batches per schema bucket, the buckets armed for
+        # K1 and K1's dispatches
+        self._bucket_dispatches: dict[int, int] = {}  # guarded-by: _stats_lock
+        self._pallas_armed: set[int] = set()  # guarded-by: _stats_lock
+        self._pallas_dispatches = 0  # guarded-by: _stats_lock
+        # the (form, shapes) combinations dispatched so far, and their
+        # count: the first dispatch of each is the JAX package's program
+        # compile, and the batcher drops the RTT sample it lands in
+        self._plane_combos: set = set()  # guarded-by: _stats_lock
+        self._plane_compiles = 0  # guarded-by: _stats_lock
+        # read-only zero tensors standing in for the planes a columnar
+        # dispatch did not ship, per (shape, dtype, device); written under
+        # _lock, read without it (a dict lookup is atomic under the GIL)
+        self._resident: dict[tuple, torch.Tensor] = {}
         # hot-loop memos over the immutable registry (dict get/set is
         # atomic under the GIL; racing builders store identical values)
         self._target_memo: dict[str, Any] = {}
@@ -858,6 +944,7 @@ class EvaluationEnvironment:
             programs = list(self._programs.values())
             self._programs = {}
             self._combine_cols = {}
+            self._resident = {}
         for program in programs:
             program.release_device_code()
         self._pinned.close()
@@ -1214,16 +1301,28 @@ class EvaluationEnvironment:
             return dict(self._host_profile)
 
     @property
-    def kernel_stats(self) -> dict[str, int]:
-        """``policy_matrix`` on the serving path: its dispatches (every
-        device dispatch launches it) and the schema buckets it serves (all
-        of them on the torch backend)."""
+    def pallas_stats(self) -> dict[str, int]:
+        """``--kernel pallas`` accounting, as the JAX package's: K1's
+        dispatches, the schema buckets armed for it, and ``interpret_mode``
+        1 where K1 runs its plain version (an environment on the CPU, as
+        the JAX package's kernel runs in interpret mode there)."""
         with self._stats_lock:
-            dispatches = self._host_profile["dispatched_chunks"]
-        return {
-            "dispatches": dispatches,
-            "buckets_armed": len(self.schemas) if self.backend == "torch" else 0,
-        }
+            return {
+                "dispatches": self._pallas_dispatches,
+                "buckets_armed": len(self._pallas_armed),
+                "interpret_mode": int(
+                    self.kernel == "pallas" and self.kernel_runs_plain
+                ),
+            }
+
+    @property
+    def plane_program_compiles(self) -> int:
+        """Dispatch forms seen so far: each new (form, shapes) combination
+        is one program compile in the JAX package. The batcher snapshots
+        this around a dispatch and drops the RTT sample of a window that
+        saw a new one."""
+        with self._stats_lock:
+            return self._plane_compiles
 
     @property
     def optimizer_stats(self) -> dict[str, int]:
@@ -1286,9 +1385,22 @@ class EvaluationEnvironment:
 
     @property
     def warmup_dispatches(self) -> int:
-        """Device dispatches ONE ``warmup((b,))`` call issues (one per
-        schema bucket); the batcher divides its RTT seed by this."""
-        return len(self.schemas)
+        """Device dispatches the next ``warmup((b,))`` call issues: per
+        schema bucket one, two on the columnar path (the all-zero and the
+        dense batch), and under ``pallas`` then one more for each dispatch
+        the bucket still lacks to arm, at least one (the loop's pass that
+        finds it armed). Exact for the bucket's current count, where the
+        JAX package's formula (``PALLAS_HOT_DISPATCHES`` more per bucket)
+        is an upper bound; the batcher divides its RTT seed by this."""
+        base = 2 if self.columnar else 1
+        if self.kernel != "pallas":
+            return max(1, len(self.schemas) * base)
+        with self._stats_lock:
+            counts = [self._bucket_dispatches.get(i, 0)
+                      for i in range(len(self.schemas))]
+        return max(1, sum(
+            base + max(1, PALLAS_HOT_DISPATCHES - n - base) for n in counts
+        ))
 
     @property
     def dedup_stats(self) -> dict[str, int]:
@@ -1467,18 +1579,47 @@ class EvaluationEnvironment:
     ) -> InflightStep:
         idx, _layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
         program = self.program_for(idx, transport, narrow)
+
+        def run(dev_buf: torch.Tensor, dev_bits: torch.Tensor | None):
+            a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
+            return self._combine_outputs(
+                a_mat, r_mat, program.column_of, dev_bits
+            )
+
+        return self._rows_step(buf, wasm_bits, run)
+
+    def _enqueue_unpacked(
+        self, buf: np.ndarray, wasm_bits: np.ndarray | None = None
+    ) -> InflightStep:
+        """The non-Pallas program over a packed buffer, the JAX package's
+        ``_forward``: ``unpack_rows`` and ``_eval_features`` as PyTorch
+        ops, in the device step of ``enqueue_packed``."""
+        _idx, layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
+
+        def run(dev_buf: torch.Tensor, dev_bits: torch.Tensor | None):
+            return self._eval_features(
+                unpack_rows(dev_buf, layout, transport, narrow), dev_bits
+            )
+
+        return self._rows_step(buf, wasm_bits, run)
+
+    def _rows_step(
+        self,
+        buf: np.ndarray,
+        wasm_bits: np.ndarray | None,
+        run: Callable[[torch.Tensor, torch.Tensor | None], torch.Tensor],
+    ) -> InflightStep:
+        """One device step over packed rows: the rows (and the wasm bits
+        behind them) in one page-locked copy, ``run`` on the card, then
+        the copy back and the event (``_finish_step``)."""
         n_wasm = len(self._wasm_member_order)
         if n_wasm and wasm_bits is None:
             wasm_bits = np.zeros((buf.shape[0], n_wasm), np.bool_)
         if self.device.type != "cuda":
-            dev_buf = torch.from_numpy(np.ascontiguousarray(buf))
-            a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
-            out = self._combine_outputs(
-                a_mat, r_mat, program.column_of,
-                None if not n_wasm else torch.from_numpy(
-                    np.ascontiguousarray(wasm_bits, dtype=np.bool_)
-                ),
+            dev_bits = None if not n_wasm else torch.from_numpy(
+                np.ascontiguousarray(wasm_bits, dtype=np.bool_)
             )
+            out = run(torch.from_numpy(np.ascontiguousarray(buf)), dev_bits)
             return InflightStep(ready=out.numpy())
         pool = self._pinned
         n_rows = buf.size
@@ -1499,31 +1640,395 @@ class EvaluationEnvironment:
                 dev_bits = dev_in[n_rows:].view(wasm_bits.shape)
             else:
                 dev_buf = dev_in
-            a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
-            out = self._combine_outputs(
-                a_mat, r_mat, program.column_of, dev_bits
-            )
-            host_out = pool.take(tuple(out.shape), out.dtype)
-            host_out.copy_(out, non_blocking=True)
-            stream = torch.cuda.current_stream()
-            event = torch.cuda.Event()
-            event.record(stream)
+            return self._finish_step(run(dev_buf, dev_bits), host_in)
+
+    def _finish_step(
+        self,
+        out: torch.Tensor,
+        host_in: torch.Tensor,
+        device_in: torch.Tensor | None = None,
+    ) -> InflightStep:
+        """The tail of a device step, on the card's current stream: the
+        copy back into a page-locked buffer and the CUDA event the fetch
+        waits on."""
+        pool = self._pinned
+        host_out = pool.take(tuple(out.shape), out.dtype)
+        host_out.copy_(out, non_blocking=True)
+        stream = torch.cuda.current_stream()
+        event = torch.cuda.Event()
+        event.record(stream)
         with self._gate:
             self._last_events[stream.cuda_stream] = event
-        return InflightStep(event, host_in, host_out, pool)
+        return InflightStep(event, host_in, host_out, pool, device_in=device_in)
 
     def evaluate_packed(self, buf: np.ndarray) -> np.ndarray:
         """One packed ``uint8`` batch → the packed output array: the
         enqueue followed by its fetch."""
         return self.enqueue_packed(buf).wait()
 
+    # -- the dispatch funnel and the non-Pallas program --------------------
+
     def _enqueue_features(self, features: Mapping[str, Any]) -> InflightStep:
-        """An encoded (wide packed) batch, narrowed to its transport form
-        and enqueued."""
-        return self.enqueue_packed(
-            np.asarray(self._transport(features)[PACKED_KEY]),
-            features.get(WASM_BITS_KEY),
+        """The one dispatch funnel for an encoded (wide packed) batch, as
+        the JAX package's ``_dispatch_features``: a bucket armed for K1
+        (``--kernel pallas``, ``_pallas_route``) ships its transport form
+        to ``enqueue_packed``; otherwise, with ``columnar`` on, the delta
+        planes go to the plane step; otherwise the transport form goes to
+        the non-Pallas program. A K1 error fails the batch: no other form
+        answers it."""
+        wasm_bits = features.get(WASM_BITS_KEY)
+        schema_idx = self._schema_index_for(features)
+        if schema_idx is not None and self._pallas_route(schema_idx):
+            buf = np.asarray(self._transport(features)[PACKED_KEY])
+            combo = ("pallas", schema_idx, buf.shape)
+            with self._stats_lock:
+                self._pallas_dispatches += 1
+                if combo not in self._plane_combos:
+                    self._plane_combos.add(combo)
+                    self._plane_compiles += 1
+            return self.enqueue_packed(buf, wasm_bits)
+        if self.columnar and schema_idx is not None:
+            return self._enqueue_planes(schema_idx, features)
+        return self._enqueue_unpacked(
+            np.asarray(self._transport(features)[PACKED_KEY]), wasm_bits
         )
+
+    def _pallas_route(self, schema_idx: int) -> bool:
+        """True when this dispatch goes to K1: ``--kernel pallas`` and the
+        bucket is armed, which it becomes at its
+        ``PALLAS_HOT_DISPATCHES``-th dispatch (counted here)."""
+        if self.kernel != "pallas":
+            return False
+        with self._stats_lock:
+            n = self._bucket_dispatches.get(schema_idx, 0) + 1
+            self._bucket_dispatches[schema_idx] = n
+            if n >= PALLAS_HOT_DISPATCHES:
+                self._pallas_armed.add(schema_idx)
+            return schema_idx in self._pallas_armed
+
+    def _schema_index_for(self, features: Mapping[str, Any]) -> int | None:
+        """The schema bucket of a WIDE packed buffer; None for a buffer
+        already in a transport width."""
+        width = np.asarray(features[PACKED_KEY]).shape[1]
+        for i, s in enumerate(self.schemas):
+            if s.packed_layout().width == width:
+                return i
+        return None
+
+    def _eval_features(
+        self, features: Mapping[str, Any], wasm_bits: torch.Tensor | None
+    ) -> torch.Tensor:
+        """The non-Pallas program, the JAX package's ``_eval_features``:
+        every policy's compiled function over the feature dict (one CSE
+        table for the set), then the group combine and the output packing
+        (``_combine_outputs``). PyTorch ops on the features' device."""
+        cse: dict | None = {} if self.optimization is not None else None
+        batch = features[BATCH_KEY].shape[0]
+        device = features[BATCH_KEY].device
+        outs = [self._compiled[pid](features, cse) for pid in self._policy_order]
+        if outs:
+            a_mat = torch.stack([a.to(torch.bool) for a, _r in outs], dim=-1)
+            r_mat = torch.stack([r.to(torch.int32) for _a, r in outs], dim=-1)
+        else:
+            a_mat = torch.zeros((batch, 0), dtype=torch.bool, device=device)
+            r_mat = torch.zeros((batch, 0), dtype=torch.int32, device=device)
+        return self._combine_outputs(a_mat, r_mat, self._policy_index, wasm_bits)
+
+    # -- the columnar delta planes ------------------------------------------
+
+    # Ship a delta plane whole when the shipped-column bucket would be at
+    # least this fraction of the plane: the scatter then buys nothing.
+    _DELTA_FULL_FRACTION = 0.75
+
+    @staticmethod
+    def _select_delta_cols(
+        live: np.ndarray, n_cols: int, full_frac: float
+    ) -> np.ndarray | None:
+        """The one column-selection rule every plane uses: given the
+        indices of the columns with any nonzero value, the shipped column
+        vector, padded to a power-of-two count by repeating the last real
+        column (the duplicate scatter writes carry the same value), or
+        None when the padded count is dense enough that shipping the whole
+        plane beats the scatter."""
+        k = int(live.size)
+        kb = bucket_size(k)
+        if kb >= full_frac * n_cols:
+            return None
+        if kb == k:
+            return live
+        return np.concatenate(
+            [live, np.full(kb - k, live[-1], dtype=live.dtype)]
+        )
+
+    @classmethod
+    def _delta_plane(
+        cls, delta: dict, name: str, mat: np.ndarray, full_frac: float
+    ) -> None:
+        """Add one 32-bit plane to the delta dict: left out when all-zero,
+        shipped whole when dense, otherwise only the selected columns and
+        their index vector."""
+        nz = np.flatnonzero(mat.any(axis=0))
+        if not nz.size:
+            return
+        cols = cls._select_delta_cols(nz, mat.shape[1], full_frac)
+        if cols is None:
+            delta[name + "_full"] = np.ascontiguousarray(mat)
+            return
+        delta[name + "_cols"] = cols.astype(np.int32)
+        delta[name] = np.ascontiguousarray(mat[:, cols])
+
+    def _build_delta(
+        self, schema_idx: int, features: Mapping[str, Any]
+    ) -> tuple[tuple, dict]:
+        """Wide packed batch (and its wasm bits) → (spec, delta planes),
+        the JAX package's arrays key for key: the byte region bit-packed
+        at lane granularity (``bits`` with ``bits_cols``, or
+        ``bits_full``), the intern-id lanes as a uint16 plane (``ids``)
+        while the table fits, the other 32-bit lanes as an int32 plane
+        (``i32``); all-zero planes are left out. Pure numpy."""
+        schema = self.schemas[schema_idx]
+        layout = schema.packed_layout()
+        buf = np.asarray(features[PACKED_KEY])
+        batch = buf.shape[0]
+        narrow = layout.u16_count > 0 and len(self.table) <= 65536
+        delta: dict[str, np.ndarray] = {}
+        byte_region = buf[:, : layout.total8]
+        live_lanes = np.flatnonzero(byte_region.any(axis=0))
+        if live_lanes.size:
+            cols = self._select_delta_cols(
+                live_lanes, layout.total8, self._DELTA_FULL_FRACTION
+            )
+            if cols is None:
+                delta["bits_full"] = np.packbits(
+                    byte_region != 0, axis=1, bitorder="little"
+                )
+            else:
+                delta["bits_cols"] = cols.astype(np.int32)
+                delta["bits"] = np.packbits(
+                    byte_region[:, cols] != 0, axis=1, bitorder="little"
+                )
+        if layout.total32:
+            region32 = np.ascontiguousarray(
+                buf[
+                    :,
+                    layout.off32_bytes : layout.off32_bytes
+                    + layout.total32 * 4,
+                ]
+            ).view(np.int32)
+            if narrow:
+                id_cols, other_cols = schema._transport_col_split()
+                self._delta_plane(
+                    delta, "ids",
+                    region32[:, id_cols].astype(np.uint16),
+                    self._DELTA_FULL_FRACTION,
+                )
+                if other_cols:
+                    self._delta_plane(
+                        delta, "i32", region32[:, other_cols],
+                        self._DELTA_FULL_FRACTION,
+                    )
+            else:
+                self._delta_plane(
+                    delta, "i32", region32, self._DELTA_FULL_FRACTION
+                )
+        # wasm member bits always ship when present: leaving out the
+        # all-zero case would make the warmup's structure (zero bits) the
+        # only one it visits
+        wb = features.get(WASM_BITS_KEY)
+        if wb is not None:
+            delta[WASM_BITS_KEY] = np.asarray(wb)
+        return (schema_idx, batch, narrow), delta
+
+    def _account_planes(self, spec: tuple, delta: Mapping[str, np.ndarray]) -> None:
+        """The columnar transport's counters, as the JAX package's
+        ``_plane_dispatch``: bytes shipped against the transport form's,
+        delta columns, donation, and per new (spec, structure, shapes)
+        combination one compile and its resident zero bytes, counted in
+        device lane units (a uint8 lane per bool column)."""
+        schema_idx, batch, narrow = spec
+        layout = self.schemas[schema_idx].packed_layout()
+        shipped = sum(int(a.nbytes) for a in delta.values())
+        packed_equiv = batch * (
+            layout.transport16_width if narrow else layout.transport_width
+        )
+        cols_shipped = sum(
+            a.shape[1]
+            for k, a in delta.items()
+            if k in ("ids", "i32", "ids_full", "i32_full")
+        )
+        combo = (spec, tuple(sorted((k, a.shape) for k, a in delta.items())))
+        with self._stats_lock:
+            hp = self._host_profile
+            hp["wire_bytes_shipped"] += shipped
+            hp["wire_bytes_packed_equiv"] += packed_equiv
+            hp["wire_rows"] += batch
+            hp["delta_cols_shipped"] += cols_shipped
+            hp["delta_cols_total"] += layout.total32
+            if self.donate_buffers:
+                hp["donated_dispatches"] += 1
+            if combo not in self._plane_combos:
+                self._plane_combos.add(combo)
+                self._plane_compiles += 1
+                if "bits_full" in delta:
+                    elided_lanes = 0
+                elif "bits_cols" in delta:
+                    elided_lanes = layout.total8 - delta["bits_cols"].shape[0]
+                else:
+                    elided_lanes = layout.total8
+                resident = batch * max(0, elided_lanes)
+                resident += batch * 4 * max(0, layout.total32 - cols_shipped)
+                hp["resident_const_bytes"] += resident
+
+    def _enqueue_planes(
+        self, schema_idx: int, features: Mapping[str, Any]
+    ) -> InflightStep:
+        """The plane step: build and account the delta planes, lay them
+        out in one buffer (each plane 16-byte aligned) and copy it to the
+        card in one page-locked copy, view the planes out of it there,
+        rebuild the features (``_features_from_planes``), run the
+        non-Pallas program, copy the output back and record the event.
+        With ``donate_buffers`` the step drops its device planes once the
+        rebuild is enqueued, so the caching allocator can hand their
+        blocks, stream-ordered, to the next enqueue; without it the step
+        holds them until its fetch. On the CPU the step runs at once."""
+        spec, delta = self._build_delta(schema_idx, features)
+        self._account_planes(spec, delta)
+        places = []
+        end = 0
+        for k, a in delta.items():
+            start = (end + 15) & ~15
+            places.append((k, start, np.ascontiguousarray(a)))
+            end = start + a.nbytes
+        on_card = self.device.type == "cuda"
+        if on_card:
+            host_in = self._pinned.take((bucket_size(max(end, 1)),), torch.uint8)
+            flat = host_in.numpy()
+        else:
+            flat = np.empty(end, np.uint8)
+        for _k, start, a in places:
+            flat[start : start + a.nbytes] = a.view(np.uint8).reshape(-1)
+
+        def planes(buf: torch.Tensor) -> dict[str, torch.Tensor]:
+            return {
+                k: buf[start : start + a.nbytes].view(_PLANE_DTYPES[a.dtype])
+                .view(a.shape)
+                for k, start, a in places
+            }
+
+        if not on_card:
+            out = self._plane_program(spec, planes(torch.from_numpy(flat)))
+            return InflightStep(ready=out.numpy())
+        with torch.cuda.device(self.device):
+            dev_in = host_in[:end].to(self.device, non_blocking=True)
+            out = self._plane_program(spec, planes(dev_in))
+            return self._finish_step(
+                out, host_in, None if self.donate_buffers else dev_in
+            )
+
+    def _plane_program(
+        self, spec: tuple, delta: Mapping[str, torch.Tensor]
+    ) -> torch.Tensor:
+        """The JAX package's ``_forward_planes``: the rebuild, then the
+        non-Pallas program."""
+        features, wasm_bits = self._features_from_planes(spec, delta)
+        return self._eval_features(features, wasm_bits)
+
+    def _resident_zeros(
+        self, shape: tuple, dtype: torch.dtype, device: torch.device
+    ) -> torch.Tensor:
+        """A zero tensor standing in for a plane the dispatch did not
+        ship, kept across dispatches. Read only: a scatter never writes
+        into one (``_features_from_planes``)."""
+        key = (shape, dtype, device)
+        z = self._resident.get(key)
+        if z is None:
+            z = torch.zeros(shape, dtype=dtype, device=device)
+            with self._lock:
+                z = self._resident.setdefault(key, z)
+        return z
+
+    def _features_from_planes(
+        self, spec: tuple, delta: Mapping[str, torch.Tensor]
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
+        """The JAX package's ``_features_from_planes`` on the card: the
+        per-key feature dict (and the wasm bits) from the shipped planes.
+        A plane that was not shipped is a resident zero tensor; delta
+        columns scatter into a zero buffer of this step's own (padded
+        index slots repeat a column with its value). uint16 ids widen to
+        int32 without the sign, f32 lanes are a bitcast of their int32
+        bits, and the bits plane expands little-endian, cut to its
+        shipped lanes before the scatter."""
+        schema_idx, batch, narrow = spec
+        layout = self.schemas[schema_idx].packed_layout()
+        device = next(iter(delta.values())).device if delta else self.device
+
+        def zeros(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+            return self._resident_zeros(shape, dtype, device)
+
+        def scatter(n_cols: int, dtype: torch.dtype, cols, vals) -> torch.Tensor:
+            base = torch.zeros((batch, n_cols), dtype=dtype, device=device)
+            base[:, cols.long()] = vals
+            return base
+
+        def plane(name: str, n_cols: int, widen=None) -> torch.Tensor:
+            full = delta.get(name + "_full")
+            if full is not None:
+                return widen(full) if widen else full
+            vals = delta.get(name)
+            if vals is None:
+                return zeros((batch, n_cols), torch.int32)
+            vals = widen(vals) if widen else vals
+            return scatter(n_cols, torch.int32, delta[name + "_cols"], vals)
+
+        out: dict[str, torch.Tensor] = {BATCH_KEY: zeros((batch,), torch.bool)}
+        lanes = None
+        if "bits_full" in delta or "bits" in delta:
+            bits = delta.get("bits_full", delta.get("bits"))
+            shifts = torch.arange(8, dtype=torch.uint8, device=device)
+            expanded = ((bits[:, :, None] >> shifts) & 1).reshape(batch, -1)
+            if "bits_full" in delta:
+                lanes = expanded
+            else:
+                cols = delta["bits_cols"]
+                lanes = scatter(
+                    layout.total8, torch.uint8, cols,
+                    expanded[:, : cols.shape[0]],
+                )
+        for e in layout.entries8:
+            if e.key == BATCH_KEY:
+                continue
+            if lanes is None:
+                out[e.key] = zeros((batch, *e.caps), torch.bool)
+            else:
+                block = lanes[:, e.offset : e.offset + e.elems]
+                out[e.key] = block.reshape((batch, *e.caps)) != 0
+        n_id = layout.u16_count if narrow else 0
+        n_other = layout.total32 - n_id
+        if n_id:
+            # the uint16 plane arrives as int16: widen without the sign
+            ids = plane("ids", n_id, lambda t: t.to(torch.int32) & 0xFFFF)
+        if n_other:
+            other = plane("i32", n_other)
+        id_off = other_off = 0
+        for e in layout.entries32:
+            if narrow and e.is_id:
+                block = ids[:, id_off : id_off + e.elems]
+                id_off += e.elems
+            else:
+                block = other[:, other_off : other_off + e.elems]
+                other_off += e.elems
+            block = block.reshape((batch, *e.caps))
+            if e.is_f32:
+                block = block.contiguous().view(torch.float32)
+            out[e.key] = block
+        wasm_bits = None
+        if self._wasm_member_order:
+            wasm_bits = delta.get(WASM_BITS_KEY)
+            if wasm_bits is None:
+                wasm_bits = zeros(
+                    (batch, len(self._wasm_member_order)), torch.bool
+                )
+        return out, wasm_bits
 
     def _device_call(self, fn: Callable, *args: Any) -> Any:
         """Run the enqueue half of a device step; a raise is reported
@@ -1625,13 +2130,29 @@ class EvaluationEnvironment:
             self._leave()
 
     def warmup(self, batch_sizes: tuple[int, ...] = (1,)) -> None:
-        """Run an all-missing batch of each size through every schema
-        bucket, so the first request pays no first-launch costs."""
-        for schema in self.schemas:
+        """Run each batch size through every schema bucket, as the JAX
+        package's warmup: an all-missing batch; on the columnar path also
+        a dense one (every plane shipped whole); under ``pallas`` more
+        all-missing batches until the bucket arms, so the default warmup
+        leaves every bucket on K1."""
+        for idx, schema in enumerate(self.schemas):
             for b in sorted({bucket_size(n) for n in batch_sizes}):
                 batch = schema.empty_batch_packed(b)
                 self._add_wasm_bits(batch, b)
                 self.run_batch(batch)
+                if self.columnar:
+                    full = {PACKED_KEY: np.ones_like(batch[PACKED_KEY])}
+                    self._add_wasm_bits(full, b)
+                    self.run_batch(full)
+                if self.kernel != "pallas":
+                    continue
+                for _ in range(PALLAS_HOT_DISPATCHES):
+                    pbatch = schema.empty_batch_packed(b)
+                    self._add_wasm_bits(pbatch, b)
+                    self.run_batch(pbatch)
+                    with self._stats_lock:
+                        if idx in self._pallas_armed:
+                            break
 
     def encode_bucketed(self, payload: Any) -> tuple[int, dict[str, np.ndarray]]:
         """Encode with the Python trie (the native encoder's plain version)

@@ -228,7 +228,12 @@ def lower_group(
             return lhs | rhs
         raise ExpressionError(f"unknown expression node {type(node).__name__}")
 
-    verdict = rec(ast, torch.tensor(True))
+    try:
+        verdict = rec(ast, torch.tensor(True))
+    finally:
+        # ``rec`` reaches itself through its cell: a cycle that would hold
+        # the member bits (tensors on the card) until a garbage collection
+        del rec
     return verdict, evaluated
 
 

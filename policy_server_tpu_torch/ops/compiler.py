@@ -254,7 +254,14 @@ def lower_expr(
             return (pv & m).sum(dim=-1, dtype=torch.int32)
         raise ir.IRError(f"cannot lower {type(e).__name__} as boolean")
 
-    return bool_of(expr, ())
+    try:
+        return bool_of(expr, ())
+    finally:
+        # the nested functions reach each other through their cells: a
+        # cycle that would hold ``features`` and ``cse`` (tensors on the
+        # card) until a garbage collection; emptying the cells frees them
+        # with the call
+        del value_of, _value_of, _naxes_of, _quantifier_parts, bool_of, _bool_of
 
 
 # --------------------------------------------------------------------------

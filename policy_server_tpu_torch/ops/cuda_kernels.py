@@ -20,13 +20,15 @@ Every wrapper takes its plain version only for tensors on the CPU; a CUDA
 tensor goes through the kernel or raises. Each wrapper counts its own
 launches (``<wrapper>.launches``), and nowhere else adds to that count.
 
-The kernels build at first use with nvcc into ``build/torch_kernels/``
-(beside the package) and load through ctypes with a plain C interface.
+The kernels build at first use with nvcc into the build directory
+(``build/torch_kernels/`` beside the package, or ``--compilation-cache-dir``;
+``ops/buildcache.py``) and load through ctypes with a plain C interface.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -39,7 +41,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from policy_server_tpu_torch.ops import ir
+from policy_server_tpu_torch.ops import buildcache, ir
 from policy_server_tpu_torch.ops.codec import (
     PackedLayout,
     mask_key_for,
@@ -69,8 +71,7 @@ MAX_SMEM_BYTES = 232_448
 
 _PACKAGE_DIR = FsPath(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
-BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
-LIB_NAME = "libpolicy_kernels.so"
+LIB_STEM = "libpolicy_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -128,36 +129,46 @@ def _sources() -> list[FsPath]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def library_path() -> FsPath:
+    """The library's file in the build directory, named by the hash of
+    its inputs: the sources, nvcc and its flags, and the CUDA runtime
+    torch was built for (``ops/buildcache.py``)."""
+    key = buildcache.input_key(
+        _sources(), _nvcc(), NVCC_FLAGS, f"cuda-{torch.version.cuda}"
+    )
+    return buildcache.build_dir() / f"{LIB_STEM}-{key}.so"
+
+
 def build_library(force: bool = False) -> KernelLibrary:
-    """Compile ``csrc/*.cu`` into ``build/torch_kernels/`` when the library
-    is missing or older than a source, then load it and bind the launch
-    path. Raises with nvcc's output when the build fails."""
+    """Compile ``csrc/*.cu`` into the build directory when the library
+    (named by the hash of its inputs) is missing or ``force`` is set, then
+    load it and bind the launch path. Raises with nvcc's output when the
+    build fails."""
     global _library, _pm_policy_matrix, _pm_probe, _pm_error_string
     global _raw_stream
     with _library_lock:
         if _library is not None and not force:
             return _library
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / LIB_NAME
-        sources = _sources()
-        stale = force or not out.exists() or any(
-            s.stat().st_mtime > out.stat().st_mtime for s in sources
-        )
+        out = library_path()
+        out.parent.mkdir(parents=True, exist_ok=True)
         log = ""
         seconds = 0.0
-        if stale:
-            tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, out)
+        # other processes building the same library wait on the lock
+        with open(out.parent / f".{LIB_STEM}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if force or not out.exists():
+                tmp = out.parent / f".{out.name}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                seconds = time.perf_counter() - t0
+                log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+                    )
+                os.replace(tmp, out)
         # Triton's launcher reads the stream the same way: no
         # torch.cuda.Stream object is built per launch
         raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)

@@ -24,8 +24,6 @@ import fcntl
 import json
 import os
 import subprocess
-import sys
-import sysconfig
 import threading
 import time
 from dataclasses import dataclass
@@ -34,6 +32,7 @@ from typing import Any
 
 import numpy as np
 
+from policy_server_tpu_torch.ops import buildcache
 from policy_server_tpu_torch.ops.codec import (
     PACKED_KEY,
     FeatureSchema,
@@ -44,7 +43,6 @@ from policy_server_tpu_torch.utils.interning import InternTable
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PACKAGE_DIR / "csrc" / "fastenc.cpp"
-BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _KIND = {"value": 0, "present": 1, "pred": 2}
@@ -65,20 +63,21 @@ _library_lock = threading.Lock()
 
 
 def library_path() -> Path:
-    tag = sysconfig.get_config_var("SOABI") or (
-        f"py{sys.version_info[0]}{sys.version_info[1]}"
-    )
-    return BUILD_DIR / f"torch_fastenc-{tag}.so"
+    """The library's file in the build directory, named by the hash of
+    its inputs (``ops/buildcache.py``)."""
+    tag = buildcache.abi_tag()
+    key = buildcache.input_key([SOURCE], "g++", GXX_FLAGS, tag)
+    return buildcache.build_dir() / f"torch_fastenc-{tag}-{key}.so"
 
 
 def _compile(out: Path) -> float:
     """g++ the source into ``out`` (atomically, under a file lock that
     other processes building the same library wait on) → seconds spent in
     g++, 0.0 when another process had already built it."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".torch_fastenc.lock", "w") as lock:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".torch_fastenc.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
+        if out.exists():
             return 0.0
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
         cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
@@ -104,8 +103,8 @@ def _compile(out: Path) -> float:
 
 
 def build_library(force: bool = False) -> EncoderLibrary:
-    """Compile the encoder when its library is missing or older than the
-    source, then load it and declare its entry points. Raises with g++'s
+    """Compile the encoder when its library (named by the hash of its
+    inputs) is missing, then load it and declare its entry points. Raises with g++'s
     output when the build fails."""
     global _library
     with _library_lock:
@@ -115,7 +114,7 @@ def build_library(force: bool = False) -> EncoderLibrary:
         if force:
             out.unlink(missing_ok=True)
         seconds = 0.0
-        if not (out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime):
+        if not out.exists():
             seconds = _compile(out)
         lib = ctypes.CDLL(str(out))
         lib.fastenc_create.restype = ctypes.c_void_p

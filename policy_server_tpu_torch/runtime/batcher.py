@@ -470,10 +470,10 @@ class MicroBatcher:
         # the wait and shed sound traffic at boot)
         if self.latency_budget is None and self.request_timeout is None:
             return
-        # one warmup((b,)) dispatches once per schema bucket; a serving
-        # batch dispatches once
-        per_warmup = self.env.warmup_dispatches
+        # a serving batch dispatches once; one warmup((b,)) as many times
+        # as the environment says it will, read before each call
         for b in sizes:
+            per_warmup = self.env.warmup_dispatches
             t0 = time.perf_counter()
             self.env.warmup((b,))
             self._dev_rtt[bucket_size(b)] = (time.perf_counter() - t0) / per_warmup
@@ -1337,6 +1337,10 @@ class MicroBatcher:
         else:
             fn, args = self._fused_validate, (pairs,)
         bid = brec.bid if brec is not None else -1
+        # a window whose dispatch met a new program form (the JAX
+        # package's compile) is not the steady-state round trip: its RTT
+        # sample is dropped (_observe_dispatch)
+        compiles_before = getattr(self.env, "plane_program_compiles", 0)
         dispatch_start_ns = time.time_ns()
         start = time.perf_counter()
         live = runnable
@@ -1363,12 +1367,17 @@ class MicroBatcher:
                 waited = time.perf_counter() - start
                 if not use_host:
                     self._record_device_failure(runnable, waited)
-                self._observe_dispatch(use_host, n, waited, lower_bound=True)
+                self._observe_dispatch(
+                    use_host, n, waited, lower_bound=True,
+                    compiles_before=compiles_before,
+                )
                 return  # every item deadline-rejected; the work is abandoned
             results, t_start, t_end = wrapped
             handoffs = [(t_submit, t_start), (t_end, time.perf_counter_ns())]
         done_at = time.perf_counter()
-        self._observe_dispatch(use_host, n, done_at - start)
+        self._observe_dispatch(
+            use_host, n, done_at - start, compiles_before=compiles_before
+        )
         if brec is not None:
             brec.disp_ns = int((done_at - start) * 1e9)
             brec.rec.record_phase(
@@ -1487,11 +1496,20 @@ class MicroBatcher:
             return self.env.validate_batch(pairs, run_hooks=False)
 
     def _observe_dispatch(
-        self, use_host: bool, n: int, dur: float, lower_bound: bool = False
+        self,
+        use_host: bool,
+        n: int,
+        dur: float,
+        lower_bound: bool = False,
+        compiles_before: int | None = None,
     ) -> None:
         """Feed the estimators with a measured evaluation: they serve the
         latency-budget router and the shedding check, so they stay live
-        when either knob is on."""
+        when either knob is on. A device sample whose window saw the
+        environment's ``plane_program_compiles`` move past
+        ``compiles_before`` is dropped, as the JAX package drops a
+        compile-inclusive one (a concurrent worker's new form landing in
+        the window skips a sound sample instead, which is benign)."""
         if (
             self.latency_budget is None and self.request_timeout is None
         ) or n <= 0:
@@ -1501,6 +1519,11 @@ class MicroBatcher:
                 self._host_cost_per_row = (
                     0.7 * self._host_cost_per_row + 0.3 * dur / n
                 )
+            return
+        if (
+            compiles_before is not None
+            and getattr(self.env, "plane_program_compiles", 0) > compiles_before
+        ):
             return
         bucket = bucket_size(n)
         est = self._dev_rtt.get(bucket)

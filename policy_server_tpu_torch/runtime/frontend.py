@@ -685,7 +685,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument(
         "--frontend", default="python", choices=["python", "native"]
     )
+    parser.add_argument("--compilation-cache-dir", default=None)
     args = parser.parse_args(argv)
+    if args.compilation_cache_dir:
+        from policy_server_tpu_torch.ops import buildcache
+
+        buildcache.set_build_dir(args.compilation_cache_dir)
     setup_tracing(args.log_level, args.log_fmt)
     signal.signal(signal.SIGTERM, lambda _s, _f: sys.exit(0))
     bridge = BridgeClient(args.socket)

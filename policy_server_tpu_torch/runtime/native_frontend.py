@@ -42,8 +42,6 @@ import os
 import socket
 import struct
 import subprocess
-import sys
-import sysconfig
 import threading
 import time
 from dataclasses import dataclass
@@ -60,12 +58,12 @@ from policy_server_tpu_torch.api.http_common import (
     parse_admission_review_bytes,
 )
 from policy_server_tpu_torch.models.admission import FragVerdict
+from policy_server_tpu_torch.ops import buildcache
 from policy_server_tpu_torch.telemetry import flightrec
 from policy_server_tpu_torch.telemetry.tracing import logger
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PACKAGE_DIR / "csrc" / "httpfront.cpp"
-BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
 GXX = "g++"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 GXX_LIBS = ("-ldl",)
@@ -129,24 +127,25 @@ _library: FrontendLibrary | None = None  # guarded-by: _lib_lock
 
 
 def library_path() -> Path:
-    tag = sysconfig.get_config_var("SOABI") or (
-        f"py{sys.version_info[0]}{sys.version_info[1]}"
-    )
-    return BUILD_DIR / f"torch_httpfront-{tag}.so"
+    """The library's file in the build directory, named by the hash of
+    its inputs (``ops/buildcache.py``)."""
+    tag = buildcache.abi_tag()
+    key = buildcache.input_key([SOURCE], GXX, GXX_FLAGS + GXX_LIBS, tag)
+    return buildcache.build_dir() / f"torch_httpfront-{tag}-{key}.so"
 
 
 def _build_library(force: bool = False) -> tuple[Path, float]:
-    """g++ the source when its library is missing, older than the source,
-    or ``force`` is set (atomically, under a file lock other processes
+    """g++ the source when its library (named by the hash of its inputs)
+    is missing or ``force`` is set (atomically, under a file lock other processes
     building the same library wait on) → (library path, seconds in g++;
     0.0 when the library was reused). Raises with g++'s output."""
     out = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".torch_httpfront.lock", "w") as lock:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".torch_httpfront.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if force:
             out.unlink(missing_ok=True)
-        if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
+        if out.exists():
             return out, 0.0
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
         cmd = [GXX, *GXX_FLAGS, str(SOURCE), "-o", str(tmp), *GXX_LIBS]

@@ -184,6 +184,7 @@ from policy_server_tpu_torch.certs import (
 from policy_server_tpu_torch.config.sources import Sources
 from policy_server_tpu_torch.config.verification import VerificationConfig
 from policy_server_tpu_torch.evaluation.environment import (
+    DEFAULT_KERNEL,
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
 )
@@ -196,6 +197,7 @@ from policy_server_tpu_torch.fetch import (
 from policy_server_tpu_torch.fetch.downloader import retry_stats
 from policy_server_tpu_torch.lifecycle import PolicyLifecycleManager, ShadowRecorder
 from policy_server_tpu_torch.models.policy import parse_policies
+from policy_server_tpu_torch.ops import buildcache
 from policy_server_tpu_torch.policies import resolve_builtin
 from policy_server_tpu_torch.runtime import native_frontend as nf
 from policy_server_tpu_torch.runtime.frontend import EvaluationBridge
@@ -350,13 +352,14 @@ def _open_statestore(
     state_dir: str | None, policies: Mapping[str, Any],
     policies_path: str | None, policies_text: str | None,
     tenants: TenantManifest | None, backend: str, predicate_opt: bool,
+    kernel: str, columnar: bool,
 ) -> tuple[Any, str | None, dict, dict[str, str]]:
     """(store, fingerprint, boot report, artifact pins) of a boot: all
     empty without ``state_dir``. The fingerprint's parts are the JAX
-    package's, with the runtime's versions (torch, CUDA) in place of
-    jax's and the kernel path this package runs (``cuda``, no columnar
-    transport): a JAX package's manifest is found, but its fingerprint
-    does not match."""
+    package's, ``--kernel`` and ``--columnar`` among them, with the
+    runtime's versions (torch, CUDA) in place of jax's: a JAX package's
+    manifest is found, but its fingerprint does not match, and neither
+    does one written under another ``--kernel``."""
     boot_report: dict = {"warm": False}
     if not state_dir:
         return None, None, boot_report, {}
@@ -367,8 +370,8 @@ def _open_statestore(
         "policy_ids": sorted(policies),
         "backend": "jax" if backend == "torch" else backend,
         "predicate_opt": bool(predicate_opt),
-        "kernel": "cuda",
-        "columnar": False,
+        "kernel": kernel,
+        "columnar": bool(columnar),
         "torch": str(torch.__version__),
         "cuda": str(torch.version.cuda),
     })
@@ -568,19 +571,21 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.DEVICE_ERRORS, "counter",
            "Kernel and CUDA errors at dispatch or fetch (each failed its "
            "batch's requests; none tripped the breaker)", env.device_errors)
-    kernel = env.kernel_stats
+    pstats = env.pallas_stats
     yield (names.PALLAS_DISPATCHES, "counter",
-           "Device dispatches served by the policy_matrix kernel",
-           kernel["dispatches"])
+           "Device dispatches served by the policy_matrix kernel (--kernel "
+           "pallas, armed buckets)",
+           pstats["dispatches"])
     yield (names.PALLAS_BUCKETS_ARMED, "gauge",
-           "Schema buckets the policy_matrix kernel serves",
-           kernel["buckets_armed"])
+           "Schema buckets currently armed for the policy_matrix kernel "
+           "(per-bucket opt-in by dispatch count)",
+           pstats["buckets_armed"])
     yield (names.PALLAS_INTERPRET_MODE, "gauge",
            "1 when the Pallas kernel runs in interpret mode (the Mosaic "
            "capability probe failed — bit-exact, slow, loudly warned)",
-           1 if env.kernel_runs_plain else 0)
+           pstats["interpret_mode"])
     yield from _predicate_families(env)
-    yield from _columnar_families()
+    yield from _columnar_families(env.host_profile)
     yield from _recovery_families(state)
     yield from _tenant_families(state)
     lstats = state.lifecycle.stats() if state.lifecycle is not None else {}
@@ -669,34 +674,33 @@ def _predicate_families(env: Any) -> Iterator[tuple]:
            "the unoptimized layout", o["row_bytes_saved"])
 
 
-def _columnar_families() -> Iterator[tuple]:
-    """The columnar transport's families. This package ships packed rows
-    only (no columnar planes), so each reads 0, as the JAX package's do
-    at ``--columnar off``."""
-    for name, help_text in (
-        (names.WIRE_BYTES_SHIPPED,
+def _columnar_families(profile: Mapping[str, int]) -> Iterator[tuple]:
+    """The columnar transport's families, from the environment's
+    ``host_profile`` (0 at ``--columnar off`` and for batches K1 served)."""
+    for name, key, help_text in (
+        (names.WIRE_BYTES_SHIPPED, "wire_bytes_shipped",
          "Bytes actually shipped to the device by the columnar transport "
          "(delta planes + column indices)"),
-        (names.WIRE_BYTES_PACKED_EQUIV,
+        (names.WIRE_BYTES_PACKED_EQUIV, "wire_bytes_packed_equiv",
          "Bytes the row-packed transport form would have shipped for the "
          "same dispatches"),
-        (names.WIRE_ROWS,
+        (names.WIRE_ROWS, "wire_rows",
          "Rows shipped by the columnar transport (bytes/row = "
          "wire_bytes_shipped / this)"),
-        (names.DELTA_COLS_SHIPPED,
+        (names.DELTA_COLS_SHIPPED, "delta_cols_shipped",
          "32-bit feature columns shipped (delta columns with any nonzero "
          "value, after power-of-two padding)"),
-        (names.DELTA_COLS_TOTAL,
+        (names.DELTA_COLS_TOTAL, "delta_cols_total",
          "32-bit feature columns in the dispatched schemas (hit rate = 1 - "
          "shipped/total)"),
-        (names.DONATED_DISPATCHES,
+        (names.DONATED_DISPATCHES, "donated_dispatches",
          "Columnar dispatches whose input buffers were donated (jax "
          "donate_argnums)"),
-        (names.RESIDENT_CONST_BYTES,
+        (names.RESIDENT_CONST_BYTES, "resident_const_bytes",
          "Bytes of elided zero planes/columns materialized as "
          "device-resident constants of compiled columnar programs"),
     ):
-        yield (name, "counter", help_text, 0)
+        yield (name, "counter", help_text, profile.get(key, 0))
 
 
 def _recovery_families(state: ApiServerState) -> Iterator[tuple]:
@@ -1081,8 +1085,16 @@ class PolicyServer:
         audit_watch_max_queue_events: int = DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
         state_dir: str | None = None,
         state_audit_spill_seconds: float = 30.0,
+        kernel: str = DEFAULT_KERNEL,
+        columnar: bool = True,
+        donate_buffers: bool = True,
+        compilation_cache_dir: str | None = None,
     ) -> None:
         boot_t0 = time.monotonic()
+        if compilation_cache_dir:
+            # before the first build: every native library of this
+            # process builds into (or is reused from) the directory
+            buildcache.set_build_dir(compilation_cache_dir)
         if frontend not in FRONTENDS:
             raise ValueError(f"unknown frontend {frontend!r}")
         if native_tls not in NATIVE_TLS_MODES:
@@ -1132,7 +1144,8 @@ class PolicyServer:
         # policies file is byte-identical to its manifest's
         statestore, fingerprint, boot_report, pinned = _open_statestore(
             state_dir, policies, policies_path, policies_text, tenants,
-            backend=backend, predicate_opt=predicate_opt,
+            backend=backend, predicate_opt=predicate_opt, kernel=kernel,
+            columnar=columnar,
         )
         # the offline sigstore trust root, loaded once and shared by the
         # module resolver (artifact verification) and every environment
@@ -1214,6 +1227,9 @@ class PolicyServer:
                 backend=backend,
                 device=device,
                 predicate_opt=predicate_opt,
+                kernel=kernel,
+                columnar=columnar,
+                donate_buffers=donate_buffers,
                 continue_on_errors=continue_on_errors,
                 always_accept_admission_reviews_on_namespace=(
                     always_accept_admission_reviews_on_namespace
@@ -1396,6 +1412,7 @@ class PolicyServer:
         self._http_workers = http_workers
         self._worker_respawn_giveup = worker_respawn_giveup
         self._worker_args = (host, socket.gethostname(), log_level, log_fmt)
+        self._compilation_cache_dir = compilation_cache_dir
         self._worker_procs: list = []
         self._worker_cmd: list[str] = []
         self._worker_stop = threading.Event()
@@ -1853,6 +1870,11 @@ class PolicyServer:
             "--log-fmt", log_fmt if log_fmt != "otlp" else "json",
             "--frontend", self.frontend,
         ]
+        if self._compilation_cache_dir:
+            # a native worker builds its frontend where this process does
+            self._worker_cmd += [
+                "--compilation-cache-dir", self._compilation_cache_dir
+            ]
         for _ in range(self._http_workers - 1):
             self._worker_procs.append(subprocess.Popen(self._worker_cmd))
         logger.info(

@@ -30,12 +30,11 @@ import fcntl
 import os
 import struct
 import subprocess
-import sys
-import sysconfig
 import threading
 import time
 from pathlib import Path
 
+from policy_server_tpu_torch.ops import buildcache
 from policy_server_tpu_torch.wasm import interp as _interp
 from policy_server_tpu_torch.wasm.binary import ELSE, END, F32, F64, WasmModule
 from policy_server_tpu_torch.wasm.interp import (
@@ -47,7 +46,6 @@ from policy_server_tpu_torch.wasm.interp import (
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PACKAGE_DIR / "csrc" / "wasmint.cpp"
-BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _BLOCK = 0x02
@@ -107,21 +105,23 @@ def _count(engine: str) -> None:
 
 
 def library_path() -> Path:
-    tag = sysconfig.get_config_var("SOABI") or (
-        f"py{sys.version_info[0]}{sys.version_info[1]}"
-    )
-    return BUILD_DIR / f"torch_wasmint-{tag}.so"
+    """The library's file in the build directory, named by the hash of
+    its inputs (``ops/buildcache.py``)."""
+    tag = buildcache.abi_tag()
+    key = buildcache.input_key([SOURCE], "g++", GXX_FLAGS, tag)
+    return buildcache.build_dir() / f"torch_wasmint-{tag}-{key}.so"
 
 
 def _compile(out: Path) -> float:
     """g++ the source into ``out`` (atomically, under a file lock other
     processes building the same library wait on) → seconds spent in g++,
-    0.0 when the library was already up to date. Raises with g++'s
+    0.0 when the library (named by the hash of its inputs) was already
+    built. Raises with g++'s
     output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".torch_wasmint.lock", "w") as lock:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".torch_wasmint.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
+        if out.exists():
             return 0.0
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
         cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
@@ -147,8 +147,8 @@ def _compile(out: Path) -> float:
 
 
 def build_library(force: bool = False) -> ctypes.CDLL:
-    """Compile the native core when its library is missing or older than
-    the source (always with ``force``), then load it and declare its entry
+    """Compile the native core when its library is missing (always with
+    ``force``), then load it and declare its entry
     points. Raises on a failed build, load or bind."""
     global _lib, build_seconds
     if _lib is not None and not force:

@@ -1267,11 +1267,11 @@ def test_default_flags_repaired_family_values(family_pages, front, group):
 
 
 def test_columnar_and_kernel_mode_families_after_kernel_traffic():
-    """The JAX server on its Pallas path with the columnar transport off
-    (``--kernel pallas --columnar off``, the twin of the port's K1 path)
-    and the port's server, after the same kernel-only traffic: the seven
-    columnar families read 0 on both, and the kernel-mode gauge 1 on both
-    (Pallas interpret mode there, K1's plain version here, on the CPU)."""
+    """The JAX server and the port's, both on their Pallas path with the
+    columnar transport off (``--kernel pallas --columnar off``; K1 in the
+    port), after the same kernel-only traffic: the seven columnar
+    families read 0 on both, and the kernel-mode gauge 1 on both (Pallas
+    interpret mode there, K1's plain version here, on the CPU)."""
     from test_torch_native_frontend import (
         JaxServerHandle,
         corpus,
@@ -1287,7 +1287,7 @@ def test_columnar_and_kernel_mode_families_after_kernel_traffic():
                             columnar=False, **flags)
     port_s = None
     try:
-        port_s = port_server(frontend="python", **flags)
+        port_s = port_server(frontend="python", columnar=False, **flags)
         work = corpus(7)[:64]
         pages = {}
         for name, server in (("jax", jax_s), ("port", port_s)):

@@ -31,20 +31,22 @@ SLICE_FLAGS = (
     "--kube-insecure-skip-tls-verify", "--ignore-kubernetes-connection-failure",
     "--predicate-opt", "--daemon", "--daemon-pid-file", "--daemon-stdout-file",
     "--daemon-stderr-file", "--evaluation-backend", "--state-dir",
-    "--state-audit-spill-seconds",
+    "--state-audit-spill-seconds", "--kernel", "--columnar",
+    "--donate-buffers", "--compilation-cache-dir",
 )
-# the JAX flags whose items have not come yet (ROADMAP A13, A14)
+# the JAX flags whose item has not come yet (ROADMAP A14)
 NOT_YET = {
-    "--kernel", "--columnar", "--donate-buffers", "--compilation-cache-dir",
     "--mesh", "--mesh-dispatch", "--distributed-coordinator",
     "--distributed-num-processes", "--distributed-process-id",
 }
-# --state-dir's help drops the JAX package's compile-cache sentence (the
-# port has no --compilation-cache-dir)
-STATE_DIR_DROPPED = (
-    "Pair with --compilation-cache-dir inside it so compiled programs "
-    "survive too. "
-)
+# flags whose help is the port's own: what --kernel, --donate-buffers and
+# --compilation-cache-dir mean for CUDA kernels and native libraries
+OWN_HELP = {
+    "--evaluation-backend": "CUDA kernels",
+    "--kernel": "policy_matrix CUDA kernel",
+    "--donate-buffers": "no donate_argnums",
+    "--compilation-cache-dir": "native libraries",
+}
 
 
 def specs_of(module) -> dict:
@@ -56,13 +58,14 @@ def test_slice_flags_are_the_jax_packages(flag):
     jax, port = specs_of(jcli)[flag], specs_of(cli)[flag]
     assert port[0] == jax[0]
     for key in ("default", "metavar", "choices", "action", "type"):
+        if flag == "--kernel" and key == "default":
+            # the port's main path is K1: its default is pallas
+            assert (jax[1]["default"], port[1]["default"]) == ("xla", "pallas")
+            continue
         assert port[1].get(key) == jax[1].get(key), (flag, key)
-    if flag == "--evaluation-backend":
-        assert "CUDA kernels" in port[1]["help"]
-    elif flag == "--state-dir":
-        want = jax[1]["help"].replace(STATE_DIR_DROPPED, "")
-        assert want != jax[1]["help"]
-        assert port[1]["help"] == want
+    if flag in OWN_HELP:
+        assert OWN_HELP[flag] in port[1]["help"]
+        assert port[1]["help"] != jax[1]["help"]
     else:
         assert port[1]["help"] == jax[1]["help"]
 
@@ -86,6 +89,12 @@ def test_port_has_every_jax_flag_but_those_still_to_come():
      "/var/lib/kw"),
     ("--state-audit-spill-seconds", "KUBEWARDEN_STATE_AUDIT_SPILL_SECONDS", "5",
      "state_audit_spill_seconds", 5.0),
+    ("--kernel", "KUBEWARDEN_KERNEL", "xla", "kernel", "xla"),
+    ("--columnar", "KUBEWARDEN_COLUMNAR", "off", "columnar", "off"),
+    ("--donate-buffers", "KUBEWARDEN_DONATE_BUFFERS", "off", "donate_buffers",
+     "off"),
+    ("--compilation-cache-dir", "KUBEWARDEN_COMPILATION_CACHE_DIR",
+     "/var/cache/kw", "compilation_cache_dir", "/var/cache/kw"),
 ])
 def test_environment_variables_read_as_the_jax_cli(monkeypatch, flag, env, value,
                                                    attr, want):
@@ -243,3 +252,66 @@ def test_daemon_detaches_writes_its_pid_and_serves(tmp_path):
         time.sleep(0.1)
     else:
         os.kill(pid, signal.SIGKILL)
+
+
+def test_columnar_and_kernel_families_under_kernel_xla_equal_the_jax_default():
+    """The port's server at ``--kernel xla``, kernel-only, after its
+    warmup (both of the batcher's passes) and reviews one at a time, against the JAX package's default
+    environment (``xla``, the columnar transport on; one device, where the
+    test session's eight virtual CPU devices would give the JAX server a
+    data axis of 8) after the same warmup and the same reviews: the seven
+    columnar families and the three kernel-mode families read what the
+    JAX server renders from that environment."""
+    from policy_server_tpu.models import AdmissionReviewRequest, ValidateRequest
+    from policy_server_tpu_torch.telemetry import metrics as tmetrics
+    from test_torch_audit import _all_families
+    from test_torch_native_frontend import SPECS, corpus, port_server
+    from torch_port_support import jax_env
+
+    jenv = jax_env(SPECS, verdict_cache_size=0)
+    assert (jenv.kernel, jenv.columnar) == ("xla", True)
+    tmetrics.reset_metrics_for_tests()
+    # kernel-only: no host routing, by size or by the latency budget
+    port_s = port_server(
+        frontend="python", kernel="xla", host_fastpath_threshold=0,
+        verdict_cache_size=0, latency_budget_ms=0,
+    )
+    try:
+        sizes = (1, 2, 4, 8)
+        # the batcher's warmup: every size, then each again for the seed
+        jenv.warmup(sizes)
+        for b in sizes:
+            jenv.warmup((b,))
+        for pid, body in corpus(9)[:24]:
+            (status, _h, _b), = exchange(
+                port_s.port, post_bytes(f"/validate/{pid}", body, close=True)
+            )
+            assert status.startswith("HTTP/1.1 200"), status
+            req = ValidateRequest.from_admission(
+                AdmissionReviewRequest.from_dict(json.loads(body)).request
+            )
+            jenv.validate_batch([(pid, req)])
+        page = _all_families(port_s.readiness_port)
+    finally:
+        port_s.stop()
+        tmetrics.reset_metrics_for_tests()
+    profile, pstats = jenv.host_profile, jenv.pallas_stats
+    want = {
+        "policy_server_wire_bytes_shipped": profile["wire_bytes_shipped"],
+        "policy_server_wire_bytes_packed_equivalent":
+            profile["wire_bytes_packed_equiv"],
+        "policy_server_wire_rows": profile["wire_rows"],
+        "policy_server_delta_columns_shipped": profile["delta_cols_shipped"],
+        "policy_server_delta_columns_available": profile["delta_cols_total"],
+        "policy_server_donated_buffer_dispatches":
+            profile["donated_dispatches"],
+        "policy_server_device_resident_constant_bytes":
+            profile["resident_const_bytes"],
+        "policy_server_pallas_dispatches": pstats["dispatches"],
+        "policy_server_pallas_buckets_armed": pstats["buckets_armed"],
+        "policy_server_pallas_interpret_mode": pstats["interpret_mode"],
+    }
+    got = {n: [float(v) for v in page[n][2]] for n in want}
+    assert got == {n: [float(v)] for n, v in want.items()}
+    assert want["policy_server_wire_rows"] > 0
+    assert want["policy_server_pallas_dispatches"] == 0

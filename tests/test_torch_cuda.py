@@ -500,3 +500,71 @@ def test_policy_matrix_on_context_rows(n_namespaces, idx):
     col = program.column_of["namespace-exists"]
     assert int((~got_a[:, col]).sum()) == ghosts > 0
     env.close()
+
+
+def _wide(env, idx: int, n: int, seed: int) -> dict:
+    """A wide packed batch of ``n`` firehose reviews in bucket ``idx``."""
+    schema = env.schemas[idx]
+    encs = []
+    for doc in synthetic_firehose(n, seed=seed):
+        if idx == 1:
+            doc = copy.deepcopy(doc)
+            pod = doc["request"]["object"]["spec"]
+            pod["containers"] = [
+                dict(pod["containers"][i % len(pod["containers"])], name=f"c{i}")
+                for i in range(12)
+            ]
+        payload = AdmissionReviewRequest.from_dict(doc).request.to_dict()
+        got, enc = env.encode_bucketed(payload)
+        assert got == idx
+        encs.append(enc)
+    return {"__packed__": schema.pack(schema.stack(encs, batch_size=n))["__packed__"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big_table", [False, True], ids=["table", "ids-past-32767"])
+@pytest.mark.parametrize("donate", [True, False], ids=["donate", "keep"])
+@pytest.mark.parametrize("idx", [0, 1])
+@pytest.mark.parametrize("batch", [1, 51, 128])
+def test_plane_step_matches_its_cpu_result(idx, batch, donate, big_table):
+    """The columnar plane step on the card (one page-locked copy of the
+    delta planes, the rebuild, the non-Pallas program) equals the same
+    step on the CPU on the same rows and intern table, and K1's step on
+    the card; with ``--donate-buffers off`` the step holds its device
+    planes until the fetch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    card = EvaluationEnvironmentBuilder(
+        device="cuda", kernel="xla", donate_buffers=donate
+    ).build(flagship_policies())
+    if big_table:
+        for i in range(40_000):
+            card.table.intern(f"padding-{i}")
+    feats = _wide(card, idx, batch, seed=90 + batch)
+    cpu = EvaluationEnvironmentBuilder(device="cpu", kernel="xla").build(
+        flagship_policies()
+    )
+    cpu.install_reference_state(
+        list(card.table.strings()),
+        [dataclasses.asdict(s.packed_layout()) for s in card.schemas],
+    )
+    before = ck.policy_matrix.launches
+    step = card._enqueue_planes(idx, feats)
+    assert step.host_in.is_pinned()
+    assert (step.device_in is None) == donate
+    got = step.wait()
+    assert step.device_in is None
+    assert ck.policy_matrix.launches == before  # no K1 in the plane step
+    want = cpu._enqueue_planes(idx, feats).wait()
+    assert (got == want).all()
+    import numpy as np
+
+    tbuf = np.asarray(card._transport(feats)["__packed__"])
+    assert (card.enqueue_packed(tbuf).wait() == got).all()
+    assert (card._enqueue_unpacked(tbuf).wait() == got).all()
+    _spec, delta = card._build_delta(idx, feats)
+    if big_table:
+        ids = delta.get("ids", delta.get("ids_full"))
+        assert int(ids.max()) >= 32_768
+    # the resident zero tensors were only read
+    assert all(not bool(t.any()) for t in card._resident.values())

@@ -321,13 +321,14 @@ def test_native_frontend_builds_the_ports_source_only(tmp_path, monkeypatch):
     """The native frontend's g++ build reads the port's copy,
     ``policy_server_tpu_torch/csrc/httpfront.cpp``, and never the JAX
     package's ``csrc/``; it builds into ``build/torch_kernels/``."""
+    from policy_server_tpu_torch.ops import buildcache
     from policy_server_tpu_torch.runtime import native_frontend as nf
 
     port_source = os.path.join(
         REPO, "policy_server_tpu_torch", "csrc", "httpfront.cpp"
     )
     assert os.path.samefile(nf.SOURCE, port_source)
-    assert nf.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+    assert buildcache.build_dir().parts[-2:] == ("build", "torch_kernels")
     commands = []
     real_run = subprocess.run
 
@@ -336,10 +337,10 @@ def test_native_frontend_builds_the_ports_source_only(tmp_path, monkeypatch):
         return real_run(cmd, *args, **kwargs)
 
     monkeypatch.setattr(nf.subprocess, "run", recording_run)
-    monkeypatch.setattr(nf, "BUILD_DIR", tmp_path / "build" / "torch_kernels")
+    monkeypatch.setattr(buildcache, "_build_dir", tmp_path / "build" / "torch_kernels")
     monkeypatch.setattr(nf, "_library", None)
     lib = nf.build_library()
-    assert lib.build_seconds > 0 and lib.path.parent == nf.BUILD_DIR
+    assert lib.build_seconds > 0 and lib.path.parent == buildcache.build_dir()
     (cmd,) = commands
     sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
     assert sources == [str(nf.SOURCE)]
@@ -352,13 +353,14 @@ def test_native_wasm_core_builds_the_ports_source_only(tmp_path, monkeypatch):
     """The native wasm core's g++ build reads the port's copy,
     ``policy_server_tpu_torch/csrc/wasmint.cpp``, never the repository
     root's ``csrc/``, and builds into ``build/torch_kernels/``."""
+    from policy_server_tpu_torch.ops import buildcache
     from policy_server_tpu_torch.wasm import native_exec
 
     port_source = os.path.join(
         REPO, "policy_server_tpu_torch", "csrc", "wasmint.cpp"
     )
     assert os.path.samefile(native_exec.SOURCE, port_source)
-    assert native_exec.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+    assert buildcache.build_dir().parts[-2:] == ("build", "torch_kernels")
     commands = []
     real_run = subprocess.run
 
@@ -367,11 +369,11 @@ def test_native_wasm_core_builds_the_ports_source_only(tmp_path, monkeypatch):
         return real_run(cmd, *args, **kwargs)
 
     monkeypatch.setattr(native_exec.subprocess, "run", recording_run)
-    monkeypatch.setattr(native_exec, "BUILD_DIR", tmp_path / "build" / "torch_kernels")
+    monkeypatch.setattr(buildcache, "_build_dir", tmp_path / "build" / "torch_kernels")
     monkeypatch.setattr(native_exec, "_lib", None)
     native_exec.build_library()
     assert native_exec.build_seconds > 0
-    assert native_exec.library_path().parent == native_exec.BUILD_DIR
+    assert native_exec.library_path().parent == buildcache.build_dir()
     (cmd,) = commands
     sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
     assert sources == [str(native_exec.SOURCE)]

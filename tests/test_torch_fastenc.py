@@ -24,7 +24,7 @@ from policy_server_tpu_torch.evaluation.environment import (
     EvaluationEnvironmentBuilder,
 )
 from policy_server_tpu_torch.models import AdmissionReviewRequest
-from policy_server_tpu_torch.ops import fastenc
+from policy_server_tpu_torch.ops import buildcache, fastenc
 from policy_server_tpu_torch.ops.codec import SchemaOverflow
 from policy_server_tpu_torch.policies.flagship import flagship_policies
 
@@ -192,7 +192,7 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     bad = tmp_path / "fastenc.cpp"
     bad.write_text("this is not C++;\n")
     monkeypatch.setattr(fastenc, "SOURCE", bad)
-    monkeypatch.setattr(fastenc, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(buildcache, "_build_dir", tmp_path / "build")
     with pytest.raises(RuntimeError, match=r"g\+\+ failed") as err:
         fastenc.build_library(force=True)
     assert "error" in str(err.value)

@@ -57,6 +57,7 @@ from policy_server_tpu.runtime import native_frontend as jnf
 from policy_server_tpu.runtime.batcher import MicroBatcher as JaxBatcher
 from policy_server_tpu.server import PolicyServer as JaxPolicyServer
 from policy_server_tpu_torch import failpoints
+from policy_server_tpu_torch.ops import buildcache
 from policy_server_tpu_torch.api import service as t_service
 from policy_server_tpu_torch.models import AdmissionReviewRequest
 from policy_server_tpu_torch.models.admission import (
@@ -1350,7 +1351,7 @@ def test_failed_build_raises_under_frontend_native(tmp_path, monkeypatch):
     """No fallback: a g++ that fails stops the server's construction, and
     the batcher and recorder it had started are closed."""
     monkeypatch.setattr(nf, "_library", None)
-    monkeypatch.setattr(nf, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(buildcache, "_build_dir", tmp_path / "build")
     monkeypatch.setattr(nf, "GXX", "false")
     with pytest.raises(RuntimeError, match="false failed"):
         PolicyServer(_port_policies(), port=0, readiness_probe_port=0,

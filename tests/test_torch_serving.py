@@ -345,6 +345,8 @@ def test_cuda_errors_fail_requests_and_never_trip_the_breaker(
     and counted, and is kept from the breaker: past the threshold the
     device path is still the one asked, and no host answer replaces it."""
     env = torch_env(POLICIES, verdict_cache_size=0)
+    # every bucket armed, as after a server's boot: K1 serves each batch
+    env.warmup((1,))
     oracle = torch_env(POLICIES, backend="oracle")
     items = [(p, t) for p, _j, t in corpus()]
     def fault(*_args):

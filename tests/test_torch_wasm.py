@@ -716,8 +716,9 @@ def test_failed_native_build_raises_and_makes_no_interpreter(
     """A failed g++ build of the native core raises with g++'s text; no
     instance is made, the interpreter's least of all."""
     native_exec = mod(PORT, "wasm.native_exec")
+    buildcache = mod(PORT, "ops.buildcache")
     monkeypatch.delenv("PSTPU_NO_NATIVE_WASM", raising=False)
-    monkeypatch.setattr(native_exec, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(buildcache, "_build_dir", tmp_path / "build")
     monkeypatch.setattr(native_exec, "_lib", None)
     fault(tmp_path, monkeypatch)
     m = mod(PORT, "wasm.binary").decode_module(
@@ -737,8 +738,9 @@ def test_failed_native_load_raises(tmp_path, monkeypatch):
     """A library that does not load (here: not an ELF file, newer than
     the source so no build runs) raises rather than falling back."""
     native_exec = mod(PORT, "wasm.native_exec")
+    buildcache = mod(PORT, "ops.buildcache")
     monkeypatch.delenv("PSTPU_NO_NATIVE_WASM", raising=False)
-    monkeypatch.setattr(native_exec, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(buildcache, "_build_dir", tmp_path)
     monkeypatch.setattr(native_exec, "_lib", None)
     native_exec.library_path().write_bytes(b"not a shared object")
     with pytest.raises(RuntimeError, match="failed to load"):

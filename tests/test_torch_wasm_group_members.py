@@ -30,6 +30,11 @@ from torch_port_support import (
     torch_env,
 )
 import torch_wasm_fixtures as fixtures
+from policy_server_tpu_torch.evaluation.environment import (
+    PALLAS_HOT_DISPATCHES,
+    WASM_BITS_KEY,
+)
+from policy_server_tpu_torch.ops.codec import PACKED_KEY
 
 JAX = "policy_server_tpu"
 PORT = "policy_server_tpu_torch"
@@ -329,22 +334,46 @@ def test_group_member_ids_and_cacheability(envs):
         assert env._host_executed(t) == jenv._host_executed(j), pid
 
 
-def test_warmup_ships_the_bits(envs):
-    env = envs["port_nocache"]
+def test_warmup_ships_the_bits(tmp_path):
+    """Every warmup dispatch carries the batch's wasm bits, in every
+    schema bucket at every batch size: on a fresh environment, the delta
+    planes until the bucket's PALLAS_HOT_DISPATCHES-th dispatch arms it,
+    then K1."""
+    env = torch_env(
+        SPECS, module_resolver=resolver_for(PORT, tmp_path), verdict_cache_size=0
+    )
     seen = []
-    orig = env._enqueue_open
+    k1 = []
+    orig, orig_k1 = env._enqueue_features, env._enqueue_open
 
-    def spy(buf, wasm_bits=None):
-        seen.append(None if wasm_bits is None else np.asarray(wasm_bits).shape)
-        return orig(buf, wasm_bits)
+    def spy(features):
+        rows = np.asarray(features[PACKED_KEY]).shape[0]
+        bits = features.get(WASM_BITS_KEY)
+        before = len(k1)
+        out = orig(features)
+        path = "k1" if len(k1) > before else "plane"
+        seen.append((path, rows, None if bits is None else np.asarray(bits).shape))
+        return out
 
-    env._enqueue_open = spy
+    def spy_k1(buf, wasm_bits=None):
+        k1.append(None if wasm_bits is None else np.asarray(wasm_bits).shape)
+        return orig_k1(buf, wasm_bits)
+
+    env._enqueue_features, env._enqueue_open = spy, spy_k1
     try:
         env.warmup((1, 4))
     finally:
-        del env._enqueue_open
-    n_wasm = len(env._wasm_member_order)
-    assert n_wasm == 3 and seen == [(1, n_wasm), (4, n_wasm)] * len(env.schemas)
+        del env._enqueue_features, env._enqueue_open
+    n = len(env._wasm_member_order)
+    assert n == 3 and len(env.schemas) == 2
+    per_schema = (
+        [("plane", 1, (1, n))] * (PALLAS_HOT_DISPATCHES - 1)
+        + [("k1", 1, (1, n))]
+        + [("k1", 4, (4, n))] * 3
+    )
+    assert seen == per_schema * len(env.schemas)
+    assert k1 == [shape for path, _r, shape in seen if path == "k1"]
+    assert env.pallas_stats["buckets_armed"] == len(env.schemas)
 
 
 def test_non_builtin_module_without_resolver_raises():
