@@ -378,6 +378,36 @@ card's name and power limit:
    one reload; its acquisitions, order edges and long holds; any
    lock-order inversion fails.
 
+17. the device mesh — wave A: phase 7's 1,024 reviews through the native
+   frontend, kernel-only, under ``--mesh auto`` and ``--mesh data:1``
+   (servers from the command line): on one card neither lays a mesh,
+   every body is the oracle's and every device batch launches K1 (once
+   per schema bucket it reaches; launches per batch beside phase 7's run
+   without the flag); ``--mesh data:2`` on one card must
+   end ``python -m policy_server_tpu_torch`` non-zero with "mesh 2x1 does
+   not match device count 1". Wave V: meshes over one card taken four
+   times (``make_mesh(..., devices=[cuda:0] * 4)``) at ``data:4``,
+   ``data:2,policy:2`` and ``data:1,policy:4``, each under armed
+   ``--kernel pallas`` and under ``--kernel xla`` with columnar on, beside
+   no mesh: the 1,024 reviews through ``validate_batch``, every body the
+   oracle's, K1 launched once per position per K1 step (none under xla);
+   each policy shard's K1 program against its plain version on the card
+   at B = 128 and 1,024 in both buckets, exact; each form's device step at
+   B = 128 (K1's step, or the plane step under xla): stream ms, host wall
+   ms, and the kernels and copies of one step in a ``torch.profiler``
+   trace. Wave D: two server processes (``tests/torch_mesh_drive.py``)
+   with ``--distributed-coordinator 127.0.0.1:PORT
+   --distributed-num-processes 2 --distributed-process-id {0,1} --mesh
+   auto`` on one card: one ``torch.distributed`` group over gloo, a global
+   ``data:2`` mesh, each process serving its own 512 reviews through the
+   native frontend with the oracle's bodies, launching K1, columnar off.
+   Wave R: ``--mesh data:N`` and ``data:N/2,policy:2`` through the
+   command line over the N cards, native, kernel-only: every body the
+   oracle's, K1 launched once per position per K1 step, rates and p99.
+   On one card a line says the multi-card wave was skipped and why, and
+   the wave runs its 512 reviews over that card taken twice (the mesh's
+   default device list replaced), so its code runs on every machine.
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before the last line is printed. Needs one card; imports nothing of JAX.
@@ -1371,10 +1401,11 @@ def kernel_batches(rec, since: int) -> dict:
     }
 
 
-def check_kernel_batches(run: dict, what: str) -> None:
+def check_kernel_batches(run: dict, what: str, positions: int = 1) -> None:
     """Fail unless every serving batch of a kernel-only run launched K1:
     no batch host-routed, every batch with a fetched launch of its own,
-    and the fetched launches equal to the wrapper's serving count."""
+    and the fetched launches, times the mesh positions each step launches
+    K1 on, equal to the wrapper's serving count."""
     kb = run["kernel_batches"]
     if run["host_batches"]:
         fail(f"{what} routed {run['host_batches']} batches to the host")
@@ -1390,10 +1421,11 @@ def check_kernel_batches(run: dict, what: str) -> None:
             f"{what}: {kb['without_kernel']} of {run['batches']} "
             f"micro-batches launched no policy_matrix"
         )
-    if kb["device_executes"] != run["serving_launches"]:
+    if kb["device_executes"] * positions != run["serving_launches"]:
         fail(
-            f"{what}: {kb['device_executes']} fetched launches, "
-            f"{run['serving_launches']} policy_matrix launches counted"
+            f"{what}: {kb['device_executes']} fetched steps over {positions} "
+            f"positions, {run['serving_launches']} policy_matrix launches "
+            "counted"
         )
 
 
@@ -2288,10 +2320,11 @@ class EnvLedger:
                 row["warmup_bytes"] += torch.cuda.memory_allocated() - m0
                 row["warmup_k1"] += ck.launch_counts()["policy_matrix"] - k0
 
-        def program_for(env, schema_idx, transport, narrow):
-            new = (schema_idx, transport, narrow) not in env._programs
+        def program_for(env, schema_idx, transport, narrow, shard=None):
+            key = (schema_idx, transport, narrow)
+            new = (key if shard is None else key + (shard,)) not in env._programs
             t0 = time.perf_counter()
-            program = real_program(env, schema_idx, transport, narrow)
+            program = real_program(env, schema_idx, transport, narrow, shard)
             if new:
                 k1_build_s[id(env)] = (
                     k1_build_s.get(id(env), 0.0) + time.perf_counter() - t0
@@ -5279,12 +5312,14 @@ def boot_server(argv: list, label: str) -> tuple:
 
 
 def served_wave(server, wave: list, expectations: list, label: str,
-                kernel_only: bool, expect_launches: bool = True) -> dict:
+                kernel_only: bool, expect_launches: bool = True,
+                positions: int = 1) -> dict:
     """One wave from the ``--native-client`` process (raw sockets, either
     frontend): every answer must equal one of ``expectations``. The launch
     counts are set to 0 just before it and read just after; kernel-only,
-    every device batch must launch K1 (``check_kernel_batches``), or, with
-    ``expect_launches`` False (an all-overflow batch), none may."""
+    every device batch must launch K1 (``check_kernel_batches``, each step
+    on ``positions`` mesh positions), or, with ``expect_launches`` False
+    (an all-overflow batch), none may."""
     import torch
 
     from policy_server_tpu_torch.ops import cuda_kernels as ck
@@ -5315,7 +5350,7 @@ def served_wave(server, wave: list, expectations: list, label: str,
         "req_s": len(wave) / wall,
     })
     if kernel_only and expect_launches:
-        check_kernel_batches(run, label)
+        check_kernel_batches(run, label, positions)
     if not expect_launches and run["serving_launches"]:
         fail(f"{label}: an all-overflow wave launched policy_matrix "
              f"{run['serving_launches']} times")
@@ -7741,6 +7776,403 @@ def columnar_phase(work_docs: list, card: str) -> dict:
     return out
 
 
+MESH_DIR = os.path.join(REPO, "build", "chip_smoke_mesh")
+MESH_WAVE = 1024
+# wave V: meshes laid over one card taken four times, each under armed
+# pallas and under xla with columnar on
+MESH_ONE_CARD = ("data:4", "data:2,policy:2", "data:1,policy:4")
+MESH_FORMS = (("pallas", True), ("xla", True))
+MESH_HOLD_BATCHES = (128, 1024)
+MESH_STEP_BATCH = 128
+MESH_D_WAVE = 512
+# wave R over one card taken twice, where there is one card
+MESH_R_REHEARSAL_WAVE = 512
+MESH_D_TIMEOUT_S = 300
+
+
+def mesh_wave_a(policies: str, work_docs: list, native_k1: dict,
+                card: str) -> dict:
+    """Wave A: phase 7's reviews through the native frontend, kernel-only,
+    under ``--mesh auto`` and ``--mesh data:1``: on one card neither lays
+    a mesh, every body is the oracle's and every device batch launches K1
+    (once per schema bucket it reaches, as in phase 7's run without the
+    flag: ``check_kernel_batches``); then ``--mesh data:2`` must end the
+    process non-zero, naming the device count."""
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    wave = wave_of(work_docs, MESH_WAVE, "m17a")
+    exp = [expected_answer(oracle, pid, body) for pid, body in wave]
+    out: dict = {}
+    n_cards = torch.cuda.device_count()
+    for spec in ("auto", "data:1"):
+        argv = ["--policies", policies, "--port", "0", "--readiness-probe-port",
+                "0", "--frontend", "native", *KERNEL_ONLY_ARGS, "--mesh", spec]
+        server, boot = boot_server(argv, f"phase17 wave A --mesh {spec}")
+        try:
+            meshed = server.env._mesh is not None
+            run = served_wave(server, wave, [exp], f"phase17 wave A --mesh {spec}",
+                              kernel_only=True)
+        finally:
+            server.stop()
+        if n_cards == 1 and meshed:
+            fail(f"phase17 wave A: --mesh {spec} laid a mesh on one card")
+        run["per_batch"] = run["serving_launches"] / max(1, run["batches"])
+        run["boot"] = boot
+        out[spec] = run
+        print(
+            f"phase17 wave A --mesh {spec}: {run['answered']} bodies the "
+            f"oracle's, mesh laid {meshed}; {run['req_s']:.1f} req/s p50 "
+            f"{run['p50']:.3f} p99 {run['p99']:.3f} ms; {run['batches']} "
+            f"device batches, {run['serving_launches']} K1 launches "
+            f"({run['per_batch']:.3f} per batch; phase 7's run without the "
+            f"flag {native_k1['serving_launches'] / max(1, native_k1['batches']):.3f})"
+            f" [{card}]"
+        )
+    if n_cards == 1:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "policy_server_tpu_torch", "--policies",
+             policies, "--port", "0", "--readiness-probe-port", "0",
+             "--mesh", "data:2"],
+            capture_output=True, text=True, timeout=300, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO},
+        )
+        text = proc.stderr + proc.stdout
+        want = "mesh 2x1 does not match device count 1"
+        if proc.returncode == 0 or want not in text:
+            fail(f"phase17 wave A: --mesh data:2 on one card exited "
+                 f"{proc.returncode} without {want!r}: {text[-2000:]}")
+        print(f"phase17 wave A --mesh data:2 on one card: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s, "
+              f"\"{want}\" [{card}]")
+        out["data:2 exit"] = proc.returncode
+    return out
+
+
+def mesh_items(work_docs: list) -> list:
+    from policy_server_tpu_torch.models import (
+        AdmissionReviewRequest,
+        ValidateRequest,
+    )
+
+    return [
+        (pid, ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(copy.deepcopy(d)).request
+        ))
+        for pid, d in work_docs[:MESH_WAVE]
+    ]
+
+
+def mesh_step_rows(env, docs: list) -> dict:
+    """bucket → (wide features, transport buffer) of MESH_STEP_BATCH rows
+    and the largest hold batch, encoded by ``env``."""
+    import numpy as np
+
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+
+    out = {}
+    for idx, schema in enumerate(env.schemas):
+        encs = []
+        for d in docs:
+            d = widen(d) if idx == 1 else d
+            payload = AdmissionReviewRequest.from_dict(d).request.to_dict()
+            got, enc = env.encode_bucketed(payload)
+            if got != idx:
+                fail(f"phase17 doc encoded into bucket {got}, not {idx}")
+            encs.append(enc)
+        for batch in MESH_HOLD_BATCHES:
+            wide = schema.pack(schema.stack(encs[:batch], batch_size=batch))
+            feats = {"__packed__": wide["__packed__"]}
+            out[idx, batch] = (
+                feats, np.asarray(env._transport(feats)["__packed__"])
+            )
+    return out
+
+
+def hold_shard_programs(env, rows: dict, spec: str, card: str) -> int:
+    """Each policy shard's K1 program against its plain version on the
+    card, per bucket at every hold batch: exact, or the phase fails.
+    → the number of programs held."""
+    import numpy as np
+    import torch
+
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    held = 0
+    for (idx, batch), (_feats, tbuf) in rows.items():
+        _i, _lo, transport, narrow = env._layout_for_buffer(tbuf.shape[1])
+        dev = torch.from_numpy(tbuf).to("cuda")
+        for p in range(len(env._mesh_buckets)):
+            program = env.program_for(idx, transport, narrow, p)
+            a, r = ck.policy_matrix(dev, program)
+            pa, pr = ck.policy_matrix_plain(dev, program)
+            torch.cuda.synchronize()
+            if not (torch.equal(a, pa) and torch.equal(r, pr)):
+                bad = int((a != pa).sum() + (r != pr).sum())
+                fail(f"phase17 wave V {spec}: shard {p}'s K1 disagrees with "
+                     f"its plain version at bucket {idx} B={batch} ({bad} "
+                     f"cells)")
+            if program.out_cols != env._mesh_block_width:
+                fail(f"phase17 wave V {spec}: shard {p}'s block is "
+                     f"{program.out_cols} columns, not the plan's "
+                     f"{env._mesh_block_width}")
+            held += 1
+    print(f"phase17 wave V {spec}: {held} per-shard K1 programs "
+          f"(policy shards x buckets x B in {MESH_HOLD_BATCHES}) equal their "
+          f"plain versions on the card, max_abs_err 0 [{card}]")
+    return held
+
+
+def mesh_wave_v(work_docs: list, card: str) -> dict:
+    """Wave V (see the module docstring)."""
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+    from policy_server_tpu_torch.policies.flagship import (
+        flagship_policies,
+        synthetic_firehose,
+    )
+
+    cuda0 = torch.device("cuda", 0)
+    items = mesh_items(work_docs)
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    want = [r.to_dict() for r in oracle.validate_batch(items)]
+    step_docs = synthetic_firehose(max(MESH_HOLD_BATCHES), seed=17)
+    out: dict = {"forms": {}, "held": 0}
+    for spec in (None, *MESH_ONE_CARD):
+        for kernel, columnar in MESH_FORMS:
+            label = f"{spec or 'no mesh'} --kernel {kernel}" + (
+                "" if columnar else " --columnar off"
+            )
+            env = EvaluationEnvironmentBuilder(
+                device="cuda", kernel=kernel, columnar=columnar,
+                verdict_cache_size=0,
+            ).build(flagship_policies())
+            positions = 1
+            if spec is not None:
+                mesh = mesh_mod.make_mesh(
+                    mesh_mod.MeshSpec.parse(spec), devices=[cuda0] * 4
+                )
+                env.attach_mesh(mesh)
+                positions = mesh.size
+            env.warmup((MESH_STEP_BATCH,))
+            torch.cuda.synchronize()
+            ps0 = env.pallas_stats["dispatches"]
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = env.validate_batch(items)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ck.launch_counts()["policy_matrix"]
+            dispatches = env.pallas_stats["dispatches"] - ps0
+            bad = [
+                i for i, r in enumerate(got)
+                if isinstance(r, Exception) or r.to_dict() != want[i]
+            ]
+            if bad:
+                fail(f"phase17 wave V {label}: {len(bad)} of {len(items)} "
+                     f"bodies differ from the oracle's (first {bad[0]}: "
+                     f"{got[bad[0]]!r:.300})")
+            if kernel == "pallas":
+                if not dispatches or launches != positions * dispatches:
+                    fail(f"phase17 wave V {label}: {launches} K1 launches for "
+                         f"{dispatches} K1 steps over {positions} positions")
+            elif launches:
+                fail(f"phase17 wave V {label}: --kernel xla launched K1 "
+                     f"{launches} times")
+            rows = mesh_step_rows(env, step_docs)
+            feats, tbuf = rows[0, MESH_STEP_BATCH]
+            if kernel == "pallas":
+                step = {**step_numbers(lambda: env.enqueue_packed(tbuf), card,
+                                       launches_k1=True)}
+            else:
+                step = {**step_numbers(lambda: env._enqueue_planes(0, feats),
+                                       card, launches_k1=False)}
+            if spec is not None and env._mesh_buckets and kernel == "pallas":
+                out["held"] += hold_shard_programs(env, rows, spec, card)
+            env.close()
+            row = {"mesh": spec, "kernel": kernel, "columnar": columnar,
+                   "positions": positions, "bodies": len(items),
+                   "validate_ms": wall * 1e3, "k1_launches": launches,
+                   "k1_steps": dispatches, "step_bucket": 0,
+                   "step_batch": MESH_STEP_BATCH, **step}
+            out["forms"][label] = row
+            print(f"phase17 wave V: {json.dumps(row)} [{card}]")
+    return out
+
+
+def mesh_wave_d(card: str) -> dict:
+    """Wave D: two server processes on one card
+    (``tests/torch_mesh_drive.py``) with ``--distributed-coordinator
+    127.0.0.1:PORT --distributed-num-processes 2 --distributed-process-id
+    {0,1} --mesh auto`` — one ``torch.distributed`` group over gloo, a
+    global ``data:2`` mesh, one position each — each serving its own 512
+    reviews through the native frontend, every body the oracle's, each
+    launching K1."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        out = os.path.join(MESH_DIR, f"wave_d_rank{rank}.json")
+        if os.path.exists(out):
+            os.unlink(out)
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests", "torch_mesh_drive.py"),
+             out, coordinator, str(rank), str(MESH_D_WAVE), "--device", "cuda",
+             "--frontend", "native"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": REPO}, cwd=REPO,
+        )))
+    reports = []
+    try:
+        for out, proc in procs:
+            try:
+                text, _ = proc.communicate(timeout=MESH_D_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"phase17 wave D: a server process ran past "
+                     f"{MESH_D_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                fail(f"phase17 wave D failed: {text[-3000:]}")
+            with open(out) as f:
+                reports.append(json.load(f))
+    finally:
+        for _out, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for rep in reports:
+        r = rep["rank"]
+        if rep["mesh"] != {"data": 2, "policy": 1} or rep["world"] != 2:
+            fail(f"phase17 wave D rank {r}: mesh {rep['mesh']} in a group of "
+                 f"{rep['world']}")
+        if rep["mismatches"] or rep["answered"] != MESH_D_WAVE:
+            fail(f"phase17 wave D rank {r}: {rep['mismatches']} bodies differ "
+                 f"from the oracle's, {rep['answered']} answered (first "
+                 f"{rep['first_mismatch']})")
+        if not rep["launches"] or rep["launches"] != rep["k1_dispatches"]:
+            fail(f"phase17 wave D rank {r}: {rep['launches']} K1 launches for "
+                 f"{rep['k1_dispatches']} K1 steps")
+        if rep["columnar_ok"] or rep["wire_rows"]:
+            fail(f"phase17 wave D rank {r}: columnar ran on a multi-process mesh")
+        print(
+            f"phase17 wave D rank {r}: mesh {json.dumps(rep['mesh'])}, local "
+            f"shards {rep['local_shards']}, {rep['answered']} bodies the "
+            f"oracle's in {rep['wave_s']:.3f} s, {rep['dispatched_chunks']} "
+            f"device batches, {rep['launches']} K1 launches, columnar off "
+            f"[{card}]"
+        )
+    print(f"phase17 wave D: two processes in {wall:.1f} s (process start, "
+          f"group, boots, waves and stops) [{card}]")
+    return {"reports": reports, "wall_s": wall}
+
+
+def mesh_phase(work_docs: list, native_k1: dict, card: str) -> dict:
+    """Phase 17 (see the module docstring)."""
+    import torch
+
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    os.makedirs(COLUMNAR_DIR, exist_ok=True)  # step_trace_counts' trace file
+    policies = os.path.join(MESH_DIR, "policies.json")
+    with open(policies, "w") as f:
+        json.dump(flagship_policy_specs(), f)
+    out = {"A": mesh_wave_a(policies, work_docs, native_k1, card)}
+    out["V"] = mesh_wave_v(work_docs, card)
+    out["D"] = mesh_wave_d(card)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        out["R"] = mesh_wave_r(policies, work_docs, cards, MESH_WAVE, card)
+    else:
+        print(f"phase17 wave R over several cards skipped: "
+              f"torch.cuda.device_count() is {n_cards}; its code runs below "
+              f"over one card taken twice [{card}]")
+        out["R"] = mesh_wave_r(
+            policies, work_docs, [torch.device("cuda", 0)] * 2,
+            MESH_R_REHEARSAL_WAVE, card,
+        )
+    return out
+
+
+def mesh_wave_r(policies: str, work_docs: list, devices: list, n_wave: int,
+                card: str) -> dict:
+    """Wave R: the server through the command line at ``--mesh data:N``
+    and, for an even N, ``data:N/2,policy:2`` over the N ``devices``,
+    native, kernel-only: every body the oracle's, every device batch with
+    a K1 step (``check_kernel_batches`` over the positions), K1 launched
+    once per position per K1 step (a batch that reaches both schema
+    buckets makes two steps: ``pallas_stats['dispatches']``); rates and
+    p99. With more than one card ``devices`` are the cards; on one card
+    that card taken twice stands in, through the mesh's default device
+    list (``global_devices``), so the wave's code runs on every machine."""
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    wave = wave_of(work_docs, n_wave, "m17r")
+    exp = [expected_answer(oracle, pid, body) for pid, body in wave]
+    n = len(devices)
+    specs = [f"data:{n}"]
+    if n % 2 == 0:
+        specs.append(f"data:{n // 2},policy:2")
+    over = ("the cards" if len(set(devices)) == n
+            else f"{devices[0]} taken {n} times")
+    out = {}
+    real_devices = mesh_mod.global_devices
+    mesh_mod.global_devices = lambda _type="cuda": list(devices)
+    try:
+        for spec in specs:
+            label = f"phase17 wave R --mesh {spec}"
+            argv = ["--policies", policies, "--port", "0",
+                    "--readiness-probe-port", "0", "--frontend", "native",
+                    *KERNEL_ONLY_ARGS, "--mesh", spec]
+            server, _boot = boot_server(argv, label)
+            try:
+                positions = server.env._mesh.size
+                d0 = server.env.pallas_stats["dispatches"]
+                run = served_wave(server, wave, [exp], label,
+                                  kernel_only=True, positions=positions)
+                run["k1_steps"] = server.env.pallas_stats["dispatches"] - d0
+            finally:
+                server.stop()
+            if positions != n:
+                fail(f"{label}: a mesh of {positions} positions over {n} devices")
+            if (not run["k1_steps"]
+                    or run["serving_launches"] != positions * run["k1_steps"]):
+                fail(f"{label}: {run['serving_launches']} K1 launches for "
+                     f"{run['k1_steps']} K1 steps over {positions} positions")
+            out[spec] = run
+            print(f"{label} over {over}: {run['answered']} bodies the "
+                  f"oracle's; {run['req_s']:.1f} req/s p50 {run['p50']:.3f} "
+                  f"p99 {run['p99']:.3f} ms; {run['batches']} device batches, "
+                  f"{run['k1_steps']} K1 steps, {run['serving_launches']} K1 "
+                  f"launches [{card}]")
+    finally:
+        mesh_mod.global_devices = real_devices
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8266,6 +8698,11 @@ def main() -> int:
     r16 = columnar_phase(work_docs, card)
     print(f"phase16 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 17: the device mesh ------------------------------------------
+    t_phase = time.perf_counter()
+    r17 = mesh_phase(work_docs, native_runs["kernel", 4], card)
+    print(f"phase17 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -8371,6 +8808,26 @@ def main() -> int:
                         run["serving_launches"]
                     for name, run in r16["X"].items()
                 },
+                **{
+                    f"phase17 wave A --mesh {spec}, native, kernel-only":
+                        r17["A"][spec]["serving_launches"]
+                    for spec in ("auto", "data:1")
+                },
+                **{
+                    f"phase17 wave V {label}, {MESH_WAVE} reviews through "
+                    "validate_batch (positions x K1 steps)": row["k1_launches"]
+                    for label, row in r17["V"]["forms"].items()
+                },
+                **{
+                    f"phase17 wave D rank {rep['rank']} of a global data:2 "
+                    "mesh on one card, native": rep["launches"]
+                    for rep in r17["D"]["reports"]
+                },
+                **{
+                    f"phase17 wave R --mesh {spec}, native, kernel-only "
+                    "(positions x K1 steps)": run["serving_launches"]
+                    for spec, run in r17["R"].items()
+                },
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -8402,6 +8859,9 @@ def main() -> int:
                 "phase9 team-b set": r9["k1_err"],
                 "phase10 flagship set on the audit inventory, B in "
                 f"{AUDIT_HOLD_BATCHES}": r10["k1_err"],
+                f"phase17 per-shard programs ({r17['V']['held']}: "
+                f"{', '.join(m for m in MESH_ONE_CARD if 'policy' in m)}, both "
+                f"buckets, B in {MESH_HOLD_BATCHES})": 0,
             },
             "audit_inventory_holds": [
                 {k: row[k] for k in ("bucket", "batch", "ms", "device_ms",

@@ -32,7 +32,10 @@ through the in-cluster Kubernetes API (``--context-*``,
 (the default) is this package's device backend — the CUDA kernels on the
 card, or their plain PyTorch versions under ``--device cpu``; ``oracle`` is
 the host interpreter. ``docs --output FILE`` writes the markdown CLI
-reference, and ``--daemon`` detaches. The flags, their defaults, choices,
+reference, and ``--daemon`` detaches. ``--mesh`` lays a device mesh over
+the cards (the data axis, and a policy axis in the fused form,
+``parallel/mesh.py``), and ``--distributed-*`` join a ``torch.distributed``
+process group before it is laid. The flags, their defaults, choices,
 validation and ``KUBEWARDEN_*`` environment variables are the JAX
 package's (``config/cli.py``, ``config/config.py``).
 """
@@ -59,6 +62,7 @@ from policy_server_tpu_torch.runtime.batcher import (
     DEGRADED_MODES,
 )
 from policy_server_tpu_torch.certs import TlsConfig
+from policy_server_tpu_torch.parallel.mesh import MeshSpec
 from policy_server_tpu_torch.server import (
     DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS,
     DEFAULT_AUDIT_WATCH_RESOURCES,
@@ -73,6 +77,7 @@ from policy_server_tpu_torch.server import (
     DEFAULT_SHARD_HEARTBEAT_SECONDS,
     DEFAULT_WORKER_RESPAWN_GIVEUP,
     FRONTENDS,
+    MESH_DISPATCHES,
     NATIVE_TLS_MODES,
     RELOAD_MODES,
     PolicyServer,
@@ -395,6 +400,20 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "window stops respawning (exponential backoff applies "
                    "before the cap); the remaining processes keep serving "
                    "and /readiness reports the degraded slot honestly")),
+        ("--mesh", "KUBEWARDEN_MESH",
+         dict(default="auto", metavar="MESH_SPEC",
+              help="Device mesh spec, e.g. 'auto', 'data:8', 'data:4,policy:2'")),
+        ("--mesh-dispatch", "KUBEWARDEN_MESH_DISPATCH",
+         dict(default="fused", metavar="MODE", choices=list(MESH_DISPATCHES),
+              help="How a >1 policy axis executes: 'fused' splits the "
+                   "policy set round-robin over the policy axis, each mesh "
+                   "position runs its policy shard (the policy_matrix "
+                   "CUDA kernel's per-shard program, or the shard's "
+                   "predicates) on its data shard's rows, and the verdict "
+                   "blocks gather on the data shard's first CUDA device "
+                   "for the group combine; 'threaded' (the "
+                   "thread-per-shard dispatcher) is not ported and raises "
+                   "at boot")),
         ("--policy-reload-mode", "KUBEWARDEN_POLICY_RELOAD_MODE",
          dict(default="auto", metavar="MODE", choices=list(RELOAD_MODES),
               help="Zero-downtime policy hot reload (epoch-based, "
@@ -631,6 +650,21 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "restarts. A directory that cannot be written is "
                    "refused. Unset = build/torch_kernels/ beside the "
                    "package")),
+        ("--distributed-coordinator", "KUBEWARDEN_DISTRIBUTED_COORDINATOR",
+         dict(default=None, metavar="HOST:PORT",
+              help="torch.distributed rendezvous address (gloo) for "
+                   "multi-process serving; when set, bootstrap joins the "
+                   "process group before building the device mesh, which "
+                   "then spans every process's CUDA devices, each process "
+                   "serving its own requests on its own data shards")),
+        ("--distributed-num-processes", "KUBEWARDEN_DISTRIBUTED_NUM_PROCESSES",
+         dict(type=int, default=None, metavar="N",
+              help="Total number of policy-server processes in the "
+                   "multi-host group (requires --distributed-coordinator)")),
+        ("--distributed-process-id", "KUBEWARDEN_DISTRIBUTED_PROCESS_ID",
+         dict(type=int, default=None, metavar="ID",
+              help="This process's rank in the multi-host group "
+                   "(requires --distributed-coordinator)")),
         ("--device", None,
          dict(default=None,
               help="torch device (default: the CUDA card; 'cpu' runs the "
@@ -739,6 +773,7 @@ def validate_args(args: argparse.Namespace) -> None:
     """The JAX package's checks (``Config.validate``) of this package's
     flags; raises ValueError with its text."""
     tls_config_of(args).validate()
+    MeshSpec.parse(args.mesh)
     if args.workers is not None and args.workers < 1:
         raise ValueError("--workers must be >= 1")
     if args.max_batch_size < 1:
@@ -816,6 +851,38 @@ def validate_args(args: argparse.Namespace) -> None:
         raise ValueError("--audit-matrix-whatif requires --audit-matrix")
     if args.state_audit_spill_seconds <= 0:
         raise ValueError("--state-audit-spill-seconds must be > 0")
+    if args.mesh_dispatch not in MESH_DISPATCHES:
+        raise ValueError(
+            f"invalid mesh dispatch {args.mesh_dispatch!r} "
+            "(expected 'fused' or 'threaded')"
+        )
+    if args.distributed_coordinator is None:
+        if (
+            args.distributed_num_processes is not None
+            or args.distributed_process_id is not None
+        ):
+            raise ValueError(
+                "--distributed-num-processes/--distributed-process-id "
+                "require --distributed-coordinator"
+            )
+    else:
+        if (args.distributed_num_processes is None) != (
+            args.distributed_process_id is None
+        ):
+            raise ValueError(
+                "--distributed-num-processes and --distributed-process-id "
+                "must be set together"
+            )
+        if (
+            args.distributed_num_processes is not None
+            and not (
+                0 <= args.distributed_process_id < args.distributed_num_processes
+            )
+        ):
+            raise ValueError(
+                "--distributed-process-id must be in "
+                "[0, --distributed-num-processes)"
+            )
 
 
 def tls_config_of(args: argparse.Namespace) -> TlsConfig:
@@ -916,6 +983,11 @@ def server_from_args(args: argparse.Namespace) -> PolicyServer:
         audit_watch_max_queue_events=args.audit_watch_max_queue_events,
         state_dir=args.state_dir,
         state_audit_spill_seconds=args.state_audit_spill_seconds,
+        mesh=MeshSpec.parse(args.mesh),
+        mesh_dispatch=args.mesh_dispatch,
+        distributed_coordinator=args.distributed_coordinator,
+        distributed_num_processes=args.distributed_num_processes,
+        distributed_process_id=args.distributed_process_id,
     )
 
 

@@ -80,6 +80,7 @@ candidate does not wait for the serving epoch's batches.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import json
 import logging
@@ -146,6 +147,7 @@ from policy_server_tpu_torch.ops.optimizer import (
     PolicyOptimization,
     optimize_policy_set,
 )
+from policy_server_tpu_torch.parallel import mesh as mesh_mod
 from policy_server_tpu_torch.policies import resolve_builtin
 from policy_server_tpu_torch.resilience import CircuitBreaker
 from policy_server_tpu_torch.telemetry import flightrec
@@ -192,6 +194,14 @@ _PLANE_DTYPES = {
     np.dtype(np.uint16): torch.int16,
     np.dtype(np.int32): torch.int32,
 }
+
+
+def _on(device: torch.device) -> Any:
+    """The CUDA device context of ``device``; nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
 
 # Verdict-cache budget in BYTES, split evenly between the blob tier
 # (pre-encode exact-replay dedup) and the row tier (post-encode
@@ -301,25 +311,25 @@ class PinnedBuffers:
 
 
 class InflightStep:
-    """One enqueued device step: the CUDA event recorded after its copy
-    back, and the page-locked input and output buffers it holds until
-    :meth:`wait` has read the output. ``device_in``, when set, is the
-    step's device input, held until the fetch (``--donate-buffers off``).
-    On the CPU the output is ready at enqueue and ``wait`` returns it at
-    once."""
+    """One enqueued device step: the CUDA events recorded after its copy
+    back, one per data shard (one without a mesh), and the page-locked
+    input and output buffers it holds until :meth:`wait` has read the
+    output. ``device_in``, when set, is the step's device inputs, held
+    until the fetch (``--donate-buffers off``). On the CPU the output is
+    ready at enqueue and ``wait`` returns it at once."""
 
-    __slots__ = ("event", "host_in", "host_out", "pool", "ready", "device_in")
+    __slots__ = ("events", "host_in", "host_out", "pool", "ready", "device_in")
 
     def __init__(
         self,
-        event: Any = None,
+        events: tuple = (),
         host_in: torch.Tensor | None = None,
         host_out: torch.Tensor | None = None,
         pool: PinnedBuffers | None = None,
         ready: np.ndarray | None = None,
-        device_in: torch.Tensor | None = None,
+        device_in: list[torch.Tensor] | None = None,
     ) -> None:
-        self.event = event
+        self.events = events
         self.host_in = host_in
         self.host_out = host_out
         self.pool = pool
@@ -329,7 +339,8 @@ class InflightStep:
     def wait(self) -> np.ndarray:
         if self.ready is not None:
             return self.ready
-        self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         out = self.host_out.numpy().copy()
         self.pool.give(self.host_in, self.host_out)
         self.device_in = None
@@ -819,7 +830,20 @@ class EvaluationEnvironment:
         self._gate = threading.Condition()
         self._active = 0  # guarded-by: _gate
         self._closed = False  # guarded-by: _gate
-        self._last_events: dict[int, Any] = {}  # guarded-by: _gate
+        # keyed by (card, stream handle)
+        self._last_events: dict[tuple[int, int], Any] = {}  # guarded-by: _gate
+        # the device mesh (attach_mesh): this process's data shards, each
+        # the list of its devices along the policy axis (without a mesh,
+        # one shard of this environment's device); under a policy axis > 1
+        # the round-robin policy buckets, their common block width and
+        # each policy's column in the gathered verdict matrix. Batches
+        # bucket to multiples of the data axis (bucket_for).
+        self._mesh: Any = None
+        self._mesh_shards: list[list[torch.device]] = [[device]]
+        self._mesh_buckets: list[tuple[str, ...]] = []
+        self._mesh_block_width = 0
+        self._mesh_policy_col: dict[str, int] = {}
+        self._min_bucket = 1
         self._compile()
         if backend == "torch" and device is not None and device.type == "cuda":
             self._probe_device()
@@ -857,21 +881,41 @@ class EvaluationEnvironment:
                 )
         for schema in self.schemas:
             schema.register_preds(table)
-        self._programs: dict[tuple[int, bool, bool], Any] = {}
+        self._programs: dict[tuple, Any] = {}
         self._combine_cols: dict[tuple, torch.Tensor] = {}
         if self.backend != "torch":
             return
+        self._build_transport_programs()
+
+    def _build_transport_programs(self) -> None:
+        """Build the transport forms' programs, each policy shard's too
+        under a policy axis."""
+        shards = [None, *range(len(self._mesh_buckets))]
         for idx, schema in enumerate(self.schemas):
-            if schema.packed_layout().u16_count:
-                self.program_for(idx, True, True)
-            self.program_for(idx, True, False)
+            for shard in shards:
+                if schema.packed_layout().u16_count:
+                    self.program_for(idx, True, True, shard)
+                self.program_for(idx, True, False, shard)
 
     def program_for(
-        self, schema_idx: int, transport: bool, narrow: bool
+        self,
+        schema_idx: int,
+        transport: bool,
+        narrow: bool,
+        shard: int | None = None,
     ) -> "cuda_kernels.PolicyMatrixProgram":
         """The ``policy_matrix`` program of one schema bucket and buffer
-        form (built on first use)."""
+        form (built on first use); with ``shard``, that policy shard's
+        program under the mesh's policy axis: its bucket alone, padded to
+        the shard block's width (K1's per-shard tile plan)."""
         key = (schema_idx, transport, narrow)
+        plan: dict[str, Any] = {}
+        if shard is not None:
+            key += (shard,)
+            plan = dict(
+                buckets=[self._mesh_buckets[shard]],
+                width=self._mesh_block_width,
+            )
         with self._lock:
             program = self._programs.get(key)
             if program is None:
@@ -883,6 +927,7 @@ class EvaluationEnvironment:
                     self._sources(),
                     self.table,
                     use_cse=self.optimization is not None,
+                    **plan,
                 )
         return program
 
@@ -977,6 +1022,104 @@ class EvaluationEnvironment:
             self.table = table
         self._compile()
         self.reset_verdict_cache()
+
+    # -- the device mesh (parallel/mesh.py) ---------------------------------
+
+    def attach_mesh(self, mesh: "mesh_mod.Mesh") -> None:
+        """Serve every device step over a device mesh, the JAX package's
+        ``attach_mesh``: the batch rows split into contiguous data shards
+        (buckets round up to multiples of the data axis, ``bucket_for``),
+        and each of this process's data shards runs on its own devices.
+
+        * Data axis only: a data shard's rows run the whole program (K1's
+          full program, or the non-Pallas program) on its device.
+        * Policy axis > 1, the fused form: the policy set splits
+          round-robin into shards (``plan_policy_buckets``); position
+          (p, d) runs shard p's policies on data shard d's rows — K1's
+          per-shard program, or shard p's compiled predicates with one CSE
+          table per shard, each block padded to the common width. The
+          blocks are gathered shard-major on data shard d's first device
+          (the JAX package's all-gather over the policy axis) and the
+          group combine runs there per data shard.
+
+        Every data shard's output is copied back into its rows of one
+        page-locked buffer, with an event per data shard. A row's verdicts
+        depend on that row alone, so every split answers as one device
+        does.
+
+        Multi-process (``torch.distributed``): each process holds only its
+        own data shards — ``make_mesh`` keeps each within one host, data
+        axis outermost — and serves only its own requests on them, as the
+        JAX package's ``_device_fetch`` and ``_local_rows`` give each host
+        its local rows. The policy axis is host-local and the data axis
+        needs no collective, so no tensor crosses processes and no step
+        waits for another process: the answers are those of one device.
+        Columnar stays off there (``_columnar_mesh_ok``), so the columnar
+        accounting reads as the JAX package's.
+
+        A mesh position on a device that is not present, or of another
+        type than this environment's device, raises."""
+        if self.backend != "torch":
+            raise ValueError("a mesh needs the torch backend")
+        shards = mesh.local_data_shards()
+        if not shards:
+            raise ValueError(
+                f"mesh {mesh.shape} holds no data shard of process "
+                f"{mesh.process_index}"
+            )
+        n_cards = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        local = []
+        for devices in shards:
+            row = []
+            for entry in devices:
+                dev = torch.device(entry)
+                if dev.type != self.device.type:
+                    raise ValueError(
+                        f"mesh position on {dev}: this environment runs on "
+                        f"{self.device.type}"
+                    )
+                if dev.type == "cuda":
+                    if (dev.index or 0) >= n_cards:
+                        raise ValueError(
+                            f"mesh position on {dev}, which is not present "
+                            f"({n_cards} CUDA devices)"
+                        )
+                    dev = torch.device("cuda", dev.index or 0)
+                row.append(dev)
+            local.append(row)
+        n_policy = mesh.shape.get(mesh_mod.POLICY_AXIS, 1)
+        buckets: list[tuple[str, ...]] = []
+        width = 0
+        column_of: dict[str, int] = {}
+        if n_policy > 1 and self._compiled:
+            buckets, width, column_of = mesh_mod.plan_policy_buckets(
+                list(self._compiled), n_policy
+            )
+        with self._lock:
+            # a mesh attached before this one: its shard programs go (an
+            # environment is meshed at its build, before it serves)
+            for key in [k for k in self._programs if len(k) == 4]:
+                del self._programs[key]
+            self._mesh = mesh
+            self._mesh_shards = local
+            self._mesh_buckets = buckets
+            self._mesh_block_width = width
+            self._mesh_policy_col = column_of
+            self._min_bucket = mesh.shape[mesh_mod.DATA_AXIS]
+        self._build_transport_programs()
+
+    def _columnar_mesh_ok(self) -> bool:
+        """Columnar dispatch on this topology: not on a multi-process mesh,
+        as in the JAX package, whose delta-plane structure comes from
+        host-local batch content and could differ between processes."""
+        return self._mesh is None or mesh_mod.process_count() == 1
+
+    def bucket_for(self, n: int) -> int:
+        """Power-of-two bucket, rounded up to a multiple of the mesh data
+        axis (every data shard gets the same number of rows)."""
+        return mesh_mod.pad_batch_to(
+            max(bucket_size(n), self._min_bucket), self._min_bucket
+        )
 
     # -- registry accessors ------------------------------------------------
 
@@ -1392,7 +1535,7 @@ class EvaluationEnvironment:
         finds it armed). Exact for the bucket's current count, where the
         JAX package's formula (``PALLAS_HOT_DISPATCHES`` more per bucket)
         is an upper bound; the batcher divides its RTT seed by this."""
-        base = 2 if self.columnar else 1
+        base = 2 if self.columnar and self._columnar_mesh_ok() else 1
         if self.kernel != "pallas":
             return max(1, len(self.schemas) * base)
         with self._stats_lock:
@@ -1577,16 +1720,24 @@ class EvaluationEnvironment:
     def _enqueue_open(
         self, buf: np.ndarray, wasm_bits: np.ndarray | None = None
     ) -> InflightStep:
+        """K1 over packed rows: each position launches its policy shard's
+        program (the whole program without a policy axis) on its data
+        shard's rows, the JAX package's ``_mesh_block_local_pallas``."""
         idx, _layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
-        program = self.program_for(idx, transport, narrow)
+        if self._mesh_buckets:
+            programs = [
+                self.program_for(idx, transport, narrow, p)
+                for p in range(len(self._mesh_buckets))
+            ]
+            column_of = self._mesh_policy_col
+        else:
+            programs = [self.program_for(idx, transport, narrow)]
+            column_of = programs[0].column_of
 
-        def run(dev_buf: torch.Tensor, dev_bits: torch.Tensor | None):
-            a_mat, r_mat = cuda_kernels.policy_matrix(dev_buf, program)
-            return self._combine_outputs(
-                a_mat, r_mat, program.column_of, dev_bits
-            )
+        def block(p: int, rows: torch.Tensor):
+            return cuda_kernels.policy_matrix(rows, programs[p])
 
-        return self._rows_step(buf, wasm_bits, run)
+        return self._rows_step(buf, wasm_bits, lambda rows: rows, block, column_of)
 
     def _enqueue_unpacked(
         self, buf: np.ndarray, wasm_bits: np.ndarray | None = None
@@ -1595,71 +1746,184 @@ class EvaluationEnvironment:
         ``_forward``: ``unpack_rows`` and ``_eval_features`` as PyTorch
         ops, in the device step of ``enqueue_packed``."""
         _idx, layout, transport, narrow = self._layout_for_buffer(buf.shape[1])
-
-        def run(dev_buf: torch.Tensor, dev_bits: torch.Tensor | None):
-            return self._eval_features(
-                unpack_rows(dev_buf, layout, transport, narrow), dev_bits
-            )
-
-        return self._rows_step(buf, wasm_bits, run)
+        return self._rows_step(
+            buf,
+            wasm_bits,
+            lambda rows: unpack_rows(rows, layout, transport, narrow),
+            self._eval_features,
+            self._mesh_policy_col or self._policy_index,
+        )
 
     def _rows_step(
         self,
         buf: np.ndarray,
         wasm_bits: np.ndarray | None,
-        run: Callable[[torch.Tensor, torch.Tensor | None], torch.Tensor],
+        prepare: Callable[[torch.Tensor], Any],
+        block: Callable[[int, Any], tuple[torch.Tensor, torch.Tensor]],
+        column_of: Mapping[str, int],
     ) -> InflightStep:
-        """One device step over packed rows: the rows (and the wasm bits
-        behind them) in one page-locked copy, ``run`` on the card, then
-        the copy back and the event (``_finish_step``)."""
+        """The device step over packed rows: each data shard ships its rows
+        and then its wasm bits (all False when not given); ``prepare``
+        turns the rows on a device into what ``block`` reads."""
+        arrays = {PACKED_KEY: buf}
         n_wasm = len(self._wasm_member_order)
-        if n_wasm and wasm_bits is None:
-            wasm_bits = np.zeros((buf.shape[0], n_wasm), np.bool_)
-        if self.device.type != "cuda":
-            dev_bits = None if not n_wasm else torch.from_numpy(
-                np.ascontiguousarray(wasm_bits, dtype=np.bool_)
-            )
-            out = run(torch.from_numpy(np.ascontiguousarray(buf)), dev_bits)
-            return InflightStep(ready=out.numpy())
-        pool = self._pinned
-        n_rows = buf.size
         if n_wasm:
-            # one page-locked buffer, one copy: the rows, then the bits
-            host_in = pool.take((n_rows + wasm_bits.size,), torch.uint8)
-            flat = host_in.numpy()
-            flat[:n_rows] = buf.reshape(-1)
-            flat[n_rows:] = wasm_bits.reshape(-1)
+            arrays[WASM_BITS_KEY] = (
+                np.zeros((buf.shape[0], n_wasm), np.bool_)
+                if wasm_bits is None
+                else np.asarray(wasm_bits, dtype=np.bool_)
+            )
+        return self._device_step(
+            mesh_mod.shard_features(arrays, len(self._mesh_shards)),
+            lambda _dev, views: (
+                prepare(views[PACKED_KEY]), views.get(WASM_BITS_KEY)
+            ),
+            block,
+            column_of,
+        )
+
+    def _device_step(
+        self,
+        parts: Sequence[Mapping[str, np.ndarray]],
+        stage: Callable[[torch.device, dict[str, torch.Tensor]], tuple[Any, Any]],
+        block: Callable[[int, Any], tuple[torch.Tensor, torch.Tensor]],
+        column_of: Mapping[str, int],
+        hold_inputs: bool = False,
+    ) -> InflightStep:
+        """The one device step, with a mesh or without (one data shard on
+        one device). ``parts`` holds each of this process's data shards'
+        host arrays: all of them laid out in one buffer, each array
+        16-byte aligned and each shard's region in turn, page-locked on
+        the card. Each shard's region is copied once to each distinct
+        device of the shard and its arrays viewed out of it there;
+        ``stage(device, views)`` → (inputs, wasm bits) on that device.
+        Position (p, d) computes ``block(p, inputs)``, policy shard p's
+        (allowed, rule) block (the whole policy set without a policy
+        axis); a data shard's blocks gather shard-major on its first
+        device — the JAX package's ``all_gather`` over the policy axis
+        then ``transpose(1, 0, 2).reshape(batch, -1)`` — for the combine
+        there. ``hold_inputs`` keeps the device copies until the fetch
+        (``--donate-buffers off``). On the CPU the step runs at once."""
+        regions = []
+        end = 0
+        for part in parts:
+            end = r0 = (end + 15) & ~15
+            places = []
+            for k, a in part.items():
+                a = np.ascontiguousarray(a)
+                start = (end + 15) & ~15
+                places.append((k, start - r0, a))
+                end = start + a.nbytes
+            regions.append((r0, end, places))
+        on_card = self.device.type == "cuda"
+        if on_card:
+            host_in = self._pinned.take((bucket_size(max(end, 1)),), torch.uint8)
         else:
-            host_in = pool.take(tuple(buf.shape), torch.uint8)
-            host_in.numpy()[...] = buf
-        with torch.cuda.device(self.device):
-            dev_in = host_in.to(self.device, non_blocking=True)
-            dev_bits = None
-            if n_wasm:
-                dev_buf = dev_in[:n_rows].view(buf.shape)
-                dev_bits = dev_in[n_rows:].view(wasm_bits.shape)
+            host_in = torch.empty((end,), dtype=torch.uint8)
+        flat = host_in.numpy()
+        for r0, _r1, places in regions:
+            for _k, start, a in places:
+                flat[r0 + start : r0 + start + a.nbytes] = a.view(np.uint8).reshape(-1)
+        device_in: list[torch.Tensor] = []
+        outs = [
+            self._shard_step(
+                devices, host_in[r0:r1], places, stage, block, column_of,
+                device_in if on_card else None,
+            )
+            for devices, (r0, r1, places) in zip(self._mesh_shards, regions)
+        ]
+        if not on_card:
+            out = outs[0] if len(outs) == 1 else torch.cat(outs)
+            return InflightStep(ready=out.numpy())
+        return self._finish_step(
+            outs, host_in, device_in if hold_inputs else None
+        )
+
+    def _shard_step(
+        self,
+        devices: list[torch.device],
+        region: torch.Tensor,
+        places: list,
+        stage: Callable[[torch.device, dict[str, torch.Tensor]], tuple[Any, Any]],
+        block: Callable[[int, Any], tuple[torch.Tensor, torch.Tensor]],
+        column_of: Mapping[str, int],
+        device_in: list[torch.Tensor] | None,
+    ) -> torch.Tensor:
+        """One data shard of ``_device_step``: its region staged on each
+        distinct device of ``devices`` (copied there when ``device_in``,
+        the step's list of device copies, is given), position p's block
+        on ``devices[p]``, and the gather and combine on ``devices[0]``."""
+        staged: dict[torch.device, tuple[Any, Any]] = {}
+        blocks = []
+        for p, dev in enumerate(devices):
+            with _on(dev):
+                hit = staged.get(dev)
+                if hit is None:
+                    buf = region
+                    if device_in is not None:
+                        buf = region.to(dev, non_blocking=True)
+                        device_in.append(buf)
+                    views = {
+                        k: buf[start : start + a.nbytes]
+                        .view(_PLANE_DTYPES[a.dtype])
+                        .view(a.shape)
+                        for k, start, a in places
+                    }
+                    hit = staged[dev] = stage(dev, views)
+                blocks.append(block(p, hit[0]))
+        home = devices[0]
+        with _on(home):
+            if len(blocks) == 1:
+                a_mat, r_mat = blocks[0]
             else:
-                dev_buf = dev_in
-            return self._finish_step(run(dev_buf, dev_bits), host_in)
+                a_mat = torch.cat([a.to(home) for a, _r in blocks], dim=1)
+                r_mat = torch.cat([r.to(home) for _a, r in blocks], dim=1)
+            return self._combine_outputs(a_mat, r_mat, column_of, staged[home][1])
 
     def _finish_step(
         self,
-        out: torch.Tensor,
+        outs: list[torch.Tensor],
         host_in: torch.Tensor,
-        device_in: torch.Tensor | None = None,
+        device_in: list[torch.Tensor] | None = None,
     ) -> InflightStep:
-        """The tail of a device step, on the card's current stream: the
-        copy back into a page-locked buffer and the CUDA event the fetch
-        waits on."""
-        pool = self._pinned
-        host_out = pool.take(tuple(out.shape), out.dtype)
-        host_out.copy_(out, non_blocking=True)
-        stream = torch.cuda.current_stream()
-        event = torch.cuda.Event()
-        event.record(stream)
-        with self._gate:
-            self._last_events[stream.cuda_stream] = event
-        return InflightStep(event, host_in, host_out, pool, device_in=device_in)
+        """The tail of a device step: each data shard's output copied into
+        its rows of one page-locked buffer, in order, on its device's
+        current stream, and a CUDA event there for the fetch to wait on."""
+        rows = sum(o.shape[0] for o in outs)
+        host_out = self._pinned.take((rows, outs[0].shape[1]), outs[0].dtype)
+        events = []
+        start = 0
+        for out in outs:
+            with torch.cuda.device(out.device):
+                host_out[start : start + out.shape[0]].copy_(out, non_blocking=True)
+                stream = torch.cuda.current_stream()
+                event = torch.cuda.Event()
+                event.record(stream)
+            events.append(event)
+            with self._gate:
+                # keyed by card as well: each card's default stream has
+                # the same handle
+                self._last_events[(stream.device_index, stream.cuda_stream)] = event
+            start += out.shape[0]
+        return InflightStep(
+            tuple(events), host_in, host_out, self._pinned, device_in=device_in
+        )
+
+    def _eval_features(
+        self, p: int, features: Mapping[str, torch.Tensor]
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Position p's block of the non-Pallas program, the JAX package's
+        ``_eval_features`` before its combine: every policy's compiled
+        function over the feature dict with one CSE table, or under a
+        policy axis policy shard p's, padded to the shard block's width
+        (``_mesh_bucket_block``)."""
+        if self._mesh_buckets:
+            return self._eval_block(
+                features, self._mesh_buckets[p], self._mesh_block_width
+            )
+        return self._eval_block(
+            features, self._policy_order, len(self._policy_order)
+        )
 
     def evaluate_packed(self, buf: np.ndarray) -> np.ndarray:
         """One packed ``uint8`` batch → the packed output array: the
@@ -1687,7 +1951,7 @@ class EvaluationEnvironment:
                     self._plane_combos.add(combo)
                     self._plane_compiles += 1
             return self.enqueue_packed(buf, wasm_bits)
-        if self.columnar and schema_idx is not None:
+        if self.columnar and self._columnar_mesh_ok() and schema_idx is not None:
             return self._enqueue_planes(schema_idx, features)
         return self._enqueue_unpacked(
             np.asarray(self._transport(features)[PACKED_KEY]), wasm_bits
@@ -1715,24 +1979,31 @@ class EvaluationEnvironment:
                 return i
         return None
 
-    def _eval_features(
-        self, features: Mapping[str, Any], wasm_bits: torch.Tensor | None
-    ) -> torch.Tensor:
-        """The non-Pallas program, the JAX package's ``_eval_features``:
-        every policy's compiled function over the feature dict (one CSE
-        table for the set), then the group combine and the output packing
-        (``_combine_outputs``). PyTorch ops on the features' device."""
+    def _eval_block(
+        self,
+        features: Mapping[str, torch.Tensor],
+        bucket: Sequence[str],
+        width: int,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``bucket``'s compiled functions over the feature dict, one CSE
+        table for the bucket → ``(allowed, rule)`` of shape
+        ``(B, width)``, columns past the bucket's padded with (False, 0)."""
         cse: dict | None = {} if self.optimization is not None else None
         batch = features[BATCH_KEY].shape[0]
         device = features[BATCH_KEY].device
-        outs = [self._compiled[pid](features, cse) for pid in self._policy_order]
-        if outs:
-            a_mat = torch.stack([a.to(torch.bool) for a, _r in outs], dim=-1)
-            r_mat = torch.stack([r.to(torch.int32) for _a, r in outs], dim=-1)
-        else:
-            a_mat = torch.zeros((batch, 0), dtype=torch.bool, device=device)
-            r_mat = torch.zeros((batch, 0), dtype=torch.int32, device=device)
-        return self._combine_outputs(a_mat, r_mat, self._policy_index, wasm_bits)
+        outs = [self._compiled[pid](features, cse) for pid in bucket]
+        a_cols = [a.to(torch.bool) for a, _r in outs]
+        r_cols = [r.to(torch.int32) for _a, r in outs]
+        pad = width - len(outs)
+        if pad:
+            a_cols += [torch.zeros(batch, dtype=torch.bool, device=device)] * pad
+            r_cols += [torch.zeros(batch, dtype=torch.int32, device=device)] * pad
+        if not a_cols:
+            return (
+                torch.zeros((batch, 0), dtype=torch.bool, device=device),
+                torch.zeros((batch, 0), dtype=torch.int32, device=device),
+            )
+        return torch.stack(a_cols, dim=-1), torch.stack(r_cols, dim=-1)
 
     # -- the columnar delta planes ------------------------------------------
 
@@ -1882,56 +2153,28 @@ class EvaluationEnvironment:
     def _enqueue_planes(
         self, schema_idx: int, features: Mapping[str, Any]
     ) -> InflightStep:
-        """The plane step: build and account the delta planes, lay them
-        out in one buffer (each plane 16-byte aligned) and copy it to the
-        card in one page-locked copy, view the planes out of it there,
-        rebuild the features (``_features_from_planes``), run the
-        non-Pallas program, copy the output back and record the event.
-        With ``donate_buffers`` the step drops its device planes once the
-        rebuild is enqueued, so the caching allocator can hand their
-        blocks, stream-ordered, to the next enqueue; without it the step
-        holds them until its fetch. On the CPU the step runs at once."""
+        """The plane step: build and account the delta planes (the whole
+        batch's, as the JAX package's), split them over the data shards
+        (``shard_delta_planes``: batch planes split, column vectors whole
+        to every shard), ship them in ``_device_step``'s one page-locked
+        copy, rebuild the features on each device
+        (``_features_from_planes``, resident zeros per device) and run the
+        non-Pallas program. With ``donate_buffers`` the step drops its
+        device planes once the rebuild is enqueued, so the caching
+        allocator can hand their blocks, stream-ordered, to the next
+        enqueue; without it the step holds them until its fetch."""
         spec, delta = self._build_delta(schema_idx, features)
         self._account_planes(spec, delta)
-        places = []
-        end = 0
-        for k, a in delta.items():
-            start = (end + 15) & ~15
-            places.append((k, start, np.ascontiguousarray(a)))
-            end = start + a.nbytes
-        on_card = self.device.type == "cuda"
-        if on_card:
-            host_in = self._pinned.take((bucket_size(max(end, 1)),), torch.uint8)
-            flat = host_in.numpy()
-        else:
-            flat = np.empty(end, np.uint8)
-        for _k, start, a in places:
-            flat[start : start + a.nbytes] = a.view(np.uint8).reshape(-1)
-
-        def planes(buf: torch.Tensor) -> dict[str, torch.Tensor]:
-            return {
-                k: buf[start : start + a.nbytes].view(_PLANE_DTYPES[a.dtype])
-                .view(a.shape)
-                for k, start, a in places
-            }
-
-        if not on_card:
-            out = self._plane_program(spec, planes(torch.from_numpy(flat)))
-            return InflightStep(ready=out.numpy())
-        with torch.cuda.device(self.device):
-            dev_in = host_in[:end].to(self.device, non_blocking=True)
-            out = self._plane_program(spec, planes(dev_in))
-            return self._finish_step(
-                out, host_in, None if self.donate_buffers else dev_in
-            )
-
-    def _plane_program(
-        self, spec: tuple, delta: Mapping[str, torch.Tensor]
-    ) -> torch.Tensor:
-        """The JAX package's ``_forward_planes``: the rebuild, then the
-        non-Pallas program."""
-        features, wasm_bits = self._features_from_planes(spec, delta)
-        return self._eval_features(features, wasm_bits)
+        n_shards = len(self._mesh_shards)
+        parts = mesh_mod.shard_delta_planes(delta, n_shards)
+        local_spec = (spec[0], spec[1] // n_shards, spec[2])
+        return self._device_step(
+            parts,
+            lambda dev, planes: self._features_from_planes(local_spec, planes, dev),
+            self._eval_features,
+            self._mesh_policy_col or self._policy_index,
+            hold_inputs=not self.donate_buffers,
+        )
 
     def _resident_zeros(
         self, shape: tuple, dtype: torch.dtype, device: torch.device
@@ -1948,7 +2191,10 @@ class EvaluationEnvironment:
         return z
 
     def _features_from_planes(
-        self, spec: tuple, delta: Mapping[str, torch.Tensor]
+        self,
+        spec: tuple,
+        delta: Mapping[str, torch.Tensor],
+        device: torch.device | None = None,
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
         """The JAX package's ``_features_from_planes`` on the card: the
         per-key feature dict (and the wasm bits) from the shipped planes.
@@ -1960,7 +2206,8 @@ class EvaluationEnvironment:
         shipped lanes before the scatter."""
         schema_idx, batch, narrow = spec
         layout = self.schemas[schema_idx].packed_layout()
-        device = next(iter(delta.values())).device if delta else self.device
+        if device is None:
+            device = next(iter(delta.values())).device if delta else self.device
 
         def zeros(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
             return self._resident_zeros(shape, dtype, device)
@@ -2136,11 +2383,11 @@ class EvaluationEnvironment:
         all-missing batches until the bucket arms, so the default warmup
         leaves every bucket on K1."""
         for idx, schema in enumerate(self.schemas):
-            for b in sorted({bucket_size(n) for n in batch_sizes}):
+            for b in sorted({self.bucket_for(n) for n in batch_sizes}):
                 batch = schema.empty_batch_packed(b)
                 self._add_wasm_bits(batch, b)
                 self.run_batch(batch)
-                if self.columnar:
+                if self.columnar and self._columnar_mesh_ok():
                     full = {PACKED_KEY: np.ones_like(batch[PACKED_KEY])}
                     self._add_wasm_bits(full, b)
                     self.run_batch(full)
@@ -2664,7 +2911,7 @@ class EvaluationEnvironment:
         the one that encodes. Rows carrying wasm member bits are not a
         pure function of their bytes: they are never deduped or cached,
         and take the first slots of a compacted dispatch."""
-        chunk_size = min(bucket_size(len(pending)), self.max_dispatch_batch)
+        chunk_size = min(self.bucket_for(len(pending)), self.max_dispatch_batch)
         chunks = [
             pending[c : c + chunk_size]
             for c in range(0, len(pending), chunk_size)
@@ -2687,7 +2934,7 @@ class EvaluationEnvironment:
             failpoints.fire("encode.batch")
             t0 = time.perf_counter_ns()
             bl = [blobs[i] for i in chunk]
-            out = schema.native.encode_batch(bl, bucket_size(len(bl)), self.table)
+            out = schema.native.encode_batch(bl, self.bucket_for(len(bl)), self.table)
             t1 = time.perf_counter_ns()
             self._profile_add(encode_ns=t1 - t0, encode_rows=len(chunk))
             return bl, out, t0, t1
@@ -2970,7 +3217,7 @@ class EvaluationEnvironment:
                     # compact: only unique rows (after the wasm rows) go to
                     # the card
                     compact = np.zeros(
-                        (bucket_size(n_keep), packed.shape[1]), packed.dtype
+                        (self.bucket_for(n_keep), packed.shape[1]), packed.dtype
                     )
                     if wasm_pos:
                         compact[: len(wasm_pos)] = packed[

@@ -982,6 +982,8 @@ def build_policy_matrix(
     table: InternTable,
     use_cse: bool = True,
     n_parts: int = TAPE_PARTS,
+    buckets: Sequence[tuple[str, ...]] | None = None,
+    width: int | None = None,
 ) -> PolicyMatrixProgram:
     """Compile the policy set (``compiled``'s order) for one buffer form
     of one schema bucket. ``sources`` holds each policy's rule conditions
@@ -989,9 +991,26 @@ def build_policy_matrix(
     ``table``. The output columns follow ``plan_policy_tiles``; the tape
     follows ``plan_tape_parts`` into ``n_parts`` parts (the tests vary
     it), and constant-verdict and padding columns go to the parts with the
-    fewest columns. Each part gets its own InSet pool."""
-    order = list(compiled)
-    buckets, width, column_of = plan_policy_tiles(order)
+    fewest columns. Each part gets its own InSet pool.
+
+    ``buckets``/``width`` override the tile plan, as the JAX package's
+    ``policy_matrix_program`` takes them: the mesh passes one bucket, a
+    policy shard's ids, padded to the shard block's width, so the tape
+    holds only that shard's policies and the output is its block."""
+    if buckets is None:
+        buckets, width, column_of = plan_policy_tiles(list(compiled))
+    else:
+        if width is None:
+            raise ValueError("a tile plan override needs its width")
+        buckets = [tuple(b) for b in buckets]
+        if any(len(b) > width for b in buckets):
+            raise ValueError(f"a bucket is wider than the plan's {width} columns")
+        column_of = {
+            pid: t * width + k
+            for t, bucket in enumerate(buckets)
+            for k, pid in enumerate(bucket)
+        }
+    order = [pid for bucket in buckets for pid in bucket]
     lanes = lane_map(layout, transport, narrow)
     for key, lane in lanes.items():
         if lane.op == OP_LOAD_W32 and lane.offset % 4:

@@ -187,6 +187,7 @@ from policy_server_tpu_torch.evaluation.environment import (
     DEFAULT_KERNEL,
     DEFAULT_VERDICT_CACHE_SIZE,
     EvaluationEnvironmentBuilder,
+    resolve_device,
 )
 from policy_server_tpu_torch.fetch import (
     Downloader,
@@ -198,6 +199,7 @@ from policy_server_tpu_torch.fetch.downloader import retry_stats
 from policy_server_tpu_torch.lifecycle import PolicyLifecycleManager, ShadowRecorder
 from policy_server_tpu_torch.models.policy import parse_policies
 from policy_server_tpu_torch.ops import buildcache
+from policy_server_tpu_torch.parallel import mesh as mesh_mod
 from policy_server_tpu_torch.policies import resolve_builtin
 from policy_server_tpu_torch.runtime import native_frontend as nf
 from policy_server_tpu_torch.runtime.frontend import EvaluationBridge
@@ -250,6 +252,7 @@ DEFAULT_AUDIT_WATCH_RESOURCES = (
 DEFAULT_AUDIT_WATCH_MAX_QUEUE_EVENTS = 65536
 DEFAULT_CONTEXT_REFRESH_SECONDS = 30.0
 NATIVE_TLS_MODES = ("auto", "off")
+MESH_DISPATCHES = ("fused", "threaded")
 DEFAULT_NATIVE_TLS_HANDSHAKE_TIMEOUT_SECONDS = (
     nf.NativeTlsManager.HANDSHAKE_TIMEOUT_MS / 1000
 )
@@ -1089,6 +1092,12 @@ class PolicyServer:
         columnar: bool = True,
         donate_buffers: bool = True,
         compilation_cache_dir: str | None = None,
+        mesh: "mesh_mod.MeshSpec | str | None" = None,
+        mesh_dispatch: str = "fused",
+        distributed_coordinator: str | None = None,
+        distributed_num_processes: int | None = None,
+        distributed_process_id: int | None = None,
+        mesh_devices: list | None = None,
     ) -> None:
         boot_t0 = time.monotonic()
         if compilation_cache_dir:
@@ -1130,6 +1139,32 @@ class PolicyServer:
             raise ValueError(
                 f"invalid policy reload mode {policy_reload_mode!r} "
                 "(expected off, auto, or manual)"
+            )
+        mesh_spec = (
+            mesh_mod.MeshSpec.parse(mesh) if isinstance(mesh, str)
+            else mesh or mesh_mod.MeshSpec()
+        )
+        if mesh_dispatch not in MESH_DISPATCHES:
+            raise ValueError(
+                f"invalid mesh dispatch {mesh_dispatch!r} "
+                "(expected 'fused' or 'threaded')"
+            )
+        self._distributed = bool(distributed_coordinator)
+        if distributed_coordinator:
+            # before any device enumeration: the mesh built below spans
+            # every process's devices
+            mesh_mod.initialize_distributed(
+                coordinator_address=distributed_coordinator,
+                num_processes=distributed_num_processes,
+                process_id=distributed_process_id,
+            )
+            logger.info(
+                "torch.distributed initialized",
+                extra={"span_fields": {
+                    "coordinator": distributed_coordinator,
+                    "process_id": distributed_process_id,
+                    "num_processes": distributed_num_processes,
+                }},
             )
         if enable_metrics:
             registry = setup_metrics()
@@ -1222,26 +1257,38 @@ class PolicyServer:
             context_service=self._context_service,
         )
 
+        builder_kwargs = dict(
+            backend=backend,
+            device=device,
+            predicate_opt=predicate_opt,
+            kernel=kernel,
+            columnar=columnar,
+            donate_buffers=donate_buffers,
+            continue_on_errors=continue_on_errors,
+            always_accept_admission_reviews_on_namespace=(
+                always_accept_admission_reviews_on_namespace
+            ),
+            **wasm_kwargs,
+            verdict_cache_size=verdict_cache_size,
+            breaker_config=dict(
+                failure_threshold=breaker_failure_threshold,
+                window_seconds=breaker_window_seconds,
+                cooldown_seconds=breaker_cooldown_seconds,
+            ),
+        )
+        if mesh_devices is None and backend == "torch":
+            # the default device list, once: in a process group it is a
+            # collective, which a reload on one process alone must not
+            # call again
+            mesh_devices = mesh_mod.global_devices(resolve_device(device).type)
+
         def build_environment(policy_set: Mapping[str, Any]) -> Any:
-            return EvaluationEnvironmentBuilder(
-                backend=backend,
-                device=device,
-                predicate_opt=predicate_opt,
-                kernel=kernel,
-                columnar=columnar,
-                donate_buffers=donate_buffers,
-                continue_on_errors=continue_on_errors,
-                always_accept_admission_reviews_on_namespace=(
-                    always_accept_admission_reviews_on_namespace
-                ),
-                **wasm_kwargs,
-                verdict_cache_size=verdict_cache_size,
-                breaker_config=dict(
-                    failure_threshold=breaker_failure_threshold,
-                    window_seconds=breaker_window_seconds,
-                    cooldown_seconds=breaker_cooldown_seconds,
-                ),
-            ).build(dict(policy_set))
+            # boot, every epoch and shard sibling, and the lifecycle's
+            # candidates
+            return _build_environment(
+                policy_set, builder_kwargs, mesh_spec, mesh_dispatch,
+                devices=mesh_devices,
+            )
 
         def build_oracle_environment(policy_set: Mapping[str, Any]) -> Any:
             # the canary's referee: the host oracle over the same set
@@ -2044,6 +2091,55 @@ class PolicyServer:
             flightrec.install(None)
         # the buffered spans and the last metric state reach the collector
         otlp.shutdown_pipeline()
+        if self._distributed:
+            self._distributed = False
+            mesh_mod.shutdown_distributed()
+
+
+def _build_environment(
+    policies: Mapping[str, Any],
+    builder_kwargs: dict,
+    mesh: "mesh_mod.MeshSpec | None" = None,
+    mesh_dispatch: str = "fused",
+    devices: list | None = None,
+) -> Any:
+    """Build an evaluation environment, honouring ``mesh`` and
+    ``mesh_dispatch`` as the JAX package's ``_build_environment``: over
+    more than one device the mesh is attached (``attach_mesh``: the data
+    axis, and under a policy axis > 1 the fused (data × policy) form); on
+    one device (``auto`` on one card) the environment is the plain one.
+    ``devices`` is the mesh's device list (default: the cards, or the
+    process group's global list; one CPU entry under ``device="cpu"``).
+    ``--mesh-dispatch threaded`` with a policy axis > 1 raises: the
+    thread-per-shard dispatcher is not ported (ROADMAP A14b)."""
+    builder = EvaluationEnvironmentBuilder(**builder_kwargs)
+    spec = mesh or mesh_mod.MeshSpec()
+    if builder.backend == "torch":
+        if spec.policy_size() > 1 and mesh_dispatch == "threaded":
+            raise ValueError(
+                "--mesh-dispatch threaded (the thread-per-shard "
+                "PolicyShardedEvaluator) is not ported yet (ROADMAP A14b); "
+                "use --mesh-dispatch fused"
+            )
+        grid = mesh_mod.make_mesh(
+            spec, devices=devices, device_type=builder.device.type
+        )
+    environment = builder.build(dict(policies))
+    if builder.backend == "torch" and grid.size > 1:
+        try:
+            environment.attach_mesh(grid)
+        except BaseException:
+            environment.close()
+            raise
+        logger.info(
+            "fused SPMD mesh attached",
+            extra={"span_fields": {
+                "mesh": dict(spec.axes),
+                "devices": grid.size,
+                "policy_sharded": bool(environment._mesh_buckets),
+            }},
+        )
+    return environment
 
 
 def _needs_fetch(policies: Mapping[str, Any]) -> bool:

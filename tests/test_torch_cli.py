@@ -32,20 +32,23 @@ SLICE_FLAGS = (
     "--predicate-opt", "--daemon", "--daemon-pid-file", "--daemon-stdout-file",
     "--daemon-stderr-file", "--evaluation-backend", "--state-dir",
     "--state-audit-spill-seconds", "--kernel", "--columnar",
-    "--donate-buffers", "--compilation-cache-dir",
+    "--donate-buffers", "--compilation-cache-dir", "--mesh", "--mesh-dispatch",
+    "--distributed-coordinator", "--distributed-num-processes",
+    "--distributed-process-id",
 )
-# the JAX flags whose item has not come yet (ROADMAP A14)
-NOT_YET = {
-    "--mesh", "--mesh-dispatch", "--distributed-coordinator",
-    "--distributed-num-processes", "--distributed-process-id",
-}
+# the JAX flags whose item has not come yet: none
+NOT_YET: set = set()
 # flags whose help is the port's own: what --kernel, --donate-buffers and
-# --compilation-cache-dir mean for CUDA kernels and native libraries
+# --compilation-cache-dir mean for CUDA kernels and native libraries, and
+# what the mesh and the process group are over CUDA devices and
+# torch.distributed
 OWN_HELP = {
     "--evaluation-backend": "CUDA kernels",
     "--kernel": "policy_matrix CUDA kernel",
     "--donate-buffers": "no donate_argnums",
     "--compilation-cache-dir": "native libraries",
+    "--mesh-dispatch": "CUDA device",
+    "--distributed-coordinator": "torch.distributed",
 }
 
 
@@ -95,6 +98,15 @@ def test_port_has_every_jax_flag_but_those_still_to_come():
      "off"),
     ("--compilation-cache-dir", "KUBEWARDEN_COMPILATION_CACHE_DIR",
      "/var/cache/kw", "compilation_cache_dir", "/var/cache/kw"),
+    ("--mesh", "KUBEWARDEN_MESH", "data:4,policy:2", "mesh", "data:4,policy:2"),
+    ("--mesh-dispatch", "KUBEWARDEN_MESH_DISPATCH", "threaded", "mesh_dispatch",
+     "threaded"),
+    ("--distributed-coordinator", "KUBEWARDEN_DISTRIBUTED_COORDINATOR",
+     "c:1234", "distributed_coordinator", "c:1234"),
+    ("--distributed-num-processes", "KUBEWARDEN_DISTRIBUTED_NUM_PROCESSES", "2",
+     "distributed_num_processes", 2),
+    ("--distributed-process-id", "KUBEWARDEN_DISTRIBUTED_PROCESS_ID", "0",
+     "distributed_process_id", 0),
 ])
 def test_environment_variables_read_as_the_jax_cli(monkeypatch, flag, env, value,
                                                    attr, want):
@@ -113,6 +125,10 @@ def test_validation_texts_are_the_jax_packages(tmp_path):
         ["--audit-mode", "interval", "--audit-watch", "--audit-watch-resources", "Pod"],
         ["--state-audit-spill-seconds", "0"],
         ["--audit-matrix-spill-seconds", "-1"],
+        ["--mesh", "gpu:2"],
+        ["--mesh", "data:0"],
+        ["--mesh", "data:x"],
+        ["--mesh", "data:2,data:2"],
     ]
     for extra in cases:
         argv = ["--policies", str(policies)] + extra
@@ -185,7 +201,11 @@ def test_docs_subcommand_writes_the_jax_format(tmp_path, monkeypatch):
 
     def entries(doc: str) -> dict:
         body = doc.split("###### **Options:**\n\n", 1)[1]
-        return {e.split("`", 2)[1].split(" ")[0]: e for e in body.split("\n\n* ")}
+        # the document's last entry carries its closing newline
+        return {
+            e.split("`", 2)[1].split(" ")[0]: e.rstrip("\n")
+            for e in body.split("\n\n* ")
+        }
 
     jax_text = jcli.generate_docs()
     port_e, jax_e = entries(text), entries(jax_text)

@@ -413,7 +413,11 @@ def test_wasm_bits_ride_with_the_rows(wasm_group_env, idx, batch):
     ).cpu().numpy()
     step = env.enqueue_packed(buf, bits)
     assert step.host_in.is_pinned()
-    assert step.host_in.numel() == buf.size + bits.size
+    # one page-locked buffer: the rows, then the bits (16-byte aligned)
+    flat = step.host_in.numpy()
+    at = -(-buf.size // 16) * 16
+    assert (flat[: buf.size] == buf.reshape(-1)).all()
+    assert (flat[at : at + bits.size] == bits.reshape(-1)).all()
     got = step.wait()
     assert (got == want).all()
     out = env._unpack(got)
@@ -568,3 +572,52 @@ def test_plane_step_matches_its_cpu_result(idx, batch, donate, big_table):
         assert int(ids.max()) >= 32_768
     # the resident zero tensors were only read
     assert all(not bool(t.any()) for t in card._resident.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["data:2", "data:2,policy:2", "data:1,policy:4"])
+@pytest.mark.parametrize("kernel", ["pallas", "xla"])
+def test_mesh_over_one_card_matches_its_cpu_result(spec, kernel):
+    """A mesh laid over one card taken several times answers 200 firehose
+    reviews as the same mesh over CPU entries does, with K1 launched once
+    per position per K1 step under ``pallas``; each policy shard's program
+    equals its plain version on the card."""
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    parsed = mesh_mod.MeshSpec.parse(spec)
+    n = parsed.data_size() * parsed.policy_size()
+    items = [
+        (pid, ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(doc).request
+        ))
+        for pid, doc in zip(
+            sorted(flagship_policies()) * 8, synthetic_firehose(200, seed=41)
+        )
+    ]
+    bodies = {}
+    for device in ("cpu", "cuda"):
+        env = EvaluationEnvironmentBuilder(
+            device=device, kernel=kernel, verdict_cache_size=0
+        ).build(flagship_policies())
+        env.attach_mesh(mesh_mod.make_mesh(
+            parsed, devices=[torch.device(device, 0)] * n
+        ))
+        env.warmup((64,))
+        before, ps0 = ck.policy_matrix.launches, env.pallas_stats["dispatches"]
+        bodies[device] = [r.to_dict() for r in env.validate_batch(items)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            steps = env.pallas_stats["dispatches"] - ps0
+            assert ck.policy_matrix.launches - before == n * steps
+            assert (steps > 0) == (kernel == "pallas")
+            buf = torch.from_numpy(_batch(env, 0, 64, True)).cuda()
+            for p in range(len(env._mesh_buckets)):
+                program = env.program_for(0, True, True, p)
+                got, want = ck.policy_matrix(buf, program), ck.policy_matrix_plain(
+                    buf, program
+                )
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+        env.close()
+    assert bodies["cuda"] == bodies["cpu"]

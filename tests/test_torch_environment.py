@@ -238,6 +238,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.context.service",
             "policy_server_tpu_torch.audit.watch_feed",
             "policy_server_tpu_torch.statestore",
+            "policy_server_tpu_torch.parallel",
+            "policy_server_tpu_torch.parallel.mesh",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)
