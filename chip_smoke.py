@@ -352,7 +352,8 @@ card's name and power limit:
 
 16. the columnar delta-plane path, the compile cache and the lock-order
    sanitizer. Wave X: the flagship set built from the command line under
-   ``--frontend native``, kernel-only, once each at ``--kernel xla``,
+   ``--frontend native``, kernel-only, ``--policy-timeout 30`` (a slow
+   host's queueing is not a deadline there), once each at ``--kernel xla``,
    ``--kernel xla --columnar off``, ``--kernel xla --donate-buffers off``
    and ``--kernel pallas --no-warmup``, each answering phase 7's 1,024
    reviews (one in eight large; twice, with new uids, without the warmup)
@@ -407,6 +408,26 @@ card's name and power limit:
    On one card a line says the multi-card wave was skipped and why, and
    the wave runs its 512 reviews over that card taken twice (the mesh's
    default device list replaced), so its code runs on every machine.
+
+18. the threaded policy-shard dispatcher (``--mesh-dispatch threaded``,
+   ``PolicyShardedEvaluator``) — wave T: phase 7's 1,024 reviews through
+   the command line at ``--mesh data:1,policy:2`` and ``data:2,policy:2
+   --mesh-dispatch threaded``, native, kernel-only, over the cards where
+   there are enough, else card 0 taken 2 or 4 times (the mesh's default
+   device list replaced): every body the oracle's, K1's launches the sum
+   over shards of that shard's K1 steps times its row's positions, the
+   probe once per shard environment built, every shard's K1 program equal
+   to its plain version at B = 128 and 1,024 in both buckets; rates and
+   p99 beside the fused form's at the same mesh on the same wave (and
+   phase 17's where it ran that mesh), and a step of every
+   shard at B = 128 (stream ms, host wall ms, kernels and copies). Wave Z:
+   an in-process evaluator at ``data:2,policy:2`` serves 1,024 reviews on
+   four threads while it resizes to 2 entries and back to 4: every answer
+   the oracle's, 2 resizes, every retired snapshot's environments closed
+   once drained, ``memory_allocated`` before, between and after. Wave P:
+   ``acceptance_psum`` over ``data:4`` on the card equals numpy's column
+   sums of a 1,024-row K1 step's allowed bits, which are the oracle's.
+   (Phase 17's wave D also sums each rank's bits through the gloo group.)
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -2490,6 +2511,8 @@ def tenants_phase(work_docs: list, card: str) -> dict:
         # Q: team-b over its quota beside team-a
         time.sleep(TEAM_B_BURST / TEAM_B_RATE + 0.5)  # team-b's bucket refills
         shed0 = labelled_value(rp, "policy_server_tenant_shed_rows_total", 'tenant="team-b"')
+        q_expired0 = planes["team-b"].stats_snapshot()["expired_dropped"]
+        q_default_expired0 = metric_value(rp, "policy_server_expired_dropped_rows_total")
         q_b = tenant_wave(work_docs, Q_WAVE, "q9b", ("team-b",), subsets)
         q_a = tenant_wave(work_docs, Q_WAVE // 2, "q9a", ("team-a",), subsets)
         # team-b's whole wave in flight at once (128 connections x depth
@@ -2501,16 +2524,34 @@ def tenants_phase(work_docs: list, card: str) -> dict:
         (res_b, wall_b), (res_a, _wall_a) = (
             finish_run(*runs[0], "wave Q team-b"), finish_run(*runs[1], "wave Q team-a")
         )
+        # on a slow host team-b's queued rows can pass its 500 ms request
+        # deadline: those answer the in-band 504, each counted once by
+        # team-b's expired_dropped (checked below)
         out["Q_b"] = classify("wave Q team-b", res_b, q_b,
-                              {"verdict": verdict, "shed_429": shed})
+                              {"verdict": verdict, "shed_429": shed,
+                               "expired_504": expired})
         out["Q_a"] = classify("wave Q team-a", res_a, q_a, {"verdict": verdict})
         shed1 = labelled_value(rp, "policy_server_tenant_shed_rows_total", 'tenant="team-b"')
         out["Q_tenant_shed_rows"] = shed1 - shed0
+        out["Q_b_expired_rows"] = (
+            planes["team-b"].stats_snapshot()["expired_dropped"] - q_expired0
+        )
         if not (0 < out["Q_b"]["shed_429"] < len(q_b)):
             fail(f"wave Q: team-b did not overflow its quota in part: {out['Q_b']}")
         if shed1 - shed0 != out["Q_b"]["shed_429"]:
             fail(f"policy_server_tenant_shed_rows{{tenant=\"team-b\"}} moved by "
                  f"{shed1 - shed0}, not the {out['Q_b']['shed_429']} answers 429")
+        if out["Q_b_expired_rows"] != out["Q_b"]["expired_504"]:
+            fail(f"wave Q: team-b's expired_dropped moved by "
+                 f"{out['Q_b_expired_rows']}, not the "
+                 f"{out['Q_b']['expired_504']} answers 504")
+        # the family reads the default tenant's plane, which expired nothing
+        q_default_expired1 = metric_value(rp, "policy_server_expired_dropped_rows_total")
+        if q_default_expired1 != q_default_expired0 or q_default_expired1 != (
+            planes["default"].stats_snapshot()["expired_dropped"]
+        ):
+            fail("wave Q: policy_server_expired_dropped_rows is not the default "
+                 "tenant's count")
 
         # X: team-b's device fetch sleeps past its request timeout
         time.sleep(TEAM_B_BURST / TEAM_B_RATE + 0.5)
@@ -2714,7 +2755,9 @@ def print_tenants_phase(r9: dict, card: str) -> None:
         f"phase9 wave Q: team-b {r9['Q_b']['verdict']} verdicts, "
         f"{r9['Q_b']['shed_429']} answers 429 with Retry-After "
         f"(policy_server_tenant_shed_rows{{tenant=\"team-b\"}} +"
-        f"{r9['Q_tenant_shed_rows']:.0f}); team-a beside it "
+        f"{r9['Q_tenant_shed_rows']:.0f}), {r9['Q_b']['expired_504']} in-band "
+        f"504s past its 500 ms deadline (team-b's expired_dropped "
+        f"+{r9['Q_b_expired_rows']}); team-a beside it "
         f"{r9['Q_a']['verdict']} verdicts, p50 {r9['Q_a']['p50']:.3f} ms "
         f"p99 {r9['Q_a']['p99']:.3f} ms [{card}]"
     )
@@ -3475,23 +3518,27 @@ def audit_phase(work_docs: list, card: str) -> dict:
         )
         m0 = matrix.stats()
         f_sweeps = scanner.stats()["full_sweeps"]
+        # the POST alone triggers the promotion: the changed set is on disk
+        # only inside that reload (written at its fetch stage, the old
+        # bytes back at its compile stage), so the file watch's 1 s poll
+        # never lands a trigger of its own (a poll during the reload finds
+        # one in flight and keeps its baseline, the old bytes' digest)
+        def write_changed_file() -> None:
+            with open(policies_path, "w") as f:
+                json.dump(new_specs, f)
+
         def restore_policies_file() -> None:
-            # the reload fetched the changed set: the file goes back to the
-            # bytes the watch holds, so it does not reload the set again
             with open(policies_path, "wb") as f:
                 f.write(old_bytes)
 
+        reloads0 = lc.stats()["reloads"]
+        failpoints.set_failpoint("reload.fetch", write_changed_file, count=1)
         failpoints.set_failpoint("reload.compile", restore_policies_file, count=1)
-        with open(policies_path, "w") as f:
-            json.dump(new_specs, f)
         status, body = admin_post(rp, "/policies/reload")
-        # the file watch's 1 s poll may have started the same reload first
-        if status != 202 or body.get("status") not in (
-            "reload started", "reload already in progress"
-        ):
+        if (status, body.get("status")) != (202, "reload started"):
             fail(f"POST /policies/reload answered {status} {body}")
-        wait_until(lambda: lc.stats()["reloads"] >= 1 and not lc.reload_in_flight(),
-                   300, "the promotion")
+        wait_until(lambda: lc.stats()["reloads"] > reloads0
+                   and not lc.reload_in_flight(), 300, "the promotion")
         failpoints.reset()
         whatif = lc.stats()["whatif"]
         if whatif is None or whatif["columns_changed"] != [changed]:
@@ -3571,7 +3618,12 @@ def audit_phase(work_docs: list, card: str) -> dict:
         }
         print(f"phase10 progress, wave P: {json.dumps(out['P'])} [{card}]")
 
-        # R: the rollback
+        # R: the rollback, of exactly one promotion (a file-watch reload
+        # beside the POST's would make it roll back to epoch 1)
+        if (lc.stats()["reloads"], lc.current_epoch) != (reloads0 + 1, 1):
+            fail(f"phase10: {lc.stats()['reloads'] - reloads0} reloads "
+                 f"promoted before the rollback, epoch {lc.current_epoch}; "
+                 "exactly one promotion was triggered")
         reports = scanner.reports.payload()["reports"]
         promoted = sum(1 for r in reports if r["epoch"] == 1)
         del reports
@@ -3991,19 +4043,26 @@ def tls_prefork_phase(work_docs: list, phase7: dict, card: str) -> dict:
         # the load: client processes, one wave after another, until the
         # rotation's checks are done (fail() would only end this thread,
         # so its errors are kept for the check below)
+        # each wave's start (its client process started) and end (its
+        # results read) on this clock; r_live is the wave in flight
         r_stop = threading.Event()
         r_runs: list = []
         r_errors: list = []
+        r_live: dict = {}
 
         def r_traffic() -> None:
             n = 0
             try:
                 while not r_stop.is_set():
                     wave = wave_of(work_docs, N_REQUESTS, f"r11-{n}")
+                    started = time.perf_counter()
                     proc, path = start_client(
                         server.port, wave, f"r{n}", tls=good_tls, conns=8,
                         depth=2, work_dir=work_dir,
                     )
+                    r_live.update(index=n, started=started,
+                                  requests=server.native_frontend.stats()[
+                                      "http_requests"])
                     _o, err = proc.communicate(timeout=300)
                     if proc.returncode != 0:
                         r_errors.append(err[-2000:])
@@ -4011,15 +4070,28 @@ def tls_prefork_phase(work_docs: list, phase7: dict, card: str) -> dict:
                     with open(path) as f:
                         doc = json.load(f)
                     os.unlink(path)
-                    r_runs.append((wave, doc["results"], sum(doc["walls"])))
+                    r_runs.append((wave, doc["results"], sum(doc["walls"]),
+                                   started, time.perf_counter()))
+                    r_live.clear()
                     n += 1
             except BaseException as e:  # noqa: BLE001 — checked below
                 r_errors.append(repr(e))
 
+        def r_in_flight() -> bool:
+            # a wave whose client has reached the server and not finished
+            if r_errors:
+                fail(f"wave R's load: {r_errors}")
+            live = dict(r_live)
+            return bool(live) and (
+                server.native_frontend.stats()["http_requests"]
+                > live["requests"]
+            )
+
         r_thread = threading.Thread(target=r_traffic, daemon=True)
         r_thread.start()
-        time.sleep(0.5)
+        wait_until(r_in_flight, 120, "wave R's first client wave")
         new_key, new_cert = make_identity("rotated")
+        t_half = time.perf_counter()
         write_pem(pem["cert"], cert=new_cert)  # half a rotation: cert only
         time.sleep(WATCH_INTERVAL_SECONDS + 0.5)
         half = (
@@ -4038,7 +4110,8 @@ def tls_prefork_phase(work_docs: list, phase7: dict, card: str) -> dict:
             if time.perf_counter() - t_rot > WATCH_INTERVAL_SECONDS + 1.0:
                 fail("wave R: new connections did not see the new serial in time")
             time.sleep(0.05)
-        rotation_s = time.perf_counter() - t_rot
+        t_seen = time.perf_counter()
+        rotation_s = t_seen - t_rot
         if keepalive_answer(established, e_pid, e_body) != expected_answer(
             oracle, e_pid, e_body
         ):
@@ -4080,17 +4153,28 @@ def tls_prefork_phase(work_docs: list, phase7: dict, card: str) -> dict:
             )
         if abs((not_after.timestamp() - time.time()) - expiry) > 5:
             fail(f"wave R: the expiry gauge {expiry} is not the serving notAfter")
+        # the load spans the rotation: a wave was in flight when the half
+        # rotation's cert was written, and a wave ended after the new
+        # serial was seen; the thread goes on until two waves are done
+        wait_until(
+            lambda: bool(r_errors) or (
+                len(r_runs) >= 2 and any(end > t_seen for *_x, end in r_runs)
+            ), 600, "wave R's client waves past the rotation",
+        )
         r_stop.set()
         r_thread.join(600)
         if r_errors or len(r_runs) < 2:
             fail(f"wave R's load: {len(r_runs)} waves, errors {r_errors}")
-        r_wave = [item for wave, _res, _w in r_runs for item in wave]
+        if not any(start <= t_half <= end for *_x, start, end in r_runs):
+            fail("wave R: no client wave was in flight when the half "
+                 "rotation's cert was written")
+        r_wave = [item for wave, *_x in r_runs for item in wave]
         out["R"] = check_wave(
-            "wave R", [x for _w, res, _t in r_runs for x in res], r_wave,
+            "wave R", [x for _w, res, *_x in r_runs for x in res], r_wave,
             [expect(r_wave)],
         )
         out["R"].update(
-            req_s=len(r_wave) / sum(t for _w, _r, t in r_runs),
+            req_s=len(r_wave) / sum(t for _w, _r, t, *_x in r_runs),
             waves=len(r_runs), rotation_s=rotation_s,
             reloads=d_reloads, generations=d_gens, reload_failures=d_fail,
             expiry_s=expiry,
@@ -7340,6 +7424,12 @@ COLUMNAR_CONFIGS = (
     ("xla donate off", ["--kernel", "xla", "--donate-buffers", "off"]),
     ("pallas no warmup", ["--kernel", "pallas", "--no-warmup"]),
 )
+# wave X's watchdog: the wave holds each form's bodies to the oracle's,
+# and its 256 requests in flight queue for about 256 / rate seconds (1.3 s
+# at the 194 req/s of a slow host under --kernel xla); under the default
+# 2 s timeout a slower form's tail then answers the watchdog's deadline
+# body instead of a verdict
+COLUMNAR_POLICY_TIMEOUT_S = 30
 COLUMNAR_STEP_BATCHES = (128, 1024)
 COLUMNAR_STEP_ITERS = 5
 CACHE_WAVE = 128
@@ -7367,6 +7457,7 @@ def columnar_wave(policies: str, waves: list, name: str, flags: list,
 
     argv = ["--policies", policies, "--port", "0", "--readiness-probe-port",
             "0", "--enable-metrics", "--frontend", "native",
+            "--policy-timeout", str(COLUMNAR_POLICY_TIMEOUT_S),
             *KERNEL_ONLY_ARGS, *flags]
     server, boot = boot_server(argv, f"phase16 wave X {name}")
     try:
@@ -8069,6 +8160,12 @@ def mesh_wave_d(card: str) -> dict:
                  f"{rep['k1_dispatches']} K1 steps")
         if rep["columnar_ok"] or rep["wire_rows"]:
             fail(f"phase17 wave D rank {r}: columnar ran on a multi-process mesh")
+        if (not rep["k1_bits_are_the_oracles"] or rep["psum"] != rep["oracle_counts"]
+                or rep["psum_device"] != "cuda:0"):
+            fail(f"phase17 wave D rank {r}: acceptance_psum {rep['psum']} on "
+                 f"{rep['psum_device']}, the oracle's counts over both ranks "
+                 f"{rep['oracle_counts']}, K1's bits the oracle's "
+                 f"{rep['k1_bits_are_the_oracles']}")
         print(
             f"phase17 wave D rank {r}: mesh {json.dumps(rep['mesh'])}, local "
             f"shards {rep['local_shards']}, {rep['answered']} bodies the "
@@ -8076,6 +8173,15 @@ def mesh_wave_d(card: str) -> dict:
             f"device batches, {rep['launches']} K1 launches, columnar off "
             f"[{card}]"
         )
+    if reports[0]["psum"] != reports[1]["psum"]:
+        fail(f"phase17 wave D: the ranks' acceptance counts differ: "
+             f"{reports[0]['psum']} against {reports[1]['psum']}")
+    psum_s = ", ".join(f"{rep['psum_s']:.4f}" for rep in reports)
+    print(f"phase17 wave D: acceptance_psum over the gloo group gives both "
+          f"ranks the oracle's counts over both ranks' rows "
+          f"({sum(reports[0]['psum'])} accepted of "
+          f"{2 * MESH_D_WAVE * reports[0]['psum_policies']} cells; {psum_s} s "
+          f"by rank) [{card}]")
     print(f"phase17 wave D: two processes in {wall:.1f} s (process start, "
           f"group, boots, waves and stops) [{card}]")
     return {"reports": reports, "wall_s": wall}
@@ -8170,6 +8276,366 @@ def mesh_wave_r(policies: str, work_docs: list, devices: list, n_wave: int,
                   f"launches [{card}]")
     finally:
         mesh_mod.global_devices = real_devices
+    return out
+
+
+THREADED_DIR = os.path.join(REPO, "build", "chip_smoke_threaded")
+THREADED_WAVE = 1024
+THREADED_SPECS = ("data:1,policy:2", "data:2,policy:2")
+THREADED_Z_SPEC = "data:2,policy:2"
+THREADED_Z_THREADS = 4
+THREADED_Z_CHUNK = 64
+THREADED_P_SPEC = "data:4"
+THREADED_P_ROWS = 1024
+
+
+def threaded_devices(n: int) -> tuple[list, str]:
+    """The phase's ``n`` mesh entries: the cards where there are ``n``,
+    else card 0 taken ``n`` times; and how to say which."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], "the cards"
+    return [torch.device("cuda", 0)] * n, f"cuda:0 taken {n} times"
+
+
+class ShardSteps:
+    """The device steps of one row batch on every policy shard, enqueued
+    shard by shard; ``wait`` fetches them all."""
+
+    def __init__(self, steps: list) -> None:
+        self.steps = steps
+
+    def wait(self) -> list:
+        return [s.wait() for s in self.steps]
+
+
+def k1_steps(ev) -> list:
+    """(K1 steps so far, mesh positions) of each shard environment."""
+    return [
+        (s.pallas_stats["dispatches"], s._mesh.size if s._mesh is not None else 1)
+        for s in ev.shards
+    ]
+
+
+def threaded_wave_t(policies: str, work_docs: list, r17: dict,
+                    card: str) -> dict:
+    """Wave T (see the module docstring)."""
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.parallel import PolicyShardedEvaluator
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+    from policy_server_tpu_torch.policies.flagship import (
+        flagship_policies,
+        synthetic_firehose,
+    )
+
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    wave = wave_of(work_docs, THREADED_WAVE, "t18")
+    exp = [expected_answer(oracle, pid, body) for pid, body in wave]
+    step_docs = synthetic_firehose(max(MESH_HOLD_BATCHES), seed=18)
+    out: dict = {}
+    real_devices = mesh_mod.global_devices
+    try:
+        for spec in THREADED_SPECS:
+            parsed = mesh_mod.MeshSpec.parse(spec)
+            devices, over = threaded_devices(
+                parsed.data_size() * parsed.policy_size()
+            )
+            mesh_mod.global_devices = lambda _type="cuda", d=devices: list(d)
+            label = f"phase18 wave T --mesh {spec} --mesh-dispatch threaded"
+            argv = ["--policies", policies, "--port", "0",
+                    "--readiness-probe-port", "0", "--frontend", "native",
+                    *KERNEL_ONLY_ARGS, "--mesh", spec, "--mesh-dispatch",
+                    "threaded"]
+            server, boot = boot_server(argv, label)
+            try:
+                ev = server.env
+                if not isinstance(ev, PolicyShardedEvaluator):
+                    fail(f"{label}: the server built {type(ev).__name__}")
+                shards = len(ev.shards)
+                if shards != parsed.policy_size():
+                    fail(f"{label}: {shards} shard environments")
+                if boot["launches"]["probe"] != shards:
+                    fail(f"{label}: the probe launched "
+                         f"{boot['launches']['probe']} times for {shards} "
+                         "shard environments built")
+                before = k1_steps(ev)
+                run = served_wave(server, wave, [exp], label, kernel_only=False)
+                after = k1_steps(ev)
+                steps = [a - b for (a, _p), (b, _q) in zip(after, before)]
+                positions = [p for _d, p in after]
+                want = sum(s * p for s, p in zip(steps, positions))
+                if run["host_batches"] or not all(steps):
+                    fail(f"{label}: {run['host_batches']} host batches, K1 "
+                         f"steps by shard {steps}")
+                if run["serving_launches"] != want:
+                    fail(f"{label}: {run['serving_launches']} K1 launches, "
+                         f"the shards' K1 steps {steps} over positions "
+                         f"{positions} make {want}")
+                held = 0
+                step_rows = []
+                for i, shard in enumerate(ev.shards):
+                    rows = mesh_step_rows(shard, step_docs)
+                    for (idx, batch), (_f, tbuf) in rows.items():
+                        _i, _lo, transport, narrow = shard._layout_for_buffer(
+                            tbuf.shape[1]
+                        )
+                        program = shard.program_for(idx, transport, narrow)
+                        dev = torch.from_numpy(tbuf).to(shard.device)
+                        a, r = ck.policy_matrix(dev, program)
+                        pa, pr = ck.policy_matrix_plain(dev, program)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(a, pa) and torch.equal(r, pr)):
+                            fail(f"{label}: shard {i}'s K1 disagrees with its "
+                                 f"plain version at bucket {idx} B={batch}")
+                        held += 1
+                    step_rows.append(rows[0, MESH_STEP_BATCH][1])
+                step = step_numbers(
+                    lambda: ShardSteps([
+                        s.enqueue_packed(b) for s, b in zip(ev.shards, step_rows)
+                    ]),
+                    card, launches_k1=True,
+                )
+            finally:
+                server.stop()
+            # the fused form at the same mesh, on the same wave in this call
+            flabel = f"phase18 wave T --mesh {spec} (fused)"
+            fserver, _fboot = boot_server(argv[:-2], flabel)
+            try:
+                positions_f = fserver.env._mesh.size
+                f0 = fserver.env.pallas_stats["dispatches"]
+                frun = served_wave(fserver, wave, [exp], flabel, kernel_only=True,
+                                   positions=positions_f)
+                fsteps = fserver.env.pallas_stats["dispatches"] - f0
+            finally:
+                fserver.stop()
+            if frun["serving_launches"] != positions_f * fsteps:
+                fail(f"{flabel}: {frun['serving_launches']} K1 launches for "
+                     f"{fsteps} K1 steps over {positions_f} positions")
+            fused = r17.get("R", {}).get(spec)
+            row = {
+                "mesh": spec, "over": over, "shards": shards,
+                "answered": run["answered"], "req_s": run["req_s"],
+                "p50": run["p50"], "p99": run["p99"],
+                "batches": run["batches"], "k1_steps_by_shard": steps,
+                "positions_by_shard": positions,
+                "serving_launches": run["serving_launches"],
+                "boot_probe_launches": boot["launches"]["probe"],
+                "boot_s": boot["boot_s"], "held": held,
+                "step_batch": MESH_STEP_BATCH, **step,
+                "fused": {"req_s": frun["req_s"], "p50": frun["p50"],
+                          "p99": frun["p99"], "k1_steps": fsteps,
+                          "serving_launches": frun["serving_launches"]},
+                "fused_phase17": None if fused is None else {
+                    k: fused[k] for k in ("req_s", "p50", "p99")
+                },
+            }
+            out[spec] = row
+            print(f"phase18 wave T: {json.dumps(row)} [{card}]")
+    finally:
+        mesh_mod.global_devices = real_devices
+    return out
+
+
+def threaded_wave_z(work_docs: list, card: str) -> dict:
+    """Wave Z (see the module docstring)."""
+    import queue
+
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.parallel import PolicyShardedEvaluator
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+    from policy_server_tpu_torch.policies.flagship import flagship_policies
+
+    items = mesh_items(work_docs)[:THREADED_WAVE]
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    want = [r.to_dict() for r in oracle.validate_batch(items)]
+    parsed = mesh_mod.MeshSpec.parse(THREADED_Z_SPEC)
+    devices, over = threaded_devices(parsed.data_size() * parsed.policy_size())
+    memory = []
+    gc.collect()
+    torch.cuda.synchronize()
+    memory.append(("before the build", torch.cuda.memory_allocated()))
+    ev = PolicyShardedEvaluator(
+        flagship_policies(), mesh_mod.make_mesh(parsed, devices),
+        builder_kwargs=dict(device="cuda", verdict_cache_size=0),
+    )
+    ev.warmup((THREADED_Z_CHUNK,))
+    torch.cuda.synchronize()
+    envs = {id(s): [s, s.pallas_stats["dispatches"]] for s in ev.shards}
+    retired: list = []
+    chunks: queue.Queue = queue.Queue()
+    for c in range(0, len(items), THREADED_Z_CHUNK):
+        chunks.put(c)
+    got: list = [None] * len(items)
+    done = [0]
+    errors: list = []
+    lock = threading.Lock()
+
+    def serve() -> None:
+        while True:
+            try:
+                c = chunks.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                res = ev.validate_batch(items[c : c + THREADED_Z_CHUNK])
+            except BaseException as e:  # noqa: BLE001 — checked below
+                errors.append(repr(e))
+                return
+            got[c : c + THREADED_Z_CHUNK] = res
+            with lock:
+                done[0] += 1
+
+    n_chunks = chunks.qsize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=serve, daemon=True)
+               for _ in range(THREADED_Z_THREADS)]
+    for t in threads:
+        t.start()
+    resize_s = []
+    for frac, n in ((1, 2), (2, parsed.data_size() * parsed.policy_size())):
+        wait_until(lambda: errors or done[0] >= frac * n_chunks // 3, 120,
+                   "wave Z's chunks before a resize")
+        retired.append(list(ev.shards))
+        r0 = time.perf_counter()
+        ev.resize(devices[:n])
+        resize_s.append(time.perf_counter() - r0)
+        for s in ev.shards:
+            envs.setdefault(id(s), [s, s.pallas_stats["dispatches"]])
+        if n == 2:
+            torch.cuda.synchronize()
+            memory.append(("between the resizes (the first set retired)",
+                           torch.cuda.memory_allocated()))
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()["policy_matrix"]
+    if errors:
+        fail(f"phase18 wave Z: {errors[:3]}")
+    bad = [i for i, r in enumerate(got)
+           if r is None or isinstance(r, Exception) or r.to_dict() != want[i]]
+    if bad:
+        fail(f"phase18 wave Z: {len(bad)} of {len(items)} answers are not the "
+             f"oracle's (first {bad[0]}: {got[bad[0]]!r:.300})")
+    if ev.resizes != 2 or ev._retired:
+        fail(f"phase18 wave Z: {ev.resizes} resizes, {len(ev._retired)} "
+             "snapshots still retired and open")
+    still_open = [i for i, snap in enumerate(retired) for s in snap if not s._closed]
+    if still_open:
+        fail(f"phase18 wave Z: retired snapshots {sorted(set(still_open))} "
+             "kept an environment open after they drained")
+    k1_want = sum(
+        (s.pallas_stats["dispatches"] - d0) * (s._mesh.size if s._mesh else 1)
+        for s, d0 in envs.values()
+    )
+    if not launches or launches != k1_want:
+        fail(f"phase18 wave Z: {launches} K1 launches, the environments' K1 "
+             f"steps over their positions make {k1_want}")
+    shape = dict(ev.mesh.shape)
+    ev.close()
+    del ev
+    gc.collect()
+    torch.cuda.synchronize()
+    memory.append(("after close", torch.cuda.memory_allocated()))
+    row = {"mesh": THREADED_Z_SPEC, "over": over, "answers": len(items),
+           "threads": THREADED_Z_THREADS, "chunk": THREADED_Z_CHUNK,
+           "resizes": 2, "resize_s": resize_s, "final_mesh": shape,
+           "environments": len(envs), "serving_launches": launches,
+           "wall_s": wall, "memory_allocated": memory}
+    print(f"phase18 wave Z: {json.dumps(row)} [{card}]")
+    return row
+
+
+def threaded_wave_p(card: str) -> dict:
+    """Wave P (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from policy_server_tpu_torch.evaluation.environment import (
+        EvaluationEnvironmentBuilder,
+    )
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.parallel import acceptance_psum
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+    from policy_server_tpu_torch.policies.flagship import (
+        flagship_policies,
+        synthetic_firehose,
+    )
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_mesh_drive import oracle_bits
+
+    docs = synthetic_firehose(THREADED_P_ROWS, seed=181)
+    env = EvaluationEnvironmentBuilder(device="cuda").build(flagship_policies())
+    try:
+        feats_buf = mesh_step_rows(env, docs)[0, THREADED_P_ROWS][1]
+        _i, _lo, transport, narrow = env._layout_for_buffer(feats_buf.shape[1])
+        program = env.program_for(0, transport, narrow)
+        pids = sorted(program.column_of)
+        allowed, _rule = ck.policy_matrix(
+            torch.from_numpy(feats_buf).to(env.device), program
+        )
+        bits = allowed[:, [program.column_of[p] for p in pids]]
+        parsed = mesh_mod.MeshSpec.parse(THREADED_P_SPEC)
+        devices, over = threaded_devices(parsed.data_size())
+        count = acceptance_psum(mesh_mod.make_mesh(parsed, devices))
+        counts = count(bits)
+        torch.cuda.synchronize()
+        host_bits = bits.cpu().numpy()
+        want = host_bits.sum(axis=0)
+        if counts.device != bits.device or counts.dtype != torch.int32:
+            fail(f"phase18 wave P: counts {counts.dtype} on {counts.device}")
+        if counts.cpu().tolist() != want.tolist():
+            fail(f"phase18 wave P: acceptance_psum {counts.cpu().tolist()} is "
+                 f"not numpy's column sums {want.tolist()}")
+        payload_docs = [copy.deepcopy(d) for d in docs]
+        if not np.array_equal(host_bits, oracle_bits(env, payload_docs, pids)):
+            fail("phase18 wave P: K1's allowed bits are not the oracle's")
+        ms = time_cuda(lambda: count(bits), 20)
+    finally:
+        env.close()
+    row = {"mesh": THREADED_P_SPEC, "over": over, "rows": THREADED_P_ROWS,
+           "policies": len(pids), "accepted": int(want.sum()),
+           "cells": int(host_bits.size), "psum_ms": ms}
+    print(f"phase18 wave P: {json.dumps(row)}; counts equal numpy's column "
+          f"sums and the oracle's bits [{card}]")
+    return row
+
+
+def threaded_phase(work_docs: list, r17: dict, card: str) -> dict:
+    """Phase 18 (see the module docstring)."""
+    from policy_server_tpu_torch.policies.flagship import flagship_policy_specs
+
+    os.makedirs(THREADED_DIR, exist_ok=True)
+    os.makedirs(COLUMNAR_DIR, exist_ok=True)  # step_trace_counts' trace file
+    policies = os.path.join(THREADED_DIR, "policies.json")
+    with open(policies, "w") as f:
+        json.dump(flagship_policy_specs(), f)
+    out = {}
+    for name, fn in (
+        ("T", lambda: threaded_wave_t(policies, work_docs, r17, card)),
+        ("Z", lambda: threaded_wave_z(work_docs, card)),
+        ("P", lambda: threaded_wave_p(card)),
+    ):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        print(f"phase18 wave {name} wall {time.perf_counter() - t0:.1f} s [{card}]")
     return out
 
 
@@ -8703,6 +9169,11 @@ def main() -> int:
     r17 = mesh_phase(work_docs, native_runs["kernel", 4], card)
     print(f"phase17 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # -- phase 18: the threaded policy-shard dispatcher and the psum -------
+    t_phase = time.perf_counter()
+    r18 = threaded_phase(work_docs, r17, card)
+    print(f"phase18 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
     # -- the kernels line -------------------------------------------------
     main_row = next(
         r for r in k1_rows
@@ -8828,6 +9299,15 @@ def main() -> int:
                     "(positions x K1 steps)": run["serving_launches"]
                     for spec, run in r17["R"].items()
                 },
+                **{
+                    f"phase18 wave T --mesh {spec} --mesh-dispatch threaded, "
+                    "native, kernel-only (sum over shards of K1 steps x row "
+                    "positions)": row["serving_launches"]
+                    for spec, row in r18["T"].items()
+                },
+                f"phase18 wave Z {THREADED_Z_SPEC} threaded evaluator, "
+                f"{THREADED_WAVE} reviews on {THREADED_Z_THREADS} threads "
+                "across two resizes": r18["Z"]["serving_launches"],
             },
             "phase9_launches_by_environment": [
                 {k: row[k] for k in (
@@ -8862,6 +9342,10 @@ def main() -> int:
                 f"phase17 per-shard programs ({r17['V']['held']}: "
                 f"{', '.join(m for m in MESH_ONE_CARD if 'policy' in m)}, both "
                 f"buckets, B in {MESH_HOLD_BATCHES})": 0,
+                f"phase18 threaded shard programs "
+                f"({sum(r['held'] for r in r18['T'].values())}: "
+                f"{', '.join(THREADED_SPECS)}, both buckets, B in "
+                f"{MESH_HOLD_BATCHES})": 0,
             },
             "audit_inventory_holds": [
                 {k: row[k] for k in ("bucket", "batch", "ms", "device_ms",
@@ -8925,6 +9409,12 @@ def main() -> int:
                     f"phase16 wave X --{name} (its build)":
                         run["boot"]["launches"]["probe"]
                     for name, run in r16["X"].items()
+                },
+                **{
+                    f"phase18 wave T --mesh {spec} --mesh-dispatch threaded "
+                    "(one per shard environment built)":
+                        row["boot_probe_launches"]
+                    for spec, row in r18["T"].items()
                 },
             },
             "reload_candidates": [c["probe"] for c in r8["candidates"]],

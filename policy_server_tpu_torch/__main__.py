@@ -411,9 +411,10 @@ def _flag_specs() -> list[tuple[str, str | None, dict[str, Any]]]:
                    "CUDA kernel's per-shard program, or the shard's "
                    "predicates) on its data shard's rows, and the verdict "
                    "blocks gather on the data shard's first CUDA device "
-                   "for the group combine; 'threaded' (the "
-                   "thread-per-shard dispatcher) is not ported and raises "
-                   "at boot")),
+                   "for the group combine; 'threaded' builds one "
+                   "environment per policy shard, each data-parallel over "
+                   "its row of the mesh, and dispatches a batch's shards "
+                   "from a thread pool (PolicyShardedEvaluator)")),
         ("--policy-reload-mode", "KUBEWARDEN_POLICY_RELOAD_MODE",
          dict(default="auto", metavar="MODE", choices=list(RELOAD_MODES),
               help="Zero-downtime policy hot reload (epoch-based, "

@@ -12,7 +12,9 @@ grid of ``torch.device`` entries with named axes:
   (``plan_policy_buckets``). Position (p, d) evaluates shard p's policies
   on data shard d's rows; the verdict blocks are gathered, shard-major,
   on data shard d's first device, where the group combine runs
-  (``evaluation/environment.py``).
+  (``evaluation/environment.py``). Under ``--mesh-dispatch threaded``
+  each policy shard is an environment of its own instead, on its row of
+  the mesh (``plan_policy_shards``, ``parallel/policy_sharded.py``).
 
 Entries need not be distinct: a mesh laid over one card (or the CPU)
 taken several times runs every form's code on that device.
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -300,6 +302,40 @@ def make_mesh(
     return Mesh(grid, (POLICY_AXIS, DATA_AXIS))
 
 
+@dataclass(frozen=True)
+class SubmeshPlan:
+    """One policy shard of ``--mesh-dispatch threaded``: the policy ids it
+    evaluates and its data-parallel submesh (one row of the mesh)."""
+
+    shard_index: int
+    policy_ids: tuple[str, ...]
+    mesh: Mesh
+
+
+def plan_policy_shards(
+    policy_ids: Sequence[str], mesh: Mesh
+) -> list[SubmeshPlan]:
+    """Partition top-level policy ids round-robin (sorted) over the policy
+    axis; shard ``s`` owns the mesh's row at policy position ``s`` — its
+    devices along the data axis, whichever axis the grid holds first —
+    as a ``(1, data)`` submesh over ``(policy, data)``, with the owner
+    ranks of those entries."""
+    n_shards = mesh.shape[POLICY_AXIS]
+    buckets: list[list[str]] = [[] for _ in range(n_shards)]
+    for i, pid in enumerate(sorted(policy_ids)):
+        buckets[i % n_shards].append(pid)
+    grid = mesh._data_major(mesh.devices)
+    owner = mesh._data_major(mesh.processes)
+    plans = []
+    for s in range(n_shards):
+        submesh = Mesh(
+            grid[:, s].reshape(1, -1), (POLICY_AXIS, DATA_AXIS),
+            owner[:, s].reshape(1, -1), mesh.process_index,
+        )
+        plans.append(SubmeshPlan(s, tuple(buckets[s]), submesh))
+    return plans
+
+
 def plan_policy_buckets(
     policy_ids: Sequence[str], n_shards: int
 ) -> tuple[list[tuple[str, ...]], int, dict[str, int]]:
@@ -359,6 +395,31 @@ def shard_delta_planes(
         {k: (v[s] if v.ndim >= 2 else v) for k, v in delta.items()}
         for s in cuts
     ]
+
+
+def acceptance_psum(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``(B, P)`` verdict bits of this process's rows → the ``(P,)``
+    ``int32`` acceptance counts over the whole mesh, on the caller's
+    device (the serving-metrics collective). The rows split over this
+    process's data shards as a batch does; each process sums its own, and
+    a mesh that spans processes adds them with one ``all_reduce(SUM)`` on
+    the group ``initialize_distributed`` joined (gloo, so the counts
+    cross on the host)."""
+    shards = len(mesh.local_data_shards())
+    spans = len(set(np.asarray(mesh.processes).ravel().tolist())) > 1
+
+    def count(allowed: torch.Tensor) -> torch.Tensor:
+        _row_split(allowed.shape[0], shards)
+        local = allowed.sum(dim=0, dtype=torch.int32)
+        if not spans:
+            return local
+        import torch.distributed as dist
+
+        host = local.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.SUM)
+        return host.to(allowed.device)
+
+    return count
 
 
 def pad_batch_to(n: int, multiple: int) -> int:

@@ -604,7 +604,7 @@ class MicroBatcher:
         adm = p.request.admission_request
         if adm is None or (adm.operation or "").upper() != "UPDATE":
             return False
-        if self.env.always_accept_namespace is not None:
+        if getattr(self.env, "always_accept_namespace", None) is not None:
             return False
         if self._target_hookless(p.policy_id) is not True:
             return False
@@ -1487,12 +1487,14 @@ class MicroBatcher:
         """The encode → device → fetch chain as ONE unit of pool work: the
         environment's host half and device half back to back on the same
         worker, with the cache-hit fragment lane armed. Environments
-        without the split (the oracle backend, a tripped breaker) take
-        plain validate_batch."""
+        without the split (the oracle backend, a tripped breaker, the
+        threaded policy-sharded evaluator) take plain validate_batch."""
         with fragment_responses():
-            handle = self.env.validate_batch_begin(pairs, run_hooks=False)
-            if handle is not None:
-                return self.env.validate_batch_finish(handle)
+            begin = getattr(self.env, "validate_batch_begin", None)
+            if begin is not None:
+                handle = begin(pairs, run_hooks=False)
+                if handle is not None:
+                    return self.env.validate_batch_finish(handle)
             return self.env.validate_batch(pairs, run_hooks=False)
 
     def _observe_dispatch(

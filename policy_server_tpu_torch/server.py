@@ -200,6 +200,7 @@ from policy_server_tpu_torch.lifecycle import PolicyLifecycleManager, ShadowReco
 from policy_server_tpu_torch.models.policy import parse_policies
 from policy_server_tpu_torch.ops import buildcache
 from policy_server_tpu_torch.parallel import mesh as mesh_mod
+from policy_server_tpu_torch.parallel.policy_sharded import PolicyShardedEvaluator
 from policy_server_tpu_torch.policies import resolve_builtin
 from policy_server_tpu_torch.runtime import native_frontend as nf
 from policy_server_tpu_torch.runtime.frontend import EvaluationBridge
@@ -574,19 +575,21 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
     yield (names.DEVICE_ERRORS, "counter",
            "Kernel and CUDA errors at dispatch or fetch (each failed its "
            "batch's requests; none tripped the breaker)", env.device_errors)
-    pstats = env.pallas_stats
+    # 0 for an environment without them (the threaded evaluator), as in
+    # the JAX package
+    pstats = getattr(env, "pallas_stats", None) or {}
     yield (names.PALLAS_DISPATCHES, "counter",
            "Device dispatches served by the policy_matrix kernel (--kernel "
            "pallas, armed buckets)",
-           pstats["dispatches"])
+           pstats.get("dispatches", 0))
     yield (names.PALLAS_BUCKETS_ARMED, "gauge",
            "Schema buckets currently armed for the policy_matrix kernel "
            "(per-bucket opt-in by dispatch count)",
-           pstats["buckets_armed"])
+           pstats.get("buckets_armed", 0))
     yield (names.PALLAS_INTERPRET_MODE, "gauge",
            "1 when the Pallas kernel runs in interpret mode (the Mosaic "
            "capability probe failed — bit-exact, slow, loudly warned)",
-           pstats["interpret_mode"])
+           pstats.get("interpret_mode", 0))
     yield from _predicate_families(env)
     yield from _columnar_families(env.host_profile)
     yield from _recovery_families(state)
@@ -656,25 +659,25 @@ def runtime_stats(state: ApiServerState) -> Iterator[tuple]:
 
 def _predicate_families(env: Any) -> Iterator[tuple]:
     """The predicate optimizer's facts about the serving set
-    (``env.optimizer_stats``)."""
-    o = env.optimizer_stats
+    (``env.optimizer_stats``; 0 for an environment without them)."""
+    o = getattr(env, "optimizer_stats", None) or {}
     yield (names.PREDICATE_SUBTREES_SHARED, "gauge",
            "Distinct predicate subtrees shared across policies by the "
            "optimizer's CSE table (computed once per program instead of "
-           "once per policy)", o["subtrees_shared"])
+           "once per policy)", o.get("subtrees_shared", 0))
     yield (names.PREDICATE_POLICIES_FOLDED, "gauge",
            "Policies whose verdict folded to a constant and dropped out of "
-           "the device program", o["policies_folded"])
+           "the device program", o.get("policies_folded", 0))
     yield (names.PREDICATE_RULES_FOLDED, "gauge",
            "Rule conditions folded to constants (unreachable or constant "
-           "rules; indices preserved)", o["rules_folded"])
+           "rules; indices preserved)", o.get("rules_folded", 0))
     yield (names.PREDICATE_FIELDS_PRUNED, "gauge",
            "Feature-schema fields pruned by the optimizer (dead gather "
            "columns + zero-fill-redundant validity masks)",
-           o["fields_pruned"])
+           o.get("fields_pruned", 0))
     yield (names.PREDICATE_ROW_BYTES_SAVED, "gauge",
            "Packed-row bytes saved per row, summed over schema buckets, vs "
-           "the unoptimized layout", o["row_bytes_saved"])
+           "the unoptimized layout", o.get("row_bytes_saved", 0))
 
 
 def _columnar_families(profile: Mapping[str, int]) -> Iterator[tuple]:
@@ -2104,26 +2107,41 @@ def _build_environment(
     devices: list | None = None,
 ) -> Any:
     """Build an evaluation environment, honouring ``mesh`` and
-    ``mesh_dispatch`` as the JAX package's ``_build_environment``: over
-    more than one device the mesh is attached (``attach_mesh``: the data
-    axis, and under a policy axis > 1 the fused (data × policy) form); on
-    one device (``auto`` on one card) the environment is the plain one.
+    ``mesh_dispatch`` as the JAX package's ``_build_environment``:
+
+    * a policy axis > 1 under ``--mesh-dispatch threaded``: a
+      :class:`PolicyShardedEvaluator`, one environment per policy shard on
+      its row of the mesh, the shards of a batch dispatched from a thread
+      pool;
+    * otherwise, over more than one device, the mesh is attached
+      (``attach_mesh``: the data axis, and under a policy axis > 1 the
+      fused (data × policy) form);
+    * on one device (``auto`` on one card) the plain environment.
+
     ``devices`` is the mesh's device list (default: the cards, or the
-    process group's global list; one CPU entry under ``device="cpu"``).
-    ``--mesh-dispatch threaded`` with a policy axis > 1 raises: the
-    thread-per-shard dispatcher is not ported (ROADMAP A14b)."""
+    process group's global list; one CPU entry under ``device="cpu"``)."""
     builder = EvaluationEnvironmentBuilder(**builder_kwargs)
     spec = mesh or mesh_mod.MeshSpec()
     if builder.backend == "torch":
-        if spec.policy_size() > 1 and mesh_dispatch == "threaded":
-            raise ValueError(
-                "--mesh-dispatch threaded (the thread-per-shard "
-                "PolicyShardedEvaluator) is not ported yet (ROADMAP A14b); "
-                "use --mesh-dispatch fused"
-            )
         grid = mesh_mod.make_mesh(
             spec, devices=devices, device_type=builder.device.type
         )
+        if spec.policy_size() > 1 and mesh_dispatch == "threaded":
+            shard_kwargs = dict(builder_kwargs)
+            sharded = PolicyShardedEvaluator(
+                policies, grid,
+                backend=shard_kwargs.pop("backend", "torch"),
+                continue_on_errors=shard_kwargs.pop("continue_on_errors", False),
+                builder_kwargs=shard_kwargs,
+            )
+            logger.info(
+                "policy-sharded mesh attached (threaded MPMD fallback)",
+                extra={"span_fields": {
+                    "mesh": dict(spec.axes),
+                    "shards": len(sharded.shards),
+                }},
+            )
+            return sharded
     environment = builder.build(dict(policies))
     if builder.backend == "torch" and grid.size > 1:
         try:

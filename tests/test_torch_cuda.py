@@ -621,3 +621,70 @@ def test_mesh_over_one_card_matches_its_cpu_result(spec, kernel):
                 assert all(torch.equal(g, w) for g, w in zip(got, want))
         env.close()
     assert bodies["cuda"] == bodies["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["data:1,policy:2", "data:2,policy:2"])
+def test_policy_sharded_evaluator_over_one_card(spec):
+    """``--mesh-dispatch threaded`` over one card taken 2 or 4 times: the
+    ``PolicyShardedEvaluator`` answers 200 firehose reviews with the
+    oracle's bodies, each shard's K1 launched once per position of its row
+    per K1 step of that shard, each shard's program equal to its plain
+    version on the card, and ``close()`` gives back the device memory its
+    build took (measured on a second build, after the process's one-time
+    allocations)."""
+    import gc
+
+    from policy_server_tpu_torch.parallel import PolicyShardedEvaluator
+    from policy_server_tpu_torch.parallel import mesh as mesh_mod
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    parsed = mesh_mod.MeshSpec.parse(spec)
+    n = parsed.data_size() * parsed.policy_size()
+    items = [
+        (pid, ValidateRequest.from_admission(
+            AdmissionReviewRequest.from_dict(doc).request
+        ))
+        for pid, doc in zip(
+            sorted(flagship_policies()) * 8, synthetic_firehose(200, seed=43)
+        )
+    ]
+    oracle = EvaluationEnvironmentBuilder(backend="oracle").build(
+        flagship_policies()
+    )
+    want = [r.to_dict() for r in oracle.validate_batch(items)]
+    for attempt in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        ev = PolicyShardedEvaluator(
+            flagship_policies(),
+            mesh_mod.make_mesh(parsed, devices=[torch.device("cuda", 0)] * n),
+            builder_kwargs=dict(device="cuda", verdict_cache_size=0),
+        )
+        ev.warmup((64,))
+        torch.cuda.synchronize()
+        before = ck.policy_matrix.launches
+        d0 = [s.pallas_stats["dispatches"] for s in ev.shards]
+        got = [r.to_dict() for r in ev.validate_batch(items)]
+        torch.cuda.synchronize()
+        steps = [s.pallas_stats["dispatches"] - d for s, d in zip(ev.shards, d0)]
+        assert got == want
+        assert all(steps)
+        assert ck.policy_matrix.launches - before == (
+            parsed.data_size() * sum(steps)
+        )
+        for shard in ev.shards:
+            buf = torch.from_numpy(_batch(shard, 0, 64, True)).cuda()
+            program = shard.program_for(0, True, True)
+            got_k = ck.policy_matrix(buf, program)
+            want_k = ck.policy_matrix_plain(buf, program)
+            assert all(torch.equal(g, w) for g, w in zip(got_k, want_k))
+            del buf, got_k, want_k
+        ev.close()
+        del ev
+        gc.collect()
+        torch.cuda.synchronize()
+        if attempt:
+            assert torch.cuda.memory_allocated() == mem0

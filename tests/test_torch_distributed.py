@@ -146,7 +146,9 @@ def test_two_processes_form_one_mesh_and_serve_their_own_rows(tmp_path):
     ``initialize_distributed`` and lays the global ``data:2`` mesh (one CPU
     entry each, its own data shard), keeps columnar off as the JAX
     package's multi-process mesh does, serves its own 64 reviews with the
-    oracle's bodies on K1 (plain runs on the CPU), and leaves the group at
+    oracle's bodies on K1 (plain runs on the CPU), sums its own rows' K1
+    allowed bits through ``acceptance_psum`` (one gloo ``all_reduce``) to
+    the oracle's counts over both processes' rows, and leaves the group at
     stop."""
     coordinator = f"127.0.0.1:{free_port()}"
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -178,3 +180,14 @@ def test_two_processes_form_one_mesh_and_serve_their_own_rows(tmp_path):
         assert rep["mismatches"] == 0, rep["first_mismatch"]
         assert rep["k1_dispatches"] == rep["dispatched_chunks"] > 0
         assert rep["group_after_stop"] == 1
+    # acceptance_psum over the gloo group: each process sums its own rows'
+    # K1 bits (the oracle's), and both get the oracle's counts over both
+    # processes' rows
+    for rep in reports:
+        assert rep["k1_bits_are_the_oracles"] and rep["psum_device"] == "cpu"
+        assert rep["psum"] == rep["oracle_counts"]
+        assert rep["psum_policies"] >= 30
+    assert reports[0]["psum"] == reports[1]["psum"]
+    assert 0 < sum(reports[0]["psum"]) < (
+        2 * REVIEWS_PER_PROCESS * reports[0]["psum_policies"]
+    )

@@ -240,6 +240,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "policy_server_tpu_torch.statestore",
             "policy_server_tpu_torch.parallel",
             "policy_server_tpu_torch.parallel.mesh",
+            "policy_server_tpu_torch.parallel.policy_sharded",
         ]
         assert all(n in sys.modules for n in serving), serving
         print(bad)

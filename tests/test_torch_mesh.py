@@ -570,9 +570,25 @@ def test_mesh_larger_than_the_devices_fails_at_boot():
     )
 
 
-def test_threaded_dispatch_with_a_policy_axis_raises_at_boot():
+def test_threaded_dispatch_with_a_policy_axis_boots_a_policy_sharded_evaluator():
+    """``--mesh-dispatch threaded`` with a policy axis > 1 builds the
+    thread-per-shard ``PolicyShardedEvaluator`` (its parity is in
+    ``tests/test_torch_parallel.py``); without a policy axis the flag
+    leaves the fused environment."""
+    from policy_server_tpu_torch.parallel import PolicyShardedEvaluator as Sharded
+
     policies = {"p": t_parse_policy_entry("p", {"module": "builtin://pod-privileged"})}
-    with pytest.raises(ValueError, match="A14b"):
-        PolicyServer(policies, port=0, readiness_probe_port=0, device="cpu",
-                     mesh="data:1,policy:2", mesh_dispatch="threaded",
-                     mesh_devices=[CPU] * 2)
+    server = PolicyServer(policies, port=0, readiness_probe_port=0, device="cpu",
+                          mesh="data:1,policy:2", mesh_dispatch="threaded",
+                          mesh_devices=[CPU] * 2)
+    server.start()
+    try:
+        assert isinstance(server.env, Sharded) and len(server.env.shards) == 2
+    finally:
+        server.stop()
+    env = _build_environment(
+        policies, dict(backend="torch", device="cpu"),
+        tmesh.MeshSpec.parse("data:2"), "threaded", devices=[CPU] * 2,
+    )
+    assert not isinstance(env, Sharded) and env._mesh.shape["data"] == 2
+    env.close()

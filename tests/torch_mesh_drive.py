@@ -11,8 +11,12 @@ its own N firehose reviews (uids tagged with its rank) to its own
 /validate, 8 connections at a time, holds every body against the port's
 host oracle, stops, and writes what it saw to OUT as JSON: the mesh, its
 local data shards, the columnar gate, the mismatches, K1's dispatches and
-(on the card) launches in the wave, and the wave's seconds. Imports the
-port only; run with the repository on ``PYTHONPATH``."""
+(on the card) launches in the wave, and the wave's seconds. Before it stops,
+each process runs K1 over its own N reviews and sums their allowed bits
+through ``acceptance_psum`` over the global mesh (one ``all_reduce`` on the
+gloo group), and reports those counts beside the host oracle's over both
+processes' reviews. Imports the port only; run with the repository on
+``PYTHONPATH``."""
 
 from __future__ import annotations
 
@@ -23,6 +27,60 @@ import json
 import sys
 import threading
 import time
+
+
+def acceptance_bits(env, docs: list, device) -> tuple[list, "np.ndarray"]:
+    """(policy ids, the ``(len(docs), P)`` allowed bits of K1 over
+    ``docs``): each schema bucket's rows in one K1 step of the
+    environment's whole program, its columns in sorted policy-id order
+    (the ids every bucket's program has a column for)."""
+    import numpy as np
+    import torch
+
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+    from policy_server_tpu_torch.ops import cuda_kernels as ck
+
+    by_bucket: dict = {}
+    for i, d in enumerate(docs):
+        payload = AdmissionReviewRequest.from_dict(d).request.to_dict()
+        idx, enc = env.encode_bucketed(payload)
+        by_bucket.setdefault(idx, []).append((i, enc))
+    steps = []
+    for idx, rows in sorted(by_bucket.items()):
+        schema = env.schemas[idx]
+        wide = schema.pack(schema.stack([e for _i, e in rows], len(rows)))
+        buf = np.asarray(env._transport({"__packed__": wide["__packed__"]})[
+            "__packed__"
+        ])
+        _i, _layout, transport, narrow = env._layout_for_buffer(buf.shape[1])
+        program = env.program_for(idx, transport, narrow)
+        allowed, _rule = ck.policy_matrix(
+            torch.from_numpy(buf).to(device), program
+        )
+        steps.append(([i for i, _e in rows], program, allowed.cpu().numpy()))
+    pids = sorted(set.intersection(*(set(p.column_of) for _r, p, _a in steps)))
+    bits = np.zeros((len(docs), len(pids)), dtype=bool)
+    for rows, program, allowed in steps:
+        bits[rows] = allowed[:, [program.column_of[p] for p in pids]]
+    return pids, bits
+
+
+def oracle_bits(env, docs: list, pids: list) -> "np.ndarray":
+    """The host oracle's allowed bit of each of ``pids``' programs on each
+    review's payload (the bits K1 computes)."""
+    import numpy as np
+
+    from policy_server_tpu_torch.evaluation import oracle as oracle_mod
+    from policy_server_tpu_torch.models import AdmissionReviewRequest
+
+    out = np.zeros((len(docs), len(pids)), dtype=bool)
+    for i, d in enumerate(docs):
+        payload = AdmissionReviewRequest.from_dict(d).request.to_dict()
+        for j, pid in enumerate(pids):
+            out[i, j] = oracle_mod.evaluate_program(
+                env._bound[pid].precompiled.program, payload
+            )[0]
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -47,6 +105,7 @@ def main(argv: list[str]) -> int:
         ValidateRequest,
     )
     from policy_server_tpu_torch.ops import cuda_kernels as ck
+    from policy_server_tpu_torch.parallel import acceptance_psum
     from policy_server_tpu_torch.parallel import mesh as mesh_mod
     from policy_server_tpu_torch.policies.flagship import (
         flagship_policies,
@@ -54,9 +113,8 @@ def main(argv: list[str]) -> int:
     )
     from policy_server_tpu_torch.server import PolicyServer
 
-    docs = synthetic_firehose(2 * args.n, seed=171)[
-        args.rank * args.n : (args.rank + 1) * args.n
-    ]
+    all_docs = synthetic_firehose(2 * args.n, seed=171)
+    docs = all_docs[args.rank * args.n : (args.rank + 1) * args.n]
     ids = sorted(flagship_policies())
     work = []
     for i, d in enumerate(docs):
@@ -127,6 +185,20 @@ def main(argv: list[str]) -> int:
         report["wire_rows"] = env.host_profile["wire_rows"] - hp0["wire_rows"]
         report["dispatched_chunks"] = (
             env.host_profile["dispatched_chunks"] - hp0["dispatched_chunks"]
+        )
+        # the acceptance counts of this process's rows over the global mesh
+        pids, bits = acceptance_bits(env, docs, env.device)
+        t1 = time.perf_counter()
+        counts = acceptance_psum(env._mesh)(torch.from_numpy(bits).to(env.device))
+        report["psum_s"] = time.perf_counter() - t1
+        report["psum"] = counts.cpu().tolist()
+        report["psum_device"] = str(counts.device)
+        report["psum_policies"] = len(pids)
+        report["k1_bits_are_the_oracles"] = bool(
+            (bits == oracle_bits(env, docs, pids)).all()
+        )
+        report["oracle_counts"] = (
+            oracle_bits(env, all_docs, pids).sum(axis=0).tolist()
         )
     finally:
         server.stop()
