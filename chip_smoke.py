@@ -68,6 +68,10 @@ card's name and power limit:
    ``profiling.start_device_trace``: the card's busy share (the union of
    its kernel, copy and memset intervals in the ``torch.profiler`` trace)
    and idle share over the traced window; a trace without a kernel fails;
+   with the flight recorder merged into the trace on its clock, the
+   recorder's ``idle_by_phase`` summary, and K1's launches that start
+   inside a ``submit`` span (99% at least, and the summary summing to the
+   idle time within 1%, or the phase fails);
 7. the native HTTP frontend on the card — the server with the flagship
    set, ``--frontend native --enable-metrics``, driven by a client in a
    separate process (this script re-invoked with ``--native-client``: raw
@@ -85,7 +89,7 @@ card's name and power limit:
    serving launches, the flight recorder's attribution with the native
    phases, phase 3's numbers from this call beside them, and one more
    kernel-only run (one wave) under ``profiling.start_device_trace`` for
-   the card's busy share.
+   the card's busy share and phase 6's checks of the merged trace.
 
 8. reload, rollback and self-heal on the card — the server built through
    the command line (``__main__.build_cli`` + ``server_from_args``) from a
@@ -804,6 +808,60 @@ def device_busy(trace_path: str, window_s: float) -> dict:
     }
 
 
+def merged_trace(trace_path: str) -> dict:
+    """From a trace ``profiling.stop_device_trace`` wrote with the flight
+    recorder merged in: its ``idle_by_phase`` summary, and K1's launches
+    (the ``cudaLaunchKernel`` calls whose correlation id is a
+    ``policy_matrix`` kernel's) that start inside a recorder ``submit``
+    span. Fails when the recorder's events or the clock anchors are
+    missing."""
+    from policy_server_tpu_torch.api import profiling
+
+    with open(profiling.summary_path(trace_path)) as f:
+        summary = json.load(f)
+    if summary["clock"] is None or not summary["recorder_events"]:
+        fail(f"the trace holds no clock anchors or no recorder events: {summary}")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = {
+        ev["args"].get("correlation") for ev in events
+        if ev.get("cat") == "kernel" and "policy_matrix" in ev.get("name", "")
+    }
+    launches = sorted(
+        float(ev["ts"]) for ev in events
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+        and "LaunchKernel" in ev.get("name", "")
+        and ev.get("args", {}).get("correlation") in k1
+    )
+    submits = sorted(
+        (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])) for ev in events
+        if ev.get("pid") == profiling.RECORDER_PID and ev.get("ph") == "X"
+        and ev.get("name") == "submit"
+    )
+    inside = sum(
+        1 for t in launches
+        if any(s <= t <= e for s, e in submits)
+    )
+    idle = summary["idle_by_phase"]
+    charged = sum(idle["phase_s"].values()) + idle["no_phase_s"]
+    return {
+        "clock": summary["clock"], "recorder_events": summary["recorder_events"],
+        "idle_by_phase": idle, "charged_over_idle": charged / idle["idle_s"],
+        "k1_launches": len(launches), "k1_launches_in_submit": inside,
+    }
+
+
+def check_merged_trace(merged: dict, label: str) -> None:
+    """K1's launches fall inside ``submit`` spans (99% at least, after the
+    anchors' conversion), and ``idle_by_phase`` sums to the idle time
+    within 1%."""
+    n, inside = merged["k1_launches"], merged["k1_launches_in_submit"]
+    if not n or inside < 0.99 * n:
+        fail(f"{label}: {inside} of {n} K1 launches inside a submit span")
+    if abs(merged["charged_over_idle"] - 1.0) > 0.01:
+        fail(f"{label}: idle_by_phase sums to {merged['charged_over_idle']} of the idle time")
+
+
 def response_body(result) -> bytes:
     """A batcher result as /validate writes it (a fragment verdict as the
     response its template gives)."""
@@ -845,13 +903,16 @@ def print_attribution(
     label: str, att: dict, card: str, phase: str = "phase3"
 ) -> None:
     """The flight recorder's attribution of one run: µs per row of each
-    stamped phase, the residual's share of batch wall time, and the same
-    for the batches whose rows were all cache hits, none, or some."""
+    stamped phase, wall and on the CPU, the host spans' off-CPU share, the
+    residual's share of batch wall time, and the same for the batches
+    whose rows were all cache hits, none, or some."""
     def brief(a: dict) -> dict:
         return {
             "batches": a["batches_complete"], "rows": a["rows"],
             "wall_us_per_row": a["wall_us_per_row"],
             "phase_us_per_row": a["phase_us_per_row"],
+            "cpu_us_per_row": a.get("cpu_us_per_row"),
+            "off_cpu_share": a.get("off_cpu_share"),
             "residual_us_per_row": a["residual_us_per_row"],
             "residual_fraction_of_wall": a["residual_fraction_of_wall"],
         }
@@ -9036,6 +9097,9 @@ def main() -> int:
         f"{json.dumps(busy)}; {traced['serving_launches']} policy_matrix "
         f"launches, {traced['req_s']:.1f} req/s under the trace [{card}]"
     )
+    merged = merged_trace(traced["trace_path"])
+    print(f"phase6 flight recorder on the trace's clock: {json.dumps(merged)} [{card}]")
+    check_merged_trace(merged, "phase6")
     print(f"phase6 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- phase 7: the native HTTP frontend on the card --------------------
@@ -9106,6 +9170,9 @@ def main() -> int:
         f"policy_matrix launches, {traced_native['req_s']:.1f} req/s under "
         f"the trace [{card}]"
     )
+    merged = merged_trace(traced_native["trace_path"])
+    print(f"phase7 flight recorder on the trace's clock: {json.dumps(merged)} [{card}]")
+    check_merged_trace(merged, "phase7")
     print(f"phase7 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- phase 8: reload, rollback and self-heal on the card ---------------

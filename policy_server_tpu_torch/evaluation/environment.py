@@ -49,9 +49,11 @@ verdict cache.
 
 With a flight recorder installed (``telemetry/flightrec.py``) the native
 path stamps ``prepare``, ``blob_dedup``, ``encode``, ``bookkeeping``,
-``fetch``, ``materialize`` and, inside the fetch, ``device_execute`` (the
-wait on the step's CUDA event), each under the batcher's batch id; the
-host fast path stamps nothing of its own.
+``submit`` (wasm bits to the step's launches enqueued), ``fetch``,
+``materialize`` and, inside the fetch, ``device_execute`` (the wait on the
+step's CUDA event), each under the batcher's batch id and with the
+thread's CPU time; the host fast path stamps ``host_eval`` around its
+row loop.
 
 Host-executed policies (a program with a ``host_evaluator``: wasm
 modules, CEL that does not lower) never reach the device on their own:
@@ -2298,20 +2300,23 @@ class EvaluationEnvironment:
         recorder's ``device_execute`` (``rec_rows`` rows of batch
         ``rec_batch``): it nests inside the caller's ``fetch``, so the
         attribution never adds it."""
+        rec = flightrec.recorder()
         try:
             failpoints.fire("device.fetch")
             t0 = time.perf_counter_ns()
+            c0 = time.thread_time_ns() if rec is not None else 0
             out = step.wait()
             t1 = time.perf_counter_ns()
+            c1 = time.thread_time_ns() if rec is not None else 0
         except Exception as e:
             self._device_raised(e)
             raise
         # outside the try: a recorder fault fails the batch, it is never
         # a device fault that could trip the breaker onto the host
-        rec = flightrec.recorder()
         if rec is not None:
             rec.record_phase(
-                flightrec.PH_DEVICE_EXECUTE, t0, t1, rows=rec_rows, batch=rec_batch
+                flightrec.PH_DEVICE_EXECUTE, t0, t1, rows=rec_rows,
+                batch=rec_batch, cpu_ns=c1 - c0,
             )
         if self.breaker is not None:
             self.breaker.record_success()
@@ -2667,9 +2672,13 @@ class EvaluationEnvironment:
         (lookup, hooks, payload), but verdicts from the targeted host
         oracle — no transfer, no device round trip. The verdict cache
         serves here too: blob tier first (its key is in hand), the row
-        tier (a single-row encode for its key) only on a blob miss."""
+        tier (a single-row encode for its key) only on a blob miss. The
+        loop is the recorder's ``host_eval``."""
         results: list[AdmissionResponse | Exception | None] = [None] * len(items)
         n_host = 0
+        rec = flightrec.recorder()
+        if rec is not None:
+            t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
         for i, (policy_id, request) in enumerate(items):
             try:
                 target = self._fast_target(policy_id)
@@ -2710,6 +2719,12 @@ class EvaluationEnvironment:
                 n_host += 1
             except Exception as e:  # noqa: BLE001 — per-item error channel
                 results[i] = e
+        if rec is not None:
+            rec.record_phase(
+                flightrec.PH_HOST_EVAL, t0, time.perf_counter_ns(),
+                rows=len(items), batch=flightrec.current_batch(),
+                cpu_ns=time.thread_time_ns() - c0,
+            )
         if n_host:
             with self._stats_lock:
                 self._host_fastpath_requests += n_host
@@ -2740,6 +2755,7 @@ class EvaluationEnvironment:
         # ``prepare``
         rec = flightrec.recorder()
         t_prep = time.perf_counter_ns()
+        c_prep = time.thread_time_ns() if rec is not None else 0
         for i, (policy_id, request) in enumerate(items):
             try:
                 target = self._fast_target(policy_id)
@@ -2778,6 +2794,7 @@ class EvaluationEnvironment:
             rec.record_phase(
                 flightrec.PH_PREPARE, t_prep, time.perf_counter_ns(),
                 rows=len(items), batch=flightrec.current_batch(),
+                cpu_ns=time.thread_time_ns() - c_prep,
             )
 
         # tier 1, the blob tier: exact payload replays never reach the
@@ -2785,6 +2802,7 @@ class EvaluationEnvironment:
         bcache = self._blob_cache
         if bcache is not None and pending:
             t0 = time.perf_counter_ns()
+            c0 = time.thread_time_ns() if rec is not None else 0
             keys = [
                 (self._cache_key_of(targets[i]), blobs[i])
                 if self._cacheable(targets[i])
@@ -2815,6 +2833,7 @@ class EvaluationEnvironment:
                 rec.record_phase(
                     flightrec.PH_BLOB_DEDUP, t0, t1,
                     rows=len(pending), batch=flightrec.current_batch(),
+                    cpu_ns=time.thread_time_ns() - c0,
                 )
             if n_frag:
                 with self._stats_lock:
@@ -2933,17 +2952,21 @@ class EvaluationEnvironment:
         def encode(chunk: list[int]):
             failpoints.fire("encode.batch")
             t0 = time.perf_counter_ns()
+            c0 = time.thread_time_ns() if rec is not None else 0
             bl = [blobs[i] for i in chunk]
             out = schema.native.encode_batch(bl, self.bucket_for(len(bl)), self.table)
             t1 = time.perf_counter_ns()
+            cpu = time.thread_time_ns() - c0 if rec is not None else 0
             self._profile_add(encode_ns=t1 - t0, encode_rows=len(chunk))
-            return bl, out, t0, t1
+            return bl, out, t0, t1, cpu
 
         def materialize(entry) -> None:
             step, slot_rows, stash, lru_inserts, blob_inserts = entry
             t0 = time.perf_counter_ns()
+            c0 = time.thread_time_ns() if rec is not None else 0
             raw = self._device_fetch(step, len(slot_rows), bid)
             t1 = time.perf_counter_ns()
+            c1 = time.thread_time_ns() if rec is not None else 0
             self._profile_add(dispatch_wait_ns=t1 - t0)
             outputs = self._unpack(raw)
             outputs.update(stash)
@@ -2974,18 +2997,20 @@ class EvaluationEnvironment:
                 )
             if rec is not None:
                 rec.record_phase(
-                    flightrec.PH_FETCH, t0, t1, rows=len(slot_rows), batch=bid
+                    flightrec.PH_FETCH, t0, t1, rows=len(slot_rows), batch=bid,
+                    cpu_ns=c1 - c0,
                 )
                 rec.record_phase(
                     flightrec.PH_MATERIALIZE, t1, time.perf_counter_ns(),
                     rows=len(slot_rows), batch=bid,
+                    cpu_ns=time.thread_time_ns() - c1,
                 )
 
         window = self.max_inflight_dispatches
         drained = 0
         for chunk in chunks:
             try:
-                chunk_blobs, (features, status), t0, t1 = encode(chunk)
+                chunk_blobs, (features, status), t0, t1, cpu = encode(chunk)
             except ValueError:
                 # arena or records overflow on a pathological chunk: keep
                 # per-item isolation — the whole chunk goes to the next
@@ -2994,7 +3019,8 @@ class EvaluationEnvironment:
                 continue
             if rec is not None:
                 rec.record_phase(
-                    flightrec.PH_ENCODE, t0, t1, rows=len(chunk), batch=bid
+                    flightrec.PH_ENCODE, t0, t1, rows=len(chunk), batch=bid,
+                    cpu_ns=cpu,
                 )
             n_chunk = len(chunk)
             status = np.asarray(status)[:n_chunk]
@@ -3018,6 +3044,7 @@ class EvaluationEnvironment:
                 n_dispatched = len(slot_rows)
             else:
                 t_book = time.perf_counter_ns()
+                c_book = time.thread_time_ns() if rec is not None else 0
                 packed = features[PACKED_KEY]
                 item_arr = np.asarray(chunk, dtype=np.intp)
                 if wasm_infos:
@@ -3210,6 +3237,7 @@ class EvaluationEnvironment:
                     rec.record_phase(
                         flightrec.PH_BOOKKEEPING, t_book, t_book_end,
                         rows=len(chunk), batch=bid,
+                        cpu_ns=time.thread_time_ns() - c_book,
                     )
                 if not slot_rows:
                     continue  # the whole chunk came from the caches
@@ -3227,10 +3255,18 @@ class EvaluationEnvironment:
                         compact[len(wasm_pos) : n_keep] = rows_arr[keep_rows]
                     features = {PACKED_KEY: compact}
                 n_dispatched = n_keep
+            if rec is not None:
+                t_sub, c_sub = time.perf_counter_ns(), time.thread_time_ns()
             stash = self._add_wasm_bits(
                 features, features[PACKED_KEY].shape[0], wasm_rows
             )
             step = self._device_call(self._enqueue_features, features)
+            if rec is not None:
+                rec.record_phase(
+                    flightrec.PH_SUBMIT, t_sub, time.perf_counter_ns(),
+                    rows=len(slot_rows), batch=bid,
+                    cpu_ns=time.thread_time_ns() - c_sub,
+                )
             self._profile_add(dispatched_rows=n_dispatched, dispatched_chunks=1)
             entry = (step, slot_rows, stash, lru_inserts, blob_inserts)
             if defer_sink is not None:

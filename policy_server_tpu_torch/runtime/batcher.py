@@ -1191,13 +1191,14 @@ class MicroBatcher:
 
     def _dispatch(self, batch: list[_Pending]) -> None:
         formed_at = time.perf_counter()
+        rec = flightrec.recorder()
+        form_cpu = time.thread_time_ns() if rec is not None else 0
         with self._stats_lock:
             self.batches += 1
             self.batch_rows += len(batch)
             self.queue_wait_ns += int(
                 sum(formed_at - p.enqueued_at for p in batch) * 1e9
             )
-        rec = flightrec.recorder()
         brec = None
         if rec is not None:
             brec = _BatchRec(rec, formed_at)
@@ -1267,6 +1268,7 @@ class MicroBatcher:
             rec.record_phase(
                 flightrec.PH_FORM, int(formed_at * 1e9), int(phase1_end * 1e9),
                 rows=len(batch), batch=brec.bid,
+                cpu_ns=time.thread_time_ns() - form_cpu,
             )
         if not runnable:
             return
@@ -1375,6 +1377,7 @@ class MicroBatcher:
             results, t_start, t_end = wrapped
             handoffs = [(t_submit, t_start), (t_end, time.perf_counter_ns())]
         done_at = time.perf_counter()
+        done_cpu = time.thread_time_ns() if brec is not None else 0
         self._observe_dispatch(
             use_host, n, done_at - start, compiles_before=compiles_before
         )
@@ -1432,7 +1435,7 @@ class MicroBatcher:
         if metrics_sink:
             service._registry().record_evaluations_batch(metrics_sink)
         if brec is not None:
-            self._record_delivery(brec, done_at, live, hit_rows)
+            self._record_delivery(brec, done_at, done_cpu, live, hit_rows)
 
     def _fail_all(self, batch: list[_Pending], exc: BaseException) -> None:
         delivery = _DeliveryBatch()
@@ -1442,15 +1445,17 @@ class MicroBatcher:
 
     @staticmethod
     def _record_delivery(
-        brec: _BatchRec, done_at: float, live: list[_Pending], hit_rows: int
+        brec: _BatchRec, done_at: float, done_cpu: int,
+        live: list[_Pending], hit_rows: int,
     ) -> None:
-        """Phase 3's recorder work: the deliver interval, the batch's
-        cache-hit mix, one exemplar offer (the oldest row is the batch's
-        slowest: every row shares ``done_at``) and the sampled rows."""
+        """Phase 3's recorder work: the deliver interval (``done_cpu``: the
+        thread's CPU ns at ``done_at``), the batch's cache-hit mix, one
+        exemplar offer (the oldest row is the batch's slowest: every row
+        shares ``done_at``) and the sampled rows."""
         rec, bid = brec.rec, brec.bid
         rec.record_phase(
             flightrec.PH_DELIVER, int(done_at * 1e9), time.perf_counter_ns(),
-            rows=len(live), batch=bid,
+            rows=len(live), batch=bid, cpu_ns=time.thread_time_ns() - done_cpu,
         )
         rec.record_batch_mix(bid, hit_rows, len(live))
         if not live:

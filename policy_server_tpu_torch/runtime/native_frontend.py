@@ -1040,6 +1040,7 @@ class BatcherSink:
 
         rec = flightrec.recorder()
         t_admit = time.perf_counter_ns() if rec is not None else 0
+        c_admit = time.thread_time_ns() if rec is not None else 0
         # the header is parsed only when there is a tracer to parent to
         tp_enabled = otlp.tracer() is not None
         # (id(batcher), origin) → [batcher, origin, items, tokens, ctxs]
@@ -1100,6 +1101,7 @@ class BatcherSink:
             rec.record_phase(
                 flightrec.PH_ADMIT, t_admit, time.perf_counter_ns(),
                 rows=sum(len(g[2]) for g in groups.values()),
+                cpu_ns=time.thread_time_ns() - c_admit,
             )
 
     def _handle_fallback(self, frontend, req_id, kind, policy_id, payload) -> None:
@@ -1188,6 +1190,7 @@ class BatcherSink:
             time.perf_counter_ns()
             if rec is not None and bulk_by_frontend else 0
         )
+        c_ser = time.thread_time_ns() if t_ser else 0
         for frontend, records in bulk_by_frontend.items():
             try:
                 frontend.complete_verdict_bulk(records)
@@ -1208,6 +1211,7 @@ class BatcherSink:
             rec.record_phase(
                 flightrec.PH_NATIVE_SERIALIZE, t_ser, time.perf_counter_ns(),
                 rows=sum(len(r) for r in bulk_by_frontend.values()),
+                cpu_ns=time.thread_time_ns() - c_ser,
             )
 
     def _deliver_one(

@@ -15,7 +15,14 @@ attribution:
   (an ``itertools.count`` slot reservation — atomic under the GIL — plus
   plain array stores, sequence number written last so readers can reject
   torn slots). One event per phase per BATCH; per-row events only for
-  sampled rows (``--recorder-row-sample-rate``).
+  sampled rows (``--recorder-row-sample-rate``). Beyond the JAX
+  package's phases the port stamps ``host_eval`` (the host-oracle route),
+  ``submit`` (a device chunk's pack, copy and launches) and ``gc`` (one
+  garbage collection, from a ``gc.callbacks`` hook installed with the
+  recorder). A span that starts and ends on the thread doing its work
+  also carries that thread's CPU time (``time.thread_time_ns``) and the
+  thread's index, so on-CPU time reads beside wall time and GIL waits
+  show as the difference.
 * per-phase latency **histograms** on /metrics
   (``policy_server_phase_latency_seconds{phase=...}``, fed through
   telemetry.metrics), with tail **exemplars**: the slowest N rows per
@@ -30,12 +37,15 @@ attribution:
 Cost: one clock read per phase boundary per batch (boundaries shared
 between adjacent phases), a few array stores per event and one histogram
 observe; per ROW nothing but the batch's one stride reservation and one
-exemplar offer. Every phase name below is a constant stamped by exactly
-one ``record_phase`` call site in the package.
+exemplar offer; a CPU-timed span adds one ``time.thread_time_ns`` read
+per boundary. Every phase name below is a constant stamped by exactly
+one ``record_phase`` call site in the package, but ``gc``, which only
+the collector's hook writes (``record_collection``).
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import threading
@@ -66,6 +76,10 @@ PH_MATERIALIZE = "materialize"            # outputs → AdmissionResponse rows
 PH_BOOKKEEPING = "bookkeeping"            # row dedup tiers + slot/LRU bookkeeping
 PH_DELIVER = "deliver"                    # phase-3 post-process + completion fan-out
 PH_NATIVE_SERIALIZE = "native_serialize"  # verdict bulk fill to the native frontend
+# the port's own, after the JAX package's 17 so their indices stay its
+PH_HOST_EVAL = "host_eval"                # host-oracle route: the batch's row loop
+PH_SUBMIT = "submit"                      # device chunk: wasm bits → launches enqueued
+PH_GC = "gc"                              # one collection (rows = its generation)
 
 PHASES = (
     PH_NATIVE_ACCEPT,
@@ -85,6 +99,9 @@ PHASES = (
     PH_BOOKKEEPING,
     PH_DELIVER,
     PH_NATIVE_SERIALIZE,
+    PH_HOST_EVAL,
+    PH_SUBMIT,
+    PH_GC,
 )
 
 _PHASE_INDEX = {name: i for i, name in enumerate(PHASES)}
@@ -96,8 +113,12 @@ _PHASE_INDEX = {name: i for i, name in enumerate(PHASES)}
 # would double-attribute the device wall.
 _DISPATCH_NESTED = (
     PH_HANDOFF, PH_PREPARE, PH_ENCODE, PH_BLOB_DEDUP, PH_FETCH,
-    PH_MATERIALIZE, PH_BOOKKEEPING,
+    PH_MATERIALIZE, PH_BOOKKEEPING, PH_HOST_EVAL, PH_SUBMIT,
 )
+
+# spans that wait on the card by design: their off-CPU time is the
+# device's, not the GIL's, so the off-CPU share leaves them out
+_DEVICE_WAITS = (PH_FETCH, PH_DEVICE_EXECUTE)
 
 # event kinds
 _KIND_BATCH = 0
@@ -108,6 +129,9 @@ _KIND_ROW = 1
 _KIND_MIX = 2
 
 _KIND_NAMES = ("batch", "row", "mix")
+
+# chrome_trace: tid of stamping thread 0's track (batch lanes take 1-12)
+THREAD_TRACK_BASE = 100
 
 DEFAULT_RING_EVENTS = 65536
 DEFAULT_ROW_SAMPLE_RATE = 0.01
@@ -150,10 +174,19 @@ class FlightRecorder:
         self._batch = np.full(cap, -1, dtype=np.int64)
         self._rows = np.zeros(cap, dtype=np.int32)
         self._seq = np.full(cap, -1, dtype=np.int64)
+        # the stamping thread's CPU ns over the span and that thread's
+        # index (-1: a span that crosses threads, or a native stamp)
+        self._cpu = np.full(cap, -1, dtype=np.int64)
+        self._thread = np.full(cap, -1, dtype=np.int32)
         # per-slot row id (request uid) for sampled-row events; plain
         # list — assignment is GIL-atomic like the array stores
         self._uids: list[str | None] = [None] * cap
         self._counter = itertools.count()
+        # thread index → thread ident, filled on a thread's first stamp
+        # (a GIL-atomic dict store: the gc hook may be the first stamp)
+        self._tls = threading.local()
+        self._thread_counter = itertools.count()
+        self._thread_idents: dict[int, int] = {}
         self._batch_counter = itertools.count(1)
         # deterministic 1-in-stride row sampling: no RNG on the serving
         # path, reproducible tests
@@ -201,16 +234,43 @@ class FlightRecorder:
         end_ns: int,
         rows: int = 1,
         batch: int = -1,
+        cpu_ns: int | None = None,
     ) -> None:
         """One batch-granular phase interval. ``start_ns``/``end_ns`` are
         ``time.perf_counter_ns`` stamps (or the native frontend's
-        CLOCK_MONOTONIC ns — the same clock on Linux)."""
+        CLOCK_MONOTONIC ns — the same clock on Linux). ``cpu_ns``: the
+        calling thread's ``time.thread_time_ns`` delta over the span, for
+        a span that starts and ends on the thread doing its work; the
+        event then also records that thread."""
+        timed = cpu_ns is not None
         self._write(
             _PHASE_INDEX[phase], _KIND_BATCH, int(start_ns), int(end_ns),
-            rows, batch, None,
+            rows, batch, None, int(cpu_ns) if timed else -1,
+            self._thread_index() if timed else -1,
         )
         if self._observe is not None:
             self._observe(phase, max(0, end_ns - start_ns) / 1e9)
+
+    def record_collection(
+        self, generation: int, start_ns: int, end_ns: int, cpu_ns: int
+    ) -> None:
+        """One garbage collection (``gc``, rows = its generation), from the
+        collector's callback. Takes no lock and observes no histogram: a
+        collection can start on a thread that holds the registry's lock
+        or this recorder's."""
+        self._write(
+            _PHASE_INDEX[PH_GC], _KIND_BATCH, start_ns, end_ns, generation,
+            -1, None, cpu_ns, self._thread_index(),
+        )
+
+    def _thread_index(self) -> int:
+        """This thread's small index, assigned on its first stamp. No lock
+        (``threading.get_ident`` only: ``current_thread`` may lock)."""
+        i = getattr(self._tls, "index", -1)
+        if i < 0:
+            i = self._tls.index = next(self._thread_counter)
+            self._thread_idents[i] = threading.get_ident()
+        return i
 
     def record_batch_mix(
         self, batch: int, hit_rows: int, total_rows: int
@@ -229,6 +289,7 @@ class FlightRecorder:
     def _write(
         self, phase_i: int, kind: int, start_ns: int, end_ns: int,
         rows: int, batch: int, uid: str | None,
+        cpu_ns: int = -1, thread: int = -1,
     ) -> None:
         seq = next(self._counter)
         i = seq & self._mask
@@ -240,6 +301,8 @@ class FlightRecorder:
         self._batch[i] = batch
         self._rows[i] = rows
         self._uids[i] = uid
+        self._cpu[i] = cpu_ns
+        self._thread[i] = thread
         self._seq[i] = seq  # publish last
 
     # row flags: bit 0 = timeline-sampled, bit 1 = exemplar candidate
@@ -384,7 +447,8 @@ class FlightRecorder:
     def snapshot(self) -> list[dict]:
         """Consistent copy of the ring's live events, oldest first. Slots
         overwritten while copying are dropped (seq re-check), never
-        misread."""
+        misread. An event stamped with its thread's CPU time also carries
+        ``cpu_ns`` and ``thread`` (the stamping thread's index)."""
         seq1 = self._seq.copy()
         start = self._start.copy()
         end = self._end.copy()
@@ -393,12 +457,15 @@ class FlightRecorder:
         batch = self._batch.copy()
         rows = self._rows.copy()
         uids = list(self._uids)
+        cpu = self._cpu.copy()
+        thread = self._thread.copy()
         seq2 = self._seq.copy()
         valid = (seq1 >= 0) & (seq1 == seq2)
         order = np.argsort(seq1[valid], kind="stable")
         idx = np.nonzero(valid)[0][order]
-        return [
-            {
+        out = []
+        for i in idx:
+            ev = {
                 "seq": int(seq1[i]),
                 "phase": PHASES[phase[i]],
                 "kind": _KIND_NAMES[kind[i]],
@@ -408,8 +475,20 @@ class FlightRecorder:
                 "batch": int(batch[i]),
                 "uid": uids[i],
             }
-            for i in idx
-        ]
+            if cpu[i] >= 0:
+                ev["cpu_ns"] = int(cpu[i])
+                ev["thread"] = int(thread[i])
+            out.append(ev)
+        return out
+
+    def thread_names(self) -> dict[int, str]:
+        """Thread index → the thread's name (its ident where the thread
+        has ended), for the indices events carry."""
+        live = {t.ident: t.name for t in threading.enumerate()}
+        return {
+            i: live.get(ident, f"thread {ident}")
+            for i, ident in list(self._thread_idents.items())
+        }
 
     def exemplars(self) -> list[dict]:
         """The slowest rows of the current + previous exemplar windows,
@@ -459,15 +538,22 @@ class FlightRecorder:
         in-flight batch lane (environment phases share their batch's
         track, so encode/fetch nest visually under the dispatch slice);
         native burst events get their own track; sampled rows land on
-        pid 2, one track per hash lane."""
+        pid 2, one track per hash lane. Spans stamped with their thread's
+        CPU time lie instead on one track per stamping thread, with
+        ``cpu_us`` in their args."""
         events: list[dict] = []
         names = {
             (1, 0): "native frontend (burst aggregates)",
         }
+        threads = self.thread_names()
         for ev in self.snapshot():
             if ev["kind"] == "mix":
                 continue  # bookkeeping marker, not a timeline interval
-            if ev["kind"] == "batch":
+            if "thread" in ev:
+                pid = 1
+                tid = THREAD_TRACK_BASE + ev["thread"]
+                names[(1, tid)] = f"thread {threads.get(ev['thread'], ev['thread'])}"
+            elif ev["kind"] == "batch":
                 pid = 1
                 tid = 0 if ev["batch"] < 0 else 1 + (ev["batch"] % 12)
                 if tid:
@@ -479,6 +565,8 @@ class FlightRecorder:
             args = {"rows": ev["rows"], "batch": ev["batch"]}
             if ev["uid"]:
                 args["uid"] = ev["uid"]
+            if "cpu_ns" in ev:
+                args["cpu_us"] = ev["cpu_ns"] / 1e3
             events.append(
                 {
                     "name": ev["phase"],
@@ -538,9 +626,15 @@ class FlightRecorder:
         materialize, bookkeeping — device_execute is excluded as it
         runs UNDER the fetch wait). The residual — dispatch time no
         nested phase explains, plus gaps between the batcher phases —
-        is the measured unattributed host floor, reported per row."""
+        is the measured unattributed host floor, reported per row.
+
+        Where spans carry their thread's CPU time the report adds
+        ``cpu_us_per_row`` per phase and ``off_cpu_share``: 1 − their
+        CPU over their wall, the device waits (fetch, device_execute)
+        left out — the share of the host spans spent off the CPU,
+        waiting for the GIL or blocked."""
         snap = self.snapshot()
-        batches: dict[int, dict[str, list[tuple[int, int, int]]]] = {}
+        batches: dict[int, dict[str, list[tuple[int, int, int, int]]]] = {}
         # batch id → (hit_rows, total_rows) from the per-batch mix
         # markers: joins each batch's phase intervals to its
         # cache-hit/miss composition
@@ -555,16 +649,18 @@ class FlightRecorder:
                 continue
             batches.setdefault(ev["batch"], {}).setdefault(
                 ev["phase"], []
-            ).append((ev["start_ns"], ev["end_ns"], ev["rows"]))
+            ).append(
+                (ev["start_ns"], ev["end_ns"], ev["rows"], ev.get("cpu_ns", -1))
+            )
 
         def dur(phs, name) -> int:
-            return sum(max(0, e - s) for s, e, _r in phs.get(name, ()))
+            return sum(max(0, e - s) for s, e, _r, _c in phs.get(name, ()))
 
         def _acc() -> dict:
             return {
                 "totals": {p: 0.0 for p in PHASES},
                 "rows": 0, "wall": 0, "residual": 0, "queue": 0,
-                "batches": 0,
+                "batches": 0, "cpu": {}, "host_wall": 0, "host_cpu": 0,
             }
 
         overall = _acc()
@@ -578,9 +674,8 @@ class FlightRecorder:
                 k in phs for k in (PH_FORM, PH_DISPATCH, PH_DELIVER)
             ):
                 continue
-            form_s, form_e, rows = phs[PH_FORM][0]
-            _disp_s, _disp_e, _ = phs[PH_DISPATCH][0]
-            _del_s, del_e, _ = phs[PH_DELIVER][0]
+            form_s, form_e, rows, _ = phs[PH_FORM][0]
+            _del_s, del_e, _, _ = phs[PH_DELIVER][0]
             wall = max(0, del_e - form_s)
             form_d = dur(phs, PH_FORM)
             disp_d = dur(phs, PH_DISPATCH)
@@ -607,10 +702,18 @@ class FlightRecorder:
                 acc["queue"] += dur(phs, PH_QUEUE_WAIT)
                 for p in PHASES:
                     acc["totals"][p] += dur(phs, p)
+                for p, evs in phs.items():
+                    for s, e, _r, c in evs:
+                        if c < 0:
+                            continue
+                        acc["cpu"][p] = acc["cpu"].get(p, 0) + c
+                        if p not in _DEVICE_WAITS:
+                            acc["host_wall"] += max(0, e - s)
+                            acc["host_cpu"] += c
 
         def _report(acc: dict) -> dict:
             rows = max(1, acc["rows"])
-            return {
+            out = {
                 "batches_complete": acc["batches"],
                 "rows": acc["rows"],
                 "wall_us_per_row": round(acc["wall"] / rows / 1e3, 2),
@@ -629,6 +732,16 @@ class FlightRecorder:
                     acc["residual"] / max(1, acc["wall"]), 4
                 ),
             }
+            if acc["cpu"]:
+                out["cpu_us_per_row"] = {
+                    p: round(acc["cpu"][p] / rows / 1e3, 2)
+                    for p in PHASES if p in acc["cpu"]
+                }
+                out["off_cpu_share"] = (
+                    round(1.0 - acc["host_cpu"] / acc["host_wall"], 4)
+                    if acc["host_wall"] else None
+                )
+            return out
 
         out = _report(overall)
         out["mix_groups"] = {
@@ -648,11 +761,42 @@ _recorder: FlightRecorder | None = None
 _scope = threading.local()
 
 
+# the collector's start stamps (wall ns, thread CPU ns), per thread: a
+# collection runs on the thread that triggered it, start to stop
+_gc_start = threading.local()
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: one ``gc`` event per collection. Takes no
+    lock: the start half stores its stamps in a thread-local, the stop
+    half writes the lock-free ring only."""
+    rec = _recorder
+    if rec is None:
+        return
+    if phase == "start":
+        _gc_start.t = (time.perf_counter_ns(), time.thread_time_ns())
+        return
+    t = getattr(_gc_start, "t", None)
+    if t is None:
+        return  # installed mid-collection
+    _gc_start.t = None
+    rec.record_collection(
+        info["generation"], t[0], time.perf_counter_ns(),
+        time.thread_time_ns() - t[1],
+    )
+
+
 def install(rec: FlightRecorder | None) -> FlightRecorder | None:
-    """Install (or clear, with None) the process-wide recorder. Called by
-    the server bootstrap; tests install their own and clear after."""
+    """Install (or clear, with None) the process-wide recorder, and with it
+    the collector's hook. Called by the server bootstrap; tests install
+    their own and clear after."""
     global _recorder
     _recorder = rec
+    if rec is None:
+        if _on_gc in gc.callbacks:
+            gc.callbacks.remove(_on_gc)
+    elif _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
     return rec
 
 

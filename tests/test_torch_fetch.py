@@ -50,6 +50,7 @@ import policy_server_tpu_torch.policies.wasm_oracle as p_wasm_oracle
 from policy_server_tpu_torch import httpclient
 
 import torch_fetch_fixtures as fx
+from torch_port_support import jax_native_libraries  # noqa: F401 (autouse)
 
 JAX = types.SimpleNamespace(
     name="jax", sources=j_sources, verification=j_verification,

@@ -26,6 +26,7 @@ from policy_server_tpu_torch.server import PolicyServer
 from policy_server_tpu_torch.telemetry import flightrec, metrics
 
 from torch_port_support import firehose_docs, torch_env
+from torch_port_support import jax_native_libraries  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

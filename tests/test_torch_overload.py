@@ -55,6 +55,7 @@ from policy_server_tpu_torch.runtime.batcher import MicroBatcher
 from policy_server_tpu_torch.server import PolicyServer, default_workers
 
 from torch_port_support import firehose_docs, items_for, jax_env, torch_env
+from torch_port_support import jax_native_libraries  # noqa: F401 (autouse)
 
 SPECS = {
     "pod-privileged": {"module": "builtin://pod-privileged"},

@@ -49,6 +49,7 @@ from policy_server_tpu_torch.runtime import shards as tshards
 from policy_server_tpu_torch.tenancy import TenantAdmission as TAdmission
 
 from conftest import build_admission_review_dict
+from torch_port_support import jax_native_libraries  # noqa: F401 (autouse)
 
 SPECS = {
     "ns": {

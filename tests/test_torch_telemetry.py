@@ -470,8 +470,15 @@ def test_recorder_matches_jax_on_scripted_events(monkeypatch, capacity, rate):
 
 
 def test_phase_names_are_the_jax_packages():
-    assert PHASES == jflightrec.PHASES and len(PHASES) == 17
-    assert flightrec._DISPATCH_NESTED == jflightrec._DISPATCH_NESTED
+    """The JAX package's 17 phases are the port's first 17, in order, so
+    their indices stay; the port's own three follow."""
+    assert len(jflightrec.PHASES) == 17 and PHASES[:17] == jflightrec.PHASES
+    assert PHASES[17:] == (
+        flightrec.PH_HOST_EVAL, flightrec.PH_SUBMIT, flightrec.PH_GC
+    )
+    assert flightrec._DISPATCH_NESTED == jflightrec._DISPATCH_NESTED + (
+        flightrec.PH_HOST_EVAL, flightrec.PH_SUBMIT
+    )
     assert PH_QUEUE_WAIT in PHASES and flightrec.PH_DEVICE_EXECUTE not in (
         flightrec._DISPATCH_NESTED
     )
@@ -641,7 +648,10 @@ def _stamp_requests(n: int) -> list[tuple[str, TRequest]]:
 def test_batcher_stamps_each_phase_once_per_batch(route):
     """Every batch stamps queue_wait, form, dispatch, deliver and its two
     hand-off gaps once, and its mix once; device batches add the native
-    path's phases under the same batch id, the host fast path none."""
+    path's phases under the same batch id, with one ``submit`` per
+    device chunk (as many as its fetches), the host fast path one
+    ``host_eval`` and none of the native path's. Spans on one thread carry
+    its CPU time and index; the cross-thread ones carry neither."""
     env = torch_env(STAMP_POLICIES, verdict_cache_size=0)
     rec = flightrec.install(FlightRecorder(capacity=4096, row_sample_rate=1.0))
     b = MicroBatcher(
@@ -670,8 +680,21 @@ def test_batcher_stamps_each_phase_once_per_batch(route):
         assert sum(e["kind"] == "mix" for e in events) == 1
         if route == "host":
             assert not native & set(phases)
+            assert phases.count(flightrec.PH_HOST_EVAL) == 1
+            assert flightrec.PH_SUBMIT not in phases
         else:
             assert native <= set(phases)
+            assert flightrec.PH_HOST_EVAL not in phases
+            assert phases.count(flightrec.PH_SUBMIT) == phases.count(
+                flightrec.PH_FETCH
+            ) >= 1
+        for e in events:
+            if e["kind"] != "batch":
+                continue
+            crosses = e["phase"] in (PH_QUEUE_WAIT, PH_DISPATCH, flightrec.PH_HANDOFF)
+            assert ("cpu_ns" in e) == ("thread" in e) == (not crosses), e
+            if not crosses:
+                assert 0 <= e["cpu_ns"] and e["thread"] >= 0
     att = rec.attribution()
     assert att["rows"] == 24 and att["batches_complete"] == b.batches
     assert rec.rows_sampled() == 24

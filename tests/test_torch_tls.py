@@ -71,6 +71,7 @@ from torch_port_support import (
 from policy_server_tpu_torch.models.policy import (
     parse_policy_entry as t_parse_policy_entry,
 )
+from torch_port_support import jax_native_libraries  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.skipif(
     not (nf.native_available() and nf.tls_available()),

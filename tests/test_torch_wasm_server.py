@@ -40,6 +40,7 @@ from test_torch_wasm_group_members import (
 )
 from torch_port_support import firehose_docs
 import torch_wasm_fixtures as fixtures
+from torch_port_support import jax_native_libraries  # noqa: F401 (autouse)
 
 
 class JaxServerHandle:

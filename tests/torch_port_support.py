@@ -7,9 +7,12 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import fcntl
 import random
+from pathlib import Path
 
 import numpy as np
+import pytest
 
 from policy_server_tpu.evaluation.environment import (
     EvaluationEnvironmentBuilder as JaxBuilder,
@@ -32,6 +35,37 @@ from policy_server_tpu_torch.models.policy import (
 )
 
 from test_predicate_opt import FAMILY_CATALOG, review_of
+
+
+@pytest.fixture(scope="session", autouse=True)
+def jax_native_libraries():
+    """The JAX package's native libraries (the HTTP frontend, the encoder,
+    the wasm core), built and loaded before a test compares against them.
+
+    Their build functions write each library in place under ``build/`` and
+    load whatever file is there, so test workers that race to build one can
+    load a half-written file; that worker then runs the JAX side without the
+    library (its server falls back to the Python frontend). Here every worker
+    builds under one file lock, so it finds each file whole or waits for it,
+    and a load that failed earlier in the worker is tried again. Raises when
+    a library does not build or load. A test module takes the fixture by
+    importing it."""
+    from policy_server_tpu.ops import fastenc
+    from policy_server_tpu.runtime import native_frontend
+    from policy_server_tpu.wasm import native_exec
+
+    build = Path(__file__).resolve().parents[1] / "build"
+    build.mkdir(exist_ok=True)
+    with open(build / ".jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for mod in (native_frontend, fastenc, native_exec):
+            if mod._build_library() is None:
+                raise RuntimeError(f"{mod.__name__}: the library did not build")
+            with mod._lib_lock:
+                if mod._lib is None:
+                    mod._lib_failed = False
+            if mod._load() is None:
+                raise RuntimeError(f"{mod.__name__}: the library did not load")
 
 
 def jax_env(specs: dict, **kw):
